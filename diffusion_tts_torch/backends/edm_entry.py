@@ -15,7 +15,11 @@ import numpy as np
 import torch
 
 from diffusion_tts_torch.models.preconds import EDMPrecond
-from diffusion_tts_torch.models.torch_import import load_into, load_reference_state_dict
+from diffusion_tts_torch.models.torch_import import (
+    load_into,
+    load_reference_state_dict,
+    random_state_dict,
+)
 from diffusion_tts_torch.samplers.edm import EDMHeunSampler
 from diffusion_tts_torch.search.api import SearchResult, run_search
 from diffusion_tts_torch.search.backend import EDMSearchBackend
@@ -35,26 +39,6 @@ TINY_ADM = dict(
                       attn_resolutions=(8,), dropout=0.0),
 )
 NET_CONFIGS = {"imagenet64": IMAGENET64_ADM, "tiny_adm": TINY_ADM}
-
-
-def random_state_dict(net: torch.nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:
-    """Random weights for every parameter, made with numpy from ``seed``:
-    N(0, 1/fan_in) for conv and linear weights, 1 + N(0, 0.1^2) for norm
-    gains, N(0, 0.1^2) for biases. No layer is zero, so every layer (the
-    attention projections included) shapes the output."""
-    g = np.random.default_rng(seed)
-    out = {}
-    for name, p in net.state_dict().items():
-        shape = tuple(p.shape)
-        noise = g.standard_normal(shape, dtype=np.float32)
-        if len(shape) >= 2:
-            value = noise / np.float32(np.sqrt(np.prod(shape[1:])))
-        elif name.endswith("weight"):
-            value = 1.0 + 0.1 * noise
-        else:
-            value = 0.1 * noise
-        out[name] = torch.from_numpy(value)
-    return out
 
 
 def load_network(arch: str = "imagenet64", weights: str | None = None,
@@ -143,4 +127,4 @@ def generate_image_grid(
     return result
 
 
-__all__ = ["generate_image_grid", "load_network", "random_state_dict", "NET_CONFIGS"]
+__all__ = ["generate_image_grid", "load_network", "NET_CONFIGS"]

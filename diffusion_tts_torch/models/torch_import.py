@@ -13,7 +13,8 @@ Two sources, both given as ``{name: numpy array}``:
     ``scale`` -> ``weight``.
 
 Both produce the port's ``state_dict``; ``load_into`` loads one and fails
-loudly on a missing or extra key.
+loudly on a missing or extra key. ``random_state_dict`` makes random
+weights for any module from a numpy seed.
 """
 from __future__ import annotations
 
@@ -89,6 +90,26 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+def random_state_dict(net: torch.nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:
+    """Random weights for every parameter, made with numpy from ``seed``:
+    N(0, 1/fan_in) for conv and linear weights, 1 + N(0, 0.1^2) for norm
+    gains, N(0, 0.1^2) for biases. No layer is zero, so every layer (the
+    attention projections included) shapes the output."""
+    g = np.random.default_rng(seed)
+    out = {}
+    for name, p in net.state_dict().items():
+        shape = tuple(p.shape)
+        noise = g.standard_normal(shape, dtype=np.float32)
+        if len(shape) >= 2:
+            value = noise / np.float32(np.sqrt(np.prod(shape[1:])))
+        elif name.endswith("weight"):
+            value = 1.0 + 0.1 * noise
+        else:
+            value = 0.1 * noise
+        out[name] = torch.from_numpy(value)
+    return out
+
+
 def load_into(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
     """Load ``state`` into ``module``; raises on a missing or extra key (a
     parameter left at its random init would pass silently otherwise)."""
@@ -100,4 +121,5 @@ def load_into(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module
     return module
 
 
-__all__ = ["load_reference_state_dict", "state_dict_from_flax", "load_into"]
+__all__ = ["load_reference_state_dict", "state_dict_from_flax", "load_into",
+           "random_state_dict"]

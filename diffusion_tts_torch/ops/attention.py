@@ -5,10 +5,11 @@ The reference computes attention weights in fp32 whatever the activation
 dtype (AttentionOp, edm/training/networks.py:113-126): softmax over keys of
 q.k / sqrt(d) with q and k upcast, the weights cast back to the activation
 dtype, then P.V. Both entry points run the hand-written CUDA kernel
-(ops/kernels/qkv_attention.py) on a CUDA tensor, which takes every EDM
-shape in fp32 and bf16 (the JAX package's fp32 fallback to flash_attention
-at 32x32 exists only for TPU VMEM), and the plain PyTorch version on a CPU
-tensor.
+(ops/kernels/qkv_attention.py) on a CUDA tensor, and the plain PyTorch
+version on a CPU tensor. The kernel takes every self-attention shape of
+the EDM and SD paths in fp32 and bf16: the JAX package's routing between
+its two Pallas kernels and XLA (T >= 1024 for flash_attention, its VMEM
+limits, the VAE's d = 512 head left to XLA) exists only for the TPU.
 """
 from __future__ import annotations
 

@@ -1,28 +1,32 @@
-"""Fused all-heads qkv self-attention: the CUDA kernel and its plain twin.
+"""Self-attention: the CUDA kernel and its plain twin.
 
-Replaces diffusion_tts_tpu/ops/pallas/attention.py::qkv_self_attention
-(Pallas kernels ``_qkv_attn_kernel`` and ``_qkv_attn_pair_kernel``). The
+Replaces two Pallas kernels of diffusion_tts_tpu/ops/pallas/attention.py:
+``qkv_self_attention`` (``_qkv_attn_kernel``, ``_qkv_attn_pair_kernel``)
+and ``flash_attention`` (``_attn_kernel``, ``_attn_kernel_dual``). The
 source is ``csrc/qkv_attention.cu``; its header says what bounds it on the
 H100 and what the design does about that.
 
 ``qkv_self_attention`` takes ``[B, T, 3C]`` with q|k|v in contiguous
 thirds, each head-major (the layout ``models.torch_import`` produces) and
 returns ``[B, T, C]``. ``attention`` runs the same kernel on separate
-``[B, T, H, D]`` q, k and v. A CPU tensor goes through the plain PyTorch
-version; a CUDA tensor goes through the kernel or the call raises.
-``LAUNCHES`` counts kernel launches.
+``[B, T, H, D]`` q, k and v. The kernel takes the head widths in
+``HEAD_DIMS``: 64 (the EDM UNet), 40/80/160 (the SD UNet), 512 (the SD
+VAE's single head) and 4 ... 32 (the test-width SD nets). A CPU tensor goes through the plain PyTorch version; a
+CUDA tensor goes through the kernel or the call raises. ``LAUNCHES`` counts
+kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 
 import torch
 
+from diffusion_tts_torch.ops.kernels import _launch
+
 _LOG2E = 1.4426950408889634
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64
+HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 512)
+_ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
+             + (_launch.F32, _launch.PTR))
 
 LAUNCHES = 0
 
@@ -53,39 +57,21 @@ def qkv_self_attention_plain(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     return attention_plain(*_split_heads(qkv, heads)).reshape(b, t, c3 // 3)
 
 
-@functools.cache
-def _kernel_fn():
-    from diffusion_tts_torch.ops.kernels.build import load
-
-    fn = load("qkv_attention").dtts_attention_d64
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    return fn
+def _check_width(d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head widths {HEAD_DIMS}, got {d}")
 
 
-def _check(x: torch.Tensor, name: str) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: the kernel needs a contiguous tensor")
-
-
-def _launch(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, b: int, h: int,
-            t: int, in_strides: tuple[int, int, int],
-            out_strides: tuple[int, int, int]) -> None:
-    """One launch over (batch, head, 64-row q tile); strides in elements
-    for (batch, token, head), the head width's stride being 1."""
+def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int, b: int,
+                   h: int, t: int, in_strides: tuple[int, int, int],
+                   out_strides: tuple[int, int, int]) -> None:
+    """One launch over (batch, head, q tile); strides in elements for
+    (batch, token, head), the head width's stride being 1."""
     global LAUNCHES
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = _kernel_fn()(q_ptr, k_ptr, v_ptr, out.data_ptr(), _DTYPE_CODES[out.dtype],
-                       b, h, t, *in_strides, *out_strides,
-                       _LOG2E / math.sqrt(HEAD_DIM), stream)
-    if err != 0:
-        raise RuntimeError(f"qkv_attention kernel launch failed: cudaError {err}")
+    fn = _launch.bind("qkv_attention", "dtts_attention", _ARGTYPES)
+    err = fn(q_ptr, k_ptr, v_ptr, out.data_ptr(), _launch.DTYPE_CODES[out.dtype], d, b, h, t,
+             *in_strides, *out_strides, _LOG2E / math.sqrt(d), _launch.stream(out))
+    _launch.raise_on(err, "attention")
     LAUNCHES += 1
 
 
@@ -93,18 +79,18 @@ def qkv_self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     """All-heads self-attention, [B, T, 3C] -> [B, T, C] in qkv.dtype."""
     if qkv.device.type == "cpu":
         return qkv_self_attention_plain(qkv, heads)
-    _check(qkv, "qkv_self_attention")
+    _launch.check(qkv, "qkv_self_attention")
     if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
         raise ValueError(f"qkv must be [B, T, 3C] with C % heads == 0, got "
                          f"{tuple(qkv.shape)} and {heads} heads")
     b, t, c3 = qkv.shape
     c = c3 // 3
-    if c // heads != HEAD_DIM:
-        raise ValueError(f"the kernel takes head width {HEAD_DIM}, got {c // heads}")
+    d = c // heads
+    _check_width(d)
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     base, item = qkv.data_ptr(), qkv.element_size()
-    _launch(base, base + c * item, base + 2 * c * item, out, b, heads, t,
-            (t * c3, c3, HEAD_DIM), (t * c, c, HEAD_DIM))
+    _launch_kernel(base, base + c * item, base + 2 * c * item, out, d, b, heads, t,
+                   (t * c3, c3, d), (t * c, c, d))
     return out
 
 
@@ -113,18 +99,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     for name, x in (("q", q), ("k", k), ("v", v)):
-        _check(x, name)
+        _launch.check(x, name)
     if not (q.shape == k.shape == v.shape and q.dtype == k.dtype == v.dtype) or q.ndim != 4:
         raise ValueError("q, k and v must be [B, T, H, D] of one shape and dtype, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"the kernel takes head width {HEAD_DIM}, got {d}")
+    _check_width(d)
     out = torch.empty_like(q)
     strides = (t * h * d, h * d, d)
-    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, b, h, t, strides, strides)
+    _launch_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, d, b, h, t, strides, strides)
     return out
 
 
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention",
-           "attention_plain", "LAUNCHES", "HEAD_DIM"]
+           "attention_plain", "LAUNCHES", "HEAD_DIMS"]

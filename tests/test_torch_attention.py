@@ -16,6 +16,8 @@ from diffusion_tts_torch.ops.kernels import qkv_attention as t_kernel
 from diffusion_tts_tpu.ops import attention as j_attention
 from diffusion_tts_tpu.ops.pallas.attention import qkv_self_attention as pallas_qkv
 
+torch.set_num_threads(1)  # one thread per xdist worker (tests/_torch_port.py)
+
 # fp32: both sides compute fp32 scores and softmax, in another summation
 # order; bf16: the weights are rounded to bf16 before P.V at different
 # points (normalised in the reference, unnormalised in the kernels).

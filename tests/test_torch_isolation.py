@@ -8,6 +8,8 @@ import sys
 import pytest
 import torch
 
+torch.set_num_threads(1)  # one thread per xdist worker (tests/_torch_port.py)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
@@ -37,6 +39,7 @@ def test_port_imports_no_jax():
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from diffusion_tts_torch import main as cli
     from diffusion_tts_torch.backends import edm_entry
+    from diffusion_tts_torch.pipelines import StableDiffusionSearchPipeline
     from diffusion_tts_torch.scorers import BrightnessScorer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -46,8 +49,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
         edm_entry.generate_image_grid(arch="tiny_adm", scorer=BrightnessScorer())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--backend", "edm", "--scorer", "brightness", "--arch", "tiny_adm"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        cli.main(["--backend", "sd", "--scorer", "brightness", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--backend", "sd", "--scorer", "brightness"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StableDiffusionSearchPipeline.tiny_random()
 
     net = edm_entry.load_network("tiny_adm", device="cpu")
     assert next(net.parameters()).device.type == "cpu"
@@ -56,3 +61,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
               "--device", "cpu", "--method", "eps_greedy", "--N", "2", "--K", "1",
               "--num-steps", "2", "--output", str(out)])
     assert out.exists()
+    sd_out = tmp_path / "sd.png"
+    cli.main(["--backend", "sd", "--scorer", "brightness", "--device", "cpu",
+              "--method", "eps_greedy", "--N", "2", "--K", "1", "--num-steps", "2",
+              "--output", str(sd_out)])
+    from PIL import Image
+
+    assert Image.open(sd_out).size == (32, 32)

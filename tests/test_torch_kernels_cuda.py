@@ -9,6 +9,8 @@ without the suite's JAX conftest:
 import pytest
 import torch
 
+from diffusion_tts_torch.ops.kernels import geglu_ff as gg
+from diffusion_tts_torch.ops.kernels import groupnorm as gn
 from diffusion_tts_torch.ops.kernels import qkv_attention as qk
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -57,5 +59,74 @@ def test_kernel_refuses_what_it_does_not_take(card):
         qk.qkv_self_attention(_qkv(1, 64, 1, torch.float16, card), 1)
     with pytest.raises(ValueError, match="head width"):
         qk.qkv_self_attention(torch.zeros((1, 64, 3 * 128), device=card), 1)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_silu(torch.zeros((1, 30, 4, 4), device=card), torch.ones(30),
+                           torch.zeros(30), groups=32)
+    with pytest.raises(ValueError, match="w2"):
+        x = torch.zeros((4, 16), device=card)
+        gg.geglu_ff(x, torch.zeros((32, 16), device=card), torch.zeros(32, device=card),
+                    torch.zeros((32, 16), device=card), torch.zeros(16, device=card))
     with pytest.raises(ValueError, match="contiguous"):
         qk.qkv_self_attention(_qkv(1, 64, 2, torch.float32, card)[:, ::2], 2)
+
+
+def _randn(shape, dtype, device, seed, scale=1.0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,heads,d", [(256, 8, 40), (100, 8, 80), (64, 8, 160), (300, 1, 512),
+                                        (77, 4, 8)])
+def test_attention_any_width_matches_plain(card, t, heads, d, dtype):
+    """The SD UNet's widths (40, 80, 160), the VAE's single d = 512 head
+    and a test-width net's d = 8, with a ragged last tile where T is not a
+    multiple of the tile."""
+    q, k, v = (_randn((2, t, heads, d), dtype, card, s) for s in range(3))
+    before = qk.LAUNCHES
+    out = qk.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == before + 1 and out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), qk.attention_plain(q, k, v).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["affine_c", "affine_bc_no_silu", "prebias", "two_chunks"])
+def test_group_norm_matches_plain(card, case, dtype):
+    b, c, h, w, groups = (1, 8, 100, 100, 2) if case == "two_chunks" else (3, 64, 9, 7, 32)
+    x = _randn((b, c, h, w), dtype, card, 1, scale=3.0) + 1
+    per_sample = case == "affine_bc_no_silu"
+    scale = _randn((b, c) if per_sample else (c,), torch.float32, card, 2)
+    bias = _randn(scale.shape, torch.float32, card, 3)
+    pre = _randn((b, c), torch.float32, card, 4) if case == "prebias" else None
+    silu = not per_sample
+    before = gn.LAUNCHES
+    if pre is None:
+        out = gn.group_norm_silu(x, scale, bias, groups=groups, eps=1e-5, apply_silu=silu)
+    else:
+        out = gn.group_norm_silu_prebias(x, scale, bias, pre, groups=groups, eps=1e-6)
+    torch.cuda.synchronize()
+    assert gn.LAUNCHES == before + gn.LAUNCHES_PER_CALL and out.dtype == dtype
+    want = gn.group_norm_silu_plain(x, scale, bias, groups=groups,
+                                    eps=1e-5 if pre is None else 1e-6, apply_silu=silu, pre=pre)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c,f", [(128, 320, 1280), (100, 80, 96)])
+def test_geglu_ff_matches_plain(card, m, c, f, dtype):
+    x = _randn((m, c), dtype, card, 5)
+    w0 = _randn((2 * f, c), dtype, card, 6, scale=c ** -0.5)
+    b0 = _randn((2 * f,), dtype, card, 7, scale=0.1)
+    w2 = _randn((c, f), dtype, card, 8, scale=f ** -0.5)
+    b2 = _randn((c,), dtype, card, 9, scale=0.1)
+    before = gg.LAUNCHES
+    out = gg.geglu_ff(x, w0, b0, w2, b2)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES == before + gg.LAUNCHES_PER_CALL and out.shape == (m, c)
+    torch.testing.assert_close(out.float(), gg.geglu_ff_plain(x, w0, b0, w2, b2).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])

@@ -12,8 +12,10 @@ from diffusion_tts_torch.samplers.edm import EDMHeunSampler
 from diffusion_tts_torch.scorers import BrightnessScorer
 from diffusion_tts_torch.search import EDMSearchBackend, InjectedNoise, run_search
 from diffusion_tts_torch.search.nfe import nfe_per_sample
+from diffusion_tts_torch.utils import rng as t_rng
 from diffusion_tts_torch.utils.config import SearchParams
 from diffusion_tts_tpu.samplers.edm import EDMHeunSampler as JEDMHeunSampler
+from diffusion_tts_tpu.search import zero_order as j_zero_order
 from diffusion_tts_tpu.scorers.brightness import BrightnessScorer as JBrightnessScorer
 from diffusion_tts_tpu.search.api import run_search as j_run_search
 from diffusion_tts_tpu.search.backend import EDMSearchBackend as JEDMSearchBackend
@@ -63,13 +65,37 @@ def test_search_decisions_match_jax(rig, method):
     # Selected pivots per (step, k): another choice would move a pivot by O(1).
     assert t.best_noises.shape == (STEPS, K, B, 16, 16, 3)
     np.testing.assert_allclose(t.best_noises.numpy(), np.asarray(j.best_noises), atol=1e-5)
-    # The candidates differ by one fp32 ulp (unit_normalize sums in another
-    # order); the churn noise scale (about 80 at step 0) and the net carry
-    # that to at most 1.7e-4 on latents of magnitude 10 (ROADMAP.md Queue 3).
+    # fp32 rounding of the first Heun step at sigma 80 (|x_hat| ~ 300, its
+    # update scaled by |h / t_next| ~ 31) carries ulp-level differences to
+    # at most 1.7e-4 on latents of magnitude 10 (ROADMAP.md Queue 3).
     np.testing.assert_allclose(t.x.numpy(), np.asarray(j.x), atol=3e-4, rtol=1e-4)
     # One uint8 level at a pixel moves the brightness by at most 1/(255*256).
     np.testing.assert_allclose(t.score.numpy(), np.asarray(j.score), atol=1e-4)
     assert t.images.min() >= 0 and t.images.max() <= 1
+
+
+def test_latent_gap_survives_identical_unit_directions(rig, monkeypatch):
+    """The terminal-latent gap above (up to 1.64e-4, ROADMAP.md Queue 3) is
+    not unit_normalize's summation order: given the same unit directions
+    (the JAX draws normalized once, in float64, by numpy) and no
+    normalization of their own, the two packages still differ by more than
+    1e-5. Its cause is the first Heun step's fp32 conditioning
+    (tests/test_torch_samplers.py::test_first_step_gap_is_fp32_conditioning)."""
+    d = np.asarray(rig["draws"].directions, np.float64)  # [steps, K, N, B, *feat]
+    unit = d / np.sqrt(np.sum(d * d, axis=tuple(range(4, d.ndim)), keepdims=True))
+    draws = rig["draws"]._replace(directions=jnp.asarray(unit.astype(np.float32)))
+    monkeypatch.setattr(j_zero_order, "unit_normalize", lambda x: x)
+    monkeypatch.setattr(t_rng, "unit_normalize", lambda x: x)
+    # a new backend object: the JAX package caches compiled searches per backend
+    j_backend = JEDMSearchBackend(sampler=rig["j_backend"].sampler, scorer=JBrightnessScorer())
+    j = j_run_search("eps_greedy", j_backend, jnp.asarray(rig["z"]), jax.random.key(99),
+                     JSearchParams(N=N, K=K), noise=draws)
+    inj = InjectedNoise(**{f: torch.from_numpy(np.array(getattr(draws, f)))
+                           for f in ("pivots", "directions", "fresh", "scales01", "explore01")})
+    t = run_search("eps_greedy", rig["t_backend"], torch.from_numpy(rig["z"]), 99,
+                   SearchParams(N=N, K=K), noise=inj)
+    gap = np.abs(t.x.numpy() - np.asarray(j.x)).max()
+    assert 1e-5 < gap <= 3e-4, gap
 
 
 def test_own_draws_and_nfe(rig):

@@ -1,14 +1,20 @@
-"""Where the time of one flagship forward goes on the card (PyTorch port).
+"""Where the time of one model call goes on the card (PyTorch port).
 
-    python3 tools/torch_forward_profile.py [--batch 8] [--reps 5]
+    python3 tools/torch_forward_profile.py [--model edm|sd] [--batch 8] [--reps 5]
 
-Runs the full-width ImageNet-64 EDMPrecond/DhariwalUNet of
-``diffusion_tts_torch`` in bf16 (random weights from numpy seed 0) at the
-eps-greedy expansion batch (N * samples = 8) and reports, per forward:
-the wall time (host clock around work ending in a synchronize), the host
-time to enqueue it, the device busy time (sum of kernel durations from
-``torch.profiler``), the idle share, and the device time by kernel class.
-Prints one JSON line last. Needs an NVIDIA card; imports nothing of JAX.
+``--model edm`` (default): the full-width ImageNet-64 EDMPrecond/
+DhariwalUNet of ``diffusion_tts_torch`` in bf16 (random weights from numpy
+seed 0) at the eps-greedy expansion batch (N * samples = 8).
+``--model sd``: the full-width SD-1.5 UNet in bf16 (random weights from
+numpy seed 0) at the eps-greedy expansion batch (2 * N * prompts = 8, the
+CFG halves included, 77-token context), and the VAE decode to 512x512 at
+batch N * prompts = 4.
+
+For each model call it reports the wall time (host clock around work
+ending in a synchronize), the host time to enqueue it, the device busy
+time (sum of kernel durations from ``torch.profiler``), the idle share,
+and the device time by kernel class. Prints one JSON line last. Needs an
+NVIDIA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -24,7 +30,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("attention_kernel", ("qkv_attention_kernel",)),
+    ("attention_kernel", ("attention_kernel",)),
+    ("group_norm_kernel", ("gn_moments_kernel", "gn_apply_kernel")),
+    ("geglu_kernel", ("geglu_gate_kernel", "geglu_out_kernel")),
     ("conv", ("conv", "xmma", "implicit", "cudnn", "sm90", "nhwc", "nchw")),
     ("group_norm", ("group_norm", "GroupNorm", "welford", "Welford")),
     ("gemm", ("gemm", "Gemm", "cutlass")),
@@ -39,38 +47,23 @@ def classify(name: str) -> str:
     return "elementwise_other"
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--reps", type=int, default=5)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("torch_forward_profile: needs an NVIDIA card")
-    from diffusion_tts_torch.backends.edm_entry import load_network
-
-    tag = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    net = load_network("imagenet64", dtype=torch.bfloat16, device="cuda", seed=0)
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((args.batch, 64, 64, 3), device="cuda", generator=g) * 10
-    sigma = torch.full((args.batch,), 10.0, device="cuda")
-    labels = torch.eye(1000, device="cuda")[torch.arange(args.batch, device="cuda")]
-    fwd = lambda: net(x, sigma, labels)
-
+def profile(fwd, reps: int) -> dict:
+    """Wall, enqueue and device time of one call of ``fwd``, averaged over
+    ``reps`` calls after 3 warm-up calls."""
     with torch.no_grad():
         for _ in range(3):
             fwd()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(args.reps):
+        for _ in range(reps):
             fwd()
-        enqueue_ms = (time.perf_counter() - t0) * 1e3 / args.reps
+        enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.reps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(args.reps):
+            for _ in range(reps):
                 fwd()
             torch.cuda.synchronize()
 
@@ -82,17 +75,60 @@ def main() -> None:
         dur = evt.time_range.end - evt.time_range.start  # microseconds
         by_class[classify(evt.name)] = by_class.get(classify(evt.name), 0.0) + dur / 1e3
         launches += 1
-    busy_ms = sum(by_class.values()) / args.reps
-    out = {
-        "gpu": tag, "batch": args.batch, "dtype": "bfloat16",
-        "wall_ms_per_forward": wall_ms,
-        "host_enqueue_ms_per_forward": enqueue_ms,
-        "device_busy_ms_per_forward": busy_ms if launches else None,
-        "device_idle_share": (1 - busy_ms / wall_ms) if launches else None,
-        "kernels_per_forward": launches / args.reps,
-        "device_ms_per_forward_by_class": {k: v / args.reps for k, v in sorted(by_class.items())},
-    }
+    busy_ms = sum(by_class.values()) / reps
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    return {
+        "wall_ms": wall_ms, "host_enqueue_ms": enqueue_ms,
+        "device_busy_ms": busy_ms if launches else None,
+        "device_idle_share": (1 - busy_ms / wall_ms) if launches else None,
+        "kernels": launches / reps,
+        "device_ms_by_class": {k: v / reps for k, v in sorted(by_class.items())},
+    }
+
+
+def edm_calls(batch: int) -> dict:
+    from diffusion_tts_torch.backends.edm_entry import load_network
+
+    net = load_network("imagenet64", dtype=torch.bfloat16, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((batch, 64, 64, 3), device="cuda", generator=g) * 10
+    sigma = torch.full((batch,), 10.0, device="cuda")
+    labels = torch.eye(1000, device="cuda")[torch.arange(batch, device="cuda")]
+    return {f"forward[{batch}]": lambda: net(x, sigma, labels)}
+
+
+def sd_calls(batch: int) -> dict:
+    from diffusion_tts_torch.pipelines.sd_pipeline import (
+        SD15_UNET,
+        SD15_VAE,
+        StableDiffusionSearchPipeline,
+    )
+
+    pipe = StableDiffusionSearchPipeline.random(SD15_UNET, SD15_VAE, seed=0,
+                                                dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((batch, 4, 64, 64), device="cuda", generator=g)
+    t = torch.full((batch,), 501, device="cuda")
+    ctx = torch.randn((batch, 77, 768), device="cuda", generator=g)
+    z = torch.randn((batch // 2, 4, 64, 64), device="cuda", generator=g) / 0.18215
+    return {f"unet[{batch}]": lambda: pipe.unet(x, t, ctx),
+            f"vae_decode[{batch // 2}]": lambda: pipe.vae.decode(z)}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=["edm", "sd"], default="edm")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_forward_profile: needs an NVIDIA card")
+    tag = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    calls = (sd_calls if args.model == "sd" else edm_calls)(args.batch)
+    out = {"gpu": tag, "model": args.model, "dtype": "bfloat16"}
+    for name, fwd in calls.items():
+        out[name] = profile(fwd, args.reps)
     print(json.dumps(out))
 
 
