@@ -19,15 +19,22 @@ Phases, each of which raises on failure (nothing is caught):
      2 samples, N=4, K=2) through the entry point, with every kernel's
      launches counted;
   5. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
-     weights from a numpy seed), one UNet forward (batch 2, 77-token
-     context) and one VAE decode in fp32 and bf16 on the card held against
-     fp32 on the CPU, then the pipeline's bf16 eps-greedy search (6 steps,
-     N=4, K=2, one prompt, brightness) twice, with every kernel's launches
-     counted and every kernel call's shape recorded;
-  6. SD kernels: attention, GroupNorm(+SiLU) and GEGLU against their plain
-     versions at every shape the SD search gave them (bf16) and at one
-     shape each in fp32, within 2e-2 / 1e-4 of the output's largest
-     magnitude, with kernel, plain, library and bound times;
+     weights from a numpy seed) at the default routing (the VAE decoder's
+     convs from 128x128 up through the conv kernels, their GroupNorms folded
+     into the conv prologue), one UNet forward (batch 2, 77-token context)
+     and one VAE decode in fp32 and bf16 on the card held against fp32 on
+     the CPU (which runs the same route through the plain versions), then
+     the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
+     brightness) twice, with every kernel's launches counted, held against
+     the counts the architecture and the routing predicates give, and every
+     kernel call's shape recorded;
+  6. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
+     conv3x3_same (every prologue/epilogue variant that occurred) and
+     conv3x3_up2 against their plain versions at every shape the SD search
+     gave them (bf16) and at one shape each in fp32, within 2e-2 / 1e-4 of
+     the output's largest magnitude (statistics: of the largest mean and of
+     the largest rstd), with kernel, plain, library and bound times (5
+     repetitions instead of 20 at the 512x512 shapes);
   7. one JSON line of kernel numbers, then the result line.
 
 With --kernels-json, the per-shape rows also go to that file. The script
@@ -50,6 +57,7 @@ from diffusion_tts_torch.backends.edm_entry import generate_image_grid, load_net
 from diffusion_tts_torch.models import sd_layers, sd_vae
 from diffusion_tts_torch.models.sd_unet import UNet2DConditionModel
 from diffusion_tts_torch.ops.kernels import build
+from diffusion_tts_torch.ops.kernels import conv3x3 as cv
 from diffusion_tts_torch.ops.kernels import geglu_ff as gg
 from diffusion_tts_torch.ops.kernels import groupnorm as gn
 from diffusion_tts_torch.ops.kernels import qkv_attention as qk
@@ -70,6 +78,17 @@ STEPS, SAMPLES, N, K = 18, 2, 4, 2
 # The short SD search (bench.py --sd on the CPU): 6 steps, N=4, K=2, one prompt.
 SD_STEPS, SD_N, SD_K, SD_PROMPTS, CLIP_TOKENS = 6, 4, 2, 1, 77
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def reset_launches() -> None:
+    qk.LAUNCHES = gn.LAUNCHES = gn.STATS_LAUNCHES = gg.LAUNCHES = 0
+    cv.SAME_LAUNCHES = cv.UP2_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"attention": qk.LAUNCHES, "group_norm_silu": gn.LAUNCHES, "geglu_ff": gg.LAUNCHES,
+            "group_norm_stats": gn.STATS_LAUNCHES, "conv3x3_same": cv.SAME_LAUNCHES,
+            "conv3x3_up2": cv.UP2_LAUNCHES}
 
 
 def gpu_tag() -> str:
@@ -176,7 +195,7 @@ def edm_phases(tag: str) -> dict:
     search = lambda: generate_image_grid(
         arch="imagenet64", scorer=BrightnessScorer(), method="eps_greedy", params=params,
         seed=0, gridw=SAMPLES, num_steps=STEPS, dtype=torch.bfloat16, device="cuda", net=net)
-    qk.LAUNCHES = gn.LAUNCHES = gg.LAUNCHES = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -184,6 +203,9 @@ def edm_phases(tag: str) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = qk.LAUNCHES
+    others = {k: v for k, v in read_launches().items() if k != "attention" and v}
+    if others:
+        raise AssertionError(f"the EDM main path launched kernels it does not route to: {others}")
     t0 = time.perf_counter()
     search()  # the same request again: steady state, not counted
     torch.cuda.synchronize()
@@ -236,18 +258,24 @@ def sd_pipeline_like(ref: StableDiffusionSearchPipeline, dtype: torch.dtype):
 
 
 class KernelShapes:
-    """Forward hooks that count every kernel call of the SD modules by its
-    shape: attention [B, T, H, D], GroupNorm (x shape, groups, eps, silu),
-    GEGLU (M, C, F)."""
+    """Counts every kernel call of the SD modules by its shape while a search
+    runs. Forward hooks on the modules: attention [B, T, H, D], GroupNorm
+    (x shape, groups, eps, silu) or, when the module was asked for its
+    folded statistics, group_norm_stats (x shape, groups, eps), GEGLU
+    (M, C, F). Recording stand-ins for the two conv functions, which the
+    modules reach only where the routing predicates send them: conv3x3_same
+    (x shape, K, prologue, bias, "residual" / "shortcut" / "none", Cres),
+    conv3x3_up2 (x shape, K, bias)."""
+
+    NAMES = ("attention", "group_norm_silu", "geglu_ff", "group_norm_stats", "conv3x3_same",
+             "conv3x3_up2")
 
     def __init__(self, pipe: StableDiffusionSearchPipeline):
-        self.counts = {"attention": collections.Counter(), "group_norm_silu": collections.Counter(),
-                       "geglu_ff": collections.Counter()}
+        self.counts = {name: collections.Counter() for name in self.NAMES}
         self.handles = []
         for m in list(pipe.unet.modules()) + list(pipe.vae.modules()):
             if isinstance(m, sd_layers.GroupNorm):
-                hook = lambda mod, a, out: self.counts["group_norm_silu"].update(
-                    [(tuple(a[0].shape), mod.groups, mod.eps, mod.apply_silu)])
+                hook = self.group_norm
             elif isinstance(m, sd_layers.CrossAttention):
                 hook = lambda mod, a, out: len(a) == 1 and self.counts["attention"].update(
                     [(a[0].shape[0], a[0].shape[1], mod.heads, mod.dim_head)])
@@ -261,22 +289,50 @@ class KernelShapes:
             else:
                 continue
             self.handles.append(m.register_forward_hook(hook))
+        self.same, self.up2 = cv.conv3x3_same, cv.conv3x3_up2
+        cv.conv3x3_same, cv.conv3x3_up2 = self.conv_same, self.conv_up2
+
+    def group_norm(self, mod, a, out) -> None:
+        if isinstance(out, tuple):  # (scale, shift): the statistics call
+            self.counts["group_norm_stats"].update([(tuple(a[0].shape), mod.groups, mod.eps)])
+        else:
+            self.counts["group_norm_silu"].update(
+                [(tuple(a[0].shape), mod.groups, mod.eps, mod.apply_silu)])
+
+    def conv_same(self, x, weight, bias=None, residual=None, *, gn_scale=None, gn_shift=None,
+                  shortcut=None):
+        tail = "residual" if residual is not None else "shortcut" if shortcut is not None \
+            else "none"
+        self.counts["conv3x3_same"].update(
+            [(tuple(x.shape), weight.shape[0], gn_scale is not None, bias is not None, tail,
+              shortcut[0].shape[1] if shortcut is not None else 0)])
+        return self.same(x, weight, bias, residual, gn_scale=gn_scale, gn_shift=gn_shift,
+                         shortcut=shortcut)
+
+    def conv_up2(self, x, weight, bias=None):
+        self.counts["conv3x3_up2"].update([(tuple(x.shape), weight.shape[0], bias is not None)])
+        return self.up2(x, weight, bias)
 
     def remove(self) -> None:
         for h in self.handles:
             h.remove()
+        cv.conv3x3_same, cv.conv3x3_up2 = self.same, self.up2
 
 
-def rel_err(out: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
-    """(max abs error, max abs error / max abs reference)."""
-    max_abs = (out.float() - ref.float()).abs().max().item()
-    return max_abs, max_abs / ref.float().abs().max().item()
+def rel_err(out, ref) -> tuple[float, float]:
+    """(max abs error, max abs error / max abs reference); for tuples of
+    tensors, the largest of each over the pairs."""
+    if isinstance(out, torch.Tensor):
+        out, ref = (out,), (ref,)
+    errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(out, ref)]
+    return max(errs), max(e / r.float().abs().max().item() for e, r in zip(errs, ref))
 
 
 def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_bytes,
                tag: str, reps: int = 20) -> dict:
     torch.cuda.synchronize()
     max_abs, max_rel = rel_err(out, ref)
+    finite = all(torch.isfinite(o).all() for o in ((out,) if isinstance(out, torch.Tensor) else out))
     row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1], max_abs_err=max_abs,
                max_rel_err=max_rel, ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 3),
                library_ms=time_ms(library, reps))
@@ -285,7 +341,7 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
           f"max_rel={max_rel:.3e} (tol {TOL[dtype]}) kernel_ms={row['ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
           f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) [{tag}]")
-    if not (max_rel <= TOL[dtype] and torch.isfinite(out).all()):
+    if not (max_rel <= TOL[dtype] and finite):
         raise AssertionError(f"{name} disagrees with its plain version: {row}")
     return row
 
@@ -339,9 +395,105 @@ def check_geglu(key, dtype, tag):
                       (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10)
 
 
+def reps_for(shape) -> int:
+    """Timing repetitions of the conv kernels' checks: fewer at 512x512."""
+    return 5 if shape[-1] >= 512 else 20
+
+
+def check_group_norm_stats(key, dtype, tag):
+    shape, groups, eps = key
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    kernel = lambda: gn.group_norm_stats(x, groups=groups, eps=eps)
+    plain = lambda: gn.group_norm_stats_plain(x, groups=groups, eps=eps)
+    library = lambda: torch.var_mean(x.reshape(shape[0], groups, -1), dim=-1)
+    return kernel_row("group_norm_stats", shape, dtype, kernel(), plain(), kernel, plain, library,
+                      (0, x.numel() * x.element_size()), tag, reps=reps_for(shape))
+
+
+def check_conv_same(key, dtype, tag):
+    """Library: F.conv2d in the working dtype on an input taken as already
+    normalized, with the bias and no skip: it leaves the prologue and the
+    rest of the epilogue out."""
+    shape, k, has_gn, has_bias, tail, cres = key
+    b, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(c + k + h)
+    r = lambda sh, s=1.0: (torch.randn(sh, device="cuda", generator=g) * s).to(dtype)
+    x, weight = r(shape), r((k, c, 3, 3), (9 * c) ** -0.5)
+    kw = {"bias": r((k,), 0.1) if has_bias else None}
+    if has_gn:
+        kw["gn_scale"] = 1 + 0.5 * torch.randn((b, c), device="cuda", generator=g)
+        kw["gn_shift"] = 0.1 * torch.randn((b, c), device="cuda", generator=g)
+    if tail == "residual":
+        kw["residual"] = r((b, k, h, w))
+    if tail == "shortcut":
+        kw["shortcut"] = (r((b, cres, h, w)), r((k, cres), cres ** -0.5))
+    kernel = lambda: cv.conv3x3_same(x, weight, **kw)
+    plain = lambda: cv.conv3x3_same_plain(x, weight, **kw)
+    library = lambda: F.conv2d(x, weight, kw["bias"], padding=1)
+    item = x.element_size()
+    moved = (x.numel() + weight.numel() + b * k * h * w * (2 if tail == "residual" else 1)
+             + (b * cres * h * w + k * cres)) * item
+    name = f"conv3x3_same[{'gn+' if has_gn else ''}{'bias+' if has_bias else ''}{tail}]"
+    row = kernel_row(name, (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain, library,
+                     (2 * b * h * w * (9 * c + cres) * k, moved), tag, reps=reps_for(shape))
+    row["variant"] = dict(prologue=has_gn, bias=has_bias, epilogue=tail, cres=cres)
+    return row
+
+
+def check_conv_up2(key, dtype, tag):
+    shape, k, has_bias = key
+    b, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(c + k + h)
+    r = lambda sh, s=1.0: (torch.randn(sh, device="cuda", generator=g) * s).to(dtype)
+    x, weight, bias = r(shape), r((k, c, 3, 3), (9 * c) ** -0.5), r((k,), 0.1) if has_bias else None
+    kernel = lambda: cv.conv3x3_up2(x, weight, bias)
+    plain = lambda: cv.conv3x3_up2_plain(x, weight, bias)
+    library = lambda: F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), weight, bias,
+                               padding=1)
+    moved = (x.numel() + weight.numel() + 4 * b * k * h * w) * x.element_size()
+    return kernel_row("conv3x3_up2", (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain,
+                      library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)))
+
+
+def decode_routing(vae: sd_vae.AutoencoderKL, hw: int) -> dict:
+    """Kernel calls of one VAE decode of hw x hw latents, from the decoder's
+    modules in forward order and the routing predicates."""
+    n = collections.Counter()
+    dec = vae.decoder
+
+    def resnet(block: sd_layers.ResnetBlock2D, hw: int) -> None:
+        cin, cout = block.conv1.in_channels, block.conv1.out_channels
+        for c in (cin, cout):  # conv1 is cin -> cout, conv2 cout -> cout
+            fused = cv.conv3_shape_eligible(hw, hw, c, cout)
+            n["conv3x3_same"] += fused
+            n["group_norm_stats" if fused else "group_norm_silu"] += 1
+
+    def up2(conv: sd_layers.Conv3x3, hw: int) -> bool:
+        return cv.up2_eligible(torch.empty((1, conv.in_channels, hw, hw), device="meta"),
+                               conv.weight)
+
+    for conv in (dec.conv_in, dec.conv_out):  # neither has 128-multiple channels on both sides
+        if cv.conv3_shape_eligible(8 * hw, 8 * hw, conv.in_channels, conv.out_channels):
+            raise AssertionError("conv_in / conv_out are not expected on the kernel route")
+    for block in dec.mid_block.resnets:
+        resnet(block, hw)
+    n["group_norm_silu"] += sum(isinstance(m, sd_layers.GroupNorm)
+                                for m in dec.mid_block.attentions.modules())
+    for block in dec.up_blocks:
+        for res in block.resnets:
+            resnet(res, hw)
+        if hasattr(block, "upsamplers"):
+            n["conv3x3_up2"] += up2(block.upsamplers[0].conv, hw)
+            hw *= 2
+    n["group_norm_silu"] += 1  # conv_norm_out
+    return dict(n)
+
+
 def sd_forward_checks(ref, pipe32, pipe16) -> None:
     """One UNet forward (CFG-shaped batch 2, 77-token context) and one VAE
-    decode (batch 1) on the card in fp32 and bf16 against fp32 on the CPU."""
+    decode (batch 1) on the card in fp32 and bf16 against fp32 on the CPU,
+    which runs the same route through the plain versions."""
     g = torch.Generator().manual_seed(7)
     x = torch.randn((2, 4, 64, 64), generator=g)
     t = torch.tensor([981, 501])
@@ -373,18 +525,25 @@ def sd_phases(tag: str) -> list[dict]:
     del ref, pipe32
     torch.cuda.empty_cache()
 
-    # launches per UNet forward and per VAE decode, from the architecture
+    # calls per UNet forward and per VAE decode, from the architecture and the
+    # routing predicates (the UNet never exceeds 64x64: none of its convs is
+    # routed, every GroupNorm module of it is one standalone call)
     count = lambda mod, cls: sum(isinstance(m, cls) for m in mod.modules())
+    zero = {"group_norm_stats": 0, "conv3x3_same": 0, "conv3x3_up2": 0}
     per_unet = {"attention": count(pipe16.unet, sd_layers.BasicTransformerBlock),
                 "group_norm_silu": count(pipe16.unet, sd_layers.GroupNorm),
-                "geglu_ff": count(pipe16.unet, sd_layers.FeedForward)}
-    per_decode = {"attention": count(pipe16.vae, sd_vae.VAEAttention),
-                  "group_norm_silu": count(pipe16.vae, sd_layers.GroupNorm), "geglu_ff": 0}
-    if per_unet != {"attention": 16, "group_norm_silu": 61, "geglu_ff": 16} or \
-            per_decode != {"attention": 1, "group_norm_silu": 30, "geglu_ff": 0}:
-        raise AssertionError(f"unexpected SD-1.5 architecture: {per_unet} {per_decode}")
+                "geglu_ff": count(pipe16.unet, sd_layers.FeedForward), **zero}
+    per_decode = {"attention": count(pipe16.vae, sd_vae.VAEAttention), "geglu_ff": 0,
+                  **decode_routing(pipe16.vae, SD15_UNET["sample_size"])}
+    if per_unet != {"attention": 16, "group_norm_silu": 61, "geglu_ff": 16, **zero} or \
+            per_decode != {"attention": 1, "geglu_ff": 0, "group_norm_silu": 12,
+                           "group_norm_stats": 18, "conv3x3_same": 18, "conv3x3_up2": 3}:
+        raise AssertionError(f"unexpected SD-1.5 architecture or routing: {per_unet} {per_decode}")
+    if count(pipe16.vae, sd_layers.GroupNorm) != 30:
+        raise AssertionError("the VAE decoder should hold 30 GroupNorm modules")
     per_call = {"attention": 1, "group_norm_silu": gn.LAUNCHES_PER_CALL,
-                "geglu_ff": gg.LAUNCHES_PER_CALL}
+                "geglu_ff": gg.LAUNCHES_PER_CALL, "group_norm_stats": gn.LAUNCHES_PER_CALL,
+                "conv3x3_same": 1, "conv3x3_up2": 1}
     forwards, decodes = SD_STEPS * (1 + SD_K), SD_STEPS * SD_K + 1
 
     params = SearchParams(N=SD_N, K=SD_K)
@@ -394,15 +553,14 @@ def sd_phases(tag: str) -> list[dict]:
                             score_function=BrightnessScorer(), method="eps_greedy",
                             params=params, seed=0)
     shapes = KernelShapes(pipe16)
-    qk.LAUNCHES = gn.LAUNCHES = gg.LAUNCHES = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     images, scores = search()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"attention": qk.LAUNCHES, "group_norm_silu": gn.LAUNCHES,
-                "geglu_ff": gg.LAUNCHES}
+    launches = read_launches()
     shapes.remove()
     t0 = time.perf_counter()
     search()  # the same request again: steady state, not counted
@@ -428,13 +586,21 @@ def sd_phases(tag: str) -> list[dict]:
 
     print("SD kernels vs plain, at every shape of the search:")
     checks = {"attention": check_sd_attention, "group_norm_silu": check_group_norm,
-              "geglu_ff": check_geglu}
+              "geglu_ff": check_geglu, "group_norm_stats": check_group_norm_stats,
+              "conv3x3_same": check_conv_same, "conv3x3_up2": check_conv_up2}
     fp32_shape = {"attention": (2, 1024, 8, 80),
                   "group_norm_silu": ((2, 640, 32, 32), 32, 1e-5, True),
-                  "geglu_ff": (2048, 1280, 5120)}
-    sources = {"attention": ("qkv_attention.cu", "diffusion_tts_tpu/ops/pallas/attention.py:424"),
-               "group_norm_silu": ("groupnorm.cu", "diffusion_tts_tpu/ops/pallas/groupnorm.py:144"),
-               "geglu_ff": ("geglu_ff.cu", "diffusion_tts_tpu/ops/pallas/geglu_ff.py:251")}
+                  "geglu_ff": (2048, 1280, 5120),
+                  "group_norm_stats": ((2, 256, 128, 128), 32, 1e-6),
+                  "conv3x3_same": ((2, 128, 128, 128), 128, True, True, "shortcut", 256),
+                  "conv3x3_up2": ((2, 128, 64, 64), 128, True)}
+    pallas = "diffusion_tts_tpu/ops/pallas/"
+    sources = {"attention": ("qkv_attention.cu", pallas + "attention.py:424"),
+               "group_norm_silu": ("groupnorm.cu", pallas + "groupnorm.py:144"),
+               "geglu_ff": ("geglu_ff.cu", pallas + "geglu_ff.py:251"),
+               "group_norm_stats": ("groupnorm.cu", pallas + "groupnorm.py:346"),
+               "conv3x3_same": ("conv3x3.cu", pallas + "conv3x3.py:497"),
+               "conv3x3_up2": ("conv3x3.cu", pallas + "conv3x3.py:811")}
     lines = []
     for name, check in checks.items():
         rows = []
@@ -444,7 +610,6 @@ def sd_phases(tag: str) -> list[dict]:
             rows.append(row)
         if sum(r["calls_per_search"] for r in rows) * per_call[name] != launches[name]:
             raise AssertionError(f"{name}: the recorded calls do not add up to its launches")
-        torch.backends.cuda.matmul.allow_tf32 = False
         rows.append(check(fp32_shape[name], torch.float32, tag))
         total = lambda k: sum(r[k] * r.get("calls_per_search", 0) for r in rows)
         lines.append({

@@ -27,6 +27,18 @@
 // 132 SMs are busy; one block per (batch, group) would have left 100 idle.
 // Scalar loads, one element per thread per step, coalesced along the pixel
 // axis; vector loads and a single-read (cluster) form are later work.
+//
+// Second entry, dtts_group_norm_stats: replaces the TPU kernel
+// _gn_stats_kernel behind groupnorm.py::group_norm_stats. Same function: the
+// moments of each (batch, group) from ONE read of x, written as the
+// per-(batch, channel) fp32 mean and rstd of the channel's group, for a
+// consumer that normalizes as it loads (the 3x3 conv's prologue,
+// csrc/conv3x3.cu). Bound: memory, bytes(x) / 3.35 TB/s. The TPU kernel
+// carries its column sums in scratch from one grid step to the next; blocks
+// here run in no order, so launch 1 is the moments pass above, unchanged,
+// and launch 2 gives one warp to each (batch, group): it reduces the
+// group's partials in the same fixed order as the normalize pass does and
+// writes the two values to each of the group's channels.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -88,6 +100,23 @@ gn_moments_kernel(const T* __restrict__ x, const float* __restrict__ pre,
   }
 }
 
+// One full warp reduces a group's n partials in a fixed order; every lane
+// returns (mean, rstd) with the variance from raw moments clamped at 0.
+__device__ __forceinline__ float2 group_mean_rstd(const float2* __restrict__ part, int n,
+                                                  float cnt, float eps) {
+  float sum = 0.f, sq = 0.f;
+  for (int i = threadIdx.x; i < n; i += 32) {
+    float2 v = part[i];
+    sum += v.x;
+    sq += v.y;
+  }
+  sum = warp_sum(sum);
+  sq = warp_sum(sq);
+  const float mean = sum / cnt;
+  const float var = fmaxf(sq / cnt - mean * mean, 0.f);
+  return make_float2(mean, rsqrtf(var + eps));
+}
+
 // grid (chunks, C, B): normalize the same chunk with its group's statistics.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -100,22 +129,11 @@ gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   __shared__ float stats[2];
   if (threadIdx.x < 32) {
     const int g0 = ch - ch % cg;  // first channel of this group
-    const float2* part = partial + ((int64_t)b * c + g0) * gridDim.x;
-    const int n = cg * gridDim.x;
-    float sum = 0.f, sq = 0.f;
-    for (int i = threadIdx.x; i < n; i += 32) {
-      float2 v = part[i];
-      sum += v.x;
-      sq += v.y;
-    }
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
+    const float2 st = group_mean_rstd(partial + ((int64_t)b * c + g0) * gridDim.x,
+                                      cg * gridDim.x, (float)cg * (float)hw, eps);
     if (threadIdx.x == 0) {
-      const float cnt = (float)cg * (float)hw;
-      const float mean = sum / cnt;
-      const float var = fmaxf(sq / cnt - mean * mean, 0.f);
-      stats[0] = mean;
-      stats[1] = rsqrtf(var + eps);
+      stats[0] = st.x;
+      stats[1] = st.y;
     }
   }
   __syncthreads();
@@ -149,6 +167,34 @@ cudaError_t launch(const void* x, const float* scale, const float* bias, const f
   return cudaGetLastError();
 }
 
+// grid (groups, B), one warp: mean[b, ch] and rstd[b, ch] of ch's group for
+// every channel of the group, from the partials of gn_moments_kernel.
+__global__ void __launch_bounds__(32)
+gn_stats_finalize_kernel(const float2* __restrict__ partial, float* __restrict__ mean,
+                         float* __restrict__ rstd, int c, int hw, int cg, int chunks,
+                         float eps) {
+  const int64_t first = (int64_t)blockIdx.y * c + (int64_t)blockIdx.x * cg;
+  const float2 st = group_mean_rstd(partial + first * chunks, cg * chunks,
+                                    (float)cg * (float)hw, eps);
+  for (int i = threadIdx.x; i < cg; i += 32) {
+    mean[first + i] = st.x;
+    rstd[first + i] = st.y;
+  }
+}
+
+template <typename T>
+cudaError_t launch_stats(const void* x, void* partial, float* mean, float* rstd, int b, int c,
+                         int hw, int groups, int chunk, float eps, cudaStream_t stream) {
+  const int chunks = (hw + chunk - 1) / chunk;
+  gn_moments_kernel<T><<<dim3(chunks, c, b), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), nullptr, static_cast<float2*>(partial), c, hw, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_stats_finalize_kernel<<<dim3(groups, b), 32, 0, stream>>>(
+      static_cast<const float2*>(partial), mean, rstd, c, hw, c / groups, chunks, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x and out: contiguous [B, C, HW];
@@ -168,5 +214,20 @@ extern "C" int dtts_group_norm(const void* x, const float* scale, const float* b
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, scale, bias, pre, partial, out, b, c, hw, groups, chunk,
                                  affine_bstride, eps, silu, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. x: contiguous [B, C, HW]; partial: fp32
+// scratch of 2 * B * C * ceil(HW / chunk) values; mean, rstd: fp32 [B, C].
+// Two launches (moments, then the per-group finalize); x is read once.
+extern "C" int dtts_group_norm_stats(const void* x, void* partial, float* mean, float* rstd,
+                                     int dtype, int b, int c, int hw, int groups, int chunk,
+                                     float eps, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups <= 0 || c % groups || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_stats<float>(x, partial, mean, rstd, b, c, hw, groups, chunk, eps, s);
+  if (dtype == 1)
+    return launch_stats<__nv_bfloat16>(x, partial, mean, rstd, b, c, hw, groups, chunk, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

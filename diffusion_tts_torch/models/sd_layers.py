@@ -10,15 +10,22 @@ with the JAX package's numerics:
     once at load time); inputs are cast to it, as flax's Dense and Conv
     promote them;
   * GroupNorm and LayerNorm keep fp32 parameters and statistics; every
-    GroupNorm, with or without its SiLU, is the CUDA kernel of
+    standalone GroupNorm, with or without its SiLU, is the CUDA kernel of
     ``ops/kernels/groupnorm.py``;
   * self-attention is the CUDA attention kernel (``ops/attention.py``);
     cross-attention (77 keys) stays the inline fp32-score einsum of the JAX
     package (sd_layers.py:298-305);
   * the GEGLU feed-forward is the CUDA kernel of ``ops/kernels/geglu_ff.py``;
-  * 3x3 convs are stock cuDNN with the resnet skip added after the conv,
-    the JAX package's ``DTTS_NO_PALLAS_CONV=1`` configuration (its conv
-    kernels, GN-in-conv fold and up-conv kernel are the next slice).
+  * 3x3 stride-1 convs route as the JAX package's default configuration
+    does (``ops/kernels/conv3x3.py`` holds the predicates): with C and K
+    multiples of 128 at 96 pixels and more (the VAE decoder from 128x128
+    up) they are the CUDA conv kernel, with the resnet's GroupNorm+SiLU
+    folded into its prologue (the norm module then only takes the
+    statistics, ``group_norm_stats``) and the bias, the skip add or the 1x1
+    ``conv_shortcut`` projection folded into its epilogue; the upsamplers
+    with a source of 64 pixels and more are the up-conv kernel. Every other
+    conv is stock cuDNN with the skip added after it, and every other
+    upsampler ``ops/resample.py``.
 
 Module and parameter names are diffusers', so a diffusers state dict (the
 goldens' ``sd::`` entries, a ``.safetensors`` checkpoint) loads as it is
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from diffusion_tts_torch.ops.attention import multihead_attention_fp32
+from diffusion_tts_torch.ops.kernels import conv3x3 as _conv
 from diffusion_tts_torch.ops.kernels import geglu_ff as _geglu
 from diffusion_tts_torch.ops.kernels import groupnorm as _gn
 from diffusion_tts_torch.ops.resample import nn_upsample2x_conv3x3
@@ -70,14 +78,55 @@ class Conv2d(nn.Conv2d):
         return out if residual is None else out + residual
 
 
-def Conv3x3(in_channels: int, out_channels: int, dtype: torch.dtype, stride: int = 1) -> Conv2d:
-    """3x3 conv with padding 1 (the JAX package's conv3 / Conv3x3)."""
-    return Conv2d(in_channels, out_channels, 3, stride=stride, padding=1, dtype=dtype)
+class Conv3x3(Conv2d):
+    """3x3 conv with padding 1 and ``nn.Conv2d``'s parameters (the JAX
+    package's Conv3x3 / conv3), routed to the CUDA conv kernel where
+    ``conv3_eligible`` says so. ``residual`` [B, K, H, W] is the resnet skip;
+    ``gn = (scale, shift)``, fp32 [B, C], is a GroupNorm+SiLU of the input
+    folded by the caller; ``shortcut = (sc_x, weight [K, Cres, 1, 1], bias
+    [K])`` is the resnet's 1x1 conv_shortcut of a second input. On the kernel
+    route all three join the conv in one launch; elsewhere the same math runs
+    as separate ops around cuDNN."""
+
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype,
+                 stride: int = 1):
+        super().__init__(in_channels, out_channels, 3, stride=stride, padding=1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
+                gn: tuple[torch.Tensor, torch.Tensor] | None = None,
+                shortcut: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        dtype = self.weight.dtype
+        x, bias = x.to(dtype), self.bias
+        if shortcut is not None:
+            sc_x, sc_w = shortcut[0].to(dtype), shortcut[1][:, :, 0, 0]
+            bias = bias + shortcut[2]  # the shortcut's own bias, in the compute dtype
+        if self.stride == (1, 1) and _conv.conv3_eligible(x, self.weight):
+            kw = dict(gn_scale=gn[0], gn_shift=gn[1]) if gn is not None else {}
+            if shortcut is not None:
+                return _conv.conv3x3_same(x, self.weight, bias, shortcut=(sc_x, sc_w), **kw)
+            if residual is not None:
+                residual = residual.to(dtype)
+            return _conv.conv3x3_same(x, self.weight, bias, residual, **kw)
+        if gn is not None:
+            xn = x.float() * gn[0][:, :, None, None] + gn[1][:, :, None, None]
+            x = F.silu(xn).to(dtype)
+        out = F.conv2d(x, self.weight, bias, self.stride, self.padding)
+        if residual is not None:
+            out = out + residual
+        if shortcut is not None:
+            out = out + F.conv2d(sc_x, sc_w[:, :, None, None])
+        return out
 
 
 class GroupNorm(nn.Module):
     """nn.GroupNorm(min(32, C), eps) with fp32 statistics and affine, and
-    SiLU after it when ``apply_silu``; one CUDA kernel on the card."""
+    SiLU after it when ``apply_silu``; one CUDA kernel on the card. With
+    ``return_scale_shift`` it normalizes nothing: it takes the statistics in
+    one read of x (the ``group_norm_stats`` kernel) and returns them folded
+    with the affine into fp32 [B, C] vectors, (x - m) * rstd * gamma + beta
+    == x * scale + shift, for a consumer that normalizes as it loads (the
+    conv kernel's prologue)."""
 
     def __init__(self, num_channels: int, num_groups: int = 32, eps: float = 1e-5,
                  apply_silu: bool = False):
@@ -87,7 +136,11 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_scale_shift: bool = False):
+        if return_scale_shift:
+            mean, rstd = _gn.group_norm_stats(x, groups=self.groups, eps=self.eps)
+            scale = rstd * self.weight.float()[None, :]
+            return scale, self.bias.float()[None, :] - mean * scale
         return _gn.group_norm_silu(x, self.weight, self.bias, groups=self.groups, eps=self.eps,
                                    apply_silu=self.apply_silu)
 
@@ -114,17 +167,34 @@ class ResnetBlock2D(nn.Module):
                               if temb_channels else None)
         self.norm2 = GroupNorm(out_channels, groups, eps, apply_silu=True)
         self.conv2 = Conv3x3(out_channels, out_channels, dtype)
+        # holds the 1x1 projection's parameters; runs standalone only when the
+        # projection is not folded into conv2's kernel
         self.conv_shortcut = (Conv2d(in_channels, out_channels, 1, dtype=dtype)
                               if in_channels != out_channels else None)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None) -> torch.Tensor:
-        h = self.conv1(self.norm1(x))
+        in_ch, hh, ww = x.shape[1:]
+        out_ch = self.conv1.out_channels
+        # Where the conv takes the kernel, its GroupNorm+SiLU is folded into
+        # the conv's input load: the norm only takes the statistics.
+        if in_ch % self.norm1.groups == 0 and _conv.conv3_shape_eligible(hh, ww, in_ch, out_ch):
+            h = self.conv1(x, gn=self.norm1(x, return_scale_shift=True))
+        else:
+            h = self.conv1(self.norm1(x))
         if self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None].to(h.dtype)
-        h = self.norm2(h)
+        fuse2 = (out_ch % self.norm2.groups == 0
+                 and _conv.conv3_shape_eligible(hh, ww, out_ch, out_ch))
+        gn2 = self.norm2(h, return_scale_shift=True) if fuse2 else None
+        if not fuse2:
+            h = self.norm2(h)
         if self.conv_shortcut is not None:
+            if fuse2 and _conv.shortcut_eligible(in_ch):
+                # the 1x1 projection of the skip runs inside conv2's kernel
+                sc = self.conv_shortcut
+                return self.conv2(h, gn=gn2, shortcut=(x, sc.weight, sc.bias))
             x = self.conv_shortcut(x)
-        return self.conv2(h, residual=x)
+        return self.conv2(h, residual=x, gn=gn2)
 
 
 class CrossAttention(nn.Module):
@@ -237,16 +307,20 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    """Nearest 2x then 3x3 conv, run as the 2x2-phase decomposition
-    (ops/resample.py), which never builds the upsampled input."""
+    """Nearest 2x then 3x3 conv, run as the 2x2-phase decomposition, which
+    never builds the upsampled input: the CUDA up-conv kernel where
+    ``up2_eligible`` says so, else ``ops/resample.py``."""
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = Conv3x3(channels, channels, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn_upsample2x_conv3x3(x.to(self.conv.weight.dtype), self.conv.weight,
-                                     self.conv.bias)
+        weight, bias = self.conv.weight, self.conv.bias
+        x = x.to(weight.dtype)
+        if _conv.up2_eligible(x, weight):
+            return _conv.conv3x3_up2(x, weight, bias)
+        return nn_upsample2x_conv3x3(x, weight, bias)
 
 
 __all__ = [

@@ -12,6 +12,14 @@ per-sample ``[B, C]``; ``pre`` ``[B, C]`` is added to x before the
 statistics. A CPU tensor goes through the plain PyTorch version; a CUDA
 tensor goes through the kernel or the call raises. ``LAUNCHES`` counts
 kernel launches, two per call (moments, then normalize).
+
+``group_norm_stats`` replaces groupnorm.py::group_norm_stats (Pallas kernel
+``_gn_stats_kernel``): the statistics alone, from one read of x, as the
+per-(batch, channel) fp32 mean and rstd of the channel's group, for the 3x3
+conv kernel's normalize-on-load prologue. It is the second entry of the same
+source (the same moments launch, then a per-group finalize);
+``STATS_LAUNCHES`` counts its launches, two per call, apart from
+``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -26,7 +34,10 @@ CHUNK = 8192  # pixels of one channel per block
 LAUNCHES_PER_CALL = 2
 _ARGTYPES = ((_launch.PTR,) * 6 + (_launch.INT,) * 7 + (_launch.F32, _launch.INT, _launch.PTR))
 
+_STATS_ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 6 + (_launch.F32, _launch.PTR))
+
 LAUNCHES = 0
+STATS_LAUNCHES = 0
 
 
 def group_norm_silu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -104,5 +115,50 @@ def group_norm_silu_prebias(x: torch.Tensor, scale: torch.Tensor, bias: torch.Te
     return _group_norm(x, scale, bias, pre, groups, eps, apply_silu)
 
 
+def group_norm_stats_plain(x: torch.Tensor, *, groups: int,
+                           eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch twin of the statistics kernel: fp32 per-channel sums of
+    x and x^2, summed over each group's channels, mean = sum / n, variance
+    from the raw moments clamped at 0, each group's (mean, rstd) repeated
+    over its channels. Returns two fp32 [B, C] tensors."""
+    b, c = x.shape[:2]
+    cg = c // groups
+    xf = x.float().reshape(b, c, -1)
+    n = float(xf.shape[-1] * cg)
+    s1 = xf.sum(dim=-1).reshape(b, groups, cg).sum(dim=-1)
+    s2 = (xf * xf).sum(dim=-1).reshape(b, groups, cg).sum(dim=-1)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
+    return (mean.repeat_interleave(cg, dim=1),
+            torch.rsqrt(var + eps).repeat_interleave(cg, dim=1))
+
+
+def group_norm_stats(x: torch.Tensor, *, groups: int,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, rstd) of each channel's group, two fp32 [B, C] tensors, for x
+    [B, C, ...]; x is read once."""
+    global STATS_LAUNCHES
+    if x.ndim < 3:
+        raise ValueError(f"x must be [B, C, ...], got {tuple(x.shape)}")
+    b, c = x.shape[:2]
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    if x.device.type == "cpu":
+        return group_norm_stats_plain(x, groups=groups, eps=eps)
+    _launch.check(x, "group_norm_stats")
+    hw = math.prod(x.shape[2:])
+    chunks = -(-hw // CHUNK)
+    partial = torch.empty((b * c * chunks * 2,), dtype=torch.float32, device=x.device)
+    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    fn = _launch.bind("groupnorm", "dtts_group_norm_stats", _STATS_ARGTYPES)
+    err = fn(x.data_ptr(), partial.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+             _launch.DTYPE_CODES[x.dtype], b, c, hw, groups, CHUNK, eps, _launch.stream(x))
+    _launch.raise_on(err, "group_norm_stats")
+    STATS_LAUNCHES += LAUNCHES_PER_CALL
+    return mean, rstd
+
+
 __all__ = ["group_norm_silu", "group_norm_silu_prebias", "group_norm_silu_plain",
-           "LAUNCHES", "LAUNCHES_PER_CALL", "CHUNK"]
+           "group_norm_stats", "group_norm_stats_plain", "LAUNCHES", "STATS_LAUNCHES",
+           "LAUNCHES_PER_CALL", "CHUNK"]

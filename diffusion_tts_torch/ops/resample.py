@@ -34,20 +34,26 @@ def phase_kernels(w: torch.Tensor) -> torch.Tensor:
     return torch.cat(phases, dim=0).to(w.dtype)
 
 
+def interleave_phases(out: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, 4*O, H+1, W+1], the four phase convs of the once-padded input
+    (phase-major along the channel axis) -> [B, O, 2H, 2W]: phase (dh, dw)
+    lands on rows 2i + dh and columns 2j + dw."""
+    b, o = out.shape[0], out.shape[1] // 4
+    p = {(dh, dw): out[:, (2 * dh + dw) * o:(2 * dh + dw + 1) * o, dh:dh + h, dw:dw + w]
+         for dh in (0, 1) for dw in (0, 1)}
+    rows = [torch.stack([p[(dh, 0)], p[(dh, 1)]], dim=-1) for dh in (0, 1)]  # [B,O,H,W,2]
+    return torch.stack(rows, dim=3).reshape(b, o, 2 * h, 2 * w)  # [B,O,H,2,W,2]
+
+
 def nn_upsample2x_conv3x3(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor | None = None) -> torch.Tensor:
     """conv3x3_pad1(nearest_upsample_2x(x)) without the upsampled input.
     x: [B, I, H, W]; w: [O, I, 3, 3]; returns [B, O, 2H, 2W]."""
-    b, _, h, wd = x.shape
-    o = w.shape[0]
     out = F.conv2d(F.pad(x, (1, 1, 1, 1)), phase_kernels(w))  # [B, 4O, H+1, W+1]
-    p = {(dh, dw): out[:, (2 * dh + dw) * o:(2 * dh + dw + 1) * o, dh:dh + h, dw:dw + wd]
-         for dh in (0, 1) for dw in (0, 1)}
-    rows = [torch.stack([p[(dh, 0)], p[(dh, 1)]], dim=-1) for dh in (0, 1)]  # [B,O,H,W,2]
-    y = torch.stack(rows, dim=3).reshape(b, o, 2 * h, 2 * wd)  # [B,O,H,2,W,2]
+    y = interleave_phases(out, x.shape[2], x.shape[3])
     if bias is not None:
         y = y + bias.to(y.dtype).view(1, -1, 1, 1)
     return y
 
 
-__all__ = ["nn_upsample2x_conv3x3", "phase_kernels"]
+__all__ = ["nn_upsample2x_conv3x3", "phase_kernels", "interleave_phases"]

@@ -9,6 +9,7 @@ without the suite's JAX conftest:
 import pytest
 import torch
 
+from diffusion_tts_torch.ops.kernels import conv3x3 as cv
 from diffusion_tts_torch.ops.kernels import geglu_ff as gg
 from diffusion_tts_torch.ops.kernels import groupnorm as gn
 from diffusion_tts_torch.ops.kernels import qkv_attention as qk
@@ -21,6 +22,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -130,3 +132,108 @@ def test_geglu_ff_matches_plain(card, m, c, f, dtype):
     assert gg.LAUNCHES == before + gg.LAUNCHES_PER_CALL and out.shape == (m, c)
     torch.testing.assert_close(out.float(), gg.geglu_ff_plain(x, w0, b0, w2, b2).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _rel_err(out, want):
+    return ((out.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [((2, 128, 16, 24), 32), ((1, 8, 100, 100), 2),
+                                          ((3, 96, 5, 7), 32)])
+def test_group_norm_stats_matches_plain(card, shape, groups, dtype):
+    """One chunk, two chunks per channel (10,000 pixels), and odd sizes."""
+    x = _randn(shape, dtype, card, 11, scale=3.0) + 1
+    before, before_gn = gn.STATS_LAUNCHES, gn.LAUNCHES
+    mean, rstd = gn.group_norm_stats(x, groups=groups, eps=1e-6)
+    torch.cuda.synchronize()
+    assert gn.STATS_LAUNCHES == before + gn.LAUNCHES_PER_CALL and gn.LAUNCHES == before_gn
+    assert mean.shape == rstd.shape == shape[:2] and mean.dtype == rstd.dtype == torch.float32
+    want_mean, want_rstd = gn.group_norm_stats_plain(x, groups=groups, eps=1e-6)
+    assert _rel_err(mean, want_mean) <= 1e-5 and _rel_err(rstd, want_rstd) <= 1e-5
+
+
+def _conv_case(case, b, c, k, h, w, cres, dtype, device, seed):
+    kw = {}
+    if case != "plain":
+        kw["bias"] = _randn((k,), dtype, device, seed + 2)
+    if case.endswith("residual"):
+        kw["residual"] = _randn((b, k, h, w), dtype, device, seed + 3)
+    if case.startswith("prologue"):
+        kw["gn_scale"] = 1 + _randn((b, c), torch.float32, device, seed + 4, scale=0.5)
+        kw["gn_shift"] = _randn((b, c), torch.float32, device, seed + 5, scale=0.1)
+    if case.endswith("shortcut"):
+        kw["shortcut"] = (_randn((b, cres, h, w), dtype, device, seed + 6),
+                          _randn((k, cres), dtype, device, seed + 7, scale=0.05))
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["plain", "bias_residual", "prologue_bias",
+                                  "prologue_bias_residual", "prologue_bias_shortcut"])
+@pytest.mark.parametrize("b,c,k,h,w,cres", [(2, 128, 128, 16, 16, 256), (1, 256, 128, 8, 40, 128),
+                                            (2, 40, 72, 9, 35, 24)])
+def test_conv3x3_same_matches_plain(card, b, c, k, h, w, cres, case, dtype):
+    """Whole tiles, a ragged tile in W, and ragged everything (C, K and Cres
+    not multiples of 16 or 128, odd H and W)."""
+    x = _randn((b, c, h, w), dtype, card, 20)
+    weight = _randn((k, c, 3, 3), dtype, card, 21, scale=0.05)
+    kw = _conv_case(case, b, c, k, h, w, cres, dtype, card, 22)
+    before = cv.SAME_LAUNCHES
+    out = cv.conv3x3_same(x, weight, **kw)
+    torch.cuda.synchronize()
+    assert cv.SAME_LAUNCHES == before + 1 and out.shape == (b, k, h, w) and out.dtype == dtype
+    assert _rel_err(out, cv.conv3x3_same_plain(x, weight, **kw)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_same_pads_after_the_prologue(card, dtype):
+    """With a large shift silu(shift) is far from 0; the border pixels still
+    agree with the twin, which normalizes first and pads second."""
+    b, c, k, h, w = 1, 128, 128, 8, 40
+    x = _randn((b, c, h, w), dtype, card, 30)
+    weight = _randn((k, c, 3, 3), dtype, card, 31, scale=0.05)
+    scale = 1 + _randn((b, c), torch.float32, card, 32, scale=0.5)
+    shift = torch.full((b, c), 6.0, device=card)
+    out = cv.conv3x3_same(x, weight, gn_scale=scale, gn_shift=shift)
+    want = cv.conv3x3_same_plain(x, weight, gn_scale=scale, gn_shift=shift)
+    border = torch.ones((h, w), dtype=torch.bool, device=card)
+    border[1:-1, 1:-1] = False
+    err = (out.float() - want.float()).abs() / want.float().abs().max()
+    assert err[..., border].max().item() <= TOL[dtype]
+    assert err[..., ~border].max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("b,c,k,h,w", [(2, 128, 128, 16, 16), (1, 256, 128, 8, 40),
+                                       (2, 40, 72, 9, 35)])
+def test_conv3x3_up2_matches_plain(card, b, c, k, h, w, with_bias, dtype):
+    x = _randn((b, c, h, w), dtype, card, 40)
+    weight = _randn((k, c, 3, 3), dtype, card, 41, scale=0.05)
+    bias = _randn((k,), dtype, card, 42) if with_bias else None
+    before = cv.UP2_LAUNCHES
+    out = cv.conv3x3_up2(x, weight, bias)
+    torch.cuda.synchronize()
+    assert cv.UP2_LAUNCHES == before + 1 and out.shape == (b, k, 2 * h, 2 * w)
+    assert _rel_err(out, cv.conv3x3_up2_plain(x, weight, bias)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_conv_kernels_refuse_what_they_do_not_take(card):
+    x = torch.zeros((1, 128, 8, 8), device=card)
+    w = torch.zeros((128, 128, 3, 3), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3_same(x.permute(0, 1, 3, 2)[:, :, ::2], w)
+    with pytest.raises(TypeError, match="weight"):
+        cv.conv3x3_same(x, w.bfloat16())
+    with pytest.raises(ValueError, match="residual"):
+        cv.conv3x3_same(x, w, residual=torch.zeros((1, 128, 4, 8), device=card))
+    with pytest.raises(ValueError, match=r"\[K, C, 3, 3\]"):
+        cv.conv3x3_up2(x, torch.zeros((128, 64, 3, 3), device=card))
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_stats(torch.zeros((1, 30, 4, 4), device=card), groups=32)

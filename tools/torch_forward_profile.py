@@ -8,7 +8,11 @@ seed 0) at the eps-greedy expansion batch (N * samples = 8).
 ``--model sd``: the full-width SD-1.5 UNet in bf16 (random weights from
 numpy seed 0) at the eps-greedy expansion batch (2 * N * prompts = 8, the
 CFG halves included, 77-token context), and the VAE decode to 512x512 at
-batch N * prompts = 4.
+batch N * prompts = 4. The decode runs at the default routing (the conv
+kernels from 128x128 up); with ``DTTS_NO_CONV_KERNELS=1`` in the environment
+every conv is cuDNN and every GroupNorm standalone, for comparison. The
+statistics calls' moments launches share ``gn_moments_kernel`` with the
+standalone GroupNorm and are counted with it under ``group_norm_kernel``.
 
 For each model call it reports the wall time (host clock around work
 ending in a synchronize), the host time to enqueue it, the device busy
@@ -31,8 +35,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("attention_kernel", ("attention_kernel",)),
-    ("group_norm_kernel", ("gn_moments_kernel", "gn_apply_kernel")),
+    ("group_norm_kernel", ("gn_moments_kernel", "gn_apply_kernel", "gn_stats_finalize_kernel")),
     ("geglu_kernel", ("geglu_gate_kernel", "geglu_out_kernel")),
+    ("conv3x3_kernel", ("conv3_kernel",)),
     ("conv", ("conv", "xmma", "implicit", "cudnn", "sm90", "nhwc", "nchw")),
     ("group_norm", ("group_norm", "GroupNorm", "welford", "Welford")),
     ("gemm", ("gemm", "Gemm", "cutlass")),
@@ -126,7 +131,8 @@ def main() -> None:
     tag = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     calls = (sd_calls if args.model == "sd" else edm_calls)(args.batch)
-    out = {"gpu": tag, "model": args.model, "dtype": "bfloat16"}
+    out = {"gpu": tag, "model": args.model, "dtype": "bfloat16",
+           "conv_kernels": os.environ.get("DTTS_NO_CONV_KERNELS", "") in ("", "0")}
     for name, fwd in calls.items():
         out[name] = profile(fwd, args.reps)
     print(json.dumps(out))
