@@ -18,7 +18,20 @@ Phases, each of which raises on failure (nothing is caught):
      the same weights in fp32 on the CPU, then eps-greedy search (18 steps,
      2 samples, N=4, K=2) through the entry point, with every kernel's
      launches counted;
-  5. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
+  5. training (the EDM backend's): the attention backward kernels against
+     their plain version at the flagship's [16, T, 3C] training shapes (bf16,
+     each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
+     fp32 within 1e-4; one [2, 4096, 8, 40] call through ``attention``), with
+     kernel, plain, library (autograd of scaled_dot_product_attention, timed
+     only) and bound times; the gradient of every forward-only kernel's
+     wrapper against its twin's at one small shape each; one full-width
+     training forward + backward (batch 2, draws from a seed) in fp32 on the
+     card against fp32 on the CPU and in bf16 compute with fp32 parameters;
+     then ``training_loop`` at full width in bf16 on an in-memory dataset:
+     batch 32 as 2 rounds of 16, dropout 0.10, 1 warm step and 4 timed steps,
+     the forward and backward launches counted, a snapshot and a state dump
+     written, read back and held equal;
+  6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
      into the conv prologue), one UNet forward (batch 2, 77-token context)
@@ -28,14 +41,14 @@ Phases, each of which raises on failure (nothing is caught):
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give, and every
      kernel call's shape recorded;
-  6. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
+  7. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
      conv3x3_same (every prologue/epilogue variant that occurred) and
      conv3x3_up2 against their plain versions at every shape the SD search
      gave them (bf16) and at one shape each in fp32, within 2e-2 / 1e-4 of
      the output's largest magnitude (statistics: of the largest mean and of
      the largest rstd), with kernel, plain, library and bound times (5
      repetitions instead of 20 at the 512x512 shapes);
-  7. one JSON line of kernel numbers, then the result line.
+  8. one JSON line of kernel numbers, then the result line.
 
 With --kernels-json, the per-shape rows also go to that file. The script
 imports nothing of JAX; it needs the repository beside it.
@@ -44,16 +57,27 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
 
-from diffusion_tts_torch.backends.edm_entry import generate_image_grid, load_network
+from diffusion_tts_torch import train as train_cli
+from diffusion_tts_torch.backends.edm_entry import (
+    IMAGENET64_ADM,
+    generate_image_grid,
+    load_network,
+)
+from diffusion_tts_torch.models.preconds import EDMPrecond
+from diffusion_tts_torch.models.torch_import import load_into, random_state_dict
 from diffusion_tts_torch.models import sd_layers, sd_vae
 from diffusion_tts_torch.models.sd_unet import UNet2DConditionModel
 from diffusion_tts_torch.ops.kernels import build
@@ -68,6 +92,11 @@ from diffusion_tts_torch.pipelines.sd_pipeline import (
 )
 from diffusion_tts_torch.scorers import BrightnessScorer
 from diffusion_tts_torch.search.nfe import nfe_per_sample
+from diffusion_tts_torch.training import checkpoints
+from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
+from diffusion_tts_torch.training.loop import LoopConfig, training_loop
+from diffusion_tts_torch.training.loss import EDMLoss
+from diffusion_tts_torch.training.train_step import TrainConfig, TrainState
 from diffusion_tts_torch.utils.config import SearchParams
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
@@ -78,15 +107,18 @@ STEPS, SAMPLES, N, K = 18, 2, 4, 2
 # The short SD search (bench.py --sd on the CPU): 6 steps, N=4, K=2, one prompt.
 SD_STEPS, SD_N, SD_K, SD_PROMPTS, CLIP_TOKENS = 6, 4, 2, 1, 77
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Training: batch 32 as 2 accumulation rounds of micro-batch 16, 1 warm + 4 timed steps.
+TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 
 
 def reset_launches() -> None:
-    qk.LAUNCHES = gn.LAUNCHES = gn.STATS_LAUNCHES = gg.LAUNCHES = 0
+    qk.LAUNCHES = qk.BWD_LAUNCHES = gn.LAUNCHES = gn.STATS_LAUNCHES = gg.LAUNCHES = 0
     cv.SAME_LAUNCHES = cv.UP2_LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    return {"attention": qk.LAUNCHES, "group_norm_silu": gn.LAUNCHES, "geglu_ff": gg.LAUNCHES,
+    return {"attention": qk.LAUNCHES, "attention_bwd": qk.BWD_LAUNCHES,
+            "group_norm_silu": gn.LAUNCHES, "geglu_ff": gg.LAUNCHES,
             "group_norm_stats": gn.STATS_LAUNCHES, "conv3x3_same": cv.SAME_LAUNCHES,
             "conv3x3_up2": cv.UP2_LAUNCHES}
 
@@ -456,6 +488,304 @@ def check_conv_up2(key, dtype, tag):
                       library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)))
 
 
+# ----------------------------------------------------------------- training
+
+
+def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) -> dict:
+    """The backward kernels through qkv_self_attention's backward() at
+    [B, T, 3C] against the plain version; each of dq, dk, dv within the
+    dtype's tolerance of that gradient's largest magnitude. ``ms`` times the
+    wrapper's backward function called directly (the row term delta and the
+    two launches), ``autograd_ms`` the same through ``torch.autograd.grad``,
+    as the library's backward is timed: at the small sites both are the
+    autograd engine's dispatch, not the device."""
+    d, c = 64, heads * 64
+    gen = torch.Generator(device="cuda").manual_seed(7000 + t + b)
+    qkv = torch.randn((b, t, 3 * c), device="cuda", generator=gen).to(dtype).requires_grad_(True)
+    g = torch.randn((b, t, c), device="cuda", generator=gen).to(dtype)
+    out = qk.qkv_self_attention(qkv, heads)
+    via_autograd = lambda: torch.autograd.grad(out, qkv, g, retain_graph=True)[0]
+    got = via_autograd()
+    lse = out.grad_fn.saved_tensors[2]
+    backward = lambda: qk.qkv_self_attention_bwd(qkv.detach(), out.detach(), g, heads, lse)
+    if not torch.equal(backward(), got):
+        raise AssertionError("attention_bwd: two runs on the same inputs differ")
+    split = lambda x: x.detach().reshape(b, t, -1, d)
+    q, k, v = (split(x) for x in qkv.chunk(3, dim=-1))
+    plain = lambda: qk.attention_bwd_plain(q, k, v, split(out), split(g))
+    ref = plain()
+    torch.cuda.synchronize()
+    errs = [rel_err(a.reshape(b, t, heads, d), r) for a, r in zip(got.chunk(3, dim=-1), ref)]
+    max_abs, max_rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    lo, lg = F.scaled_dot_product_attention(lq, lk, lv), split(g).transpose(1, 2).contiguous()
+    row = dict(shape=[b, t, 3 * c], heads=heads, dtype=str(dtype).split(".")[-1],
+               max_abs_err=max_abs, max_rel_err=max_rel, ms=time_ms(backward),
+               autograd_ms=time_ms(via_autograd), plain_ms=time_ms(plain, reps=3),
+               library_ms=time_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), lg,
+                                                              retain_graph=True)))
+    # the least any implementation needs: S, dP, dV, dQ, dK; q, k, v, o, g read
+    # once and dq, dk, dv written once
+    row["bound_ms"], row["bound_by"] = bound(10 * b * heads * t * t * d,
+                                             8 * b * t * c * torch.finfo(dtype).bits // 8, dtype)
+    print(f"  attention_bwd {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
+          f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {TOL[dtype]}) "
+          f"kernel_ms={row['ms']:.4f} (through autograd {row['autograd_ms']:.4f}) "
+          f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) [{tag}]")
+    if not (max_rel <= TOL[dtype] and torch.isfinite(got).all()):
+        raise AssertionError(f"attention_bwd disagrees with its plain version: {row}")
+    return row
+
+
+def check_twin_gradients() -> None:
+    """backward() through each forward-only kernel's wrapper on the card
+    reaches every input and weight and equals the twin's gradient within the
+    forward's tolerance (bf16, one small shape each)."""
+    dtype = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    r = lambda shape, s=1.0, dt=dtype: (torch.randn(shape, device="cuda", generator=gen) * s).to(dt)
+    f32 = torch.float32
+    x, cx = r((2, 64, 12, 12)), r((2, 16, 10, 12))
+    cases = {
+        "group_norm_silu": (lambda x, w, b: gn.group_norm_silu(x, w, b, groups=8),
+                            lambda x, w, b: gn.group_norm_silu_plain(x, w, b, groups=8),
+                            (x, 1 + r((64,), 0.1, f32), r((64,), 0.1, f32))),
+        "group_norm_silu_prebias": (
+            lambda x, w, b, p: gn.group_norm_silu_prebias(x, w, b, p, groups=8),
+            lambda x, w, b, p: gn.group_norm_silu_plain(x, w, b, groups=8, pre=p),
+            (x, 1 + r((64,), 0.1, f32), r((64,), 0.1, f32), r((2, 64), 1.0, f32))),
+        "group_norm_stats": (lambda x: gn.group_norm_stats(x, groups=8),
+                             lambda x: gn.group_norm_stats_plain(x, groups=8), (x,)),
+        "geglu_ff": (gg.geglu_ff, gg.geglu_ff_plain,
+                     (r((48, 32)), r((128, 32), 32 ** -0.5), r((128,), 0.1),
+                      r((32, 64), 64 ** -0.5), r((32,), 0.1))),
+        "conv3x3_same": (
+            lambda x, w, b, s, t, sx, sw: cv.conv3x3_same(x, w, b, gn_scale=s, gn_shift=t,
+                                                          shortcut=(sx, sw)),
+            lambda x, w, b, s, t, sx, sw: cv.conv3x3_same_plain(x, w, b, gn_scale=s, gn_shift=t,
+                                                                shortcut=(sx, sw)),
+            (cx, r((24, 16, 3, 3), 1 / 12), r((24,)), 1 + r((2, 16), 0.3, f32),
+             r((2, 16), 0.1, f32), r((2, 8, 10, 12)), r((24, 8), 0.3))),
+        "conv3x3_up2": (cv.conv3x3_up2, cv.conv3x3_up2_plain,
+                        (cx, r((24, 16, 3, 3), 1 / 12), r((24,)))),
+    }
+    for name, (kernel, plain, tensors) in cases.items():
+        grads = []
+        for fn in (kernel, plain):
+            leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+            out = fn(*leaves)
+            outs = (out,) if isinstance(out, torch.Tensor) else out
+            if fn is kernel:
+                cot = [r(o.shape, 1.0, o.dtype) for o in outs]
+            grads.append(torch.autograd.grad(outs, leaves, cot))
+        worst = max(rel_err(a, b)[1] for a, b in zip(*grads))
+        print(f"  {name}: backward() through the kernel's wrapper vs its twin, "
+              f"{len(tensors)} gradients, max_rel={worst:.3e} (tol {TOL[dtype]})")
+        if not (worst <= TOL[dtype] and all(torch.isfinite(a).all() for a in grads[0])):
+            raise AssertionError(f"{name}: the wrapper's gradient disagrees with its twin's")
+
+
+def training_net(dtype: torch.dtype, device: str, dropout: float = 0.0) -> EDMPrecond:
+    """The full-width ImageNet-64 ADM as the training CLI builds it (fp32
+    parameters, compute in ``dtype``), with random weights in every layer:
+    from the architecture's init, which zeroes conv1, proj and out_conv, no
+    gradient would reach an attention site in the first step."""
+    cfg = dict(IMAGENET64_ADM, model_kwargs=dict(IMAGENET64_ADM["model_kwargs"], dropout=dropout))
+    net = EDMPrecond(dtype=dtype, param_dtype=torch.float32, **cfg)
+    return load_into(net, random_state_dict(net, 0)).to(device)
+
+
+def loss_and_grads(net: EDMPrecond, images, labels, draws) -> tuple[float, dict]:
+    dev = next(net.parameters()).device
+    net.train().zero_grad(set_to_none=True)
+    loss = EDMLoss()(lambda x, s, lab, al: net(x, s, lab, al), images.to(dev), labels.to(dev),
+                     **{k: v.to(dev) for k, v in draws.items()}).mean()
+    loss.backward()
+    missing = [n for n, p in net.named_parameters() if p.grad is None]
+    if missing:
+        raise AssertionError(f"{len(missing)} parameters got no gradient: {missing[:4]}")
+    return loss.item(), {n: p.grad.detach().float().cpu() for n, p in net.named_parameters()}
+
+
+def check_training_forward_backward() -> None:
+    """One full-width EDM loss forward + backward, batch 2, dropout off, the
+    draws from a seed: fp32 on the card against fp32 on the CPU, then bf16
+    compute with fp32 parameters on the card."""
+    g = torch.Generator().manual_seed(21)
+    images = torch.rand((2, 64, 64, 3), generator=g) * 2 - 1
+    labels = torch.eye(1000)[[3, 977]]
+    draws = dict(u=torch.randn((2, 1, 1, 1), generator=g),
+                 noise=torch.randn((2, 64, 64, 3), generator=g))
+    t0 = time.perf_counter()
+    loss_ref, grads_ref = loss_and_grads(training_net(torch.float32, "cpu"), images, labels, draws)
+    cpu_s = time.perf_counter() - t0
+    loss32, grads32 = loss_and_grads(training_net(torch.float32, "cuda"), images, labels, draws)
+    loss16, grads16 = loss_and_grads(training_net(torch.bfloat16, "cuda"), images, labels, draws)
+    worst = max((grads32[n] - r).abs().max().item() / r.abs().max().item()
+                for n, r in grads_ref.items())
+    # in float64: fp32 sums over 296M elements are off by percents
+    flat = lambda grads: torch.cat([grads[n].reshape(-1) for n in grads_ref]).double()
+    cosine = F.cosine_similarity(flat(grads16), flat(grads_ref), dim=0).item()
+    rel32, rel16 = (abs(x - loss_ref) / abs(loss_ref) for x in (loss32, loss16))
+    print(f"training forward + backward [2,64,64,3], {len(grads_ref)} parameters, vs fp32 on the "
+          f"CPU ({cpu_s:.1f} s): loss {loss_ref:.6f}; fp32 card loss rel err {rel32:.3e} (limit "
+          f"1e-4), worst gradient err / max {worst:.3e} (limit 1e-3); bf16 compute + fp32 "
+          f"parameters loss rel err {rel16:.3e} (limit 5e-2), gradient cosine {cosine:.5f} "
+          f"(limit 0.99)")
+    if not (rel32 <= 1e-4 and worst <= 1e-3 and rel16 <= 5e-2 and cosine >= 0.99):
+        raise AssertionError("the full-width training forward + backward disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+
+def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) -> dict:
+    """TRAIN_STEPS steps through training_loop, the function the training CLI
+    calls, at full width in bf16: every step its own tick, so that
+    stats.jsonl times each (the tick's drain waits for the device)."""
+    g = np.random.default_rng(0)
+    labels = g.integers(0, 1000, 256)
+    labels[0] = 999  # the largest label sets the one-hot width
+    data = ImageDataset(g.integers(0, 256, (256, 64, 64, 3), dtype=np.uint8), labels)
+    net = training_net(torch.bfloat16, "cuda", dropout=0.10)
+    before = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+    micro = TRAIN_BATCH // TRAIN_ROUNDS
+    train_cfg = TrainConfig(lr=1e-4, lr_rampup_kimg=2 * TRAIN_BATCH / 1000,
+                            grad_accum_rounds=TRAIN_ROUNDS, total_batch=TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as run_dir:
+        loop_cfg = LoopConfig(run_dir=run_dir, total_kimg=1000, kimg_per_tick=TRAIN_BATCH / 1000,
+                              snapshot_ticks=TRAIN_STEPS, state_dump_ticks=TRAIN_STEPS, seed=0,
+                              batch_size=TRAIN_BATCH, batch_gpu=micro)
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = training_loop(
+            net=net, net_config=dict(IMAGENET64_ADM, precond="edm"),
+            data_iter=batch_iterator(data, TRAIN_BATCH, seed=0), loss_fn=EDMLoss(),
+            train_cfg=train_cfg, loop_cfg=loop_cfg, device="cuda", max_ticks=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            ticks = [json.loads(line) for line in f]
+        kimg = state.nimg // 1000
+        ema, config = checkpoints.load_snapshot(
+            os.path.join(run_dir, f"network-snapshot-{kimg:06d}.pt"))
+        fresh = training_net(torch.bfloat16, "cuda", dropout=0.10)
+        back = checkpoints.load_state(
+            os.path.join(run_dir, f"training-state-{kimg:06d}.pt"),
+            like=TrainState.create(fresh, train_cfg))
+    losses = [t["Loss/loss"]["mean"] for t in ticks]
+    step_ms = [t["Timing/sec_per_kimg"]["mean"] * TRAIN_BATCH for t in ticks]
+    timed = sorted(step_ms[1:])
+    median = (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    sites = sum(n for _, _, n in SITES)
+    want = {"attention": sites * TRAIN_ROUNDS * TRAIN_STEPS,
+            "attention_bwd": sites * qk.BWD_LAUNCHES_PER_CALL * TRAIN_ROUNDS * TRAIN_STEPS}
+    per_micro = lambda rows: sum(r["ms"] * n for r, (_, _, n) in zip(rows, SITES))
+    fwd_ms, bwd_ms = per_micro(fwd_rows) * TRAIN_ROUNDS, per_micro(bwd_rows) * TRAIN_ROUNDS
+    print(f"training main path: training_loop, ImageNet-64 ADM bf16 compute / fp32 parameters, "
+          f"batch {TRAIN_BATCH} as {TRAIN_ROUNDS} x {micro}, dropout 0.10, Adam: step ms "
+          f"{[round(m, 1) for m in step_ms]} (first is the warm step), median of the timed "
+          f"{median:.1f} ms = {TRAIN_BATCH / median * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, "
+          f"losses {[round(x, 4) for x in losses]}, attention kernels per step (timed alone at "
+          f"batch {micro}, summed over the {sites} sites and {TRAIN_ROUNDS} rounds): forward "
+          f"{fwd_ms:.1f} ms = {fwd_ms / median:.1%}, backward {bwd_ms:.1f} ms = "
+          f"{bwd_ms / median:.1%} of a step, launches {launches} [{tag}]")
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{name} launched {n} times in training, expected "
+                                 f"{want.get(name, 0)}")
+    if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))):
+        raise AssertionError(f"training losses are not finite: {losses}")
+    if state.nimg != TRAIN_BATCH * TRAIN_STEPS or back.nimg != state.nimg:
+        raise AssertionError(f"nimg is {state.nimg} / {back.nimg} after {TRAIN_STEPS} steps")
+    moved = [(p.detach().cpu() - before[n]).abs().max().item()
+             for n, p in state.net.named_parameters()]
+    ema_moved = [(p.detach().cpu() - before[n]).abs().max().item()
+                 for n, p in state.ema.named_parameters()]
+    if not (min(moved) > 0 and max(ema_moved) > 0
+            and all(torch.isfinite(p).all() for p in state.net.parameters())):
+        raise AssertionError("training left a parameter or the EMA where it was, or not finite")
+    if config["ckpt_format_version"] != checkpoints.CKPT_FORMAT_VERSION or not all(
+            torch.equal(ema[n], p.detach().cpu()) for n, p in state.ema.state_dict().items()):
+        raise AssertionError("the snapshot read back differs from the EMA")
+    same = all(torch.equal(a, b) for mod in ("net", "ema") for a, b in zip(
+        getattr(back, mod).parameters(), getattr(state, mod).parameters()))
+    same = same and all(
+        torch.equal(a["exp_avg"], b["exp_avg"]) and torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+        and a["step"] == b["step"]
+        for a, b in zip(back.opt.state.values(), state.opt.state.values()))
+    if not same:
+        raise AssertionError("the state dump read back differs from the training state")
+    print(f"  snapshot and state dump written, read back and equal; parameters moved by "
+          f"{min(moved):.2e} ... {max(moved):.2e}, EMA by up to {max(ema_moved):.2e}; "
+          f"nimg {state.nimg}")
+    del state, back, net, fresh
+    torch.cuda.empty_cache()
+    return {"launches": launches["attention_bwd"], "forward_launches": launches["attention"],
+            "step_ms": step_ms, "img_per_s": TRAIN_BATCH / median * 1e3, "peak_gib": peak}
+
+
+def training_phases(tag: str, edm_line: dict) -> dict:
+    """Phase 5: the training path of the EDM backend."""
+    print("attention backward kernels vs plain:")
+    micro = TRAIN_BATCH // TRAIN_ROUNDS
+    main_rows = [check_attention_bwd(micro, t, heads, torch.bfloat16, tag) for t, heads, _ in SITES]
+    rows = main_rows + [check_attention_bwd(micro, 256, 9, torch.float32, tag)]
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    q, k, v, g = (torch.randn((2, 4096, 8, 40), device="cuda", generator=gen).bfloat16()
+                  for _ in range(4))
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    out = qk.attention(*leaves)
+    got = torch.autograd.grad(out, leaves, g)
+    ref = qk.attention_bwd_plain(q.detach(), k.detach(), v.detach(), out.detach(), g)
+    err = max(rel_err(a, r)[1] for a, r in zip(got, ref))
+    print(f"  attention_bwd [2,4096,8,40] bfloat16 through attention's backward(): "
+          f"max_rel={err:.3e} (tol {TOL[torch.bfloat16]})")
+    if err > TOL[torch.bfloat16]:
+        raise AssertionError(f"attention's backward disagrees with its plain version: {err}")
+    del q, k, v, g, leaves, out, got, ref
+    print("gradients through the forward-only kernels' wrappers:")
+    check_twin_gradients()
+    check_training_forward_backward()
+
+    if importlib.util.find_spec("PIL") is not None:
+        from PIL import Image
+
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "data")
+            os.makedirs(data)
+            for i in range(2):
+                Image.fromarray(np.full((64, 64, 3), 40 * i, np.uint8)).save(
+                    os.path.join(data, f"img{i}.png"))
+            train_cli.main(["--outdir", os.path.join(tmp, "runs"), "--data", data, "--arch",
+                            "adm", "--augment", "0", "--bf16", "1", "--dry-run"])
+    else:
+        print("training CLI dry run left out: it reads a PNG folder and PIL is not installed")
+
+    fwd_rows = [r for r in edm_line["shapes"]
+                if r["shape"][0] == micro and r["dtype"] == "bfloat16"]
+    run = check_training_loop(tag, fwd_rows, main_rows)
+    per_backward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, SITES))
+    edm_line["training_launches"] = run["forward_launches"]
+    return {
+        "name": "attention_bwd", "route": "cuda",
+        "source": "diffusion_tts_torch/csrc/attention_bwd.cu",
+        "replaces": "diffusion_tts_tpu/ops/pallas/attention.py:303",
+        "launches": run["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        # times: the 22 attention sites of one bf16 backward at the training
+        # micro-batch (16), summed; each call is its two launches plus the
+        # row term delta
+        "ms": per_backward("ms"), "plain_ms": per_backward("plain_ms"),
+        "bound_ms": per_backward("bound_ms"),
+        "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": per_backward("library_ms"),
+        "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
+        "train_peak_gib": run["peak_gib"], "shapes": rows,
+    }
+
+
 def decode_routing(vae: sd_vae.AutoencoderKL, hw: int) -> dict:
     """Kernel calls of one VAE decode of hw x hw latents, from the decoder's
     modules in forward order and the routing predicates."""
@@ -529,19 +859,20 @@ def sd_phases(tag: str) -> list[dict]:
     # routing predicates (the UNet never exceeds 64x64: none of its convs is
     # routed, every GroupNorm module of it is one standalone call)
     count = lambda mod, cls: sum(isinstance(m, cls) for m in mod.modules())
-    zero = {"group_norm_stats": 0, "conv3x3_same": 0, "conv3x3_up2": 0}
+    zero = {"attention_bwd": 0, "group_norm_stats": 0, "conv3x3_same": 0, "conv3x3_up2": 0}
     per_unet = {"attention": count(pipe16.unet, sd_layers.BasicTransformerBlock),
                 "group_norm_silu": count(pipe16.unet, sd_layers.GroupNorm),
                 "geglu_ff": count(pipe16.unet, sd_layers.FeedForward), **zero}
-    per_decode = {"attention": count(pipe16.vae, sd_vae.VAEAttention), "geglu_ff": 0,
-                  **decode_routing(pipe16.vae, SD15_UNET["sample_size"])}
+    per_decode = {"attention": count(pipe16.vae, sd_vae.VAEAttention), "attention_bwd": 0,
+                  "geglu_ff": 0, **decode_routing(pipe16.vae, SD15_UNET["sample_size"])}
     if per_unet != {"attention": 16, "group_norm_silu": 61, "geglu_ff": 16, **zero} or \
-            per_decode != {"attention": 1, "geglu_ff": 0, "group_norm_silu": 12,
+            per_decode != {"attention": 1, "attention_bwd": 0, "geglu_ff": 0, "group_norm_silu": 12,
                            "group_norm_stats": 18, "conv3x3_same": 18, "conv3x3_up2": 3}:
         raise AssertionError(f"unexpected SD-1.5 architecture or routing: {per_unet} {per_decode}")
     if count(pipe16.vae, sd_layers.GroupNorm) != 30:
         raise AssertionError("the VAE decoder should hold 30 GroupNorm modules")
-    per_call = {"attention": 1, "group_norm_silu": gn.LAUNCHES_PER_CALL,
+    per_call = {"attention": 1, "attention_bwd": qk.BWD_LAUNCHES_PER_CALL,
+                "group_norm_silu": gn.LAUNCHES_PER_CALL,
                 "geglu_ff": gg.LAUNCHES_PER_CALL, "group_norm_stats": gn.LAUNCHES_PER_CALL,
                 "conv3x3_same": 1, "conv3x3_up2": 1}
     forwards, decodes = SD_STEPS * (1 + SD_K), SD_STEPS * SD_K + 1
@@ -647,10 +978,11 @@ def main() -> None:
     for name, (secs, log) in built.items():
         print(f"  {name}: nvcc {secs:.2f} s\n" + "\n".join("    " + ln for ln in log.splitlines()))
 
-    # -- 3, 4. EDM; 5, 6. SD
-    kernels = [edm_phases(tag)] + sd_phases(tag)
+    # -- 3, 4. EDM; 5. training; 6, 7. SD
+    edm_line = edm_phases(tag)
+    kernels = [edm_line, training_phases(tag, edm_line)] + sd_phases(tag)
 
-    # -- 7. the kernel line, then the result line
+    # -- 8. the kernel line, then the result line
     if args.kernels_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:

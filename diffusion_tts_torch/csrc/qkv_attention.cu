@@ -46,6 +46,11 @@
 //     64 x 64 tiles, 49,920 bytes and layout.
 //   * Explicit (batch, token, head) strides for q, k, v and o: the same
 //     code serves the [B, T, 3C] qkv layout and a [B, T, H, D] layout.
+//   * Training: the block already holds each row's running maximum and sum,
+//     so on request it writes the row's log2-sum-exp2 (fp32 [B, H, T]) for the
+//     backward kernels (csrc/attention_bwd.cu), which then need no statistics
+//     pass of their own (the TPU forward saves none, and its backward starts
+//     with one more q.k^T pass). A null pointer, as in serving, writes nothing.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -105,7 +110,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int t,
                  int64_t in_sb, int64_t in_st, int64_t in_sh,
                  int64_t out_sb, int64_t out_st, int64_t out_sh,
-                 float scale_log2e) {
+                 float scale_log2e, float* __restrict__ lse) {
   using C = Tiles<D, BQ, BK>;
   extern __shared__ float smem[];
   float* qs = smem;                  // [BQ][kPitch]
@@ -210,6 +215,10 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
     int row = q0 + ty + 16 * i;
     if (row < t) {
+      // Training: the row's log2-sum-exp2 of the scaled scores, [B, H, T],
+      // from which the backward recomputes P = exp2(s * scale_log2e - lse).
+      if (lse != nullptr && tx == 0)
+        lse[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t + row] = m[i] + log2f(li);
 #pragma unroll
       for (int j = 0; j < C::kCols; ++j) {
         int col = tx + 16 * j;
@@ -222,7 +231,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D, int BQ, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int h,
                    int t, int64_t in_sb, int64_t in_st, int64_t in_sh, int64_t out_sb,
-                   int64_t out_st, int64_t out_sh, float scale_log2e, cudaStream_t stream) {
+                   int64_t out_st, int64_t out_sh, float scale_log2e, float* lse,
+                   cudaStream_t stream) {
   constexpr int smem = Tiles<D, BQ, BK>::kSmemBytes;
   // Every width's tiles are above the 48 KB default; the attribute is per
   // device, so it is set on every launch.
@@ -232,7 +242,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   dim3 grid((t + BQ - 1) / BQ, h, b);
   attention_kernel<T, D, BQ, BK><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), t, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale_log2e);
+      static_cast<T*>(o), t, in_sb, in_st, in_sh, out_sb, out_st, out_sh, scale_log2e, lse);
   return cudaGetLastError();
 }
 
@@ -240,13 +250,13 @@ template <int D, int BQ, int BK>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o,
                          int b, int h, int t, int64_t in_sb, int64_t in_st, int64_t in_sh,
                          int64_t out_sb, int64_t out_st, int64_t out_sh, float scale_log2e,
-                         cudaStream_t s) {
+                         float* lse, cudaStream_t s) {
   if (dtype == 0)
     return launch<float, D, BQ, BK>(q, k, v, o, b, h, t, in_sb, in_st, in_sh, out_sb, out_st,
-                                    out_sh, scale_log2e, s);
+                                    out_sh, scale_log2e, lse, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, D, BQ, BK>(q, k, v, o, b, h, t, in_sb, in_st, in_sh, out_sb,
-                                            out_st, out_sh, scale_log2e, s);
+                                            out_st, out_sh, scale_log2e, lse, s);
   return cudaErrorInvalidValue;
 }
 
@@ -254,17 +264,19 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16,
 // 32, 40, 64, 80, 160, 512. Strides are in elements, the head width's stride being 1.
-// Returns the launch's cudaError_t (0 on success); the caller raises on
-// anything else.
+// lse: null when serving; when training, an fp32 [B, H, T] buffer that takes
+// each row's log2-sum-exp2 of the scaled scores for the backward kernels
+// (csrc/attention_bwd.cu). Returns the launch's cudaError_t (0 on success);
+// the caller raises on anything else.
 extern "C" int dtts_attention(const void* q, const void* k, const void* v, void* o,
                               int dtype, int d, int b, int h, int t, int64_t in_sb,
                               int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
-                              int64_t out_sh, float scale_log2e, void* stream) {
+                              int64_t out_sh, float scale_log2e, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DTTS_ATTN(D, BQ, BK)                                                                 \
   case D:                                                                                    \
     return launch_dtype<D, BQ, BK>(dtype, q, k, v, o, b, h, t, in_sb, in_st, in_sh, out_sb,  \
-                                   out_st, out_sh, scale_log2e, s);
+                                   out_st, out_sh, scale_log2e, lse, s);
   switch (d) {
     DTTS_ATTN(4, 64, 64)
     DTTS_ATTN(8, 64, 64)

@@ -4,9 +4,12 @@ diffusion_tts_tpu/models/layers.py).
 Behavioural counterparts of the reference's primitive modules
 (edm/training/networks.py:30-187), with the JAX package's numerics:
 
-  * Linear and conv weights live in the module's compute dtype (the JAX
-    package keeps fp32 parameters and casts them per use; rounding once at
-    load time gives the same values),
+  * Linear and conv weights are stored in ``param_dtype`` and cast to the
+    compute ``dtype`` per use, as the JAX package's flax modules do. Serving
+    keeps ``param_dtype = dtype`` (the default): the weights are rounded once
+    at load time, which gives the same values at half the memory. Training
+    in bf16 keeps fp32 parameters (``param_dtype=torch.float32``), so that
+    the optimizer updates unrounded weights and gets fp32 gradients,
   * GroupNorm statistics and affine run in fp32 and the result is cast back,
   * attention softmax runs in fp32 (ops/attention.py).
 
@@ -45,18 +48,21 @@ class EDMLinear(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  init_mode: str = "kaiming_normal", init_weight: float = 1.0,
-                 init_bias: float = 0.0, dtype: torch.dtype = torch.float32):
+                 init_bias: float = 0.0, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=dtype))
+        param_dtype = param_dtype or dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, dtype=param_dtype))
         _init_(self.weight, init_mode, init_weight, in_features, out_features)
         self.bias = None
         if bias:
-            self.bias = nn.Parameter(torch.empty(out_features, dtype=dtype))
+            self.bias = nn.Parameter(torch.empty(out_features, dtype=param_dtype))
             _init_(self.bias, init_mode, init_bias, in_features, out_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class EDMConv(nn.Module):
@@ -68,32 +74,34 @@ class EDMConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel: int, bias: bool = True,
                  up: bool = False, down: bool = False, init_mode: str = "kaiming_normal",
                  init_weight: float = 1.0, init_bias: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None):
         super().__init__()
         assert not (up and down)
         self.up, self.down, self.dtype = up, down, dtype
         self.out_channels = out_channels
         self.weight = self.bias = None
+        param_dtype = param_dtype or dtype
         if kernel:
             fan_in, fan_out = in_channels * kernel * kernel, out_channels * kernel * kernel
             self.weight = nn.Parameter(
-                torch.empty(out_channels, in_channels, kernel, kernel, dtype=dtype))
+                torch.empty(out_channels, in_channels, kernel, kernel, dtype=param_dtype))
             _init_(self.weight, init_mode, init_weight, fan_in, fan_out)
             if bias:
-                self.bias = nn.Parameter(torch.empty(out_channels, dtype=dtype))
+                self.bias = nn.Parameter(torch.empty(out_channels, dtype=param_dtype))
                 _init_(self.bias, init_mode, init_bias, fan_in, fan_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        w = self.weight
+        w = None if self.weight is None else self.weight.to(self.dtype)
+        bias = None if self.bias is None else self.bias.to(self.dtype)
         if self.up and w is not None and w.shape[-1] == 3:
-            return nn_upsample2x_conv3x3(x, w, self.bias)
+            return nn_upsample2x_conv3x3(x, w, bias)
         if self.up:
             x = torch.repeat_interleave(torch.repeat_interleave(x, 2, dim=2), 2, dim=3)
         if self.down:
             x = F.avg_pool2d(x, 2)
         if w is not None:
-            x = F.conv2d(x, w, self.bias, padding=w.shape[-1] // 2)
+            x = F.conv2d(x, w, bias, padding=w.shape[-1] // 2)
         return x
 
 
@@ -166,16 +174,20 @@ class UNetBlock(nn.Module):
     slice of the port. The qkv projection's output channels are in
     (q|k|v, head, d) order: models/torch_import.py de-interleaves the
     reference's ((head, d), 3) layout at load time, so the kernel reads q,
-    k and v as contiguous thirds."""
+    k and v as contiguous thirds.
+
+    Dropout is active in ``train()`` mode with ``dropout > 0`` and draws
+    its keep mask from the ``generator`` handed to ``forward``, never from
+    the global RNG."""
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  up: bool = False, down: bool = False, attention: bool = False,
                  channels_per_head: int = 64, dropout: float = 0.0, eps: float = 1e-5,
                  init: dict | None = None, init_zero: dict | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None):
         super().__init__()
-        init = dict(init or {})
-        init_zero = dict(init_zero or {"init_weight": 0.0})
+        init = dict(init or {}, param_dtype=param_dtype)
+        init_zero = dict(init_zero or {"init_weight": 0.0}, param_dtype=param_dtype)
         self.out_channels = out_channels
         self.num_heads = out_channels // channels_per_head if attention else 0
         self.dropout, self.dtype = dropout, dtype
@@ -196,12 +208,17 @@ class UNetBlock(nn.Module):
             self.qkv = EDMConv(out_channels, out_channels * 3, 1, dtype=dtype, **init)
             self.proj = EDMConv(out_channels, out_channels, 1, dtype=dtype, **init_zero)
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         orig = x
         x = self.conv0(self.norm0(x))
         scale, shift = self.affine(emb).to(x.dtype).chunk(2, dim=1)  # [B, C] each
         x = self.norm1(x, scale, shift)
-        x = F.dropout(x, p=self.dropout, training=self.training)
+        if self.training and self.dropout > 0.0:
+            if generator is None:
+                raise ValueError("dropout in train() mode needs a generator")
+            keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.dropout
+            x = x * keep.to(x.dtype) / (1.0 - self.dropout)
         x = self.conv1(x)
         skip = self.skip(orig) if self.skip is not None else orig
         x = x + skip

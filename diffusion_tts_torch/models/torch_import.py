@@ -10,10 +10,13 @@ Two sources, both given as ``{name: numpy array}``:
   * ``state_dict_from_flax``: the JAX package's flax parameter tree, whose
     qkv is already de-interleaved: ``enc_<name>`` -> ``enc.<name>``, conv
     kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in],
-    ``scale`` -> ``weight``.
+    ``scale`` -> ``weight``. ``flax_from_state_dict`` is its inverse, for
+    carrying trained weights back.
 
-Both produce the port's ``state_dict``; ``load_into`` loads one and fails
-loudly on a missing or extra key. ``random_state_dict`` makes random
+The ADM's ``map_augment`` (augment_dim > 0) is an ordinary bias-free dense
+layer in both layouts and needs no rule of its own. Both sources produce the
+port's ``state_dict``; ``load_into`` loads one and fails loudly on a missing
+or extra key. ``random_state_dict`` makes random
 weights for any module from a numpy seed.
 """
 from __future__ import annotations
@@ -84,10 +87,47 @@ def state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
         name = ".".join(path[:-1] + [leaf])
         if name in out:
             raise ValueError(f"duplicate parameter {name}")
-        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+        # a copy: the leaf may be a read-only view of a JAX array, and the
+        # tensor may be updated in place (Adam's moments of a carried state)
+        out[name] = torch.from_numpy(np.array(value))
 
     walk(params, [])
     return out
+
+
+def flax_from_state_dict(state: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state dict -> the flax ``params`` tree (numpy leaves): the
+    inverse of ``state_dict_from_flax``. A 1-D ``weight`` is a norm's
+    ``scale``; ``enc.<name>`` / ``dec.<name>`` become ``enc_<name>`` /
+    ``dec_<name>``."""
+    tree: dict = {}
+    for name, value in state.items():
+        value = value.detach().float().cpu().numpy()
+        *path, leaf = name.split(".")
+        if leaf == "weight":
+            if value.ndim == 4:
+                leaf, value = "kernel", value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            elif value.ndim == 2:
+                leaf, value = "kernel", value.T
+            elif value.ndim == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"unexpected weight rank at {name}: {value.shape}")
+        elif leaf != "bias":
+            raise ValueError(f"unmapped leaf {name}")
+        merged, i = [], 0
+        while i < len(path):
+            if path[i] in ("enc", "dec") and i + 1 < len(path):
+                merged.append(f"{path[i]}_{path[i + 1]}")
+                i += 2
+            else:
+                merged.append(path[i])
+                i += 1
+        node = tree
+        for key in merged:
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return tree
 
 
 def random_state_dict(net: torch.nn.Module, seed: int = 0) -> dict[str, torch.Tensor]:
@@ -121,5 +161,6 @@ def load_into(module: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module
     return module
 
 
-__all__ = ["load_reference_state_dict", "state_dict_from_flax", "load_into",
+__all__ = ["load_reference_state_dict", "state_dict_from_flax", "flax_from_state_dict",
+           "load_into",
            "random_state_dict"]

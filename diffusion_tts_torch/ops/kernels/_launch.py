@@ -1,6 +1,7 @@
 """What every kernel wrapper of the port does around a launch: bind the C
 function of a built library, check the tensors it is handed, find the
-current stream, and raise on a failed launch."""
+current stream, raise on a failed launch, and give a forward-only kernel
+its gradient."""
 from __future__ import annotations
 
 import ctypes
@@ -46,4 +47,50 @@ def raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
 
 
-__all__ = ["DTYPE_CODES", "PTR", "INT", "I64", "F32", "bind", "check", "stream", "raise_on"]
+class _TwinBackward(torch.autograd.Function):
+    """Forward: ``kernel(*args)``. Backward: autograd through
+    ``plain(*args)``, recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
+        ctx.others = [None if t else a for a, t in zip(args, ctx.is_tensor)]
+        ctx.save_for_backward(*(a for a, t in zip(args, ctx.is_tensor) if t))
+        return kernel(*args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        saved = iter(ctx.saved_tensors)
+        args = [next(saved).detach() if t else o for t, o in zip(ctx.is_tensor, ctx.others)]
+        wanted = [i for i, need in enumerate(ctx.needs_input_grad[2:]) if need]
+        for i in wanted:
+            args[i].requires_grad_(True)
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+        outs, grads = zip(*((o, g) for o, g in zip(
+            (out,) if isinstance(out, torch.Tensor) else out, grads) if o.requires_grad))
+        got = torch.autograd.grad(outs, [args[i] for i in wanted], grads, allow_unused=True)
+        result = [None] * len(args)
+        for i, g in zip(wanted, got):
+            result[i] = g
+        return (None, None, *result)
+
+
+def with_twin_backward(kernel, plain, *args):
+    """``kernel(*args)``, differentiable. The JAX package gives its
+    forward-only Pallas kernels the VJP of their jnp reference; likewise
+    here the forward is the kernel and the gradient is autograd's through
+    the plain twin ``plain(*args)``, recomputed from the saved inputs (one
+    more forward of the twin per backward, no saved intermediates). ``args``
+    are tensors, None or plain values, positionally the same for both
+    callables. Without a gradient to compute this is just the kernel call."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return _TwinBackward.apply(kernel, plain, *args)
+    return kernel(*args)
+
+
+__all__ = ["with_twin_backward", "DTYPE_CODES", "PTR", "INT", "I64", "F32", "bind", "check",
+           "stream", "raise_on"]

@@ -29,7 +29,10 @@ A CPU tensor goes through the plain twin; a CUDA tensor goes through the
 kernel or the call raises. Each call repacks its weight into the kernel's
 ``[tap, K, C]`` layout with a tensor copy (up2: folds the phase kernels
 first); those are not kernel launches. ``SAME_LAUNCHES`` and
-``UP2_LAUNCHES`` count kernel launches, one per call. Forward only.
+``UP2_LAUNCHES`` count kernel launches, one per call. The kernels are
+forward-only, as the Pallas ones are; the gradient is autograd's through the
+plain twin (``_launch.with_twin_backward``), the counterpart of the JAX
+package's ``custom_vjp`` over the jnp reference.
 
 Routing (counterparts of ``pallas_conv3_shape_eligible``,
 ``pallas_conv3_eligible``, ``pallas_shortcut_eligible`` and
@@ -197,15 +200,28 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
     memory. Optional epilogue: + bias [K], then + residual [B, K, H, W] or
     + the 1x1 projection of ``shortcut = (sc_x [B, Cres, H, W], sc_w
     [K, Cres])`` (its own bias folded into ``bias`` by the caller)."""
-    global SAME_LAUNCHES
     if (gn_scale is None) != (gn_shift is None):
         raise ValueError("gn_scale and gn_shift must be given together")
     if shortcut is not None and residual is not None:
         raise ValueError("shortcut and residual exclude each other (the shortcut is the skip)")
-    b, c, h, w, k = _check_conv(x, weight, bias, "conv3x3_same")
+    _check_conv(x, weight, bias, "conv3x3_same")
     if x.device.type == "cpu":
         return conv3x3_same_plain(x, weight, bias, residual, gn_scale=gn_scale,
                                   gn_shift=gn_shift, shortcut=shortcut)
+    sc_x, sc_w = shortcut if shortcut is not None else (None, None)
+    return _launch.with_twin_backward(_same_kernel, _same_plain, x, weight, bias, residual,
+                                      gn_scale, gn_shift, sc_x, sc_w)
+
+
+def _same_plain(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w):
+    return conv3x3_same_plain(x, weight, bias, residual, gn_scale=gn_scale, gn_shift=gn_shift,
+                              shortcut=None if sc_x is None else (sc_x, sc_w))
+
+
+def _same_kernel(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w):
+    global SAME_LAUNCHES
+    b, c, h, w = x.shape
+    k = weight.shape[0]
     if residual is not None:
         _like(residual, x, (b, k, h, w), "residual")
     if gn_scale is not None:
@@ -214,10 +230,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
                              f"{list(gn_scale.shape)} and {list(gn_shift.shape)}")
         gn_scale = gn_scale.to(device=x.device, dtype=torch.float32).contiguous()
         gn_shift = gn_shift.to(device=x.device, dtype=torch.float32).contiguous()
-    sc_x = sc_w = None
     cres = 0
-    if shortcut is not None:
-        sc_x, sc_w = shortcut
+    if sc_x is not None:
         cres = sc_x.shape[1]
         _like(sc_x, x, (b, cres, h, w), "shortcut input")
         _like(sc_w, x, (k, cres), "shortcut weight")
@@ -237,10 +251,16 @@ def conv3x3_up2(x: torch.Tensor, weight: torch.Tensor,
     """conv3x3_pad1(nearest_upsample_2x(x)) for x [B, C, H, W] and weight
     [K, C, 3, 3], as the four 2x2 phase convs on the un-upsampled input with
     fp32 accumulation, written straight to [B, K, 2H, 2W] in x.dtype."""
-    global UP2_LAUNCHES
-    b, c, h, w, k = _check_conv(x, weight, bias, "conv3x3_up2")
+    _check_conv(x, weight, bias, "conv3x3_up2")
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias)
+    return _launch.with_twin_backward(_up2_kernel, conv3x3_up2_plain, x, weight, bias)
+
+
+def _up2_kernel(x, weight, bias):
+    global UP2_LAUNCHES
+    b, c, h, w = x.shape
+    k = weight.shape[0]
     # [4K, C, 2, 2] (phase-major) -> [phase, r, s, K, C]
     packed = phase_kernels(weight).view(4, k, c, 2, 2).permute(0, 3, 4, 1, 2).contiguous()
     out = torch.empty((b, k, 2 * h, 2 * w), dtype=x.dtype, device=x.device)

@@ -9,7 +9,9 @@ Weights are in PyTorch's ``[out, in]`` layout, as ``nn.Linear`` keeps them:
 w0 ``[2F, C]`` (h rows, then gate rows), w2 ``[C, F]``; x, the weights and
 the biases share one dtype. A CPU tensor goes through the plain PyTorch
 version; a CUDA tensor goes through the kernel or the call raises.
-``LAUNCHES`` counts kernel launches, two per call (gate, then out).
+``LAUNCHES`` counts kernel launches, two per call (gate, then out). The
+kernels are forward-only, as the Pallas ones are; the gradient is autograd's
+through the plain twin (``_launch.with_twin_backward``).
 """
 from __future__ import annotations
 
@@ -42,9 +44,13 @@ def geglu_ff(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tens
              b2: torch.Tensor) -> torch.Tensor:
     """(h * gelu(gate)) . w2^T + b2 with [h | gate] = x . w0^T + b0.
     x: [..., C]; returns x.shape in x.dtype."""
-    global LAUNCHES
     if x.device.type == "cpu":
         return geglu_ff_plain(x, w0, b0, w2, b2)
+    return _launch.with_twin_backward(_geglu_ff_kernel, geglu_ff_plain, x, w0, b0, w2, b2)
+
+
+def _geglu_ff_kernel(x, w0, b0, w2, b2):
+    global LAUNCHES
     c = x.shape[-1]
     f = w2.shape[-1]
     for name, t, shape in (("w0", w0, (2 * f, c)), ("b0", b0, (2 * f,)), ("w2", w2, (c, f)),

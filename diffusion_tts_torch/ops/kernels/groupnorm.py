@@ -11,7 +11,10 @@ clamped at 0, as ``_gn_kernel`` takes them. scale/bias are ``[C]`` or
 per-sample ``[B, C]``; ``pre`` ``[B, C]`` is added to x before the
 statistics. A CPU tensor goes through the plain PyTorch version; a CUDA
 tensor goes through the kernel or the call raises. ``LAUNCHES`` counts
-kernel launches, two per call (moments, then normalize).
+kernel launches, two per call (moments, then normalize). The kernels are
+forward-only, as the Pallas ones are; the gradient is autograd's through the
+plain twin (``_launch.with_twin_backward``), the counterpart of the JAX
+package's ``custom_vjp`` over the jnp reference.
 
 ``group_norm_stats`` replaces groupnorm.py::group_norm_stats (Pallas kernel
 ``_gn_stats_kernel``): the statistics alone, from one read of x, as the
@@ -67,11 +70,20 @@ def _affine(v: torch.Tensor, b: int, c: int, x: torch.Tensor, name: str) -> torc
     return v.to(device=x.device, dtype=torch.float32).contiguous()
 
 
+def _plain(x, scale, bias, pre, groups, eps, apply_silu):
+    return group_norm_silu_plain(x, scale, bias, groups=groups, eps=eps,
+                                 apply_silu=apply_silu, pre=pre)
+
+
 def _group_norm(x, scale, bias, pre, groups, eps, apply_silu):
-    global LAUNCHES
     if x.device.type == "cpu":
-        return group_norm_silu_plain(x, scale, bias, groups=groups, eps=eps,
-                                     apply_silu=apply_silu, pre=pre)
+        return _plain(x, scale, bias, pre, groups, eps, apply_silu)
+    return _launch.with_twin_backward(_group_norm_kernel, _plain, x, scale, bias, pre, groups,
+                                      eps, apply_silu)
+
+
+def _group_norm_kernel(x, scale, bias, pre, groups, eps, apply_silu):
+    global LAUNCHES
     _launch.check(x, "group_norm_silu")
     if x.ndim < 3:
         raise ValueError(f"x must be [B, C, ...], got {tuple(x.shape)}")
@@ -137,14 +149,20 @@ def group_norm_stats(x: torch.Tensor, *, groups: int,
                      eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
     """(mean, rstd) of each channel's group, two fp32 [B, C] tensors, for x
     [B, C, ...]; x is read once."""
-    global STATS_LAUNCHES
     if x.ndim < 3:
         raise ValueError(f"x must be [B, C, ...], got {tuple(x.shape)}")
-    b, c = x.shape[:2]
+    c = x.shape[1]
     if groups <= 0 or c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
+    plain = lambda x, groups, eps: group_norm_stats_plain(x, groups=groups, eps=eps)
     if x.device.type == "cpu":
-        return group_norm_stats_plain(x, groups=groups, eps=eps)
+        return plain(x, groups, eps)
+    return _launch.with_twin_backward(_group_norm_stats_kernel, plain, x, groups, eps)
+
+
+def _group_norm_stats_kernel(x: torch.Tensor, groups: int, eps: float):
+    global STATS_LAUNCHES
+    b, c = x.shape[:2]
     _launch.check(x, "group_norm_stats")
     hw = math.prod(x.shape[2:])
     chunks = -(-hw // CHUNK)

@@ -237,3 +237,110 @@ def test_conv_kernels_refuse_what_they_do_not_take(card):
         cv.conv3x3_up2(x, torch.zeros((128, 64, 3, 3), device=card))
     with pytest.raises(ValueError, match="groups"):
         gn.group_norm_stats(torch.zeros((1, 30, 4, 4), device=card), groups=32)
+
+
+# ------------------------------------------------------------- the backward
+
+
+def _rel(a, b):
+    """max |a - b| over the largest magnitude of b."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,heads,d", [(64, 12, 64), (256, 9, 64), (1024, 6, 64), (100, 3, 64),
+                                        (3, 1, 64), (200, 2, 40), (77, 2, 160), (50, 3, 8)])
+def test_attention_bwd_matches_plain(card, t, heads, d, dtype):
+    """dq, dk and dv of the backward kernels against the plain twin, each
+    within the forward's tolerance of that gradient's largest magnitude; the
+    row statistic comes from the forward kernel. Ragged tiles included."""
+    q, k, v, g = (_randn((2, t, heads, d), dtype, card, s) for s in range(4))
+    o = qk.attention(q, k, v)
+    before = qk.BWD_LAUNCHES
+    got = qk.attention_bwd(q, k, v, o, g)
+    torch.cuda.synchronize()
+    assert qk.BWD_LAUNCHES == before + qk.BWD_LAUNCHES_PER_CALL
+    for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _rel(a, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_qkv_attention_gradient_on_the_card(card, dtype):
+    """backward() through qkv_self_attention on the card: the gradient lands
+    in one [B, T, 3C] tensor, equals the twin's, is the same from run to run
+    (no atomics), and no_grad launches nothing but the forward."""
+    qkv = _qkv(2, 256, 9, dtype, card).requires_grad_(True)
+    g = _randn((2, 256, 9 * 64), dtype, card, 5).reshape(2, 16, 16, -1).permute(0, 3, 1, 2)
+    g = g.permute(0, 2, 3, 1).reshape(2, 256, -1)  # as it arrives from the model's permute
+    fwd, bwd = qk.LAUNCHES, qk.BWD_LAUNCHES
+    out = qk.qkv_self_attention(qkv, 9)
+    (grad,) = torch.autograd.grad(out, qkv, g)
+    (again,) = torch.autograd.grad(qk.qkv_self_attention(qkv, 9), qkv, g)
+    assert (qk.LAUNCHES, qk.BWD_LAUNCHES) == (fwd + 2, bwd + 2 * qk.BWD_LAUNCHES_PER_CALL)
+    assert torch.equal(grad, again)
+    x = qkv.detach().clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad(qk.qkv_self_attention_plain(x, 9), x, g)
+    limit = TOL[dtype] if dtype == torch.float32 else 4e-2  # autograd's bf16 cast points differ
+    assert _rel(grad, ref) <= limit
+    with torch.no_grad():
+        qk.qkv_self_attention(qkv, 9)
+    assert qk.BWD_LAUNCHES == bwd + 2 * qk.BWD_LAUNCHES_PER_CALL
+
+
+@pytest.mark.cuda
+def test_attention_bwd_refuses_the_vae_head(card):
+    q = _randn((1, 64, 1, 512), torch.bfloat16, card, 0).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="head widths"):
+        qk.attention(q, q, q).sum().backward()
+
+
+def _grads_match(kernel_fn, plain_fn, tensors, dtype):
+    """backward() through a kernel wrapper reaches every tensor and equals
+    the twin's gradient."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+    out = kernel_fn(*leaves)
+    outs = (out,) if isinstance(out, torch.Tensor) else out
+    gs = [_randn(o.shape, o.dtype, o.device, 11 + i) for i, o in enumerate(outs)]
+    got = torch.autograd.grad(outs, leaves, gs)
+    ref_leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+    ref_out = plain_fn(*ref_leaves)
+    ref = torch.autograd.grad((ref_out,) if isinstance(ref_out, torch.Tensor) else ref_out,
+                              ref_leaves, gs)
+    for a, r in zip(got, ref):
+        assert a is not None and torch.isfinite(a).all()
+        assert _rel(a, r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_only_kernels_take_the_twins_gradient(card, dtype):
+    x = _randn((2, 64, 12, 12), dtype, card, 1)
+    w, b, pre = (_randn(s, torch.float32, card, i) for i, s in ((2, (64,)), (3, (64,)),
+                                                                 (4, (2, 64))))
+    _grads_match(lambda x, w, b: gn.group_norm_silu(x, w, b, groups=8),
+                 lambda x, w, b: gn.group_norm_silu_plain(x, w, b, groups=8), (x, w, b), dtype)
+    _grads_match(lambda x, w, b, p: gn.group_norm_silu_prebias(x, w, b, p, groups=8),
+                 lambda x, w, b, p: gn.group_norm_silu_plain(x, w, b, groups=8, pre=p),
+                 (x, w, b, pre), dtype)
+    _grads_match(lambda x: gn.group_norm_stats(x, groups=8),
+                 lambda x: gn.group_norm_stats_plain(x, groups=8), (x,), dtype)
+    m, c, f = 48, 32, 64
+    ff = (_randn((m, c), dtype, card, 5), _randn((2 * f, c), dtype, card, 6, c ** -0.5),
+          _randn((2 * f,), dtype, card, 7, 0.1), _randn((c, f), dtype, card, 8, f ** -0.5),
+          _randn((c,), dtype, card, 9, 0.1))
+    _grads_match(gg.geglu_ff, gg.geglu_ff_plain, ff, dtype)
+    cx, cw, cb = (_randn((2, 16, 10, 12), dtype, card, 10),
+                  _randn((24, 16, 3, 3), dtype, card, 11, 1 / 12), _randn((24,), dtype, card, 12))
+    sc = (_randn((2, 8, 10, 12), dtype, card, 13), _randn((24, 8), dtype, card, 14, 0.3))
+    gs = (1 + 0.3 * _randn((2, 16), torch.float32, card, 15),
+          0.1 * _randn((2, 16), torch.float32, card, 16))
+    _grads_match(
+        lambda x, w, b, s, t, sx, sw: cv.conv3x3_same(x, w, b, gn_scale=s, gn_shift=t,
+                                                      shortcut=(sx, sw)),
+        lambda x, w, b, s, t, sx, sw: cv.conv3x3_same_plain(x, w, b, gn_scale=s, gn_shift=t,
+                                                            shortcut=(sx, sw)),
+        (cx, cw, cb, *gs, *sc), dtype)
+    _grads_match(cv.conv3x3_up2, cv.conv3x3_up2_plain, (cx, cw, cb), dtype)
