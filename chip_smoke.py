@@ -12,12 +12,16 @@ Phases, each of which raises on failure (nothing is caught):
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
      plain and library (scaled_dot_product_attention, timed only here)
-     times beside the least time the card could take;
+     times beside the least time the card could take; each row names the
+     route its predicate gave (bf16: "mma", the tensor cores; fp32: "fma")
+     and, at bf16, times the CUDA-core "fma" route too (``fma_ms``: the
+     first design, from the same run), with the achieved TFLOP/s;
   4. EDM main path: the full-width ImageNet-64 EDMPrecond/DhariwalUNet in
      bf16 with random weights from a numpy seed, one forward held against
      the same weights in fp32 on the CPU, then eps-greedy search (18 steps,
      2 samples, N=4, K=2) through the entry point, with every kernel's
-     launches counted;
+     launches counted, each on the route its predicate gives (every one on
+     "mma");
   5. training (the EDM backend's): the attention backward kernels against
      their plain version at the flagship's [16, T, 3C] training shapes (bf16,
      each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
@@ -29,8 +33,8 @@ Phases, each of which raises on failure (nothing is caught):
      card against fp32 on the CPU and in bf16 compute with fp32 parameters;
      then ``training_loop`` at full width in bf16 on an in-memory dataset:
      batch 32 as 2 rounds of 16, dropout 0.10, 1 warm step and 4 timed steps,
-     the forward and backward launches counted, a snapshot and a state dump
-     written, read back and held equal;
+     the forward and backward launches counted (the forward's on "mma"), a
+     snapshot and a state dump written, read back and held equal;
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
@@ -39,15 +43,16 @@ Phases, each of which raises on failure (nothing is caught):
      the CPU (which runs the same route through the plain versions), then
      the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
      brightness) twice, with every kernel's launches counted, held against
-     the counts the architecture and the routing predicates give, and every
-     kernel call's shape recorded;
+     the counts the architecture and the routing predicates give (attention
+     and GEGLU all on "mma"), and every kernel call's shape recorded;
   7. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
      conv3x3_same (every prologue/epilogue variant that occurred) and
      conv3x3_up2 against their plain versions at every shape the SD search
      gave them (bf16) and at one shape each in fp32, within 2e-2 / 1e-4 of
      the output's largest magnitude (statistics: of the largest mean and of
      the largest rstd), with kernel, plain, library and bound times (5
-     repetitions instead of 20 at the 512x512 shapes);
+     repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
+     rows as in phase 3 (route, ``fma_ms``, TFLOP/s);
   8. one JSON line of kernel numbers, then the result line.
 
 With --kernels-json, the per-shape rows also go to that file. The script
@@ -114,6 +119,22 @@ TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 def reset_launches() -> None:
     qk.LAUNCHES = qk.BWD_LAUNCHES = gn.LAUNCHES = gn.STATS_LAUNCHES = gg.LAUNCHES = 0
     cv.SAME_LAUNCHES = cv.UP2_LAUNCHES = 0
+    for routes in (qk.ROUTE_LAUNCHES, gg.ROUTE_LAUNCHES):
+        routes.update(dict.fromkeys(routes, 0))
+
+
+def read_routes() -> dict:
+    return {"attention": dict(qk.ROUTE_LAUNCHES), "geglu_ff": dict(gg.ROUTE_LAUNCHES)}
+
+
+def check_routes(path: str, got: dict, want: dict) -> None:
+    """Every launch of ``want``'s kernels on ``path`` took the mma route:
+    ``got`` from read_routes(), ``want`` {"attention" / "geglu_ff": launches}."""
+    for name, n in want.items():
+        if got[name] != {"fma": 0, "mma": n}:
+            raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
+                                 f"expected all {n} launches on mma")
+    print(f"  routes on the {path} path: " + ", ".join(f"{k} {got[k]}" for k in want))
 
 
 def read_launches() -> dict:
@@ -139,6 +160,14 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def route_columns(row: dict, route: str, flops: float, fma) -> None:
+    """The row's route, the CUDA-core route's time (timed here unless the
+    row is on it) and the TFLOP/s of its kernel time."""
+    row["route"] = route
+    row["fma_ms"] = time_ms(fma) if route == "mma" else row["ms"]
+    row["tflops"] = flops / row["ms"] / 1e9
 
 
 def bound(flops: float, moved_bytes: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -176,11 +205,13 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) ->
                plain_ms=time_ms(lambda: qk.qkv_self_attention_plain(qkv, heads), reps=5),
                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     row["bound_ms"], row["bound_by"] = attention_bound_ms(b, t, heads, dtype)
+    route_columns(row, qk.forward_route(dtype, 64), 4 * b * heads * t * t * 64,
+                  lambda: qk.qkv_self_attention(qkv, heads, route="fma"))
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
-          f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) "
-          f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-          f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
-          f"({row['bound_by']}) [{tag}]")
+          f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
+          f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) fma_ms={row['fma_ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) [{tag}]")
     if not ok:
         raise AssertionError(f"qkv_attention disagrees with its plain version: {row}")
     return row
@@ -199,7 +230,8 @@ def edm_phases(tag: str) -> dict:
                     main_rows.append(row)
     q, k, v = (torch.randn((8, 1024, 6, 64), device="cuda").bfloat16() for _ in range(3))
     err = (qk.attention(q, k, v).float() - qk.attention_plain(q, k, v).float()).abs().max().item()
-    print(f"  attention [8,1024,6,64] bfloat16 ([B,T,H,D] strides): max_abs={err:.3e}")
+    print(f"  attention [8,1024,6,64] bfloat16 ([B,T,H,D] strides, route "
+          f"{qk.forward_route(q.dtype, 64)}): max_abs={err:.3e}")
     if err > TOL[torch.bfloat16]:
         raise AssertionError(f"attention ([B,T,H,D]) disagrees with its plain version: {err}")
 
@@ -234,7 +266,7 @@ def edm_phases(tag: str) -> dict:
     result = search()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = qk.LAUNCHES
+    launches, routes = qk.LAUNCHES, read_routes()
     others = {k: v for k, v in read_launches().items() if k != "attention" and v}
     if others:
         raise AssertionError(f"the EDM main path launched kernels it does not route to: {others}")
@@ -252,6 +284,7 @@ def edm_phases(tag: str) -> dict:
     if launches != expected:
         raise AssertionError(f"qkv_attention launched {launches} times on the EDM main path, "
                              f"expected {expected}")
+    check_routes("EDM", routes, {"attention": expected})
     if not (torch.isfinite(result.score).all() and torch.isfinite(result.x).all()
             and result.images.shape == (SAMPLES, 64, 64, 3)
             and 0 <= result.images.min() <= result.images.max() <= 1):
@@ -271,7 +304,7 @@ def edm_phases(tag: str) -> dict:
         "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"),
         "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": per_forward("library_ms"),
+        "library_ms": per_forward("library_ms"), "fma_ms": per_forward("fma_ms"),
         "shapes": rows,
     }
 
@@ -361,7 +394,10 @@ def rel_err(out, ref) -> tuple[float, float]:
 
 
 def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_bytes,
-               tag: str, reps: int = 20) -> dict:
+               tag: str, reps: int = 20, route=None) -> dict:
+    """One kernel's check and times at one shape. ``route``: (the route the
+    predicate gave, a call of the same kernel on the "fma" route) for the
+    kernels with two routes."""
     torch.cuda.synchronize()
     max_abs, max_rel = rel_err(out, ref)
     finite = all(torch.isfinite(o).all() for o in ((out,) if isinstance(out, torch.Tensor) else out))
@@ -369,8 +405,13 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
                max_rel_err=max_rel, ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 3),
                library_ms=time_ms(library, reps))
     row["bound_ms"], row["bound_by"] = bound(*flops_bytes, dtype)
+    routed = ""
+    if route is not None:
+        route_columns(row, route[0], flops_bytes[0], route[1])
+        routed = (f" route={row['route']} ({row['tflops']:.1f} TFLOP/s) "
+                  f"fma_ms={row['fma_ms']:.4f}")
     print(f"  {name} {row['shape']} {row['dtype']:>8}: max_abs={max_abs:.3e} "
-          f"max_rel={max_rel:.3e} (tol {TOL[dtype]}) kernel_ms={row['ms']:.4f} "
+          f"max_rel={max_rel:.3e} (tol {TOL[dtype]}) kernel_ms={row['ms']:.4f}{routed} "
           f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
           f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) [{tag}]")
     if not (max_rel <= TOL[dtype] and finite):
@@ -388,7 +429,8 @@ def check_sd_attention(key, dtype, tag):
     return kernel_row("attention", key, dtype, qk.attention(q, k, v), qk.attention_plain(q, k, v),
                       lambda: qk.attention(q, k, v), lambda: qk.attention_plain(q, k, v),
                       lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag)
+                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag,
+                      route=(qk.forward_route(dtype, d), lambda: qk.attention(q, k, v, route="fma")))
 
 
 def check_group_norm(key, dtype, tag):
@@ -424,7 +466,9 @@ def check_geglu(key, dtype, tag):
 
     item = torch.finfo(dtype).bits // 8
     return kernel_row("geglu_ff", key, dtype, kernel(), plain(), kernel, plain, library,
-                      (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10)
+                      (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10,
+                      route=(gg.route(dtype, c, f),
+                             lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="fma")))
 
 
 def reps_for(shape) -> int:
@@ -663,7 +707,7 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) ->
             data_iter=batch_iterator(data, TRAIN_BATCH, seed=0), loss_fn=EDMLoss(),
             train_cfg=train_cfg, loop_cfg=loop_cfg, device="cuda", max_ticks=TRAIN_STEPS)
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches, routes = read_launches(), read_routes()
         peak = torch.cuda.max_memory_allocated() / 2**30
         with open(os.path.join(run_dir, "stats.jsonl")) as f:
             ticks = [json.loads(line) for line in f]
@@ -695,6 +739,7 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) ->
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times in training, expected "
                                  f"{want.get(name, 0)}")
+    check_routes("training", routes, {"attention": want["attention"]})
     if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))):
         raise AssertionError(f"training losses are not finite: {losses}")
     if state.nimg != TRAIN_BATCH * TRAIN_STEPS or back.nimg != state.nimg:
@@ -891,7 +936,7 @@ def sd_phases(tag: str) -> list[dict]:
     images, scores = search()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = read_launches()
+    launches, routes = read_launches(), read_routes()
     shapes.remove()
     t0 = time.perf_counter()
     search()  # the same request again: steady state, not counted
@@ -908,6 +953,8 @@ def sd_phases(tag: str) -> list[dict]:
         if n != want:
             raise AssertionError(f"{name} launched {n} times on the SD main path, "
                                  f"expected {want}")
+    check_routes("SD", routes, {"attention": launches["attention"],
+                                "geglu_ff": launches["geglu_ff"]})
     if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
             and images.shape == (SD_PROMPTS, 512, 512, 3)
             and 0 <= images.min() <= images.max() <= 1):
@@ -953,6 +1000,8 @@ def sd_phases(tag: str) -> list[dict]:
                 "bound_by"],
             "library_ms": total("library_ms"), "shapes": rows,
         })
+        if "fma_ms" in rows[0]:
+            lines[-1]["fma_ms"] = total("fma_ms")
     return lines
 
 

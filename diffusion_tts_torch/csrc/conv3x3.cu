@@ -69,6 +69,8 @@
 #include <stdint.h>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -118,14 +120,8 @@ struct Stage {
   bool whole;  // all 16 channels and all 128 output channels exist, rows of 16-byte vectors
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
+using dtts::cp_async16;
+using dtts::cp_async_wait_all;
 
 // ws[(t * kKT + kl) * WP + c] = wsrc[(t * K + k0 + kl) * cin + c0 + c] for
 // every tap: asynchronous 16-byte copies for a whole stage (the caller waits
@@ -284,12 +280,7 @@ __device__ __forceinline__ void tap_product(float (&acc)[64], const __nv_bfloat1
     const uint32_t b0 = ld32(bp), b1 = ld32(bp + 8);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float* d = &acc[(i * 4 + j) * 4];
-      asm volatile(
-          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-          : "r"(a[i][0]), "r"(a[i][1]), "r"(a[i][2]), "r"(a[i][3]), "r"(b0), "r"(b1));
+      dtts::mma_bf16(&acc[(i * 4 + j) * 4], a[i], b0, b1);
     }
   }
 }

@@ -1,7 +1,7 @@
 """What every kernel wrapper of the port does around a launch: bind the C
-function of a built library, check the tensors it is handed, find the
-current stream, raise on a failed launch, and give a forward-only kernel
-its gradient."""
+function of a built library, check the tensors it is handed (and, for a
+tensor-core route, their alignment), find the current stream, raise on a
+failed launch, and give a forward-only kernel its gradient."""
 from __future__ import annotations
 
 import ctypes
@@ -10,6 +10,10 @@ import functools
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The routes of a kernel with two designs: "fma", the products in fp32 FMA on
+# the CUDA cores; "mma", bf16 products on the tensor cores (mma.sync).
+ROUTES = ("fma", "mma")
+ROUTE_CODES = {route: code for code, route in enumerate(ROUTES)}
 
 PTR, INT, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -34,6 +38,16 @@ def check(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: the kernel needs a contiguous tensor")
+
+
+def check_aligned(kernel: str, ptrs, strides=(), item: int = 1) -> None:
+    """Raise unless every pointer, and every stride of ``item``-byte
+    elements, is a multiple of 16 bytes: the mma routes copy rows in
+    16-byte pieces."""
+    bad = [p for p in ptrs if p % 16] + [s for s in strides if s * item % 16]
+    if bad:
+        raise ValueError(f"{kernel}: the mma route needs 16-byte aligned pointers and rows, "
+                         f"got {bad}")
 
 
 def stream(t: torch.Tensor) -> int:
@@ -92,5 +106,5 @@ def with_twin_backward(kernel, plain, *args):
     return kernel(*args)
 
 
-__all__ = ["with_twin_backward", "DTYPE_CODES", "PTR", "INT", "I64", "F32", "bind", "check",
-           "stream", "raise_on"]
+__all__ = ["with_twin_backward", "DTYPE_CODES", "ROUTES", "ROUTE_CODES", "PTR", "INT", "I64",
+           "F32", "bind", "check", "check_aligned", "stream", "raise_on"]

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
-own into ``build/kernels/lib<name>-<hash>.so`` (the hash is of the source,
-so an edited kernel is rebuilt and a stale library is never loaded). The
+own into ``build/kernels/lib<name>-<hash>.so`` (the hash is of the source and
+of every ``csrc`` header it includes, so an edited kernel or header is
+rebuilt and a stale library is never loaded). The
 build happens at first use, on the machine with the card; nothing is
 compiled when a module is imported. Several sources build in parallel, one
 ``nvcc`` each.
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -34,10 +37,25 @@ def _nvcc() -> str:
     return nvcc
 
 
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu``, then every header of ``csrc`` that it includes
+    (``#include "..."``), directly or through another header."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())
+                 if (CSRC / inc).is_file()]
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, tuple[float, str]]:
@@ -75,4 +93,4 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["build", "load", "library_path", "SOURCES", "BUILD_DIR"]
+__all__ = ["build", "load", "library_path", "sources", "SOURCES", "BUILD_DIR"]

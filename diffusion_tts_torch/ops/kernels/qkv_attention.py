@@ -20,6 +20,15 @@ through the plain PyTorch versions; a CUDA tensor goes through the kernels
 or the call raises. ``LAUNCHES`` counts forward launches, ``BWD_LAUNCHES``
 backward launches (``BWD_LAUNCHES_PER_CALL`` = 2 per call: dQ, then dK/dV).
 
+The forward kernel has two routes, and ``forward_route(dtype, d)`` picks one
+before the launch: ``"mma"`` (the products on the tensor cores) for bf16 at
+the widths of ``MMA_HEAD_DIMS``, every width a main path runs, and ``"fma"``
+(fp32 FMA on the CUDA cores) for fp32 and for bf16 at the test widths 4 and
+8. The mma route copies rows in 16-byte pieces: the call raises, before any
+launch, on a pointer or a (batch, token, head) stride that is not a multiple
+of 16 bytes. ``ROUTE_LAUNCHES`` counts forward launches per route. A caller
+may ask for ``route="fma"`` at any shape, which times the first design.
+
 Both functions are differentiable (``torch.autograd.Function``). When a
 gradient is asked for, the forward kernel also writes each row's
 log2-sum-exp2 (fp32 ``[B, H, T]``) and the backward is ``attention_bwd``:
@@ -37,15 +46,23 @@ from diffusion_tts_torch.ops.kernels import _launch
 
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 512)
+MMA_HEAD_DIMS = HEAD_DIMS[2:]
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
 BWD_LAUNCHES_PER_CALL = 2
 _ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
-             + (_launch.F32, _launch.PTR, _launch.PTR))
+             + (_launch.F32, _launch.PTR, _launch.INT, _launch.PTR))
 _BWD_ARGTYPES = ((_launch.PTR,) * 9 + (_launch.INT,) * 5 + (_launch.I64,) * 9
                  + (_launch.F32, _launch.F32, _launch.PTR))
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+ROUTE_LAUNCHES = {route: 0 for route in _launch.ROUTES}
+
+
+def forward_route(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel's route for inputs of ``dtype`` and head width
+    ``d``: "mma" for bf16 at a width of MMA_HEAD_DIMS, else "fma"."""
+    return "mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS else "fma"
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -112,17 +129,28 @@ def _check_width(d: int) -> None:
 def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int, b: int,
                    h: int, t: int, in_strides: tuple[int, int, int],
                    out_strides: tuple[int, int, int],
-                   lse: torch.Tensor | None = None) -> None:
+                   lse: torch.Tensor | None = None, route: str | None = None) -> None:
     """One launch over (batch, head, q tile); strides in elements for
     (batch, token, head), the head width's stride being 1. ``lse``, fp32
-    [B, H, T], takes the row statistic the backward needs."""
+    [B, H, T], takes the row statistic the backward needs. ``route``: None
+    takes ``forward_route``'s; "fma" may be asked for at any shape."""
     global LAUNCHES
+    want = forward_route(out.dtype, d)
+    route = route or want
+    if route not in (want, "fma"):
+        raise ValueError(f"the mma route takes bfloat16 at head widths {MMA_HEAD_DIMS}, "
+                         f"got {out.dtype} at {d}")
+    if route == "mma":
+        _launch.check_aligned("attention", (q_ptr, k_ptr, v_ptr, out.data_ptr()),
+                              in_strides + out_strides, out.element_size())
     fn = _launch.bind("qkv_attention", "dtts_attention", _ARGTYPES)
     err = fn(q_ptr, k_ptr, v_ptr, out.data_ptr(), _launch.DTYPE_CODES[out.dtype], d, b, h, t,
              *in_strides, *out_strides, _LOG2E / math.sqrt(d),
-             None if lse is None else lse.data_ptr(), _launch.stream(out))
+             None if lse is None else lse.data_ptr(), _launch.ROUTE_CODES[route],
+             _launch.stream(out))
     _launch.raise_on(err, "attention")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
 
 
 def _launch_bwd(q_ptr: int, k_ptr: int, v_ptr: int, o: torch.Tensor, g: torch.Tensor,
@@ -154,21 +182,23 @@ def _thirds(x: torch.Tensor, c: int) -> tuple[int, int, int]:
     return base, base + c * item, base + 2 * c * item
 
 
-def _qkv_forward(qkv: torch.Tensor, heads: int, lse: torch.Tensor | None) -> torch.Tensor:
+def _qkv_forward(qkv: torch.Tensor, heads: int, lse: torch.Tensor | None,
+                 route: str | None = None) -> torch.Tensor:
     b, t, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
-    _launch_kernel(*_thirds(qkv, c), out, d, b, heads, t, (t * c3, c3, d), (t * c, c, d), lse)
+    _launch_kernel(*_thirds(qkv, c), out, d, b, heads, t, (t * c3, c3, d), (t * c, c, d), lse,
+                   route)
     return out
 
 
-def _bthd_forward(q, k, v, lse: torch.Tensor | None) -> torch.Tensor:
+def _bthd_forward(q, k, v, lse: torch.Tensor | None, route: str | None = None) -> torch.Tensor:
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     strides = (t * h * d, h * d, d)
     _launch_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, d, b, h, t, strides, strides,
-                   lse)
+                   lse, route)
     return out
 
 
@@ -230,7 +260,7 @@ class _QKVAttention(torch.autograd.Function):
     """qkv_self_attention with its gradient."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, heads: int) -> torch.Tensor:
+    def forward(ctx, qkv: torch.Tensor, heads: int, route: str | None) -> torch.Tensor:
         ctx.heads = heads
         if qkv.device.type == "cpu":
             out = qkv_self_attention_plain(qkv, heads)
@@ -238,7 +268,7 @@ class _QKVAttention(torch.autograd.Function):
             return out
         b, t, _ = qkv.shape
         lse = _lse_buffer(qkv, b, heads, t)
-        out = _qkv_forward(qkv, heads, lse)
+        out = _qkv_forward(qkv, heads, lse, route)
         ctx.save_for_backward(qkv, out, lse)
         return out
 
@@ -246,21 +276,22 @@ class _QKVAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         qkv, out, *lse = ctx.saved_tensors
-        return qkv_self_attention_bwd(qkv, out, g, ctx.heads, *lse), None
+        return qkv_self_attention_bwd(qkv, out, g, ctx.heads, *lse), None, None
 
 
 class _Attention(torch.autograd.Function):
     """[B, T, H, D] attention with its gradient."""
 
     @staticmethod
-    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                route: str | None) -> torch.Tensor:
         if q.device.type == "cpu":
             out = attention_plain(q, k, v)
             ctx.save_for_backward(q, k, v, out)
             return out
         b, t, h, _ = q.shape
         lse = _lse_buffer(q, b, h, t)
-        out = _bthd_forward(q, k, v, lse)
+        out = _bthd_forward(q, k, v, lse, route)
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -268,15 +299,18 @@ class _Attention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         q, k, v, out, *lse = ctx.saved_tensors
-        return attention_bwd(q, k, v, out, g, *lse)
+        return (*attention_bwd(q, k, v, out, g, *lse), None)
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-def qkv_self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
-    """All-heads self-attention, [B, T, 3C] -> [B, T, C] in qkv.dtype."""
+def qkv_self_attention(qkv: torch.Tensor, heads: int, *, route: str | None = None
+                       ) -> torch.Tensor:
+    """All-heads self-attention, [B, T, 3C] -> [B, T, C] in qkv.dtype.
+    ``route``: None takes ``forward_route``'s; "fma" forces the CUDA-core
+    kernel."""
     if qkv.device.type != "cpu":
         _launch.check(qkv, "qkv_self_attention")
         if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
@@ -284,14 +318,16 @@ def qkv_self_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
                              f"{tuple(qkv.shape)} and {heads} heads")
         _check_width(qkv.shape[2] // (3 * heads))
     if _wants_grad(qkv):
-        return _QKVAttention.apply(qkv, heads)
+        return _QKVAttention.apply(qkv, heads, route)
     if qkv.device.type == "cpu":
         return qkv_self_attention_plain(qkv, heads)
-    return _qkv_forward(qkv, heads, None)
+    return _qkv_forward(qkv, heads, None, route)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """[B, T, H, D] attention through the same kernel, [B, T, H, D] out."""
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              route: str | None = None) -> torch.Tensor:
+    """[B, T, H, D] attention through the same kernel, [B, T, H, D] out.
+    ``route`` as for ``qkv_self_attention``."""
     if q.device.type != "cpu":
         for name, x in (("q", q), ("k", k), ("v", v)):
             _launch.check(x, name)
@@ -300,12 +336,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
                              f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
         _check_width(q.shape[3])
     if _wants_grad(q, k, v):
-        return _Attention.apply(q, k, v)
+        return _Attention.apply(q, k, v, route)
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    return _bthd_forward(q, k, v, None)
+    return _bthd_forward(q, k, v, None, route)
 
 
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention", "attention_plain",
-           "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "LAUNCHES",
-           "BWD_LAUNCHES", "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS", "BWD_HEAD_DIMS"]
+           "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "forward_route",
+           "LAUNCHES", "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS",
+           "MMA_HEAD_DIMS", "BWD_HEAD_DIMS"]

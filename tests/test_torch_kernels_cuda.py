@@ -344,3 +344,114 @@ def test_forward_only_kernels_take_the_twins_gradient(card, dtype):
                                                             shortcut=(sx, sw)),
         (cx, cw, cb, *gs, *sc), dtype)
     _grads_match(cv.conv3x3_up2, cv.conv3x3_up2_plain, (cx, cw, cb), dtype)
+
+
+# ------------------------------------------------------- the two routes
+
+
+def _routes(module):
+    return dict(module.ROUTE_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 77, 300, 1000])
+@pytest.mark.parametrize("d", qk.MMA_HEAD_DIMS)
+def test_attention_mma_route_matches_plain(card, d, t):
+    """Every width of the tensor-core route, with T = 1 and ragged last tiles;
+    the call takes the route its predicate gives."""
+    q, k, v = (_randn((2, t, 2, d), torch.bfloat16, card, s) for s in range(3))
+    assert qk.forward_route(q.dtype, d) == "mma"
+    before = _routes(qk)
+    out = qk.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _routes(qk) == {**before, "mma": before["mma"] + 1}
+    assert out.shape == q.shape and out.dtype == q.dtype
+    torch.testing.assert_close(out.float(), qk.attention_plain(q, k, v).float(),
+                               atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (1, 4096, 1, 512)])
+def test_attention_mma_route_at_full_sd_shapes(card, shape):
+    """The SD UNet's largest self-attention and the VAE mid-block's head."""
+    q, k, v = (_randn(shape, torch.bfloat16, card, s) for s in range(3))
+    out = qk.attention(q, k, v)
+    assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fma", "mma"])
+@pytest.mark.parametrize("t,d", [(77, 40), (300, 64), (200, 512)])
+def test_attention_lse_is_the_log2_sum_exp2_of_the_scores(card, route, t, d):
+    """The row statistic the backward kernels read, on both routes: log2 of
+    the sum of exp of the scaled scores, from fp32 scores on the same bf16
+    inputs (fp32 sums in another order: 1e-4 absolute, about 1e-5 of it)."""
+    b, h = 2, 2
+    q, k, v = (_randn((b, t, h, d), torch.bfloat16, card, s) for s in range(3))
+    lse = torch.full((b, h, t), float("nan"), device=card)
+    qk._bthd_forward(q, k, v, lse, route)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 100, 300, 4096])
+def test_geglu_mma_route_matches_plain(card, m):
+    """C = 320 (no multiple of the 128-wide tile), F = 1280, ragged M."""
+    c, f = 320, 1280
+    x = _randn((m, c), torch.bfloat16, card, 5)
+    w0 = _randn((2 * f, c), torch.bfloat16, card, 6, scale=c ** -0.5)
+    b0 = _randn((2 * f,), torch.bfloat16, card, 7, scale=0.1)
+    w2 = _randn((c, f), torch.bfloat16, card, 8, scale=f ** -0.5)
+    b2 = _randn((c,), torch.bfloat16, card, 9, scale=0.1)
+    before = _routes(gg)
+    out = gg.geglu_ff(x, w0, b0, w2, b2)
+    torch.cuda.synchronize()
+    assert _routes(gg) == {**before, "mma": before["mma"] + gg.LAUNCHES_PER_CALL}
+    torch.testing.assert_close(out.float(), gg.geglu_ff_plain(x, w0, b0, w2, b2).float(),
+                               atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fma_route_holds_its_tolerance(card, dtype):
+    """fp32 takes the CUDA-core route by its predicate, and holds 1e-4 with
+    TF32 off; bf16 sent there (the first design, which chip_smoke.py times
+    beside the tensor cores) holds 2e-2."""
+    forced = None if dtype == torch.float32 else "fma"
+    q, k, v = (_randn((2, 300, 2, 80), dtype, card, s) for s in range(3))
+    before = _routes(qk)
+    out = qk.attention(q, k, v, route=forced)
+    assert _routes(qk) == {**before, "fma": before["fma"] + 1}
+    torch.testing.assert_close(out.float(), qk.attention_plain(q, k, v).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    m, c, f = 300, 320, 1280
+    ff = (_randn((m, c), dtype, card, 5), _randn((2 * f, c), dtype, card, 6, c ** -0.5),
+          _randn((2 * f,), dtype, card, 7, 0.1), _randn((c, f), dtype, card, 8, f ** -0.5),
+          _randn((c,), dtype, card, 9, 0.1))
+    before = _routes(gg)
+    out = gg.geglu_ff(*ff, route=forced)
+    assert _routes(gg) == {**before, "fma": before["fma"] + gg.LAUNCHES_PER_CALL}
+    torch.testing.assert_close(out.float(), gg.geglu_ff_plain(*ff).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_mma_routes_refuse_misaligned_inputs(card):
+    bf = torch.bfloat16
+    q = torch.zeros(1 * 64 * 2 * 40 + 1, dtype=bf, device=card)[1:].view(1, 64, 2, 40)
+    before = (qk.LAUNCHES, gg.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        qk.attention(q, q, q)
+    x = torch.zeros(4 * 32 + 1, dtype=bf, device=card)[1:].view(4, 32)
+    w0, b0 = torch.zeros((128, 32), dtype=bf, device=card), torch.zeros(128, dtype=bf, device=card)
+    w2, b2 = torch.zeros((32, 64), dtype=bf, device=card), torch.zeros(32, dtype=bf, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        gg.geglu_ff(x, w0, b0, w2, b2)
+    x = torch.zeros((4, 36), dtype=bf, device=card)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gg.geglu_ff(x, torch.zeros((128, 36), dtype=bf, device=card), b0,
+                    torch.zeros((36, 64), dtype=bf, device=card),
+                    torch.zeros(36, dtype=bf, device=card))
+    assert (qk.LAUNCHES, gg.LAUNCHES) == before
