@@ -27,13 +27,16 @@ Phases, each of which raises on failure (nothing is caught):
      each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
      fp32 within 1e-4; one [2, 4096, 8, 40] call through ``attention``), with
      kernel, plain, library (autograd of scaled_dot_product_attention, timed
-     only) and bound times; the gradient of every forward-only kernel's
-     wrapper against its twin's at one small shape each; one full-width
-     training forward + backward (batch 2, draws from a seed) in fp32 on the
-     card against fp32 on the CPU and in bf16 compute with fp32 parameters;
+     only) and bound times, each row's route (bf16: "mma", fp32: "fma"), the
+     "fma" route's time at bf16 (``fma_ms``, the first design) and the
+     TFLOP/s on the 14*B*H*T^2*d operations the kernels run; the gradient
+     of every forward-only kernel's wrapper against its twin's at one small
+     shape each; one full-width training forward + backward (batch 2, draws
+     from a seed) in fp32 on the card against fp32 on the CPU and in bf16
+     compute with fp32 parameters;
      then ``training_loop`` at full width in bf16 on an in-memory dataset:
      batch 32 as 2 rounds of 16, dropout 0.10, 1 warm step and 4 timed steps,
-     the forward and backward launches counted (the forward's on "mma"), a
+     the forward and backward launches counted (all of them on "mma"), a
      snapshot and a state dump written, read back and held equal;
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
@@ -119,17 +122,18 @@ TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 def reset_launches() -> None:
     qk.LAUNCHES = qk.BWD_LAUNCHES = gn.LAUNCHES = gn.STATS_LAUNCHES = gg.LAUNCHES = 0
     cv.SAME_LAUNCHES = cv.UP2_LAUNCHES = 0
-    for routes in (qk.ROUTE_LAUNCHES, gg.ROUTE_LAUNCHES):
+    for routes in (qk.ROUTE_LAUNCHES, qk.BWD_ROUTE_LAUNCHES, gg.ROUTE_LAUNCHES):
         routes.update(dict.fromkeys(routes, 0))
 
 
 def read_routes() -> dict:
-    return {"attention": dict(qk.ROUTE_LAUNCHES), "geglu_ff": dict(gg.ROUTE_LAUNCHES)}
+    return {"attention": dict(qk.ROUTE_LAUNCHES), "attention_bwd": dict(qk.BWD_ROUTE_LAUNCHES),
+            "geglu_ff": dict(gg.ROUTE_LAUNCHES)}
 
 
 def check_routes(path: str, got: dict, want: dict) -> None:
     """Every launch of ``want``'s kernels on ``path`` took the mma route:
-    ``got`` from read_routes(), ``want`` {"attention" / "geglu_ff": launches}."""
+    ``got`` from read_routes(), ``want`` {kernel name: launches}."""
     for name, n in want.items():
         if got[name] != {"fma": 0, "mma": n}:
             raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
@@ -160,6 +164,14 @@ def time_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_in_turns(fn, other, reps: int = 20) -> tuple[float, float]:
+    """(ms of fn, ms of other), each the lesser of two timings taken in
+    turns (fn, other, other, fn): at a host-bound shape one timing alone
+    reads the host's noise as much as the device."""
+    a1, b1, b2, a2 = (time_ms(f, reps) for f in (fn, other, other, fn))
+    return min(a1, a2), min(b1, b2)
 
 
 def route_columns(row: dict, route: str, flops: float, fma) -> None:
@@ -542,7 +554,10 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     wrapper's backward function called directly (the row term delta and the
     two launches), ``autograd_ms`` the same through ``torch.autograd.grad``,
     as the library's backward is timed: at the small sites both are the
-    autograd engine's dispatch, not the device."""
+    autograd engine's dispatch, not the device. ``fma_ms`` times the same
+    call on the "fma" route (the first design) where the row is on "mma",
+    in turns with ``ms``; ``tflops`` counts the 14*B*H*T^2*d operations the
+    two kernels run (S and dP in each)."""
     d, c = 64, heads * 64
     gen = torch.Generator(device="cuda").manual_seed(7000 + t + b)
     qkv = torch.randn((b, t, 3 * c), device="cuda", generator=gen).to(dtype).requires_grad_(True)
@@ -551,7 +566,8 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     via_autograd = lambda: torch.autograd.grad(out, qkv, g, retain_graph=True)[0]
     got = via_autograd()
     lse = out.grad_fn.saved_tensors[2]
-    backward = lambda: qk.qkv_self_attention_bwd(qkv.detach(), out.detach(), g, heads, lse)
+    backward = lambda route=None: qk.qkv_self_attention_bwd(qkv.detach(), out.detach(), g,
+                                                            heads, lse, route=route)
     if not torch.equal(backward(), got):
         raise AssertionError("attention_bwd: two runs on the same inputs differ")
     split = lambda x: x.detach().reshape(b, t, -1, d)
@@ -564,7 +580,7 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     lo, lg = F.scaled_dot_product_attention(lq, lk, lv), split(g).transpose(1, 2).contiguous()
     row = dict(shape=[b, t, 3 * c], heads=heads, dtype=str(dtype).split(".")[-1],
-               max_abs_err=max_abs, max_rel_err=max_rel, ms=time_ms(backward),
+               max_abs_err=max_abs, max_rel_err=max_rel,
                autograd_ms=time_ms(via_autograd), plain_ms=time_ms(plain, reps=3),
                library_ms=time_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), lg,
                                                               retain_graph=True)))
@@ -572,9 +588,16 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     # once and dq, dk, dv written once
     row["bound_ms"], row["bound_by"] = bound(10 * b * heads * t * t * d,
                                              8 * b * t * c * torch.finfo(dtype).bits // 8, dtype)
+    row["route"] = qk.backward_route(dtype, d)
+    if row["route"] == "mma":
+        row["ms"], row["fma_ms"] = time_in_turns(backward, lambda: backward("fma"))
+    else:
+        row["ms"] = row["fma_ms"] = time_ms(backward)
+    row["tflops"] = 14 * b * heads * t * t * d / row["ms"] / 1e9
     print(f"  attention_bwd {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
-          f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {TOL[dtype]}) "
-          f"kernel_ms={row['ms']:.4f} (through autograd {row['autograd_ms']:.4f}) "
+          f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {TOL[dtype]}) route={row['route']} "
+          f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s; through autograd "
+          f"{row['autograd_ms']:.4f}) fma_ms={row['fma_ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
           f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) [{tag}]")
     if not (max_rel <= TOL[dtype] and torch.isfinite(got).all()):
@@ -739,7 +762,7 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) ->
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times in training, expected "
                                  f"{want.get(name, 0)}")
-    check_routes("training", routes, {"attention": want["attention"]})
+    check_routes("training", routes, want)
     if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))):
         raise AssertionError(f"training losses are not finite: {losses}")
     if state.nimg != TRAIN_BATCH * TRAIN_STEPS or back.nimg != state.nimg:
@@ -768,7 +791,8 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) ->
     del state, back, net, fresh
     torch.cuda.empty_cache()
     return {"launches": launches["attention_bwd"], "forward_launches": launches["attention"],
-            "step_ms": step_ms, "img_per_s": TRAIN_BATCH / median * 1e3, "peak_gib": peak}
+            "routes": routes["attention_bwd"], "step_ms": step_ms,
+            "img_per_s": TRAIN_BATCH / median * 1e3, "peak_gib": peak}
 
 
 def training_phases(tag: str, edm_line: dict) -> dict:
@@ -821,11 +845,14 @@ def training_phases(tag: str, edm_line: dict) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # times: the 22 attention sites of one bf16 backward at the training
         # micro-batch (16), summed; each call is its two launches plus the
-        # row term delta
+        # row term delta. "route" names the language (CUDA); "routes" counts
+        # the training run's launches per design ("mma": the tensor cores),
+        # and fma_ms times the first design on the same inputs
         "ms": per_backward("ms"), "plain_ms": per_backward("plain_ms"),
         "bound_ms": per_backward("bound_ms"),
         "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": per_backward("library_ms"),
+        "library_ms": per_backward("library_ms"), "fma_ms": per_backward("fma_ms"),
+        "routes": run["routes"],
         "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
         "train_peak_gib": run["peak_gib"], "shapes": rows,
     }

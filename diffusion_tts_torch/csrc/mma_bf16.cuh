@@ -1,7 +1,8 @@
 // Building blocks of the bf16 tensor-core kernels for Hopper (sm_90a) on the
 // warp-level mma.sync path: 16-byte cp.async copies into shared memory,
 // ldmatrix fragment loads and the m16n8k16 product with fp32 accumulators.
-// Used by csrc/qkv_attention.cu, csrc/geglu_ff.cu and csrc/conv3x3.cu.
+// Used by csrc/qkv_attention.cu, csrc/attention_bwd.cu, csrc/geglu_ff.cu and
+// csrc/conv3x3.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4 g + t):
 //   A (16 x 16, row-major): a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..],

@@ -20,14 +20,17 @@ through the plain PyTorch versions; a CUDA tensor goes through the kernels
 or the call raises. ``LAUNCHES`` counts forward launches, ``BWD_LAUNCHES``
 backward launches (``BWD_LAUNCHES_PER_CALL`` = 2 per call: dQ, then dK/dV).
 
-The forward kernel has two routes, and ``forward_route(dtype, d)`` picks one
-before the launch: ``"mma"`` (the products on the tensor cores) for bf16 at
-the widths of ``MMA_HEAD_DIMS``, every width a main path runs, and ``"fma"``
-(fp32 FMA on the CUDA cores) for fp32 and for bf16 at the test widths 4 and
-8. The mma route copies rows in 16-byte pieces: the call raises, before any
-launch, on a pointer or a (batch, token, head) stride that is not a multiple
-of 16 bytes. ``ROUTE_LAUNCHES`` counts forward launches per route. A caller
-may ask for ``route="fma"`` at any shape, which times the first design.
+Both the forward and the backward kernels have two routes, picked before
+the launch: ``"mma"`` (the products on the tensor cores) and ``"fma"`` (fp32
+FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "mma" for bf16 at
+the widths of ``MMA_HEAD_DIMS``, every width a main path runs;
+``backward_route(dtype, d)`` gives "mma" for bf16 at ``BWD_MMA_HEAD_DIMS``
+(the training path's d = 64 among them; d = 160 stays on "fma"). fp32 and
+the other bf16 widths take "fma". The mma routes copy rows in 16-byte
+pieces: the call raises, before any launch, on a pointer or a (batch,
+token, head) stride that is not a multiple of 16 bytes. ``ROUTE_LAUNCHES``
+and ``BWD_ROUTE_LAUNCHES`` count launches per route. A caller may ask for
+``route="fma"`` at any shape, which times the first design.
 
 Both functions are differentiable (``torch.autograd.Function``). When a
 gradient is asked for, the forward kernel also writes each row's
@@ -48,21 +51,39 @@ _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
+BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80)
 BWD_LAUNCHES_PER_CALL = 2
 _ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
              + (_launch.F32, _launch.PTR, _launch.INT, _launch.PTR))
 _BWD_ARGTYPES = ((_launch.PTR,) * 9 + (_launch.INT,) * 5 + (_launch.I64,) * 9
-                 + (_launch.F32, _launch.F32, _launch.PTR))
+                 + (_launch.F32, _launch.F32, _launch.INT, _launch.PTR))
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ROUTE_LAUNCHES = {route: 0 for route in _launch.ROUTES}
+BWD_ROUTE_LAUNCHES = {route: 0 for route in _launch.ROUTES}
 
 
 def forward_route(dtype: torch.dtype, d: int) -> str:
     """The forward kernel's route for inputs of ``dtype`` and head width
     ``d``: "mma" for bf16 at a width of MMA_HEAD_DIMS, else "fma"."""
     return "mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS else "fma"
+
+
+def backward_route(dtype: torch.dtype, d: int) -> str:
+    """The backward kernels' route for inputs of ``dtype`` and head width
+    ``d``: "mma" for bf16 at a width of BWD_MMA_HEAD_DIMS, else "fma"."""
+    return "mma" if dtype == torch.bfloat16 and d in BWD_MMA_HEAD_DIMS else "fma"
+
+
+def _pick_route(want: str, route: str | None, dtype: torch.dtype, d: int, widths) -> str:
+    """``route`` if given (None takes ``want``): "fma" at any shape, "mma"
+    only where the predicate gave it."""
+    route = route or want
+    if route not in (want, "fma"):
+        raise ValueError(f"the mma route takes bfloat16 at head widths {widths}, "
+                         f"got {dtype} at {d}")
+    return route
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -135,11 +156,7 @@ def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int
     [B, H, T], takes the row statistic the backward needs. ``route``: None
     takes ``forward_route``'s; "fma" may be asked for at any shape."""
     global LAUNCHES
-    want = forward_route(out.dtype, d)
-    route = route or want
-    if route not in (want, "fma"):
-        raise ValueError(f"the mma route takes bfloat16 at head widths {MMA_HEAD_DIMS}, "
-                         f"got {out.dtype} at {d}")
+    route = _pick_route(forward_route(out.dtype, d), route, out.dtype, d, MMA_HEAD_DIMS)
     if route == "mma":
         _launch.check_aligned("attention", (q_ptr, k_ptr, v_ptr, out.data_ptr()),
                               in_strides + out_strides, out.element_size())
@@ -156,24 +173,32 @@ def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int
 def _launch_bwd(q_ptr: int, k_ptr: int, v_ptr: int, o: torch.Tensor, g: torch.Tensor,
                 lse: torch.Tensor, dq_ptr: int, dk_ptr: int, dv_ptr: int, d: int, b: int,
                 h: int, t: int, in_strides: tuple[int, int, int],
-                out_strides: tuple[int, int, int]) -> None:
+                out_strides: tuple[int, int, int], route: str | None = None) -> None:
     """The two backward launches. ``o`` and ``g`` are contiguous
     [B, T, H*D]-like; q/k/v and dq/dk/dv are addressed by pointer and
-    (batch, token, head) strides."""
+    (batch, token, head) strides. ``route``: None takes ``backward_route``'s;
+    "fma" may be asked for at any shape."""
     global BWD_LAUNCHES
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"the backward kernels take head widths {BWD_HEAD_DIMS}, got {d}")
+    route = _pick_route(backward_route(g.dtype, d), route, g.dtype, d, BWD_MMA_HEAD_DIMS)
+    g_strides = (t * h * d, h * d, d)
+    if route == "mma":
+        _launch.check_aligned("attention_bwd", (q_ptr, k_ptr, v_ptr, g.data_ptr(), dq_ptr,
+                                                dk_ptr, dv_ptr),
+                              in_strides + g_strides + out_strides, g.element_size())
     # The softmax VJP's row term: an elementwise product and a row sum, which
     # the JAX package also computes outside its kernels. fp32 [B, H, T].
     delta = (g.float() * o.float()).reshape(b, t, h, d).sum(dim=-1).permute(0, 2, 1).contiguous()
     fn = _launch.bind("attention_bwd", "dtts_attention_bwd", _BWD_ARGTYPES)
     err = fn(q_ptr, k_ptr, v_ptr, g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_ptr,
              dk_ptr, dv_ptr, _launch.DTYPE_CODES[g.dtype], d, b, h, t, *in_strides,
-             t * h * d, h * d, d, *out_strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
-             _launch.stream(g))
+             *g_strides, *out_strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
+             _launch.ROUTE_CODES[route], _launch.stream(g))
     _launch.raise_on(err, "attention_bwd")
     BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
+    BWD_ROUTE_LAUNCHES[route] += BWD_LAUNCHES_PER_CALL
 
 
 def _thirds(x: torch.Tensor, c: int) -> tuple[int, int, int]:
@@ -207,12 +232,14 @@ def _lse_buffer(x: torch.Tensor, b: int, h: int, t: int) -> torch.Tensor:
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                  g: torch.Tensor, lse: torch.Tensor | None = None
+                  g: torch.Tensor, lse: torch.Tensor | None = None, *,
+                  route: str | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of [B, T, H, D] attention from its inputs, output ``o``
     and the output's gradient ``g``. On the card ``lse`` is the forward
     kernel's row statistic (fp32 [B, H, T], log2 domain); when None the
-    forward kernel is run once more to get it."""
+    forward kernel is run once more to get it. ``route``: None takes
+    ``backward_route``'s; "fma" forces the CUDA-core kernels."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, g)
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
@@ -228,18 +255,19 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     strides = (t * h * d, h * d, d)
     _launch_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o, g, lse, dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), d, b, h, t, strides, strides)
+                dk.data_ptr(), dv.data_ptr(), d, b, h, t, strides, strides, route)
     return dq, dk, dv
 
 
 def qkv_self_attention_bwd(qkv: torch.Tensor, out: torch.Tensor, g: torch.Tensor, heads: int,
-                           lse: torch.Tensor | None = None) -> torch.Tensor:
+                           lse: torch.Tensor | None = None, *, route: str | None = None
+                           ) -> torch.Tensor:
     """The gradient of qkv_self_attention with respect to its [B, T, 3C]
     input, from the forward's output ``out``, the output's gradient ``g``
     (both [B, T, C]) and, on the card, the forward kernel's row statistic
     ``lse``. On the card the backward kernels read q, k and v as the thirds
     of ``qkv`` and write dq | dk | dv straight into the thirds of the result:
-    no head-split copy, no concatenation."""
+    no head-split copy, no concatenation. ``route`` as for ``attention_bwd``."""
     b, t, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
@@ -252,8 +280,15 @@ def qkv_self_attention_bwd(qkv: torch.Tensor, out: torch.Tensor, g: torch.Tensor
     g = g.to(qkv.dtype).contiguous()  # it arrives from the model's permute
     dqkv = torch.empty_like(qkv)
     _launch_bwd(*_thirds(qkv, c), out, g, lse, *_thirds(dqkv, c), d, b, heads, t,
-                (t * c3, c3, d), (t * c3, c3, d))
+                (t * c3, c3, d), (t * c3, c3, d), route)
     return dqkv
+
+
+def _backward_route_of(route: str | None) -> str | None:
+    """A forced "fma" forward takes the fma backward too; otherwise the
+    backward follows its own predicate (at d = 160 the forward's mma route
+    has no backward counterpart)."""
+    return "fma" if route == "fma" else None
 
 
 class _QKVAttention(torch.autograd.Function):
@@ -261,7 +296,7 @@ class _QKVAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, heads: int, route: str | None) -> torch.Tensor:
-        ctx.heads = heads
+        ctx.heads, ctx.route = heads, _backward_route_of(route)
         if qkv.device.type == "cpu":
             out = qkv_self_attention_plain(qkv, heads)
             ctx.save_for_backward(qkv, out)
@@ -276,7 +311,8 @@ class _QKVAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         qkv, out, *lse = ctx.saved_tensors
-        return qkv_self_attention_bwd(qkv, out, g, ctx.heads, *lse), None, None
+        dqkv = qkv_self_attention_bwd(qkv, out, g, ctx.heads, *lse, route=ctx.route)
+        return dqkv, None, None
 
 
 class _Attention(torch.autograd.Function):
@@ -285,6 +321,7 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 route: str | None) -> torch.Tensor:
+        ctx.route = _backward_route_of(route)
         if q.device.type == "cpu":
             out = attention_plain(q, k, v)
             ctx.save_for_backward(q, k, v, out)
@@ -299,7 +336,7 @@ class _Attention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g: torch.Tensor):
         q, k, v, out, *lse = ctx.saved_tensors
-        return (*attention_bwd(q, k, v, out, g, *lse), None)
+        return (*attention_bwd(q, k, v, out, g, *lse, route=ctx.route), None)
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -309,8 +346,8 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 def qkv_self_attention(qkv: torch.Tensor, heads: int, *, route: str | None = None
                        ) -> torch.Tensor:
     """All-heads self-attention, [B, T, 3C] -> [B, T, C] in qkv.dtype.
-    ``route``: None takes ``forward_route``'s; "fma" forces the CUDA-core
-    kernel."""
+    ``route``: None takes ``forward_route``'s (and ``backward_route``'s for
+    the gradient); "fma" forces the CUDA-core kernels, forward and backward."""
     if qkv.device.type != "cpu":
         _launch.check(qkv, "qkv_self_attention")
         if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
@@ -344,5 +381,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention", "attention_plain",
            "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "forward_route",
-           "LAUNCHES", "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS",
-           "MMA_HEAD_DIMS", "BWD_HEAD_DIMS"]
+           "backward_route", "LAUNCHES", "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTE_LAUNCHES",
+           "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS", "MMA_HEAD_DIMS", "BWD_HEAD_DIMS",
+           "BWD_MMA_HEAD_DIMS"]

@@ -2,9 +2,10 @@
 
 ``ops/kernels/build.py`` names each library after a hash of its source and of
 every ``csrc`` header the source includes, so an edited header is rebuilt and
-a stale library is never loaded. The wrappers of the attention and GEGLU
-kernels pick a route in Python (``forward_route``, ``route``) and refuse, before
-any launch, what the tensor-core route cannot take. The kernels themselves
+a stale library is never loaded. The wrappers of the attention (forward and
+backward) and GEGLU kernels pick a route in Python (``forward_route``,
+``backward_route``, ``route``) and refuse, before any launch, what the
+tensor-core route cannot take. The kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_kernels_cuda.py.
 """
@@ -50,7 +51,7 @@ def test_library_path_follows_the_source_and_its_headers(csrc, name):
 
 
 def test_the_tensor_core_kernels_include_the_shared_header():
-    for name in ("qkv_attention", "geglu_ff", "conv3x3"):
+    for name in ("qkv_attention", "attention_bwd", "geglu_ff", "conv3x3"):
         assert [p.name for p in build.sources(name)] == [f"{name}.cu", "mma_bf16.cuh"]
 
 
@@ -65,17 +66,17 @@ def test_library_path_follows_a_header_included_by_a_header(csrc):
 
 
 def test_library_path_ignores_headers_not_included(csrc):
-    before = build.library_path("attention_bwd")
+    before = build.library_path("groupnorm")
     _append(csrc / "mma_bf16.cuh")
-    assert build.library_path("attention_bwd") == before
+    assert build.library_path("groupnorm") == before
 
 
-def _mma_widths_in_source():
-    """The mma route's widths as csrc/qkv_attention.cu states them in its
-    header and as its C entry dispatches them."""
-    src = (build.CSRC / "qkv_attention.cu").read_text()
+def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA"):
+    """The mma route's widths as csrc/<name>.cu states them in its header
+    and as its C entry dispatches them (the ``macro(d)`` cases)."""
+    src = (build.CSRC / f"{name}.cu").read_text()
     stated = re.search(r"mma \(route 1\): bf16 at d = ([\d, ]+),", src).group(1)
-    cases = re.findall(r"DTTS_ATTN_MMA\((\d+)\)", src)
+    cases = re.findall(rf"{macro}\((\d+)\)", src)
     return tuple(int(d) for d in stated.split(", ")), tuple(int(d) for d in cases)
 
 
@@ -86,6 +87,18 @@ def test_attention_route_is_the_one_the_source_states(dtype, d):
     assert stated == dispatched == qk.MMA_HEAD_DIMS
     want = "mma" if dtype == torch.bfloat16 and d in stated else "fma"
     assert qk.forward_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d", qk.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_route_is_the_one_the_source_states(dtype, d):
+    """csrc/attention_bwd.cu's mma widths, as stated and as dispatched: the
+    training path's d = 64 among them, d = 160 left on the CUDA cores."""
+    stated, dispatched = _mma_widths_in_source("attention_bwd", "DTTS_ATTN_BWD_MMA")
+    assert stated == dispatched == qk.BWD_MMA_HEAD_DIMS
+    assert 64 in stated and 160 not in stated
+    want = "mma" if dtype == torch.bfloat16 and d in stated else "fma"
+    assert qk.backward_route(dtype, d) == want
 
 
 @pytest.mark.parametrize("c", SD_FF_WIDTHS + (32, 64))
@@ -150,6 +163,28 @@ def test_attention_refuses_what_the_mma_route_cannot_take(no_launch, case):
         qk._launch_kernel(*ptrs, out, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
                           route="mma" if case == "fp32_forced" else None)
     assert (qk.LAUNCHES, qk.ROUTE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "fp32_forced"])
+def test_attention_bwd_refuses_what_the_mma_route_cannot_take(no_launch, case):
+    b, t, h, d = 1, 4, 2, 40
+    dtype = torch.float32 if case == "fp32_forced" else torch.bfloat16
+    o, g = (torch.zeros((b, t, h * d), dtype=dtype) for _ in range(2))
+    lse = torch.zeros((b, h, t))
+    ptrs = [o.data_ptr()] * 3
+    strides = [t * h * d, h * d, d]
+    if case == "pointer":
+        ptrs[1] += 2
+    if case == "token_stride":
+        strides[1] = h * d + 4  # 168 bytes in bf16
+    if case == "head_stride":
+        strides[2] = 44
+    before = (qk.BWD_LAUNCHES, dict(qk.BWD_ROUTE_LAUNCHES))
+    match = "mma route takes bfloat16" if case == "fp32_forced" else "16-byte"
+    with pytest.raises(ValueError, match=match):
+        qk._launch_bwd(*ptrs, o, g, lse, *ptrs, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
+                       route="mma" if case == "fp32_forced" else None)
+    assert (qk.BWD_LAUNCHES, qk.BWD_ROUTE_LAUNCHES) == before
 
 
 def test_check_aligned():

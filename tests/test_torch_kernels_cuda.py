@@ -254,16 +254,86 @@ def _rel(a, b):
 def test_attention_bwd_matches_plain(card, t, heads, d, dtype):
     """dq, dk and dv of the backward kernels against the plain twin, each
     within the forward's tolerance of that gradient's largest magnitude; the
-    row statistic comes from the forward kernel. Ragged tiles included."""
+    row statistic comes from the forward kernel. Ragged tiles included. Each
+    call takes the route its predicate gives: bf16 at d = 8 and 160 (and
+    fp32 everywhere) on the CUDA cores, the rest on the tensor cores."""
     q, k, v, g = (_randn((2, t, heads, d), dtype, card, s) for s in range(4))
     o = qk.attention(q, k, v)
-    before = qk.BWD_LAUNCHES
+    route = qk.backward_route(dtype, d)
+    assert (route == "fma") == (dtype == torch.float32 or d in (8, 160))
+    before, routes = qk.BWD_LAUNCHES, _bwd_routes()
     got = qk.attention_bwd(q, k, v, o, g)
     torch.cuda.synchronize()
     assert qk.BWD_LAUNCHES == before + qk.BWD_LAUNCHES_PER_CALL
+    assert _bwd_routes() == {**routes, route: routes[route] + qk.BWD_LAUNCHES_PER_CALL}
     for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
         assert a.dtype == dtype and torch.isfinite(a).all()
         assert _rel(a, r) <= TOL[dtype]
+
+
+def _bwd_routes():
+    return dict(qk.BWD_ROUTE_LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [3, 100, 200])
+@pytest.mark.parametrize("d", qk.BWD_MMA_HEAD_DIMS)
+def test_attention_bwd_mma_route_matches_plain(card, d, t):
+    """Every width of the backward's tensor-core route, with T below one
+    tile and ragged last tiles."""
+    q, k, v, g = (_randn((2, t, 2, d), torch.bfloat16, card, 20 + s) for s in range(4))
+    o = qk.attention(q, k, v)
+    assert qk.backward_route(q.dtype, d) == "mma"
+    before = _bwd_routes()
+    got = qk.attention_bwd(q, k, v, o, g)
+    torch.cuda.synchronize()
+    assert _bwd_routes() == {**before, "mma": before["mma"] + qk.BWD_LAUNCHES_PER_CALL}
+    for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
+        assert a.shape == q.shape and a.dtype == q.dtype and torch.isfinite(a).all()
+        assert _rel(a, r) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_attention_bwd_mma_route_at_the_training_shape(card):
+    """The qkv form at the training path's heaviest site, [16, 1024, 1152]
+    with 6 heads of 64: the thirds of one [B, T, 3C] gradient against the
+    twin, and two runs bit-identical (no atomics on the mma route either)."""
+    b, t, heads, d = 16, 1024, 6, 64
+    qkv = _qkv(b, t, heads, torch.bfloat16, card)
+    g = _randn((b, t, heads * d), torch.bfloat16, card, 31)
+    lse = torch.empty((b, heads, t), device=card)
+    out = qk._qkv_forward(qkv, heads, lse)
+    before = _bwd_routes()
+    got = qk.qkv_self_attention_bwd(qkv, out, g, heads, lse)
+    again = qk.qkv_self_attention_bwd(qkv, out, g, heads, lse)
+    torch.cuda.synchronize()
+    assert _bwd_routes() == {**before, "mma": before["mma"] + 2 * qk.BWD_LAUNCHES_PER_CALL}
+    assert torch.equal(got, again)
+    split = lambda x: x.reshape(b, t, heads, d)
+    ref = qk.attention_bwd_plain(*(split(x) for x in qkv.chunk(3, dim=-1)), split(out), split(g))
+    for a, r in zip(got.chunk(3, dim=-1), ref):
+        assert torch.isfinite(a).all() and _rel(split(a), r) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_attention_bwd_fma_route_forced_at_bf16(card):
+    """bf16 sent to the CUDA-core backward (the first design, which
+    chip_smoke.py times beside the tensor cores) still holds 2e-2, and the
+    forced route carries from the forward to the backward."""
+    q, k, v, g = (_randn((2, 300, 2, 64), torch.bfloat16, card, 40 + s) for s in range(4))
+    o = qk.attention(q, k, v)
+    before = _bwd_routes()
+    got = qk.attention_bwd(q, k, v, o, g, route="fma")
+    assert _bwd_routes() == {**before, "fma": before["fma"] + qk.BWD_LAUNCHES_PER_CALL}
+    ref = qk.attention_bwd_plain(q, k, v, o, g)
+    for a, r in zip(got, ref):
+        assert _rel(a, r) <= TOL[torch.bfloat16]
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    before = _bwd_routes()
+    via_autograd = torch.autograd.grad(qk.attention(*leaves, route="fma"), leaves, g)
+    assert _bwd_routes() == {**before, "fma": before["fma"] + qk.BWD_LAUNCHES_PER_CALL}
+    for a, r in zip(via_autograd, ref):
+        assert _rel(a, r) <= TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda

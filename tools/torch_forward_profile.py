@@ -40,7 +40,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("attention_bwd_kernel", ("dq_kernel", "dkv_kernel")),
+    ("attention_bwd_kernel", ("dq_kernel", "dkv_kernel", "dq_mma_kernel", "dkv_mma_kernel")),
     ("attention_kernel", ("attention_kernel", "attention_mma_kernel")),
     ("group_norm_kernel", ("gn_moments_kernel", "gn_apply_kernel", "gn_stats_finalize_kernel")),
     ("geglu_kernel", ("geglu_gate_kernel", "geglu_out_kernel", "geglu_mma_kernel")),
