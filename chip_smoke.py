@@ -7,7 +7,8 @@ Phases, each of which raises on failure (nothing is caught):
   1. environment: the card's name and power limit, torch and CUDA versions;
      fails without a card;
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
-     process per source, all at once);
+     process per source, all at once), and ptxas's register and spill lines
+     for the conv kernels' ring route;
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
@@ -47,7 +48,8 @@ Phases, each of which raises on failure (nothing is caught):
      the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
-     and GEGLU all on "mma"), and every kernel call's shape recorded;
+     and GEGLU all on "mma", conv3x3_same and conv3x3_up2 all on "ring"), and
+     every kernel call's shape recorded;
   7. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
      conv3x3_same (every prologue/epilogue variant that occurred) and
      conv3x3_up2 against their plain versions at every shape the SD search
@@ -55,7 +57,9 @@ Phases, each of which raises on failure (nothing is caught):
      the output's largest magnitude (statistics: of the largest mean and of
      the largest rstd), with kernel, plain, library and bound times (5
      repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
-     rows as in phase 3 (route, ``fma_ms``, TFLOP/s);
+     rows as in phase 3 (route, ``fma_ms``, TFLOP/s); conv rows with their
+     route, ``v1_ms`` (bf16: the first design, timed in turns with the ring:
+     ring, v1, v1, ring, the lesser of each pair) and TFLOP/s;
   8. one JSON line of kernel numbers, then the result line.
 
 With --kernels-json, the per-shape rows also go to that file. The script
@@ -68,6 +72,7 @@ import collections
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -119,25 +124,34 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 
 
+ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_LAUNCHES,
+                  "geglu_ff": gg.ROUTE_LAUNCHES, "conv3x3_same": cv.SAME_ROUTE_LAUNCHES,
+                  "conv3x3_up2": cv.UP2_ROUTE_LAUNCHES}
+# Each kernel's redesigned route, which every launch of a main path must take.
+FAST_ROUTE = {"attention": "mma", "attention_bwd": "mma", "geglu_ff": "mma",
+              "conv3x3_same": "ring", "conv3x3_up2": "ring"}
+
+
 def reset_launches() -> None:
     qk.LAUNCHES = qk.BWD_LAUNCHES = gn.LAUNCHES = gn.STATS_LAUNCHES = gg.LAUNCHES = 0
     cv.SAME_LAUNCHES = cv.UP2_LAUNCHES = 0
-    for routes in (qk.ROUTE_LAUNCHES, qk.BWD_ROUTE_LAUNCHES, gg.ROUTE_LAUNCHES):
+    for routes in ROUTE_COUNTERS.values():
         routes.update(dict.fromkeys(routes, 0))
 
 
 def read_routes() -> dict:
-    return {"attention": dict(qk.ROUTE_LAUNCHES), "attention_bwd": dict(qk.BWD_ROUTE_LAUNCHES),
-            "geglu_ff": dict(gg.ROUTE_LAUNCHES)}
+    return {name: dict(routes) for name, routes in ROUTE_COUNTERS.items()}
 
 
 def check_routes(path: str, got: dict, want: dict) -> None:
-    """Every launch of ``want``'s kernels on ``path`` took the mma route:
-    ``got`` from read_routes(), ``want`` {kernel name: launches}."""
+    """Every launch of ``want``'s kernels on ``path`` took the kernel's
+    redesigned route (FAST_ROUTE): ``got`` from read_routes(), ``want``
+    {kernel name: launches}."""
     for name, n in want.items():
-        if got[name] != {"fma": 0, "mma": n}:
+        expected = {**dict.fromkeys(got[name], 0), FAST_ROUTE[name]: n}
+        if got[name] != expected:
             raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
-                                 f"expected all {n} launches on mma")
+                                 f"expected all {n} launches on {FAST_ROUTE[name]}")
     print(f"  routes on the {path} path: " + ", ".join(f"{k} {got[k]}" for k in want))
 
 
@@ -146,6 +160,21 @@ def read_launches() -> dict:
             "group_norm_silu": gn.LAUNCHES, "geglu_ff": gg.LAUNCHES,
             "group_norm_stats": gn.STATS_LAUNCHES, "conv3x3_same": cv.SAME_LAUNCHES,
             "conv3x3_up2": cv.UP2_LAUNCHES}
+
+
+def ptxas_lines(log: str, entry: str) -> dict[str, list[str]]:
+    """The register and spill lines of ``nvcc -Xptxas -v``'s report for each
+    compiled kernel whose mangled name contains ``entry``."""
+    found, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = name if entry in name else None
+            if current:
+                found[current] = []
+        elif current and ("spill" in line or "Used" in line):
+            found[current].append(line.strip())
+    return found
 
 
 def gpu_tag() -> str:
@@ -174,11 +203,18 @@ def time_in_turns(fn, other, reps: int = 20) -> tuple[float, float]:
     return min(a1, a2), min(b1, b2)
 
 
-def route_columns(row: dict, route: str, flops: float, fma) -> None:
-    """The row's route, the CUDA-core route's time (timed here unless the
-    row is on it) and the TFLOP/s of its kernel time."""
+def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int = 20) -> None:
+    """The row's route, the first design's time and the TFLOP/s of the
+    kernel time. Attention and GEGLU: ``fma_ms``, the CUDA-core route timed
+    alone unless the row is on it. The conv kernels: ``v1_ms``, timed in turns
+    with the ring (which sets the row's ``ms`` anew) unless the row is on v1."""
     row["route"] = route
-    row["fma_ms"] = time_ms(fma) if route == "mma" else row["ms"]
+    if route in ("mma", "fma"):
+        row["fma_ms"] = time_ms(first) if route == "mma" else row["ms"]
+    elif route == "ring":
+        row["ms"], row["v1_ms"] = time_in_turns(kernel, first, reps)
+    else:
+        row["v1_ms"] = row["ms"]
     row["tflops"] = flops / row["ms"] / 1e9
 
 
@@ -218,7 +254,7 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) ->
                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     row["bound_ms"], row["bound_by"] = attention_bound_ms(b, t, heads, dtype)
     route_columns(row, qk.forward_route(dtype, 64), 4 * b * heads * t * t * 64,
-                  lambda: qk.qkv_self_attention(qkv, heads, route="fma"))
+                  lambda: qk.qkv_self_attention(qkv, heads, route="fma"), None)
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) fma_ms={row['fma_ms']:.4f} "
@@ -408,8 +444,8 @@ def rel_err(out, ref) -> tuple[float, float]:
 def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_bytes,
                tag: str, reps: int = 20, route=None) -> dict:
     """One kernel's check and times at one shape. ``route``: (the route the
-    predicate gave, a call of the same kernel on the "fma" route) for the
-    kernels with two routes."""
+    predicate gave, a call of the same kernel on its first design, "fma" or
+    "v1") for the kernels with two routes."""
     torch.cuda.synchronize()
     max_abs, max_rel = rel_err(out, ref)
     finite = all(torch.isfinite(o).all() for o in ((out,) if isinstance(out, torch.Tensor) else out))
@@ -419,9 +455,10 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
     row["bound_ms"], row["bound_by"] = bound(*flops_bytes, dtype)
     routed = ""
     if route is not None:
-        route_columns(row, route[0], flops_bytes[0], route[1])
+        route_columns(row, route[0], flops_bytes[0], route[1], kernel, reps)
+        first = "fma_ms" if "fma_ms" in row else "v1_ms"
         routed = (f" route={row['route']} ({row['tflops']:.1f} TFLOP/s) "
-                  f"fma_ms={row['fma_ms']:.4f}")
+                  f"{first}={row[first]:.4f}")
     print(f"  {name} {row['shape']} {row['dtype']:>8}: max_abs={max_abs:.3e} "
           f"max_rel={max_rel:.3e} (tol {TOL[dtype]}) kernel_ms={row['ms']:.4f}{routed} "
           f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
@@ -524,7 +561,9 @@ def check_conv_same(key, dtype, tag):
              + (b * cres * h * w + k * cres)) * item
     name = f"conv3x3_same[{'gn+' if has_gn else ''}{'bias+' if has_bias else ''}{tail}]"
     row = kernel_row(name, (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain, library,
-                     (2 * b * h * w * (9 * c + cres) * k, moved), tag, reps=reps_for(shape))
+                     (2 * b * h * w * (9 * c + cres) * k, moved), tag, reps=reps_for(shape),
+                     route=(cv.conv_route(dtype, c, k, w, cres),
+                            lambda: cv.conv3x3_same(x, weight, route="v1", **kw)))
     row["variant"] = dict(prologue=has_gn, bias=has_bias, epilogue=tail, cres=cres)
     return row
 
@@ -541,7 +580,9 @@ def check_conv_up2(key, dtype, tag):
                                padding=1)
     moved = (x.numel() + weight.numel() + 4 * b * k * h * w) * x.element_size()
     return kernel_row("conv3x3_up2", (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain,
-                      library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)))
+                      library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)),
+                      route=(cv.conv_route(dtype, c, k, w),
+                             lambda: cv.conv3x3_up2(x, weight, bias, route="v1")))
 
 
 # ----------------------------------------------------------------- training
@@ -980,8 +1021,8 @@ def sd_phases(tag: str) -> list[dict]:
         if n != want:
             raise AssertionError(f"{name} launched {n} times on the SD main path, "
                                  f"expected {want}")
-    check_routes("SD", routes, {"attention": launches["attention"],
-                                "geglu_ff": launches["geglu_ff"]})
+    check_routes("SD", routes, {name: launches[name] for name in
+                                ("attention", "geglu_ff", "conv3x3_same", "conv3x3_up2")})
     if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
             and images.shape == (SD_PROMPTS, 512, 512, 3)
             and 0 <= images.min() <= images.max() <= 1):
@@ -1027,8 +1068,11 @@ def sd_phases(tag: str) -> list[dict]:
                 "bound_by"],
             "library_ms": total("library_ms"), "shapes": rows,
         })
-        if "fma_ms" in rows[0]:
-            lines[-1]["fma_ms"] = total("fma_ms")
+        for first in ("fma_ms", "v1_ms"):
+            if first in rows[0]:
+                lines[-1][first] = total(first)
+        if name.startswith("conv3x3"):  # launches of the search per design
+            lines[-1]["routes"] = routes[name]
     return lines
 
 
@@ -1053,6 +1097,14 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built) or 'nothing (cached)'}")
     for name, (secs, log) in built.items():
         print(f"  {name}: nvcc {secs:.2f} s\n" + "\n".join("    " + ln for ln in log.splitlines()))
+    if "conv3x3" in built:  # the ring's kernels, by template <bool UP2, bool GN, bool SC>
+        for entry, lines in ptxas_lines(built["conv3x3"][1], "conv3_ring_kernel").items():
+            up2, prologue, shortcut = (f == "1" for f in re.search(
+                r"ILb([01])ELb([01])ELb([01])E", entry).groups())
+            kind = "conv3x3_up2" if up2 else (
+                f"conv3x3_same[{'gn' if prologue else 'no gn'}, "
+                f"{'shortcut' if shortcut else 'no shortcut'}]")
+            print(f"ptxas, {kind} ring kernel: " + "; ".join(lines))
 
     # -- 3, 4. EDM; 5. training; 6, 7. SD
     edm_line = edm_phases(tag)

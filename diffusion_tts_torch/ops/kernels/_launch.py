@@ -42,11 +42,11 @@ def check(x: torch.Tensor, name: str) -> None:
 
 def check_aligned(kernel: str, ptrs, strides=(), item: int = 1) -> None:
     """Raise unless every pointer, and every stride of ``item``-byte
-    elements, is a multiple of 16 bytes: the mma routes copy rows in
-    16-byte pieces."""
+    elements, is a multiple of 16 bytes: the tensor-core routes (attention
+    and GEGLU "mma", conv "ring") copy rows in 16-byte pieces."""
     bad = [p for p in ptrs if p % 16] + [s for s in strides if s * item % 16]
     if bad:
-        raise ValueError(f"{kernel}: the mma route needs 16-byte aligned pointers and rows, "
+        raise ValueError(f"{kernel}: the tensor-core route needs 16-byte aligned pointers and rows, "
                          f"got {bad}")
 
 

@@ -34,7 +34,20 @@ forward-only, as the Pallas ones are; the gradient is autograd's through the
 plain twin (``_launch.with_twin_backward``), the counterpart of the JAX
 package's ``custom_vjp`` over the jnp reference.
 
-Routing (counterparts of ``pallas_conv3_shape_eligible``,
+Two designs, picked by ``conv_route(dtype, c, k, w, cres)`` before the
+launch and passed to the C entry as an int: ``"ring"`` (bf16 with C and Cres
+multiples of 16 and W a multiple of 8: every shape of the SD decoder; a ring
+of ``cp.async`` stages, ``ldmatrix`` fragments, an epilogue through shared
+memory) and ``"v1"`` (the first design: fp32 on the CUDA cores, and bf16 at
+ragged C, Cres or W). The ring copies rows in 16-byte pieces and refuses,
+before any launch, a pointer that is not 16-byte aligned.
+``SAME_ROUTE_LAUNCHES`` and ``UP2_ROUTE_LAUNCHES`` count launches per route.
+``route=`` on ``conv3x3_same`` and ``conv3x3_up2`` forces one: "v1" at any
+shape (chip_smoke.py times it beside the ring), "ring" only where its
+conditions hold (else ``ValueError`` before any launch). On the CPU the
+route is accepted and the plain twin runs.
+
+Routing to the kernels (counterparts of ``pallas_conv3_shape_eligible``,
 ``pallas_conv3_eligible``, ``pallas_shortcut_eligible`` and
 ``pallas_up2_eligible``). Kept, so that the port launches where the JAX
 package does: a 3x3 kernel, C and K multiples of 128, H and W at least
@@ -51,6 +64,7 @@ upsamplers go through ``ops/resample.py``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 
 import torch
@@ -64,11 +78,18 @@ UP2_MIN_SPATIAL = 64
 CHANNEL_MULTIPLE = 128
 _NO_CONV_KERNELS = os.environ.get("DTTS_NO_CONV_KERNELS", "") not in ("", "0")
 
-_SAME_ARGTYPES = (_launch.PTR,) * 9 + (_launch.INT,) * 7 + (_launch.PTR,)
-_UP2_ARGTYPES = (_launch.PTR,) * 4 + (_launch.INT,) * 6 + (_launch.PTR,)
+_SAME_ARGTYPES = (_launch.PTR,) * 9 + (_launch.INT,) * 8 + (_launch.PTR,)
+_UP2_ARGTYPES = (_launch.PTR,) * 4 + (_launch.INT,) * 7 + (_launch.PTR,)
+
+# The kernels' two designs, by their route code in csrc/conv3x3.cu.
+ROUTES = ("v1", "ring")
+RING_CHANNEL_MULTIPLE = 16  # C and Cres
+RING_WIDTH_MULTIPLE = 8  # W: whole 16-byte chunks of a bf16 row
 
 SAME_LAUNCHES = 0
 UP2_LAUNCHES = 0
+SAME_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+UP2_ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 # ------------------------------------------------------------------ routing
@@ -102,6 +123,33 @@ def up2_eligible(x: torch.Tensor, weight: torch.Tensor) -> bool:
     if x.shape[1] % CHANNEL_MULTIPLE or weight.shape[0] % CHANNEL_MULTIPLE:
         return False
     return x.shape[2] >= UP2_MIN_SPATIAL and x.shape[3] >= UP2_MIN_SPATIAL
+
+
+def conv_route(dtype: torch.dtype, c: int, k: int, w: int, cres: int = 0) -> str:
+    """The kernels' design for a call of C -> K channels at width W with a
+    shortcut of Cres channels (0: none): "ring" for bf16 with C and Cres
+    multiples of 16 and W a multiple of 8, else "v1". K and H do not enter:
+    both designs mask a ragged last block of output channels or rows."""
+    if (dtype == torch.bfloat16 and c % RING_CHANNEL_MULTIPLE == 0
+            and cres % RING_CHANNEL_MULTIPLE == 0 and w % RING_WIDTH_MULTIPLE == 0):
+        return "ring"
+    return "v1"
+
+
+def _pick_route(name: str, route: str | None, dtype: torch.dtype, c: int, k: int, w: int,
+                cres: int = 0) -> str:
+    """``route`` if given (None takes ``conv_route``'s): "v1" at any shape,
+    "ring" only where ``conv_route`` gives it."""
+    want = conv_route(dtype, c, k, w, cres)
+    if route is None:
+        return want
+    if route not in ROUTES:
+        raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
+    if route == "ring" and want != "ring":
+        raise ValueError(f"{name}: the ring route takes bfloat16 with C and Cres multiples of "
+                         f"{RING_CHANNEL_MULTIPLE} and W a multiple of {RING_WIDTH_MULTIPLE}, "
+                         f"got {dtype}, C={c}, Cres={cres}, W={w}")
+    return route
 
 
 # ------------------------------------------------------------- plain twins
@@ -191,7 +239,8 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
                  residual: torch.Tensor | None = None, *,
                  gn_scale: torch.Tensor | None = None, gn_shift: torch.Tensor | None = None,
-                 shortcut: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+                 shortcut: tuple[torch.Tensor, torch.Tensor] | None = None,
+                 route: str | None = None) -> torch.Tensor:
     """3x3 stride-1 SAME conv of x [B, C, H, W] with weight [K, C, 3, 3],
     fp32 accumulation, output [B, K, H, W] in x.dtype. Optional prologue:
     with fp32 ``gn_scale``/``gn_shift`` [B, C] (GroupNorm folded by the
@@ -199,7 +248,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
     silu(x * scale + shift), and the normalized tensor never reaches device
     memory. Optional epilogue: + bias [K], then + residual [B, K, H, W] or
     + the 1x1 projection of ``shortcut = (sc_x [B, Cres, H, W], sc_w
-    [K, Cres])`` (its own bias folded into ``bias`` by the caller)."""
+    [K, Cres])`` (its own bias folded into ``bias`` by the caller).
+    ``route``: None takes ``conv_route``'s; "v1" or "ring" forces one."""
     if (gn_scale is None) != (gn_shift is None):
         raise ValueError("gn_scale and gn_shift must be given together")
     if shortcut is not None and residual is not None:
@@ -209,7 +259,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
         return conv3x3_same_plain(x, weight, bias, residual, gn_scale=gn_scale,
                                   gn_shift=gn_shift, shortcut=shortcut)
     sc_x, sc_w = shortcut if shortcut is not None else (None, None)
-    return _launch.with_twin_backward(_same_kernel, _same_plain, x, weight, bias, residual,
+    kernel = functools.partial(_same_kernel, route=route)
+    return _launch.with_twin_backward(kernel, _same_plain, x, weight, bias, residual,
                                       gn_scale, gn_shift, sc_x, sc_w)
 
 
@@ -218,7 +269,8 @@ def _same_plain(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w):
                               shortcut=None if sc_x is None else (sc_x, sc_w))
 
 
-def _same_kernel(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w):
+def _same_kernel(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w,
+                 route: str | None = None):
     global SAME_LAUNCHES
     b, c, h, w = x.shape
     k = weight.shape[0]
@@ -235,43 +287,56 @@ def _same_kernel(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w):
         cres = sc_x.shape[1]
         _like(sc_x, x, (b, cres, h, w), "shortcut input")
         _like(sc_w, x, (k, cres), "shortcut weight")
+    route = _pick_route("conv3x3_same", route, x.dtype, c, k, w, cres)
     packed = weight.permute(2, 3, 0, 1).contiguous()  # [3, 3, K, C]: tap-major rows of C
     out = torch.empty((b, k, h, w), dtype=x.dtype, device=x.device)
+    if route == "ring":
+        _launch.check_aligned("conv3x3_same", [t.data_ptr() for t in (
+            x, packed, residual, gn_scale, gn_shift, sc_x, sc_w, out) if t is not None])
     fn = _launch.bind("conv3x3", "dtts_conv3x3_same", _SAME_ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), _ptr(bias), _ptr(residual), _ptr(gn_scale),
              _ptr(gn_shift), _ptr(sc_x), _ptr(sc_w), out.data_ptr(),
-             _launch.DTYPE_CODES[x.dtype], b, c, k, h, w, cres, _launch.stream(x))
+             _launch.DTYPE_CODES[x.dtype], b, c, k, h, w, cres, ROUTES.index(route),
+             _launch.stream(x))
     _launch.raise_on(err, "conv3x3_same")
     SAME_LAUNCHES += 1
+    SAME_ROUTE_LAUNCHES[route] += 1
     return out
 
 
-def conv3x3_up2(x: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
+def conv3x3_up2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None, *,
+                route: str | None = None) -> torch.Tensor:
     """conv3x3_pad1(nearest_upsample_2x(x)) for x [B, C, H, W] and weight
     [K, C, 3, 3], as the four 2x2 phase convs on the un-upsampled input with
-    fp32 accumulation, written straight to [B, K, 2H, 2W] in x.dtype."""
+    fp32 accumulation, written straight to [B, K, 2H, 2W] in x.dtype.
+    ``route`` as for ``conv3x3_same``."""
     _check_conv(x, weight, bias, "conv3x3_up2")
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias)
-    return _launch.with_twin_backward(_up2_kernel, conv3x3_up2_plain, x, weight, bias)
+    kernel = functools.partial(_up2_kernel, route=route)
+    return _launch.with_twin_backward(kernel, conv3x3_up2_plain, x, weight, bias)
 
 
-def _up2_kernel(x, weight, bias):
+def _up2_kernel(x, weight, bias, route: str | None = None):
     global UP2_LAUNCHES
     b, c, h, w = x.shape
     k = weight.shape[0]
+    route = _pick_route("conv3x3_up2", route, x.dtype, c, k, w)
     # [4K, C, 2, 2] (phase-major) -> [phase, r, s, K, C]
     packed = phase_kernels(weight).view(4, k, c, 2, 2).permute(0, 3, 4, 1, 2).contiguous()
     out = torch.empty((b, k, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    if route == "ring":
+        _launch.check_aligned("conv3x3_up2", (x.data_ptr(), packed.data_ptr(), out.data_ptr()))
     fn = _launch.bind("conv3x3", "dtts_conv3x3_up2", _UP2_ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), _ptr(bias), out.data_ptr(),
-             _launch.DTYPE_CODES[x.dtype], b, c, k, h, w, _launch.stream(x))
+             _launch.DTYPE_CODES[x.dtype], b, c, k, h, w, ROUTES.index(route), _launch.stream(x))
     _launch.raise_on(err, "conv3x3_up2")
     UP2_LAUNCHES += 1
+    UP2_ROUTE_LAUNCHES[route] += 1
     return out
 
 
 __all__ = ["conv3x3_same", "conv3x3_up2", "conv3x3_same_plain", "conv3x3_up2_plain",
            "conv3_shape_eligible", "conv3_eligible", "shortcut_eligible", "up2_eligible",
-           "MIN_SPATIAL", "UP2_MIN_SPATIAL", "SAME_LAUNCHES", "UP2_LAUNCHES"]
+           "conv_route", "ROUTES", "MIN_SPATIAL", "UP2_MIN_SPATIAL", "SAME_LAUNCHES",
+           "UP2_LAUNCHES", "SAME_ROUTE_LAUNCHES", "UP2_ROUTE_LAUNCHES"]

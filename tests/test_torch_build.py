@@ -5,7 +5,8 @@ every ``csrc`` header the source includes, so an edited header is rebuilt and
 a stale library is never loaded. The wrappers of the attention (forward and
 backward) and GEGLU kernels pick a route in Python (``forward_route``,
 ``backward_route``, ``route``) and refuse, before any launch, what the
-tensor-core route cannot take. The kernels themselves
+tensor-core route cannot take; so do the conv kernels (``conv_route``:
+"ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_kernels_cuda.py.
 """
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from diffusion_tts_torch.ops.kernels import _launch, build
+from diffusion_tts_torch.ops.kernels import conv3x3 as cv
 from diffusion_tts_torch.ops.kernels import geglu_ff as gg
 from diffusion_tts_torch.ops.kernels import qkv_attention as qk
 
@@ -205,3 +207,97 @@ def test_the_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version():
     w2, b2 = torch.randn((16, 32), generator=g), torch.randn(16, generator=g)
     assert torch.equal(gg.geglu_ff(x, w0, b0, w2, b2, route="fma"),
                        gg.geglu_ff_plain(x, w0, b0, w2, b2))
+
+
+# ---------------------------------------------------------- the conv routes
+
+# (C, K, W, Cres) of every routed conv of the SD-1.5 VAE decoder: the 3x3
+# convs at 128-512 wide (two with their 1x1 shortcut) and the up-convs from
+# 64-256 wide sources.
+SD_DECODER_CONVS = [(512, 512, 128, 0), (512, 256, 256, 0), (256, 256, 256, 512),
+                    (256, 256, 256, 0), (256, 128, 512, 0), (128, 128, 512, 256),
+                    (128, 128, 512, 0), (512, 512, 64, 0), (256, 256, 256, 0)]
+RAGGED_CONVS = [(40, 128, 64, 0), (128, 128, 35, 0), (128, 128, 64, 24), (48, 72, 40, 32)]
+
+
+def _ring_conditions_in_source():
+    """The ring route's conditions as csrc/conv3x3.cu states them in its
+    header and as its code defines them (kRingChannels, kRingWidth)."""
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    stated = re.search(r"ring \(route 1\): bf16 with C and Cres multiples of (\d+) and W a "
+                       r"multiple of (\d+),", src).groups()
+    defined = re.search(r"kRingChannels = (\d+), kRingWidth = (\d+);", src).groups()
+    return tuple(map(int, stated)), tuple(map(int, defined))
+
+
+@pytest.mark.parametrize("c,k,w,cres", SD_DECODER_CONVS + RAGGED_CONVS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_route_at_the_sd_decoder_and_ragged_shapes(dtype, c, k, w, cres):
+    """bf16 takes the ring at every routed conv of the SD decoder, and v1 at
+    C = 40, W = 35 or Cres = 24; fp32 always takes v1."""
+    ring = dtype == torch.bfloat16 and (c, k, w, cres) not in RAGGED_CONVS[:3]
+    assert cv.conv_route(dtype, c, k, w, cres) == ("ring" if ring else "v1")
+
+
+@pytest.mark.parametrize("c,w,cres", [(c, w, cres) for c in (16, 40, 128) for w in (8, 35, 64)
+                                      for cres in (0, 24, 256)])
+def test_conv_route_is_the_one_the_source_states(c, w, cres):
+    stated, defined = _ring_conditions_in_source()
+    assert stated == defined == (cv.RING_CHANNEL_MULTIPLE, cv.RING_WIDTH_MULTIPLE)
+    chan, width = stated
+    ring = c % chan == 0 and cres % chan == 0 and w % width == 0
+    assert cv.conv_route(torch.bfloat16, c, 128, w, cres) == ("ring" if ring else "v1")
+    assert cv.conv_route(torch.float32, c, 128, w, cres) == "v1"
+
+
+def test_the_conv_kernels_include_the_shared_header():
+    assert "mma_bf16.cuh" in [p.name for p in build.sources("conv3x3")]
+    assert re.search(r"conv3_ring_kernel", (build.CSRC / "conv3x3.cu").read_text())
+
+
+def _conv_call(kernel, case):
+    """The kernel function of ``conv3x3_same`` or ``conv3x3_up2`` called on
+    CPU tensors for ``case``: "pointer" (x 2 bytes off), "fp32_forced"
+    ("ring" forced on fp32), "c40_forced" ("ring" forced at C = 40)."""
+    dtype = torch.float32 if case == "fp32_forced" else torch.bfloat16
+    c = 40 if case == "c40_forced" else 128
+    x = torch.zeros(c * 8 * 16 + 1, dtype=dtype)
+    x = x[1:] if case == "pointer" else x[:-1]
+    x = x.view(1, c, 8, 16)
+    weight = torch.zeros((128, c, 3, 3), dtype=dtype)
+    route = None if case == "pointer" else "ring"
+    if kernel == "same":
+        return lambda: cv._same_kernel(x, weight, None, None, None, None, None, None, route=route)
+    return lambda: cv._up2_kernel(x, weight, None, route=route)
+
+
+@pytest.mark.parametrize("case", ["pointer", "fp32_forced", "c40_forced"])
+@pytest.mark.parametrize("kernel", ["same", "up2"])
+def test_conv_refuses_what_the_ring_route_cannot_take(no_launch, kernel, case):
+    before = (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, dict(cv.SAME_ROUTE_LAUNCHES),
+              dict(cv.UP2_ROUTE_LAUNCHES))
+    match = "16-byte" if case == "pointer" else "ring route takes bfloat16"
+    with pytest.raises(ValueError, match=match):
+        _conv_call(kernel, case)()
+    assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, cv.SAME_ROUTE_LAUNCHES,
+            cv.UP2_ROUTE_LAUNCHES) == before
+
+
+def test_conv_refuses_an_unknown_route(no_launch):
+    x, weight = torch.zeros((1, 16, 4, 8), dtype=torch.bfloat16), \
+        torch.zeros((16, 16, 3, 3), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="route must be one of"):
+        cv._up2_kernel(x, weight, None, route="mma")
+
+
+@pytest.mark.parametrize("route", [None, "v1", "ring"])
+def test_the_conv_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version(route):
+    g = torch.Generator().manual_seed(3)
+    r = lambda *shape: torch.randn(shape, generator=g).bfloat16()
+    x, weight, bias = r(2, 16, 6, 8), r(24, 16, 3, 3), r(24)
+    kw = dict(gn_scale=1 + 0.1 * torch.randn((2, 16), generator=g),
+              gn_shift=0.1 * torch.randn((2, 16), generator=g), shortcut=(r(2, 32, 6, 8), r(24, 32)))
+    assert torch.equal(cv.conv3x3_same(x, weight, bias, route=route, **kw),
+                       cv.conv3x3_same_plain(x, weight, bias, **kw))
+    assert torch.equal(cv.conv3x3_up2(x, weight, bias, route=route),
+                       cv.conv3x3_up2_plain(x, weight, bias))

@@ -169,22 +169,55 @@ def _conv_case(case, b, c, k, h, w, cres, dtype, device, seed):
     return kw
 
 
+def _conv_routes():
+    return dict(cv.SAME_ROUTE_LAUNCHES), dict(cv.UP2_ROUTE_LAUNCHES)
+
+
+def _same_checked(x, weight, kw, route=None):
+    """conv3x3_same on its route (the predicate's, or ``route``): one launch,
+    counted on that route, and the output's shape and dtype."""
+    b, c, h, w = x.shape
+    k = weight.shape[0]
+    want = route or cv.conv_route(x.dtype, c, k, w, kw["shortcut"][0].shape[1]
+                                  if "shortcut" in kw else 0)
+    before, routes = cv.SAME_LAUNCHES, dict(cv.SAME_ROUTE_LAUNCHES)
+    out = cv.conv3x3_same(x, weight, route=route, **kw)
+    torch.cuda.synchronize()
+    assert cv.SAME_LAUNCHES == before + 1 and out.shape == (b, k, h, w) and out.dtype == x.dtype
+    assert cv.SAME_ROUTE_LAUNCHES == {**routes, want: routes[want] + 1}
+    return out, want
+
+
+def _up2_checked(x, weight, bias, route=None):
+    b, c, h, w = x.shape
+    k = weight.shape[0]
+    want = route or cv.conv_route(x.dtype, c, k, w)
+    before, routes = cv.UP2_LAUNCHES, dict(cv.UP2_ROUTE_LAUNCHES)
+    out = cv.conv3x3_up2(x, weight, bias, route=route)
+    torch.cuda.synchronize()
+    assert cv.UP2_LAUNCHES == before + 1 and out.shape == (b, k, 2 * h, 2 * w)
+    assert cv.UP2_ROUTE_LAUNCHES == {**routes, want: routes[want] + 1}
+    return out, want
+
+
+CONV_CASES = ["plain", "bias_residual", "prologue_bias", "prologue_bias_residual",
+              "prologue_bias_shortcut"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["plain", "bias_residual", "prologue_bias",
-                                  "prologue_bias_residual", "prologue_bias_shortcut"])
+@pytest.mark.parametrize("case", CONV_CASES)
 @pytest.mark.parametrize("b,c,k,h,w,cres", [(2, 128, 128, 16, 16, 256), (1, 256, 128, 8, 40, 128),
                                             (2, 40, 72, 9, 35, 24)])
 def test_conv3x3_same_matches_plain(card, b, c, k, h, w, cres, case, dtype):
     """Whole tiles, a ragged tile in W, and ragged everything (C, K and Cres
-    not multiples of 16 or 128, odd H and W)."""
+    not multiples of 16 or 128, odd H and W). Each call takes the route its
+    predicate gives: bf16 on the ring but at the ragged shape, fp32 on v1."""
     x = _randn((b, c, h, w), dtype, card, 20)
     weight = _randn((k, c, 3, 3), dtype, card, 21, scale=0.05)
     kw = _conv_case(case, b, c, k, h, w, cres, dtype, card, 22)
-    before = cv.SAME_LAUNCHES
-    out = cv.conv3x3_same(x, weight, **kw)
-    torch.cuda.synchronize()
-    assert cv.SAME_LAUNCHES == before + 1 and out.shape == (b, k, h, w) and out.dtype == dtype
+    out, route = _same_checked(x, weight, kw)
+    assert route == ("ring" if dtype == torch.bfloat16 and c % 16 == 0 else "v1")
     assert _rel_err(out, cv.conv3x3_same_plain(x, weight, **kw)) <= TOL[dtype]
 
 
@@ -192,14 +225,17 @@ def test_conv3x3_same_matches_plain(card, b, c, k, h, w, cres, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3x3_same_pads_after_the_prologue(card, dtype):
     """With a large shift silu(shift) is far from 0; the border pixels still
-    agree with the twin, which normalizes first and pads second."""
+    agree with the twin, which normalizes first and pads second (bf16 on the
+    ring, fp32 on v1)."""
     b, c, k, h, w = 1, 128, 128, 8, 40
     x = _randn((b, c, h, w), dtype, card, 30)
     weight = _randn((k, c, 3, 3), dtype, card, 31, scale=0.05)
     scale = 1 + _randn((b, c), torch.float32, card, 32, scale=0.5)
     shift = torch.full((b, c), 6.0, device=card)
-    out = cv.conv3x3_same(x, weight, gn_scale=scale, gn_shift=shift)
-    want = cv.conv3x3_same_plain(x, weight, gn_scale=scale, gn_shift=shift)
+    kw = dict(gn_scale=scale, gn_shift=shift)
+    out, route = _same_checked(x, weight, kw)
+    assert route == ("ring" if dtype == torch.bfloat16 else "v1")
+    want = cv.conv3x3_same_plain(x, weight, **kw)
     border = torch.ones((h, w), dtype=torch.bool, device=card)
     border[1:-1, 1:-1] = False
     err = (out.float() - want.float()).abs() / want.float().abs().max()
@@ -216,11 +252,101 @@ def test_conv3x3_up2_matches_plain(card, b, c, k, h, w, with_bias, dtype):
     x = _randn((b, c, h, w), dtype, card, 40)
     weight = _randn((k, c, 3, 3), dtype, card, 41, scale=0.05)
     bias = _randn((k,), dtype, card, 42) if with_bias else None
-    before = cv.UP2_LAUNCHES
-    out = cv.conv3x3_up2(x, weight, bias)
-    torch.cuda.synchronize()
-    assert cv.UP2_LAUNCHES == before + 1 and out.shape == (b, k, 2 * h, 2 * w)
+    out, route = _up2_checked(x, weight, bias)
+    assert route == ("ring" if dtype == torch.bfloat16 and c % 16 == 0 else "v1")
     assert _rel_err(out, cv.conv3x3_up2_plain(x, weight, bias)) <= TOL[dtype]
+
+
+# ------------------------------------------------- the conv's ring route
+
+RING_SHAPES = [(2, 128, 128, 8, 64, 128),   # whole tiles in every dimension
+               (1, 48, 72, 9, 40, 32),      # ragged H and K; W a multiple of 8, not of 32
+               (1, 32, 256, 5, 24, 80)]     # two K blocks, W below one tile, Cres 80 (2 stages)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("b,c,k,h,w,cres", RING_SHAPES)
+def test_conv3x3_same_ring_matches_plain(card, b, c, k, h, w, cres, case):
+    x = _randn((b, c, h, w), torch.bfloat16, card, 50)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 51, scale=0.05)
+    kw = _conv_case(case, b, c, k, h, w, cres, torch.bfloat16, card, 52)
+    out, route = _same_checked(x, weight, kw)
+    assert route == "ring"
+    assert _rel_err(out, cv.conv3x3_same_plain(x, weight, **kw)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,k,h,w,cres", RING_SHAPES)
+def test_conv3x3_same_ring_pads_after_the_prologue(card, b, c, k, h, w, cres):
+    """The ring zeroes out-of-image pixels by position after the prologue:
+    with shift 6 a zero-filled chunk alone would contribute silu(6)."""
+    x = _randn((b, c, h, w), torch.bfloat16, card, 53)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 54, scale=0.05)
+    kw = dict(gn_scale=1 + _randn((b, c), torch.float32, card, 55, scale=0.5),
+              gn_shift=torch.full((b, c), 6.0, device=card),
+              shortcut=(_randn((b, cres, h, w), torch.bfloat16, card, 56),
+                        _randn((k, cres), torch.bfloat16, card, 57, scale=0.05)))
+    out, route = _same_checked(x, weight, kw)
+    assert route == "ring"
+    want = cv.conv3x3_same_plain(x, weight, **kw)
+    border = torch.ones((h, w), dtype=torch.bool, device=card)
+    border[1:-1, 1:-1] = False
+    err = (out.float() - want.float()).abs() / want.float().abs().max()
+    assert err[..., border].max().item() <= TOL[torch.bfloat16]
+    assert err[..., ~border].max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("b,c,k,h,w", [(2, 128, 128, 16, 16), (1, 48, 72, 9, 40),
+                                       (1, 16, 136, 3, 8)])
+def test_conv3x3_up2_ring_matches_plain(card, b, c, k, h, w, with_bias):
+    """Whole tiles, ragged K and H at a W that is no multiple of 32, and C
+    below one 32-channel stage (the copy zero-fills its second half)."""
+    x = _randn((b, c, h, w), torch.bfloat16, card, 60)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 61, scale=0.05)
+    bias = _randn((k,), torch.bfloat16, card, 62) if with_bias else None
+    out, route = _up2_checked(x, weight, bias)
+    assert route == "ring"
+    assert _rel_err(out, cv.conv3x3_up2_plain(x, weight, bias)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["same", "up2"])
+def test_conv_ring_agrees_with_v1_and_repeats_bit_for_bit(card, kernel):
+    """The ring against forced v1 on the same bf16 inputs, within 2e-2 of
+    the largest output, and two ring calls bit-identical."""
+    b, c, k, h, w, cres = 2, 128, 256, 12, 48, 256
+    x = _randn((b, c, h, w), torch.bfloat16, card, 70)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 71, scale=0.05)
+    if kernel == "same":
+        kw = _conv_case("prologue_bias_shortcut", b, c, k, h, w, cres, torch.bfloat16, card, 72)
+        run = lambda route: _same_checked(x, weight, kw, route)[0]
+    else:
+        bias = _randn((k,), torch.bfloat16, card, 72)
+        run = lambda route: _up2_checked(x, weight, bias, route)[0]
+    ring, again, v1 = run("ring"), run("ring"), run("v1")
+    assert torch.equal(ring, again)
+    assert _rel_err(ring, v1) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_conv_ring_refuses_what_it_cannot_take(card):
+    bf = torch.bfloat16
+    before = (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes())
+    x = torch.zeros(1 * 128 * 8 * 8 + 1, dtype=bf, device=card)[1:].view(1, 128, 8, 8)
+    w = torch.zeros((128, 128, 3, 3), dtype=bf, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3x3_same(x, w)
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3x3_up2(x, w)
+    with pytest.raises(ValueError, match="ring route takes bfloat16"):
+        cv.conv3x3_same(torch.zeros((1, 128, 8, 8), device=card), w.float(), route="ring")
+    with pytest.raises(ValueError, match="ring route takes bfloat16"):
+        cv.conv3x3_up2(torch.zeros((1, 40, 8, 8), dtype=bf, device=card),
+                       torch.zeros((128, 40, 3, 3), dtype=bf, device=card), route="ring")
+    assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes()) == before
 
 
 @pytest.mark.cuda
