@@ -48,8 +48,9 @@ Phases, each of which raises on failure (nothing is caught):
      the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
-     and GEGLU all on "mma", conv3x3_same and conv3x3_up2 all on "ring"), and
-     every kernel call's shape recorded;
+     and GEGLU all on "mma", conv3x3_same and conv3x3_up2 all on "ring",
+     GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
+     call's shape recorded;
   7. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
      conv3x3_same (every prologue/epilogue variant that occurred) and
      conv3x3_up2 against their plain versions at every shape the SD search
@@ -59,7 +60,12 @@ Phases, each of which raises on failure (nothing is caught):
      repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
      rows as in phase 3 (route, ``fma_ms``, TFLOP/s); conv rows with their
      route, ``v1_ms`` (bf16: the first design, timed in turns with the ring:
-     ring, v1, v1, ring, the lesser of each pair) and TFLOP/s;
+     ring, v1, v1, ring, the lesser of each pair) and TFLOP/s; GroupNorm rows
+     with their route, ``v1_ms`` (slab and v1 in turns, as the conv's), TB/s,
+     and the device time of the slab, v1 and the library call
+     (``device_ms``, ``v1_device_ms``, ``library_device_ms``: 20 calls
+     captured once in a CUDA graph and timed by replay, which leaves the
+     host's call rate out), each shape's two slab calls held bit-identical;
   8. one JSON line of kernel numbers, then the result line.
 
 With --kernels-json, the per-shape rows also go to that file. The script
@@ -126,10 +132,10 @@ TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 
 ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_LAUNCHES,
                   "geglu_ff": gg.ROUTE_LAUNCHES, "conv3x3_same": cv.SAME_ROUTE_LAUNCHES,
-                  "conv3x3_up2": cv.UP2_ROUTE_LAUNCHES}
+                  "conv3x3_up2": cv.UP2_ROUTE_LAUNCHES, "group_norm_silu": gn.ROUTE_LAUNCHES}
 # Each kernel's redesigned route, which every launch of a main path must take.
 FAST_ROUTE = {"attention": "mma", "attention_bwd": "mma", "geglu_ff": "mma",
-              "conv3x3_same": "ring", "conv3x3_up2": "ring"}
+              "conv3x3_same": "ring", "conv3x3_up2": "ring", "group_norm_silu": "slab"}
 
 
 def reset_launches() -> None:
@@ -203,19 +209,53 @@ def time_in_turns(fn, other, reps: int = 20) -> tuple[float, float]:
     return min(a1, a2), min(b1, b2)
 
 
+def graph_ms(fns, calls: int = 20, replays: int = 3) -> list[float]:
+    """Device ms of one call of each of ``fns``: ``calls`` calls captured
+    once in a torch.cuda.CUDAGraph (after one call outside the capture) and
+    timed by replay, in turns (each fn, then in reverse order), the lesser
+    of each fn's two timings. The host's call rate is left out; the same
+    input is read by every call, so a tensor that fits the 50 MB L2 may be
+    read from it. A failed capture raises."""
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        graphs.append(graph)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = [[] for _ in graphs]
+    for i in list(range(len(graphs))) + list(reversed(range(len(graphs)))):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(replays):
+            graphs[i].replay()
+        end.record()
+        end.synchronize()
+        times[i].append(start.elapsed_time(end) / (replays * calls))
+    del graphs
+    torch.cuda.empty_cache()
+    return [min(t) for t in times]
+
+
 def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int = 20) -> None:
     """The row's route, the first design's time and the TFLOP/s of the
     kernel time. Attention and GEGLU: ``fma_ms``, the CUDA-core route timed
-    alone unless the row is on it. The conv kernels: ``v1_ms``, timed in turns
-    with the ring (which sets the row's ``ms`` anew) unless the row is on v1."""
+    alone unless the row is on it. The conv kernels and GroupNorm: ``v1_ms``,
+    timed in turns with the ring or the slab (which sets the row's ``ms``
+    anew) unless the row is on v1."""
     row["route"] = route
     if route in ("mma", "fma"):
         row["fma_ms"] = time_ms(first) if route == "mma" else row["ms"]
-    elif route == "ring":
+    elif route in ("ring", "slab"):
         row["ms"], row["v1_ms"] = time_in_turns(kernel, first, reps)
     else:
         row["v1_ms"] = row["ms"]
-    row["tflops"] = flops / row["ms"] / 1e9
+    if flops:
+        row["tflops"] = flops / row["ms"] / 1e9
 
 
 def bound(flops: float, moved_bytes: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -457,8 +497,12 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
     if route is not None:
         route_columns(row, route[0], flops_bytes[0], route[1], kernel, reps)
         first = "fma_ms" if "fma_ms" in row else "v1_ms"
-        routed = (f" route={row['route']} ({row['tflops']:.1f} TFLOP/s) "
-                  f"{first}={row[first]:.4f}")
+        if flops_bytes[0]:
+            rate = f"{row['tflops']:.1f} TFLOP/s"
+        else:  # a memory-bound kernel: its bytes over its time
+            row["tb_per_s"] = flops_bytes[1] / row["ms"] / 1e9
+            rate = f"{row['tb_per_s']:.2f} TB/s"
+        routed = f" route={row['route']} ({rate}) {first}={row[first]:.4f}"
     print(f"  {name} {row['shape']} {row['dtype']:>8}: max_abs={max_abs:.3e} "
           f"max_rel={max_rel:.3e} (tol {TOL[dtype]}) kernel_ms={row['ms']:.4f}{routed} "
           f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
@@ -483,6 +527,9 @@ def check_sd_attention(key, dtype, tag):
 
 
 def check_group_norm(key, dtype, tag):
+    """The row of kernel_row with the route columns (the slab and v1 in
+    turns) and the device times by graph replay; two calls of the routed
+    kernel must be bit-identical."""
     shape, groups, eps, silu = key
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
@@ -490,14 +537,26 @@ def check_group_norm(key, dtype, tag):
     w = 1 + 0.1 * torch.randn(c, device="cuda", generator=g)
     b = 0.1 * torch.randn(c, device="cuda", generator=g)
     kernel = lambda: gn.group_norm_silu(x, w, b, groups=groups, eps=eps, apply_silu=silu)
+    first = lambda: gn.group_norm_silu(x, w, b, groups=groups, eps=eps, apply_silu=silu,
+                                       route="v1")
     plain = lambda: gn.group_norm_silu_plain(x, w, b, groups=groups, eps=eps, apply_silu=silu)
 
     def library():
         y = F.group_norm(x, groups, w.to(dtype), b.to(dtype), eps)
         return F.silu(y) if silu else y
 
-    return kernel_row("group_norm_silu", shape, dtype, kernel(), plain(), kernel, plain, library,
-                      (0, 2 * x.numel() * x.element_size()), tag)
+    out = kernel()
+    if not torch.equal(out, kernel()):
+        raise AssertionError(f"group_norm_silu {list(shape)} {dtype}: two calls differ")
+    row = kernel_row("group_norm_silu", shape, dtype, out, plain(), kernel, plain, library,
+                     (0, 2 * x.numel() * x.element_size()), tag, reps=reps_for(shape),
+                     route=(gn.gn_route(dtype, c, x[0, 0].numel(), groups), first))
+    row["device_ms"], row["v1_device_ms"], row["library_device_ms"] = graph_ms(
+        (kernel, first, library))
+    print(f"    device ms by graph replay: {row['route']} {row['device_ms']:.4f}, "
+          f"v1 {row['v1_device_ms']:.4f}, library {row['library_device_ms']:.4f}, "
+          f"bound {row['bound_ms']:.4f}; two calls bit-identical")
+    return row
 
 
 def check_geglu(key, dtype, tag):
@@ -985,8 +1044,8 @@ def sd_phases(tag: str) -> list[dict]:
     if count(pipe16.vae, sd_layers.GroupNorm) != 30:
         raise AssertionError("the VAE decoder should hold 30 GroupNorm modules")
     per_call = {"attention": 1, "attention_bwd": qk.BWD_LAUNCHES_PER_CALL,
-                "group_norm_silu": gn.LAUNCHES_PER_CALL,
-                "geglu_ff": gg.LAUNCHES_PER_CALL, "group_norm_stats": gn.LAUNCHES_PER_CALL,
+                "group_norm_silu": gn.LAUNCHES_PER_CALL[FAST_ROUTE["group_norm_silu"]],
+                "geglu_ff": gg.LAUNCHES_PER_CALL, "group_norm_stats": gn.STATS_LAUNCHES_PER_CALL,
                 "conv3x3_same": 1, "conv3x3_up2": 1}
     forwards, decodes = SD_STEPS * (1 + SD_K), SD_STEPS * SD_K + 1
 
@@ -1022,7 +1081,8 @@ def sd_phases(tag: str) -> list[dict]:
             raise AssertionError(f"{name} launched {n} times on the SD main path, "
                                  f"expected {want}")
     check_routes("SD", routes, {name: launches[name] for name in
-                                ("attention", "geglu_ff", "conv3x3_same", "conv3x3_up2")})
+                                ("attention", "geglu_ff", "conv3x3_same", "conv3x3_up2",
+                                 "group_norm_silu")})
     if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
             and images.shape == (SD_PROMPTS, 512, 512, 3)
             and 0 <= images.min() <= images.max() <= 1):
@@ -1068,11 +1128,15 @@ def sd_phases(tag: str) -> list[dict]:
                 "bound_by"],
             "library_ms": total("library_ms"), "shapes": rows,
         })
-        for first in ("fma_ms", "v1_ms"):
+        for first in ("fma_ms", "v1_ms", "device_ms", "v1_device_ms", "library_device_ms"):
             if first in rows[0]:
                 lines[-1][first] = total(first)
-        if name.startswith("conv3x3"):  # launches of the search per design
+        if name in ROUTE_COUNTERS:  # launches of the search per design
             lines[-1]["routes"] = routes[name]
+    gn_line = next(line for line in lines if line["name"] == "group_norm_silu")
+    gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
+    if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
+        raise AssertionError(f"the SD search did not give GroupNorm its largest shapes: {gn_shapes}")
     return lines
 
 

@@ -105,13 +105,17 @@ def test_group_norm_matches_plain(card, case, dtype):
     bias = _randn(scale.shape, torch.float32, card, 3)
     pre = _randn((b, c), torch.float32, card, 4) if case == "prebias" else None
     silu = not per_sample
+    # "two_chunks" is v1's: two chunks of pixels per channel (the slab takes
+    # HW = 10,000 by default)
+    route = "v1" if case == "two_chunks" else gn.gn_route(dtype, c, h * w, groups)
     before = gn.LAUNCHES
     if pre is None:
-        out = gn.group_norm_silu(x, scale, bias, groups=groups, eps=1e-5, apply_silu=silu)
+        out = gn.group_norm_silu(x, scale, bias, groups=groups, eps=1e-5, apply_silu=silu,
+                                 route=route)
     else:
         out = gn.group_norm_silu_prebias(x, scale, bias, pre, groups=groups, eps=1e-6)
     torch.cuda.synchronize()
-    assert gn.LAUNCHES == before + gn.LAUNCHES_PER_CALL and out.dtype == dtype
+    assert gn.LAUNCHES == before + gn.LAUNCHES_PER_CALL[route] and out.dtype == dtype
     want = gn.group_norm_silu_plain(x, scale, bias, groups=groups,
                                     eps=1e-5 if pre is None else 1e-6, apply_silu=silu, pre=pre)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
@@ -148,10 +152,110 @@ def test_group_norm_stats_matches_plain(card, shape, groups, dtype):
     before, before_gn = gn.STATS_LAUNCHES, gn.LAUNCHES
     mean, rstd = gn.group_norm_stats(x, groups=groups, eps=1e-6)
     torch.cuda.synchronize()
-    assert gn.STATS_LAUNCHES == before + gn.LAUNCHES_PER_CALL and gn.LAUNCHES == before_gn
+    assert gn.STATS_LAUNCHES == before + gn.STATS_LAUNCHES_PER_CALL and gn.LAUNCHES == before_gn
     assert mean.shape == rstd.shape == shape[:2] and mean.dtype == rstd.dtype == torch.float32
     want_mean, want_rstd = gn.group_norm_stats_plain(x, groups=groups, eps=1e-6)
     assert _rel_err(mean, want_mean) <= 1e-5 and _rel_err(rstd, want_rstd) <= 1e-5
+
+
+
+# ---------------------------------------------------- the GroupNorm slab route
+
+
+def _gn_case(shape, dtype, device, seed, per_sample=False, with_pre=False):
+    b, c = shape[:2]
+    x = _randn(shape, dtype, device, seed, scale=3.0) + 1
+    scale = 1 + _randn((b, c) if per_sample else (c,), torch.float32, device, seed + 1, 0.3)
+    bias = _randn(scale.shape, torch.float32, device, seed + 2, 0.3)
+    pre = _randn((b, c), torch.float32, device, seed + 3) if with_pre else None
+    return x, scale, bias, pre
+
+
+def _gn_slab_checked(x, scale, bias, pre, silu=True, route=None):
+    """One call, its launches checked against its route's; returns (out, route)."""
+    b, c = x.shape[:2]
+    route = route or gn.gn_route(x.dtype, c, x[0, 0].numel(), 32)
+    before, routes = gn.LAUNCHES, dict(gn.ROUTE_LAUNCHES)
+    if pre is None:
+        out = gn.group_norm_silu(x, scale, bias, groups=32, apply_silu=silu, route=route)
+    else:
+        out = gn.group_norm_silu_prebias(x, scale, bias, pre, groups=32, eps=1e-6,
+                                         apply_silu=silu, route=route)
+    torch.cuda.synchronize()
+    n = gn.LAUNCHES_PER_CALL[route]
+    assert gn.LAUNCHES == before + n and gn.ROUTE_LAUNCHES == {**routes, route: routes[route] + n}
+    assert out.shape == x.shape and out.dtype == x.dtype
+    return out, route
+
+
+def _gn_plain(x, scale, bias, pre, silu=True):
+    return gn.group_norm_silu_plain(x, scale, bias, groups=32, eps=1e-5 if pre is None else 1e-6,
+                                    apply_silu=silu, pre=pre)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cs", [((8, 320, 64, 64), 1), ((8, 640, 64, 64), 2),
+                                      ((2, 320, 64, 64), 4), ((1, 128, 512, 512), 8),
+                                      ((8, 960, 64, 64), 4)])
+def test_group_norm_slab_matches_plain(card, shape, cs, dtype):
+    """Each cluster size, by the predicate's choice at bf16 (fp32 parts are
+    twice as large). The 2 MB group of [1, 128, 512, 512] (4 MB in fp32)
+    exceeds what eight CTAs hold: each keeps 96 KB resident and reads the
+    rest twice."""
+    b, c, h, w = shape
+    assert gn.gn_slab_cluster(b, 32, c // 32, h * w, torch.bfloat16) == cs
+    x, scale, bias, pre = _gn_case(shape, dtype, card, 80)
+    out, route = _gn_slab_checked(x, scale, bias, pre)
+    assert route == "slab"
+    assert _rel_err(out, _gn_plain(x, scale, bias, pre)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["per_sample_affine", "pre", "pre_no_silu", "no_silu",
+                                  "8x8"])
+def test_group_norm_slab_variants_match_plain(card, case, dtype):
+    """Per-sample affine, the pre-add, SiLU on and off, and an 8x8 input
+    (the UNet's lowest level, 2 vectors of bf16 per channel row in fp32's 4)."""
+    shape = (2, 1280, 8, 8) if case == "8x8" else (2, 640, 16, 16)
+    x, scale, bias, pre = _gn_case(shape, dtype, card, 90, per_sample=case == "per_sample_affine",
+                                   with_pre=case.startswith("pre"))
+    silu = "no_silu" not in case
+    out, route = _gn_slab_checked(x, scale, bias, pre, silu)
+    assert route == "slab"
+    assert _rel_err(out, _gn_plain(x, scale, bias, pre, silu)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 128, 512, 512), (8, 960, 64, 64), (2, 1280, 8, 8)])
+def test_group_norm_slab_agrees_with_v1_and_repeats_bit_for_bit(card, shape):
+    """The slab against forced v1 on the same bf16 inputs, within 2e-2 of
+    the largest output; two slab calls bit-identical; one launch a call."""
+    x, scale, bias, pre = _gn_case(shape, torch.bfloat16, card, 100, with_pre=True)
+    slab, again = (_gn_slab_checked(x, scale, bias, pre, route="slab")[0] for _ in range(2))
+    v1, _ = _gn_slab_checked(x, scale, bias, pre, route="v1")
+    assert torch.equal(slab, again)
+    assert _rel_err(slab, v1) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_group_norm_slab_refuses_what_it_cannot_take(card):
+    before = (gn.LAUNCHES, dict(gn.ROUTE_LAUNCHES))
+    ones, zeros = torch.ones(64, device=card), torch.zeros(64, device=card)
+    ragged = _randn((1, 64, 5, 7), torch.bfloat16, card, 110)
+    with pytest.raises(ValueError, match="slab route takes"):
+        gn.group_norm_silu(ragged, ones, zeros, groups=32, route="slab")
+    x = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16, device=card)[1:].view(1, 64, 8, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        gn.group_norm_silu(x, ones, zeros, groups=32)
+    with pytest.raises(ValueError, match="route must be one of"):
+        gn.group_norm_silu(x.contiguous(), ones, zeros, groups=32, route="ring")
+    assert (gn.LAUNCHES, gn.ROUTE_LAUNCHES) == before
+    out = gn.group_norm_silu(ragged, ones, zeros, groups=32)  # HW = 35 takes v1
+    torch.cuda.synchronize()
+    assert gn.ROUTE_LAUNCHES == {**before[1], "v1": before[1]["v1"] + 2}
+    assert _rel_err(out, gn.group_norm_silu_plain(ragged, ones, zeros, groups=32)) <= 2e-2
 
 
 def _conv_case(case, b, c, k, h, w, cres, dtype, device, seed):

@@ -43,9 +43,12 @@ def _rel_err(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["affine_c_silu", "affine_c_plain", "affine_bc", "prebias"])
+@pytest.mark.parametrize("case", ["affine_c_silu", "affine_c_plain", "affine_bc", "prebias",
+                                  "unet_960"])
 def test_group_norm_twin_matches_pallas(case, dtype):
-    b, h, w, c, groups = 2, 8, 8, 128, 32
+    """"unet_960": the SD UNet's geometry, 960 channels at 16x16 in 32
+    groups (30 channels a group)."""
+    b, h, w, c, groups = (2, 16, 16, 960, 32) if case == "unet_960" else (2, 8, 8, 128, 32)
     x_t, x_j = _both(_rand((b, h, w, c), 0, 3.0) + 1.0, dtype)
     per_sample = case == "affine_bc"
     scale = _rand((b, c) if per_sample else (c,), 1)
