@@ -23,6 +23,17 @@ Phases, each of which raises on failure (nothing is caught):
      2 samples, N=4, K=2) through the entry point, with every kernel's
      launches counted, each on the route its predicate gives (every one on
      "mma");
+ 4b. the other EDM searches through the same entry point on the same net:
+     rejection (N=4) and beam (B=2, N=4) at 18 steps, MCTS (N=2, S=2, one
+     phase) at 6 steps, 2 samples each; per run its wall time, NFE, NFE/s,
+     peak memory, scores and launches; the launches held against the
+     method's structure (22 per denoiser call: 792 / 792 / 2376), all on
+     "mma"; finite images in [0, 1] whose score, computed again, is the
+     returned one; rejection's x against replay_trajectory of its best
+     candidate's recorded noise (2e-2 of x's largest magnitude); MCTS run
+     twice from one seed, bit-identical; then the qkv attention kernel
+     against its plain version at the batches these searches add (4, 16),
+     untimed;
   5. training (the EDM backend's): the attention backward kernels against
      their plain version at the flagship's [16, T, 3C] training shapes (bf16,
      each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
@@ -51,6 +62,14 @@ Phases, each of which raises on failure (nothing is caught):
      and GEGLU all on "mma", conv3x3_same and conv3x3_up2 all on "ring",
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
      call's shape recorded;
+ 6b. the other SD searches through the pipeline's __call__ (6 steps, one
+     prompt): rejection (N=4), beam (B=2, N=4) and MCTS (N=2, S=2); per run
+     as in 4b, the launches held against the UNet calls and VAE decodes the
+     method makes (UNet / decode calls: 6 / 2, 12 / 8, 54 / 7) and against
+     the calls recorded by shape; rejection's replay and MCTS's repeat as in
+     4b; then every kernel against its plain version at each shape these
+     searches give it and eps-greedy's does not (UNet batches 4 and 16,
+     decode batches 2 and 8), untimed;
   7. SD kernels: attention, GroupNorm(+SiLU), GEGLU, GroupNorm statistics,
      conv3x3_same (every prologue/epilogue variant that occurred) and
      conv3x3_up2 against their plain versions at every shape the SD search
@@ -66,9 +85,11 @@ Phases, each of which raises on failure (nothing is caught):
      (``device_ms``, ``v1_device_ms``, ``library_device_ms``: 20 calls
      captured once in a CUDA graph and timed by replay, which leaves the
      host's call rate out), each shape's two slab calls held bit-identical;
-  8. one JSON line of kernel numbers, then the result line.
+  8. one JSON line of kernel numbers (each kernel's launches by method of
+     4b / 6b under "method_launches"), then the result line.
 
-With --kernels-json, the per-shape rows also go to that file. The script
+With --kernels-json, the per-shape rows and the 4b / 6b search lines also
+go to that file. The script
 imports nothing of JAX; it needs the repository beside it.
 """
 from __future__ import annotations
@@ -90,6 +111,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusion_tts_torch import train as train_cli
+from diffusion_tts_torch.backends import edm_entry
 from diffusion_tts_torch.backends.edm_entry import (
     IMAGENET64_ADM,
     generate_image_grid,
@@ -104,12 +126,14 @@ from diffusion_tts_torch.ops.kernels import conv3x3 as cv
 from diffusion_tts_torch.ops.kernels import geglu_ff as gg
 from diffusion_tts_torch.ops.kernels import groupnorm as gn
 from diffusion_tts_torch.ops.kernels import qkv_attention as qk
+from diffusion_tts_torch.pipelines import sd_pipeline
 from diffusion_tts_torch.pipelines.sd_pipeline import (
     SD15_UNET,
     SD15_VAE,
     StableDiffusionSearchPipeline,
 )
 from diffusion_tts_torch.scorers import BrightnessScorer
+from diffusion_tts_torch.search import record_step_draws, replay_trajectory
 from diffusion_tts_torch.search.nfe import nfe_per_sample
 from diffusion_tts_torch.training import checkpoints
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
@@ -126,6 +150,15 @@ STEPS, SAMPLES, N, K = 18, 2, 4, 2
 # The short SD search (bench.py --sd on the CPU): 6 steps, N=4, K=2, one prompt.
 SD_STEPS, SD_N, SD_K, SD_PROMPTS, CLIP_TOKENS = 6, 4, 2, 1, 77
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# Phases 4b and 6b: (method, params, steps) through the entry points. MCTS
+# runs 6 steps on EDM: its rollouts make its forwards grow with steps^2
+# (756 denoiser calls at 18 steps, 108 at 6).
+EDM_METHOD_RUNS = (("rejection", SearchParams(N=4), STEPS),
+                   ("beam", SearchParams(B=2, N=4), STEPS),
+                   ("mcts", SearchParams(N=2, S=2), 6))
+SD_METHOD_RUNS = (("rejection", SearchParams(N=4), SD_STEPS),
+                  ("beam", SearchParams(B=2, N=4), SD_STEPS),
+                  ("mcts", SearchParams(N=2, S=2), SD_STEPS))
 # Training: batch 32 as 2 accumulation rounds of micro-batch 16, 1 warm + 4 timed steps.
 TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 
@@ -274,7 +307,10 @@ def attention_bound_ms(b: int, t: int, heads: int, dtype: torch.dtype) -> tuple[
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
-def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) -> dict:
+def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
+                    timed: bool = True) -> dict:
+    """The kernel against its plain version at [b, t, 3C]; with ``timed``,
+    the row's times and route columns too."""
     g = torch.Generator(device="cuda").manual_seed(1000 * t + b)
     qkv = torch.randn((b, t, 3 * heads * 64), device="cuda", generator=g).to(dtype)
     out = qk.qkv_self_attention(qkv, heads)
@@ -285,6 +321,13 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) ->
     max_rel = max_abs / ref.float().abs().max().item()  # relative to the largest output
     tol = TOL[dtype]
     ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+    if not timed:
+        print(f"  qkv_attention {[b, t, 3 * heads * 64]} {str(dtype).split('.')[-1]:>8} "
+              f"heads={heads:2d}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) "
+              f"[{tag}]")
+        if not ok:
+            raise AssertionError(f"qkv_attention [{b}, {t}] disagrees with its plain version")
+        return dict(shape=[b, t, 3 * heads * 64], max_abs_err=max_abs, max_rel_err=max_rel)
     q, k, v = (x.reshape(b, t, heads, 64).transpose(1, 2).contiguous()
                for x in qkv.chunk(3, dim=-1))
     row = dict(shape=[b, t, 3 * heads * 64], heads=heads, dtype=str(dtype).split(".")[-1],
@@ -305,8 +348,9 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) ->
     return row
 
 
-def edm_phases(tag: str) -> dict:
-    """Phases 3 and 4: the EDM kernel checks and the EDM main path."""
+def edm_phases(tag: str) -> tuple[list[dict], dict]:
+    """Phases 3, 4 and 4b: the EDM kernel checks, the EDM main path and the
+    other searches. Returns (the searches' lines, the kernel line)."""
     print("EDM kernels vs plain:")
     main_rows, rows = [], []
     for dtype in (torch.bfloat16, torch.float32):
@@ -377,11 +421,12 @@ def edm_phases(tag: str) -> dict:
             and result.images.shape == (SAMPLES, 64, 64, 3)
             and 0 <= result.images.min() <= result.images.max() <= 1):
         raise AssertionError("EDM main path output is not finite images in [0, 1]")
+    searches = edm_methods_phase(net, tag)
     del net
     torch.cuda.empty_cache()
 
     per_forward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, SITES))
-    return {
+    return searches, {
         "name": "qkv_attention", "route": "cuda",
         "source": "diffusion_tts_torch/csrc/qkv_attention.cu",
         "replaces": "diffusion_tts_tpu/ops/pallas/attention.py:713",
@@ -393,6 +438,7 @@ def edm_phases(tag: str) -> dict:
         "bound_ms": per_forward("bound_ms"),
         "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": per_forward("library_ms"), "fma_ms": per_forward("fma_ms"),
+        "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
         "shapes": rows,
     }
 
@@ -430,8 +476,7 @@ class KernelShapes:
             if isinstance(m, sd_layers.GroupNorm):
                 hook = self.group_norm
             elif isinstance(m, sd_layers.CrossAttention):
-                hook = lambda mod, a, out: len(a) == 1 and self.counts["attention"].update(
-                    [(a[0].shape[0], a[0].shape[1], mod.heads, mod.dim_head)])
+                hook = self.self_attention
             elif isinstance(m, sd_vae.VAEAttention):
                 hook = lambda mod, a, out: self.counts["attention"].update(
                     [(a[0].shape[0], a[0].shape[2] * a[0].shape[3], 1, a[0].shape[1])])
@@ -444,6 +489,14 @@ class KernelShapes:
             self.handles.append(m.register_forward_hook(hook))
         self.same, self.up2 = cv.conv3x3_same, cv.conv3x3_up2
         cv.conv3x3_same, cv.conv3x3_up2 = self.conv_same, self.conv_up2
+
+    def self_attention(self, mod, a, out) -> None:
+        """The self-attention calls (one argument) reach the kernel; the
+        cross-attention ones run their einsums. A hook returns None: any
+        other value would replace the module's output."""
+        if len(a) == 1:
+            self.counts["attention"].update([(a[0].shape[0], a[0].shape[1], mod.heads,
+                                              mod.dim_head)])
 
     def group_norm(self, mod, a, out) -> None:
         if isinstance(out, tuple):  # (scale, shift): the statistics call
@@ -482,13 +535,20 @@ def rel_err(out, ref) -> tuple[float, float]:
 
 
 def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_bytes,
-               tag: str, reps: int = 20, route=None) -> dict:
+               tag: str, reps: int = 20, route=None, timed: bool = True) -> dict:
     """One kernel's check and times at one shape. ``route``: (the route the
     predicate gave, a call of the same kernel on its first design, "fma" or
-    "v1") for the kernels with two routes."""
+    "v1") for the kernels with two routes. Without ``timed``, the check
+    alone."""
     torch.cuda.synchronize()
     max_abs, max_rel = rel_err(out, ref)
     finite = all(torch.isfinite(o).all() for o in ((out,) if isinstance(out, torch.Tensor) else out))
+    if not timed:
+        print(f"  {name} {list(shape)} {str(dtype).split('.')[-1]:>8}: max_abs={max_abs:.3e} "
+              f"max_rel={max_rel:.3e} (tol {TOL[dtype]}) [{tag}]")
+        if not (max_rel <= TOL[dtype] and finite):
+            raise AssertionError(f"{name} {list(shape)} disagrees with its plain version")
+        return dict(shape=list(shape), max_abs_err=max_abs, max_rel_err=max_rel)
     row = dict(shape=list(shape), dtype=str(dtype).split(".")[-1], max_abs_err=max_abs,
                max_rel_err=max_rel, ms=time_ms(kernel, reps), plain_ms=time_ms(plain, 3),
                library_ms=time_ms(library, reps))
@@ -512,7 +572,7 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
     return row
 
 
-def check_sd_attention(key, dtype, tag):
+def check_sd_attention(key, dtype, tag, timed=True):
     b, t, h, d = key
     g = torch.Generator(device="cuda").manual_seed(t + d)
     q, k, v = (torch.randn((b, t, h, d), device="cuda", generator=g).to(dtype)
@@ -522,14 +582,14 @@ def check_sd_attention(key, dtype, tag):
     return kernel_row("attention", key, dtype, qk.attention(q, k, v), qk.attention_plain(q, k, v),
                       lambda: qk.attention(q, k, v), lambda: qk.attention_plain(q, k, v),
                       lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag,
+                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag, timed=timed,
                       route=(qk.forward_route(dtype, d), lambda: qk.attention(q, k, v, route="fma")))
 
 
-def check_group_norm(key, dtype, tag):
+def check_group_norm(key, dtype, tag, timed=True):
     """The row of kernel_row with the route columns (the slab and v1 in
     turns) and the device times by graph replay; two calls of the routed
-    kernel must be bit-identical."""
+    kernel must be bit-identical. Without ``timed``, the check alone."""
     shape, groups, eps, silu = key
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
@@ -546,6 +606,9 @@ def check_group_norm(key, dtype, tag):
         return F.silu(y) if silu else y
 
     out = kernel()
+    if not timed:
+        return kernel_row("group_norm_silu", shape, dtype, out, plain(), kernel, plain, library,
+                          None, tag, timed=False)
     if not torch.equal(out, kernel()):
         raise AssertionError(f"group_norm_silu {list(shape)} {dtype}: two calls differ")
     row = kernel_row("group_norm_silu", shape, dtype, out, plain(), kernel, plain, library,
@@ -559,7 +622,7 @@ def check_group_norm(key, dtype, tag):
     return row
 
 
-def check_geglu(key, dtype, tag):
+def check_geglu(key, dtype, tag, timed=True):
     m, c, f = key
     g = torch.Generator(device="cuda").manual_seed(m + c)
     r = lambda shape, s: (torch.randn(shape, device="cuda", generator=g) * s).to(dtype)
@@ -574,7 +637,7 @@ def check_geglu(key, dtype, tag):
 
     item = torch.finfo(dtype).bits // 8
     return kernel_row("geglu_ff", key, dtype, kernel(), plain(), kernel, plain, library,
-                      (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10,
+                      (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10, timed=timed,
                       route=(gg.route(dtype, c, f),
                              lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="fma")))
 
@@ -584,7 +647,7 @@ def reps_for(shape) -> int:
     return 5 if shape[-1] >= 512 else 20
 
 
-def check_group_norm_stats(key, dtype, tag):
+def check_group_norm_stats(key, dtype, tag, timed=True):
     shape, groups, eps = key
     g = torch.Generator(device="cuda").manual_seed(sum(shape))
     x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
@@ -592,10 +655,10 @@ def check_group_norm_stats(key, dtype, tag):
     plain = lambda: gn.group_norm_stats_plain(x, groups=groups, eps=eps)
     library = lambda: torch.var_mean(x.reshape(shape[0], groups, -1), dim=-1)
     return kernel_row("group_norm_stats", shape, dtype, kernel(), plain(), kernel, plain, library,
-                      (0, x.numel() * x.element_size()), tag, reps=reps_for(shape))
+                      (0, x.numel() * x.element_size()), tag, reps=reps_for(shape), timed=timed)
 
 
-def check_conv_same(key, dtype, tag):
+def check_conv_same(key, dtype, tag, timed=True):
     """Library: F.conv2d in the working dtype on an input taken as already
     normalized, with the bias and no skip: it leaves the prologue and the
     rest of the epilogue out."""
@@ -621,13 +684,13 @@ def check_conv_same(key, dtype, tag):
     name = f"conv3x3_same[{'gn+' if has_gn else ''}{'bias+' if has_bias else ''}{tail}]"
     row = kernel_row(name, (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain, library,
                      (2 * b * h * w * (9 * c + cres) * k, moved), tag, reps=reps_for(shape),
-                     route=(cv.conv_route(dtype, c, k, w, cres),
+                     timed=timed, route=(cv.conv_route(dtype, c, k, w, cres),
                             lambda: cv.conv3x3_same(x, weight, route="v1", **kw)))
     row["variant"] = dict(prologue=has_gn, bias=has_bias, epilogue=tail, cres=cres)
     return row
 
 
-def check_conv_up2(key, dtype, tag):
+def check_conv_up2(key, dtype, tag, timed=True):
     shape, k, has_bias = key
     b, c, h, w = shape
     g = torch.Generator(device="cuda").manual_seed(c + k + h)
@@ -640,7 +703,7 @@ def check_conv_up2(key, dtype, tag):
     moved = (x.numel() + weight.numel() + 4 * b * k * h * w) * x.element_size()
     return kernel_row("conv3x3_up2", (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain,
                       library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)),
-                      route=(cv.conv_route(dtype, c, k, w),
+                      timed=timed, route=(cv.conv_route(dtype, c, k, w),
                              lambda: cv.conv3x3_up2(x, weight, bias, route="v1")))
 
 
@@ -1015,8 +1078,10 @@ def sd_forward_checks(ref, pipe32, pipe16) -> None:
 
 
 
-def sd_phases(tag: str) -> list[dict]:
-    """Phases 5 and 6: the SD main path, then the SD kernels at its shapes."""
+def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
+    """Phases 6, 6b and 7: the SD main path, the other searches, then the
+    SD kernels at the main path's shapes. Returns (the searches' lines,
+    the kernel lines)."""
     t0 = time.perf_counter()
     ref = StableDiffusionSearchPipeline.random(SD15_UNET, SD15_VAE, seed=0, dtype=torch.float32,
                                                device="cpu")
@@ -1087,7 +1152,9 @@ def sd_phases(tag: str) -> list[dict]:
             and images.shape == (SD_PROMPTS, 512, 512, 3)
             and 0 <= images.min() <= images.max() <= 1):
         raise AssertionError("SD main path output is not finite images in [0, 1]")
-    del pipe16, images
+    del images
+    searches = sd_methods_phase(pipe16, emb, shapes, per_unet, per_decode, per_call, tag)
+    del pipe16
     torch.cuda.empty_cache()
 
     print("SD kernels vs plain, at every shape of the search:")
@@ -1133,10 +1200,225 @@ def sd_phases(tag: str) -> list[dict]:
                 lines[-1][first] = total(first)
         if name in ROUTE_COUNTERS:  # launches of the search per design
             lines[-1]["routes"] = routes[name]
+        lines[-1]["method_launches"] = {r["method"]: r["launches"][name] for r in searches}
     gn_line = next(line for line in lines if line["name"] == "group_norm_silu")
     gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
     if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
         raise AssertionError(f"the SD search did not give GroupNorm its largest shapes: {gn_shapes}")
+    return searches, lines
+
+
+# ------------------------------------------------------- the other searches
+
+
+class EntryCapture:
+    """Stands in for ``module.run_search`` and records what the entry point
+    handed it (backend, latents, key) and what it returned, so that a
+    search run through the entry point can be checked afterwards."""
+
+    def __init__(self, module):
+        self.module, self.run = module, module.run_search
+        module.run_search = self
+
+    def __call__(self, method, backend, z, key, *args, **kwargs):
+        self.backend, self.z, self.key = backend, z, key
+        self.result = self.run(method, backend, z, key, *args, **kwargs)
+        return self.result
+
+    def remove(self) -> None:
+        self.module.run_search = self.run
+
+
+def method_calls(method: str, backend: str, steps: int, p: SearchParams,
+                 samples: int) -> tuple[collections.Counter, collections.Counter]:
+    """(model calls, VAE decodes) of one search, each {batch: calls}, from
+    the method's structure (search/naive.py, beam.py, mcts.py with one
+    phase). EDM: the denoiser, twice a Heun step, no decode. SD: the UNet,
+    each batch CFG-doubled; rejection and beam decode their candidates at
+    the end and run_search the result."""
+    n, m, s, c = p.N, p.B, p.S, collections.Counter
+    if backend == "edm":
+        calls = {"rejection": c({n * samples: 2 * steps}), "beam": c({n * m * samples: 2 * steps}),
+                 "mcts": c({n * samples: 2 * (s + 1) * steps}) + c({s * samples: 2 * steps * steps})}
+        return calls[method], c()
+    unet = {"rejection": c({2 * n * samples: steps}),
+            "beam": c({2 * m * samples: steps}) + c({2 * n * m * samples: steps}),
+            "mcts": c({2 * n * samples: (s + 1) * steps}) + c({2 * s * samples: steps * steps})}
+    decode = {"rejection": c({n * samples: 1}) + c({samples: 1}),
+              "beam": c({n * m * samples: steps}) + c({m * samples: 1}) + c({samples: 1}),
+              "mcts": c({s * samples: steps}) + c({samples: 1})}
+    return unet[method], decode[method]
+
+
+def check_rejection(capture: EntryCapture, p: SearchParams, steps: int, tag: str) -> None:
+    """Rejection's x against replay_trajectory of the chosen candidate's
+    noise: the N candidates' draws recorded as the search makes them
+    (record_step_draws, same key and device), replayed as one batch and
+    scored; the best per sample must be x within bf16's tolerance of x's
+    largest magnitude, and its score the returned one within 1e-4."""
+    backend, z, x = capture.backend, capture.z, capture.result.x
+    n, b = p.N, z.shape[0]
+    noise = record_step_draws(capture.key, steps, (n * b,) + tuple(z.shape[1:]),
+                              z.device).step_noise
+    every = replay_trajectory(backend, z.repeat((n,) + (1,) * (z.ndim - 1)), noise)
+    scores = backend.score(backend.final_images(every)).reshape(n, b)
+    best = torch.argmax(scores, dim=0)
+    rows = torch.arange(b, device=z.device)
+    err = rel_err(x, every.reshape((n, b) + every.shape[1:])[best, rows])[1]
+    score_err = (scores[best, rows] - capture.result.score).abs().max().item()
+    print(f"  rejection vs replay_trajectory of the chosen candidates {best.tolist()}: x max_rel="
+          f"{err:.3e} (tol {TOL[torch.bfloat16]}), score max_abs={score_err:.3e} (tol 1e-4) [{tag}]")
+    if not (err <= TOL[torch.bfloat16] and score_err <= 1e-4):
+        raise AssertionError("rejection's result is not the replay of its best candidate")
+
+
+def check_search_output(path: str, capture: EntryCapture, images, scores, shape) -> None:
+    """Finite images of ``shape`` in [0, 1], and the returned score equal
+    to score(final_images(x)) computed again, within 1e-4."""
+    backend = capture.backend
+    again = backend.score(backend.final_images(capture.result.x))
+    if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
+            and tuple(images.shape) == shape and 0 <= images.min() <= images.max() <= 1):
+        raise AssertionError(f"{path}: the output is not finite images {shape} in [0, 1]")
+    if (again - scores).abs().max().item() > 1e-4:
+        raise AssertionError(f"{path}: returned scores {scores.tolist()}, computed again "
+                             f"{again.tolist()}")
+
+
+def search_line(path: str, method: str, p: SearchParams, steps: int, samples: int, wall: float,
+                nfe: int, launches: dict, scores, tag: str) -> dict:
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    knobs = {"rejection": ("N",), "beam": ("B", "N"), "mcts": ("N", "S")}[method]
+    knobs = {k: getattr(p, k) for k in knobs}
+    print(f"{path} search {method} {steps} steps samples={samples} "
+          f"{' '.join(f'{k}={v}' for k, v in knobs.items())} bf16: {wall:.3f} s, {nfe} NFE, "
+          f"{nfe / wall:.2f} NFE/s, peak memory {peak:.2f} GiB, scores {scores.tolist()}, "
+          f"launches {launches} [{tag}]")
+    return {"path": path, "method": method, "steps": steps, **knobs, "samples": samples,
+            "wall_s": wall, "nfe": nfe, "nfe_per_s": nfe / wall, "peak_gib": peak,
+            "launches": launches}
+
+
+def timed_run(run) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+@torch.no_grad()
+def edm_methods_phase(net: EDMPrecond, tag: str) -> list[dict]:
+    """Phase 4b: rejection, beam and MCTS through generate_image_grid on the
+    phase 4 net, each run's launches held against its structure, then the
+    qkv attention kernel against its plain version at the batches these
+    searches give it and eps-greedy's does not."""
+    sites = sum(n for _, _, n in SITES)
+    lines, batches = [], set()
+    capture = EntryCapture(edm_entry)
+    try:
+        for method, p, steps in EDM_METHOD_RUNS:
+            run = lambda: generate_image_grid(
+                arch="imagenet64", scorer=BrightnessScorer(), method=method, params=p, seed=0,
+                gridw=SAMPLES, num_steps=steps, dtype=torch.bfloat16, device="cuda", net=net)
+            calls, _ = method_calls(method, "edm", steps, p, SAMPLES)
+            nfe = nfe_per_sample(method, steps, p) * SAMPLES
+            if sum(b * n for b, n in calls.items()) != nfe:
+                raise AssertionError(f"EDM {method}: the calls {calls} do not add up to {nfe} NFE")
+            batches |= set(calls)
+            reset_launches()
+            result, wall = timed_run(run)
+            launches, routes = read_launches(), read_routes()
+            want = {"attention": sites * sum(calls.values())}
+            lines.append(search_line("EDM", method, p, steps, SAMPLES, wall, nfe,
+                                     {"qkv_attention": launches["attention"]}, result.score, tag))
+            for name, n in launches.items():
+                if n != want.get(name, 0):
+                    raise AssertionError(f"{name} launched {n} times by EDM {method}, expected "
+                                         f"{want.get(name, 0)}")
+            check_routes(f"EDM {method}", routes, want)
+            check_search_output(f"EDM {method}", capture, result.images, result.score,
+                                (SAMPLES, 64, 64, 3))
+            if method == "rejection":
+                check_rejection(capture, p, steps, tag)
+            if method == "mcts":
+                again, wall2 = timed_run(run)
+                lines[-1]["again_s"] = wall2
+                print(f"  the same request again: {wall2:.3f} s, bit-identical "
+                      f"{torch.equal(again.x, result.x)}")
+                if not torch.equal(again.x, result.x):
+                    raise AssertionError("two EDM MCTS runs from one seed differ")
+    finally:
+        capture.remove()
+    print("EDM kernels vs plain at the other searches' batches (untimed):")
+    for b in sorted(batches - {N * SAMPLES}):
+        for t, heads, _ in SITES:
+            check_attention(b, t, heads, torch.bfloat16, tag, timed=False)
+    return lines
+
+
+@torch.no_grad()
+def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: KernelShapes,
+                     per_unet: dict, per_decode: dict, per_call: dict, tag: str) -> list[dict]:
+    """Phase 6b: rejection, beam and MCTS through the pipeline's __call__,
+    each run's launches held against its structure, then every kernel
+    against its plain version at each shape these searches give it and
+    eps-greedy's (``eps_shapes``) does not."""
+    lines, fresh = [], {name: collections.Counter() for name in KernelShapes.NAMES}
+    capture = EntryCapture(sd_pipeline)
+    try:
+        for method, p, steps in SD_METHOD_RUNS:
+            run = lambda: pipe(prompt_embeds=emb, num_inference_steps=steps,
+                               score_function=BrightnessScorer(), method=method, params=p, seed=0)
+            unet, decodes = method_calls(method, "sd", steps, p, SD_PROMPTS)
+            nfe = nfe_per_sample(method, steps, p, backend="sd") * SD_PROMPTS
+            if sum(b * n for b, n in unet.items()) != 2 * nfe:
+                raise AssertionError(f"SD {method}: the UNet calls {unet} do not add up to {nfe} NFE")
+            shapes = KernelShapes(pipe)
+            reset_launches()
+            try:
+                (images, scores), wall = timed_run(run)
+            finally:
+                shapes.remove()
+            launches, routes = read_launches(), read_routes()
+            lines.append(search_line("SD", method, p, steps, SD_PROMPTS, wall, nfe, launches,
+                                     scores, tag))
+            for name, n in launches.items():
+                want = (per_unet[name] * sum(unet.values())
+                        + per_decode[name] * sum(decodes.values())) * per_call[name]
+                recorded = sum(shapes.counts[name].values()) * per_call[name] if \
+                    name in shapes.counts else n
+                if n != want or recorded != n:
+                    raise AssertionError(f"{name} launched {n} times by SD {method} ({recorded} "
+                                         f"from the recorded calls), expected {want}")
+            check_routes(f"SD {method}", routes, {name: launches[name] for name in
+                                                  ("attention", "geglu_ff", "conv3x3_same",
+                                                   "conv3x3_up2", "group_norm_silu")})
+            check_search_output(f"SD {method}", capture, images, scores,
+                                (SD_PROMPTS, 512, 512, 3))
+            for name in fresh:
+                fresh[name].update(shapes.counts[name])
+            if method == "rejection":
+                check_rejection(capture, p, steps, tag)
+            if method == "mcts":
+                x = capture.result.x
+                (again, _), wall2 = timed_run(run)
+                lines[-1]["again_s"] = wall2
+                same = torch.equal(again, images) and torch.equal(capture.result.x, x)
+                print(f"  the same request again: {wall2:.3f} s, bit-identical {same}")
+                if not same:
+                    raise AssertionError("two SD MCTS runs from one seed differ")
+    finally:
+        capture.remove()
+    print("SD kernels vs plain at the other searches' new shapes (untimed):")
+    checks = {"attention": check_sd_attention, "group_norm_silu": check_group_norm,
+              "geglu_ff": check_geglu, "group_norm_stats": check_group_norm_stats,
+              "conv3x3_same": check_conv_same, "conv3x3_up2": check_conv_up2}
+    for name, check in checks.items():
+        for key in sorted(set(fresh[name]) - set(eps_shapes.counts[name]), key=str):
+            check(key, torch.bfloat16, tag, timed=False)
+        torch.cuda.empty_cache()
     return lines
 
 
@@ -1170,15 +1452,18 @@ def main() -> None:
                 f"{'shortcut' if shortcut else 'no shortcut'}]")
             print(f"ptxas, {kind} ring kernel: " + "; ".join(lines))
 
-    # -- 3, 4. EDM; 5. training; 6, 7. SD
-    edm_line = edm_phases(tag)
-    kernels = [edm_line, training_phases(tag, edm_line)] + sd_phases(tag)
+    # -- 3, 4, 4b. EDM; 5. training; 6, 6b, 7. SD
+    edm_searches, edm_line = edm_phases(tag)
+    training_line = training_phases(tag, edm_line)
+    sd_searches, sd_lines = sd_phases(tag)
+    kernels = [edm_line, training_line] + sd_lines
 
     # -- 8. the kernel line, then the result line
     if args.kernels_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:
-            json.dump({"gpu": tag, "kernels": kernels}, f, indent=1)
+            json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches},
+                      f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "shapes"}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

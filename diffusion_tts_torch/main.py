@@ -35,7 +35,8 @@ def main(argv=None):
     parser.add_argument("--backend", choices=["edm", "sd"], required=True)
     parser.add_argument("--scorer", choices=["brightness", "compressibility", "clip", "imagenet"],
                         required=True)
-    parser.add_argument("--method", default="naive", help="naive, zero_order, eps_greedy")
+    parser.add_argument("--method", default="naive",
+                        help="naive, rejection, beam, mcts, zero_order, eps_greedy")
     parser.add_argument("--prompt", default="YOUR PROMPT HERE",
                         help="SD prompts, '||'-separated; their count sets the batch")
     parser.add_argument("--output", default=None, help="Output filename (default: auto)")

@@ -11,16 +11,14 @@ import dataclasses
 
 import torch
 
-from diffusion_tts_torch.search.naive import naive_sample
+from diffusion_tts_torch.search.beam import beam_search
+from diffusion_tts_torch.search.mcts import mcts_search
+from diffusion_tts_torch.search.naive import naive_sample, rejection_search
 from diffusion_tts_torch.search.noise import InjectedNoise
 from diffusion_tts_torch.search.zero_order import eps_greedy_search, zero_order_search
 from diffusion_tts_torch.utils.config import SearchParams
 
-METHODS = ("naive", "zero_order", "eps_greedy")
-# Methods of the JAX package that later slices of the port bring.
-NOT_YET_PORTED = {"rejection": "ROADMAP.md Queue 1 item 8",
-                  "beam": "ROADMAP.md Queue 1 item 8",
-                  "mcts": "ROADMAP.md Queue 1 item 8"}
+METHODS = ("naive", "rejection", "beam", "mcts", "zero_order", "eps_greedy")
 
 
 @dataclasses.dataclass
@@ -28,26 +26,33 @@ class SearchResult:
     x: torch.Tensor  # terminal latents [B, ...]
     images: torch.Tensor  # decoded images01 [B, H, W, C]
     score: torch.Tensor  # final reward per sample [B]
-    best_noises: torch.Tensor | None = None  # [steps, K, B, ...] when recorded
+    best_noises: torch.Tensor | None = None  # when recorded: [steps, K, B, ...]; beam [steps, B, M]
 
 
 @torch.no_grad()
 def run_search(method: str, backend, z: torch.Tensor, key: int,
                params: SearchParams | None = None, *, record_noises: bool = False,
+               mcts_rollout_batch: int | None = None, mcts_fresh_expansion: bool = False,
                noise: InjectedNoise | None = None) -> SearchResult:
     """Run one search method end to end. z: [B, H, W, C] unit-variance
     latents on the device the search runs on; key: the integer seed of the
     search's own draws. The final images and scores are always computed
-    (edm/main.py:869-877)."""
+    (edm/main.py:869-877). With ``record_noises``, zero_order and
+    eps_greedy return their selected pivots and beam its kept candidate
+    ids [steps, B, M] (flat n*M + m, best first) as ``best_noises``."""
     params = params or SearchParams()
-    if method in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"search method {method!r} is not ported yet ({NOT_YET_PORTED[method]})")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {METHODS}")
     noises = None
     if method == "naive":
         x = naive_sample(backend, z, key, noise=noise)
+    elif method == "rejection":
+        x, _ = rejection_search(backend, z, key, params.N, noise=noise)
+    elif method == "beam":
+        x, _, noises = beam_search(backend, z, key, params, noise=noise, record=record_noises)
+    elif method == "mcts":
+        x = mcts_search(backend, z, key, params, rollout_batch=mcts_rollout_batch, noise=noise,
+                        fresh_expansion=mcts_fresh_expansion).x
     else:
         search = eps_greedy_search if method == "eps_greedy" else zero_order_search
         x, noises = search(backend, z, key, params, record_noises=record_noises, noise=noise)

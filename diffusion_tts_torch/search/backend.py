@@ -4,8 +4,8 @@ diffusion_tts_tpu/search/backend.py::EDMSearchBackend).
 The searched variable is the churn noise ``eps`` of one Heun step
 (edm/main.py:84-85). Candidates are scored on the decoded predicted clean
 image, on the uint8 grid the reference feeds its scorers
-(edm/main.py:824-838). ``rollout`` (MCTS) and candidate sharding come with
-later slices of the port.
+(edm/main.py:824-838). Candidate sharding comes with a later slice of the
+port.
 """
 from __future__ import annotations
 
@@ -48,6 +48,18 @@ class EDMSearchBackend:
     def advance(self, x: torch.Tensor, i, aux, eps: torch.Tensor) -> torch.Tensor:
         """Commit the chosen noise: one sampler step."""
         return self.sampler.step(x, i, eps)[0]
+
+    def rollout(self, x: torch.Tensor, i) -> torch.Tensor:
+        """MCTS's simulation (edm/main.py:630-645): zero-noise Heun steps to
+        the end from step i (an int or a per-sample [B] index); every step
+        runs for the whole batch and lanes with j < i keep their state.
+        Returns the final images01."""
+        i = torch.as_tensor(i, dtype=torch.long, device=x.device)
+        live_shape = i.shape + (1,) * (x.ndim - i.ndim)
+        zeros = torch.zeros_like(x)
+        for j in range(self.num_steps):
+            x = torch.where((j >= i).reshape(live_shape), self.sampler.step(x, j, zeros)[0], x)
+        return self.final_images(x)
 
     def final_images(self, x: torch.Tensor) -> torch.Tensor:
         return quantize_to_uint8_grid(x)

@@ -9,7 +9,6 @@ DDIM variance noise gives latents_cand; a lookahead UNet call AT THE SAME t
 VAE-decoded and scored on the (x*127.5+128) uint8 grid (:1413-1420). The
 committed step reuses the base prediction with the winning noise (:1435).
 The N candidates run as one batched UNet and one batched VAE call.
-``rollout`` (MCTS) comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -58,6 +57,19 @@ class SDSearchBackend:
 
     def advance(self, x: torch.Tensor, i, aux: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         return self.sampler.step_math(x, i, aux, eps)[0]
+
+    def rollout(self, x: torch.Tensor, i) -> torch.Tensor:
+        """MCTS's simulation: deterministic DDIM (one CFG UNet call a step,
+        no variance noise) to the end from step i (an int or a per-sample
+        [B] index); lanes with j < i keep their state. Returns the decoded
+        final images01."""
+        i = torch.as_tensor(i, dtype=torch.long, device=x.device)
+        live_shape = i.shape + (1,) * (x.ndim - i.ndim)
+        for j in range(self.num_steps):
+            eps_pred = self.sampler.eps_model(x, self.sampler.timestep(j, x.shape[0], x.device))
+            x_next, _ = self.sampler.step_math(x, j, eps_pred, None)
+            x = torch.where((j >= i).reshape(live_shape), x_next, x)
+        return self.final_images(x)
 
     def final_images(self, x: torch.Tensor) -> torch.Tensor:
         return quantize_to_uint8_grid(self.vae_decode(x))

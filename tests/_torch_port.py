@@ -110,3 +110,66 @@ def write_safetensors(path, state):
     head = json.dumps(header).encode()
     with open(path, "wb") as f:
         f.write(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+
+
+def patch_mcts_draws(monkeypatch, j_key):
+    """Make the port's MCTS take its child picks and fresh-expansion noise
+    from the JAX package's key paths (diffusion_tts_tpu/search/mcts.py:
+    286-296), the two draws a caller cannot inject."""
+    from diffusion_tts_torch.search import mcts as t_mcts
+    from diffusion_tts_tpu.search.noise import SALT_MCTS_EXPAND, SALT_MCTS_PICK
+    from diffusion_tts_tpu.utils.rng import fold_in_path
+
+    def path(salt, *ints):  # the int32 scalars the JAX scan folds in
+        return fold_in_path(j_key, salt, *(jnp.int32(v) for v in ints))
+
+    def pick(key, i, phase, q, bsz, b_exp, device):
+        draw = jax.random.randint(path(SALT_MCTS_PICK, i, phase, q - 1), (bsz,), 0, b_exp)
+        return torch.from_numpy(np.asarray(draw).astype(np.int64)).to(device)
+
+    def fresh(key, i, phase, q, shape, device):
+        draw = jax.random.normal(path(SALT_MCTS_EXPAND, i, phase, q), shape, jnp.float32)
+        return torch.from_numpy(np.array(draw)).to(device)
+
+    monkeypatch.setattr(t_mcts, "pick_draw", pick)
+    monkeypatch.setattr(t_mcts, "fresh_expansion_draw", fresh)
+
+
+def assert_mcts_arenas_match(j_make, bargs, t_backend, z, params, j_params, table, *,
+                             rollout_batch, fresh, j_key, state_tol, reward_tol):
+    """Step both packages' MCTS one timestep at a time from the same z and
+    expansion table, and hold the arenas equal after each: children,
+    visits, root, parent, depth and the slot count exactly, rewards within
+    ``reward_tol`` per visit (a node's reward sums its visits' scores),
+    states within ``state_tol`` of their largest magnitude. The JAX
+    backend is ``j_make(bargs)``, built inside each compiled program.
+    Returns both terminal latents."""
+    from diffusion_tts_torch.search import InjectedNoise
+    from diffusion_tts_torch.search import mcts as t_mcts
+    from diffusion_tts_tpu.search import mcts as j_mcts
+    from diffusion_tts_tpu.search.noise import InjectedNoise as JInjectedNoise
+
+    kw = dict(rollout_batch=rollout_batch)
+    j_tree, j_tab = jax.jit(lambda ba, zz, tab: j_mcts.mcts_init(
+        j_make(ba), zz, j_key, j_params, noise=JInjectedNoise(mcts_table=tab), **kw))(
+            bargs, jnp.asarray(z), jnp.asarray(table))
+    j_step = jax.jit(lambda ba, tree, tab, i: j_mcts.mcts_timestep(
+        j_make(ba), tree, tab, j_key, i, j_params, fresh_expansion=fresh, **kw))
+    with torch.no_grad():
+        t_tree, t_tab = t_mcts.mcts_init(t_backend, torch.from_numpy(z), 99, params,
+                                         noise=InjectedNoise(mcts_table=torch.from_numpy(table)),
+                                         **kw)
+    for i in range(t_backend.num_steps):
+        j_tree = j_step(bargs, j_tree, j_tab, jnp.int32(i))
+        with torch.no_grad():
+            t_tree = t_mcts.mcts_timestep(t_backend, t_tree, t_tab, 99, i, params,
+                                          fresh_expansion=fresh, **kw)
+        assert t_tree.count == int(j_tree.count), i
+        for name in ("children", "visits", "root", "parent", "depth", "n_children"):
+            np.testing.assert_array_equal(getattr(t_tree, name).numpy(),
+                                          np.asarray(getattr(j_tree, name)), err_msg=f"{name} {i}")
+        gap = np.abs(t_tree.reward.numpy() - np.asarray(j_tree.reward))
+        assert (gap <= reward_tol * np.maximum(t_tree.visits.numpy(), 1)).all(), (i, gap.max())
+        js = np.asarray(j_tree.states)
+        assert np.abs(t_tree.states.numpy() - js).max() <= state_tol * np.abs(js).max(), i
+    return t_mcts.mcts_result(t_tree).x.numpy(), np.asarray(j_mcts.mcts_result(j_tree).x)

@@ -100,7 +100,8 @@ def test_latent_gap_survives_identical_unit_directions(rig, monkeypatch):
 
 def test_own_draws_and_nfe(rig):
     """Without injection the port draws its own noise, reproducibly per
-    seed; every forward of the search is accounted for by nfe_per_sample."""
+    seed (eps_greedy and MCTS); every forward of the search is accounted
+    for by nfe_per_sample."""
     calls = []
     be = rig["t_backend"]
     counting = EDMSearchBackend(
@@ -117,5 +118,8 @@ def test_own_draws_and_nfe(rig):
     assert not torch.allclose(a.x, c.x)
     naive = run_search("naive", be, z, 5, p)
     assert naive.x.shape == z.shape and torch.isfinite(naive.score).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        run_search("mcts", be, z, 5, p)
+    mp = SearchParams(N=2, S=2)
+    mcts = run_search("mcts", be, z, 5, mp)
+    torch.testing.assert_close(run_search("mcts", be, z, 5, mp).x, mcts.x, atol=0, rtol=0)
+    assert not torch.allclose(run_search("mcts", be, z, 6, mp).x, mcts.x)
+    assert mcts.x.shape == z.shape and torch.isfinite(mcts.score).all()
