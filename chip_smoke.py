@@ -85,17 +85,50 @@ Phases, each of which raises on failure (nothing is caught):
      (``device_ms``, ``v1_device_ms``, ``library_device_ms``: 20 calls
      captured once in a CUDA graph and timed by replay, which leaves the
      host's call rate out), each shape's two slab calls held bit-identical;
-  8. one JSON line of kernel numbers (each kernel's launches by method of
+  8. the CLI: one ``diffusion_tts_torch.main.main`` call on the card (EDM
+     ImageNet-64, the ImageNet classifier's reward with random weights,
+     eps-greedy N=4 K=2, bf16), its PNG written to a temporary directory,
+     its 1584 attention launches held against the search's structure;
+ 9. one JSON line of kernel numbers (each kernel's launches by method of
      4b / 6b under "method_launches"), then the result line.
 
-With --kernels-json, the per-shape rows and the 4b / 6b search lines also
-go to that file. The script
-imports nothing of JAX; it needs the repository beside it.
+The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
+ 4c. the 64x64 noisy-ImageNet classifier (``EncoderUNetModel`` defaults,
+     random weights from numpy seed 0) on a batch of 8 in fp32 against the
+     same call on the CPU (logits within 1e-3 of their largest magnitude,
+     probabilities and scores within 1e-5); eps-greedy (18 steps, 2
+     samples, N=4, K=2, bf16) through generate_image_grid with the
+     classifier (``scorer_needs_labels``) and with compressibility
+     (max_size 3000, the exact JPEG mode);
+ 6c. SD-1.5's text tower (``SD15_TEXT``) on 2 x 77 random ids and CLIP
+     ViT-L/14 (``CLIP_VIT_L14``: image features of 4 images at 512x512
+     through ``preprocess_images``, text features, cosine scores) in fp32
+     against the CPU (1e-3 of the largest magnitude; scores 1e-4);
+     eps-greedy (6 steps, one prompt, N=4, K=2) on the phase 6 pipeline with
+     prompt embeddings from the text tower, with CLIP (the prompt's text
+     features as scorer_cond, as the CLI passes them) and with
+     compressibility (max_size 150000).
+     Each search prints its wall time, NFE, NFE/s, peak memory, scores,
+     launches and the scorer's share of the wall time (from a second run
+     with the scorer's calls timed between syncs); its launches are the
+     brightness search's (``method_calls``: no reward runs a kernel of the
+     port), its images finite in [0, 1], its score the scorer's on the
+     returned images again. On the images these searches produced, the
+     exact mode's JPEG sizes (the encoder that served is printed: native
+     libjpeg or PIL; where native serves, byte for byte PIL's), its scores
+     against 1 - clip(PIL size / cap) at the search's cap and at one above
+     every size, and the dct mode's bits on the card against the CPU (1e-4
+     relative).
+
+With --kernels-json, the per-shape rows and the 4b / 4c / 6b / 6c search
+lines also go to that file. The script imports nothing of JAX; it needs the
+repository beside it.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import importlib.util
 import json
 import os
@@ -110,6 +143,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from diffusion_tts_torch import main as cli
 from diffusion_tts_torch import train as train_cli
 from diffusion_tts_torch.backends import edm_entry
 from diffusion_tts_torch.backends.edm_entry import (
@@ -117,6 +151,7 @@ from diffusion_tts_torch.backends.edm_entry import (
     generate_image_grid,
     load_network,
 )
+from diffusion_tts_torch.models.clip import CLIP_VIT_L14, SD15_TEXT, CLIPModel, CLIPTextModel
 from diffusion_tts_torch.models.preconds import EDMPrecond
 from diffusion_tts_torch.models.torch_import import load_into, random_state_dict
 from diffusion_tts_torch.models import sd_layers, sd_vae
@@ -132,7 +167,15 @@ from diffusion_tts_torch.pipelines.sd_pipeline import (
     SD15_VAE,
     StableDiffusionSearchPipeline,
 )
-from diffusion_tts_torch.scorers import BrightnessScorer
+from diffusion_tts_torch.scorers import (
+    BrightnessScorer,
+    CLIPScorer,
+    CompressibilityScorer,
+    ImageNetScorer,
+    compressibility,
+    native,
+)
+from diffusion_tts_torch.scorers.clip import preprocess_images
 from diffusion_tts_torch.search import record_step_draws, replay_trajectory
 from diffusion_tts_torch.search.nfe import nfe_per_sample
 from diffusion_tts_torch.training import checkpoints
@@ -422,11 +465,12 @@ def edm_phases(tag: str) -> tuple[list[dict], dict]:
             and 0 <= result.images.min() <= result.images.max() <= 1):
         raise AssertionError("EDM main path output is not finite images in [0, 1]")
     searches = edm_methods_phase(net, tag)
+    rewards = edm_rewards_phase(net, tag)
     del net
     torch.cuda.empty_cache()
 
     per_forward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, SITES))
-    return searches, {
+    return searches + rewards, {
         "name": "qkv_attention", "route": "cuda",
         "source": "diffusion_tts_torch/csrc/qkv_attention.cu",
         "replaces": "diffusion_tts_tpu/ops/pallas/attention.py:713",
@@ -1154,6 +1198,7 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
         raise AssertionError("SD main path output is not finite images in [0, 1]")
     del images
     searches = sd_methods_phase(pipe16, emb, shapes, per_unet, per_decode, per_call, tag)
+    rewards = sd_rewards_phase(pipe16, per_unet, per_decode, per_call, tag)
     del pipe16
     torch.cuda.empty_cache()
 
@@ -1205,7 +1250,7 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
     gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
     if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
         raise AssertionError(f"the SD search did not give GroupNorm its largest shapes: {gn_shapes}")
-    return searches, lines
+    return searches + rewards, lines
 
 
 # ------------------------------------------------------- the other searches
@@ -1233,20 +1278,24 @@ def method_calls(method: str, backend: str, steps: int, p: SearchParams,
                  samples: int) -> tuple[collections.Counter, collections.Counter]:
     """(model calls, VAE decodes) of one search, each {batch: calls}, from
     the method's structure (search/naive.py, beam.py, mcts.py with one
-    phase). EDM: the denoiser, twice a Heun step, no decode. SD: the UNet,
-    each batch CFG-doubled; rejection and beam decode their candidates at
-    the end and run_search the result."""
-    n, m, s, c = p.N, p.B, p.S, collections.Counter
+    phase, zero_order.py's eps-greedy). EDM: the denoiser, twice a Heun
+    step, no decode. SD: the UNet, each batch CFG-doubled; rejection and
+    beam decode their candidates at the end, eps-greedy each lookahead, and
+    run_search the result."""
+    n, m, s, k, c = p.N, p.B, p.S, p.K, collections.Counter
     if backend == "edm":
         calls = {"rejection": c({n * samples: 2 * steps}), "beam": c({n * m * samples: 2 * steps}),
-                 "mcts": c({n * samples: 2 * (s + 1) * steps}) + c({s * samples: 2 * steps * steps})}
+                 "mcts": c({n * samples: 2 * (s + 1) * steps}) + c({s * samples: 2 * steps * steps}),
+                 "eps_greedy": c({n * samples: 2 * steps * k})}
         return calls[method], c()
     unet = {"rejection": c({2 * n * samples: steps}),
             "beam": c({2 * m * samples: steps}) + c({2 * n * m * samples: steps}),
-            "mcts": c({2 * n * samples: (s + 1) * steps}) + c({2 * s * samples: steps * steps})}
+            "mcts": c({2 * n * samples: (s + 1) * steps}) + c({2 * s * samples: steps * steps}),
+            "eps_greedy": c({2 * samples: steps}) + c({2 * n * samples: steps * k})}
     decode = {"rejection": c({n * samples: 1}) + c({samples: 1}),
               "beam": c({n * m * samples: steps}) + c({m * samples: 1}) + c({samples: 1}),
-              "mcts": c({s * samples: steps}) + c({samples: 1})}
+              "mcts": c({s * samples: steps}) + c({samples: 1}),
+              "eps_greedy": c({n * samples: steps * k}) + c({samples: 1})}
     return unet[method], decode[method]
 
 
@@ -1286,17 +1335,20 @@ def check_search_output(path: str, capture: EntryCapture, images, scores, shape)
 
 
 def search_line(path: str, method: str, p: SearchParams, steps: int, samples: int, wall: float,
-                nfe: int, launches: dict, scores, tag: str) -> dict:
+                nfe: int, launches: dict, scores, tag: str, **extra) -> dict:
+    """One search's line; ``extra`` (the reward phases' scorer and its
+    share of wall time) is printed and kept beside the rest."""
     peak = torch.cuda.max_memory_allocated() / 2**30
-    knobs = {"rejection": ("N",), "beam": ("B", "N"), "mcts": ("N", "S")}[method]
+    knobs = {"rejection": ("N",), "beam": ("B", "N"), "mcts": ("N", "S"),
+             "eps_greedy": ("N", "K")}[method]
     knobs = {k: getattr(p, k) for k in knobs}
     print(f"{path} search {method} {steps} steps samples={samples} "
           f"{' '.join(f'{k}={v}' for k, v in knobs.items())} bf16: {wall:.3f} s, {nfe} NFE, "
           f"{nfe / wall:.2f} NFE/s, peak memory {peak:.2f} GiB, scores {scores.tolist()}, "
-          f"launches {launches} [{tag}]")
+          f"launches {launches}{''.join(f', {k} {v}' for k, v in extra.items())} [{tag}]")
     return {"path": path, "method": method, "steps": steps, **knobs, "samples": samples,
             "wall_s": wall, "nfe": nfe, "nfe_per_s": nfe / wall, "peak_gib": peak,
-            "launches": launches}
+            "launches": launches, **extra}
 
 
 def timed_run(run) -> tuple[object, float]:
@@ -1422,6 +1474,252 @@ def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: Kerne
     return lines
 
 
+# ------------------------------------------------------------------ rewards
+
+
+class TimedScorer:
+    """Wraps a scorer and sums the wall time of its calls, each between two
+    synchronizations: for the instrumented run of a reward search only, so
+    that the timed run has no extra syncs."""
+
+    def __init__(self, scorer):
+        self.scorer, self.seconds = scorer, 0.0
+
+    def __call__(self, images01, cond=None, timesteps=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.scorer(images01, cond, timesteps)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def held(name: str, card: torch.Tensor, cpu: torch.Tensor, tol: float, tag: str,
+         relative: bool = True) -> float:
+    """The card's result against the CPU's: the largest difference over the
+    CPU result's largest magnitude (``relative``) or absolute, within tol."""
+    err = rel_err(card.cpu(), cpu)[1 if relative else 0]
+    print(f"  {name}: card vs fp32 CPU {'max_rel' if relative else 'max_abs'}={err:.3e} "
+          f"(tol {tol}) [{tag}]")
+    if not err <= tol:
+        raise AssertionError(f"{name} on the card disagrees with the CPU: {err} > {tol}")
+    return err
+
+
+def grid_images(shape, seed: int) -> torch.Tensor:
+    """Random images01 on the uint8 grid, from a numpy seed."""
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(np.floor(g.uniform(0, 256, shape)).astype(np.float32) / 255.0)
+
+
+def check_compressibility(path: str, images: torch.Tensor, max_size: float, tag: str) -> None:
+    """On images the card produced: the exact mode's sizes from the encoder
+    that serves (native libjpeg, else PIL) and, where the native library is
+    present, its sizes equal to PIL's byte for byte; the exact mode's scores
+    against 1 - clip(PIL size / cap) element by element at the search's cap
+    and at one above every size (so that a scorer of zeros fails); the dct
+    mode's bits on the card against the CPU within 1e-4 relative."""
+    import io
+
+    from PIL import Image
+
+    u8 = np.asarray(np.round(images.float().cpu().numpy() * 255.0), np.uint8)
+    sizes = compressibility._host_jpeg_sizes(u8, 80)
+    has_native = native.native_available()
+    served = "native libjpeg" if has_native else "PIL (native library unavailable)"
+    pil = []
+    for im in u8:
+        buf = io.BytesIO()
+        Image.fromarray(im).save(buf, format="JPEG", quality=80)
+        pil.append(len(buf.getvalue()))
+    print(f"  {path} compressibility jpeg on {len(u8)} card images: sizes {sizes.tolist()} "
+          f"bytes from {served}; PIL {pil} [{tag}]")
+    if not has_native:
+        print(f"  {path}: native libjpeg against PIL not compared here (no native library)")
+    if sizes.tolist() != pil:
+        raise AssertionError(f"{path}: JPEG sizes {sizes.tolist()} differ from PIL's {pil}")
+    if min(pil) >= max_size:
+        print(f"  {path}: every returned image is over the {max_size:.0f}-byte cap and scores "
+              f"0, so the search's choice by this reward was not exercised on the card")
+    for cap in (max_size, 2.0 * max(pil)):
+        got = CompressibilityScorer(max_size=cap)(images.cuda()).cpu()
+        want = 1.0 - torch.clamp(torch.tensor(pil, dtype=torch.float32) / cap, 0.0, 1.0)
+        err = (got - want).abs().max().item()
+        print(f"  {path} compressibility scores at cap {cap:.0f}: {got.tolist()}, "
+              f"max_abs vs 1 - clip(PIL size / cap) {err:.3e} (tol 1e-6) [{tag}]")
+        if not err <= 1e-6:
+            raise AssertionError(f"{path}: compressibility scores {got.tolist()} at cap {cap} "
+                                 f"differ from {want.tolist()}")
+    card = compressibility.jpeg_proxy_bits(images.cuda())
+    cpu = compressibility.jpeg_proxy_bits(images.float().cpu())
+    rel = ((card.cpu() - cpu).abs() / cpu.abs()).max().item()
+    print(f"  {path} compressibility dct bits card {card.tolist()} vs CPU: max_rel={rel:.3e} "
+          f"(tol 1e-4) [{tag}]")
+    if not rel <= 1e-4:
+        raise AssertionError(f"{path}: dct bits on the card disagree with the CPU: {rel}")
+
+
+def reward_search(path: str, name: str, run, scorer, capture: EntryCapture, want: dict,
+                  steps: int, p: SearchParams, samples: int, nfe: int, shape, tag: str):
+    """One eps-greedy search with a reward: timed, its launches held against
+    ``want`` ({kernel: launches}, every other kernel 0) on the fast routes,
+    its output checked; then run again with the scorer timed for its share
+    of the wall time. Returns (the search's line, the images)."""
+    reset_launches()
+    (images, scores), wall = timed_run(lambda: run(scorer))
+    launches, routes = read_launches(), read_routes()
+    for kernel, n in launches.items():
+        if n != want.get(kernel, 0):
+            raise AssertionError(f"{kernel} launched {n} times by {path} eps_greedy with {name}, "
+                                 f"expected {want.get(kernel, 0)}")
+    check_routes(f"{path} eps_greedy/{name}", routes,
+                 {k: n for k, n in want.items() if k in FAST_ROUTE})
+    check_search_output(f"{path} eps_greedy/{name}", capture, images, scores, shape)
+    timed = TimedScorer(scorer)
+    _, wall2 = timed_run(lambda: run(timed))
+    line = search_line(path, "eps_greedy", p, steps, samples, wall, nfe,
+                       {k: v for k, v in launches.items() if v}, scores, tag, scorer=name,
+                       scorer_share=timed.seconds / wall2, instrumented_s=wall2)
+    return line, images
+
+
+@torch.no_grad()
+def edm_rewards_phase(net: EDMPrecond, tag: str) -> list[dict]:
+    """Phase 4c: the ImageNet classifier at full width against the CPU, then
+    eps-greedy with the classifier and with compressibility through
+    generate_image_grid on the phase 4 net, and compressibility's two modes
+    on the images those searches produced."""
+    print("EDM rewards:")
+    card = ImageNetScorer(seed=0, device="cuda")
+    cpu = ImageNetScorer(seed=0, device="cpu")
+    images = grid_images((8, 64, 64, 3), 7)
+    labels = torch.from_numpy(np.random.default_rng(8).integers(0, 1000, 8))
+    zeros = torch.zeros(8)
+    logits = card.model(images.cuda().permute(0, 3, 1, 2), zeros.cuda())
+    logits_cpu = cpu.model(images.permute(0, 3, 1, 2), zeros)
+    held("classifier logits [8, 1000] fp32", logits, logits_cpu, 1e-3, tag)
+    held("classifier probabilities", torch.softmax(logits, -1), torch.softmax(logits_cpu, -1),
+         1e-5, tag, relative=False)
+    held("ImageNetScorer scores", card(images.cuda(), labels.cuda()), cpu(images, labels), 1e-5,
+         tag, relative=False)
+    del cpu
+    params = SearchParams(N=N, K=K)
+    calls, _ = method_calls("eps_greedy", "edm", STEPS, params, SAMPLES)
+    nfe = nfe_per_sample("eps_greedy", STEPS, params) * SAMPLES
+    if sum(b * n for b, n in calls.items()) != nfe:
+        raise AssertionError(f"EDM eps_greedy: the calls {calls} do not add up to {nfe} NFE")
+    want = {"attention": sum(n for _, _, n in SITES) * sum(calls.values())}
+    lines, produced = [], []
+    capture = EntryCapture(edm_entry)
+    try:
+        for name, scorer, needs_labels in (
+                ("imagenet", card, True),
+                ("compressibility", CompressibilityScorer(max_size=3000.0), False)):
+            def run(s, needs_labels=needs_labels):
+                result = generate_image_grid(
+                    arch="imagenet64", scorer=s, scorer_needs_labels=needs_labels,
+                    method="eps_greedy", params=params, seed=0, gridw=SAMPLES, num_steps=STEPS,
+                    dtype=torch.bfloat16, device="cuda", net=net)
+                return result.images, result.score
+
+            line, images = reward_search("EDM", name, run, scorer, capture, want, STEPS, params,
+                                         SAMPLES, nfe, (SAMPLES, 64, 64, 3), tag)
+            lines.append(line)
+            produced.append(images)
+    finally:
+        capture.remove()
+    check_compressibility("EDM", torch.cat(produced), 3000.0, tag)
+    return lines
+
+
+@torch.no_grad()
+def sd_rewards_phase(pipe: StableDiffusionSearchPipeline, per_unet: dict, per_decode: dict,
+                     per_call: dict, tag: str) -> list[dict]:
+    """Phase 6c: SD-1.5's text tower and CLIP ViT-L/14 at full width
+    against the CPU, then eps-greedy on the phase 6 pipeline with prompt
+    embeddings from the text tower, once with CLIP (the prompt's text
+    features as scorer_cond, as the CLI passes them) and once with
+    compressibility, and compressibility's two modes on the images those
+    searches produced."""
+    print("SD rewards:")
+    text_cpu = CLIPTextModel(SD15_TEXT)
+    load_into(text_cpu, random_state_dict(text_cpu, 1)).eval()
+    text = copy.deepcopy(text_cpu).cuda()
+    ids = torch.from_numpy(np.random.default_rng(9).integers(0, SD15_TEXT.vocab_size, (2, 77)))
+    held("SD-1.5 text tower last_hidden_state [2, 77, 768]", text(ids.cuda()), text_cpu(ids),
+         1e-3, tag)
+    del text_cpu
+    clip_cpu = CLIPModel(CLIP_VIT_L14)
+    load_into(clip_cpu, random_state_dict(clip_cpu, 2)).eval()
+    clip = CLIPScorer(copy.deepcopy(clip_cpu), device="cuda")
+    clip_ref = CLIPScorer(clip_cpu, device="cpu")
+    images = grid_images((4, 512, 512, 3), 10)
+    held("CLIP ViT-L/14 image features [4, 768]",
+         clip.model.get_image_features(preprocess_images(images.cuda())),
+         clip_ref.model.get_image_features(preprocess_images(images)), 1e-3, tag)
+    held("CLIP ViT-L/14 text features [2, 768]", clip.model.get_text_features(ids.cuda()),
+         clip_ref.model.get_text_features(ids), 1e-3, tag)
+    held("CLIPScorer cosine scores [4]", clip(images.cuda(), ids[:1].cuda()),
+         clip_ref(images, ids[:1]), 1e-4, tag, relative=False)
+    del clip_ref, clip_cpu
+
+    params = SearchParams(N=SD_N, K=SD_K)
+    unet, decodes = method_calls("eps_greedy", "sd", SD_STEPS, params, SD_PROMPTS)
+    nfe = nfe_per_sample("eps_greedy", SD_STEPS, params, backend="sd") * SD_PROMPTS
+    if sum(b * n for b, n in unet.items()) != 2 * nfe:
+        raise AssertionError(f"SD eps_greedy: the UNet calls {unet} do not add up to {nfe} NFE")
+    want = {k: (per_unet[k] * sum(unet.values()) + per_decode[k] * sum(decodes.values()))
+            * per_call[k] for k in per_call}
+    prompt_ids = ids[:SD_PROMPTS].cuda()
+    emb = text(prompt_ids)
+    # the CLI's cond: normalized text features, so no call hashes the ids on the host
+    features = clip.text_features(prompt_ids)
+    lines, produced = [], []
+    capture = EntryCapture(sd_pipeline)
+    try:
+        for name, scorer, cond in (
+                ("clip", clip, features),
+                ("compressibility", CompressibilityScorer(max_size=150000.0), None)):
+            def run(s, cond=cond):
+                return pipe(prompt_embeds=emb, num_inference_steps=SD_STEPS, score_function=s,
+                            scorer_cond=cond, method="eps_greedy", params=params, seed=0)
+
+            line, images = reward_search("SD", name, run, scorer, capture, want, SD_STEPS,
+                                         params, SD_PROMPTS, nfe, (SD_PROMPTS, 512, 512, 3), tag)
+            lines.append(line)
+            produced.append(images)
+    finally:
+        capture.remove()
+    check_compressibility("SD", torch.cat(produced), 150000.0, tag)
+    return lines
+
+
+def cli_phase(tag: str) -> None:
+    """Phase 8: one call of the port's CLI on the card (EDM, the ImageNet
+    classifier, eps-greedy, bf16), its PNG written to a temporary
+    directory, its attention launches held against the search's structure."""
+    from PIL import Image
+
+    params = SearchParams(N=N, K=K)
+    calls, _ = method_calls("eps_greedy", "edm", STEPS, params, 1)
+    want = sum(n for _, _, n in SITES) * sum(calls.values())
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "edm_eps_greedy_imagenet.png")
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(["--backend", "edm", "--arch", "imagenet64", "--scorer", "imagenet", "--method",
+                  "eps_greedy", "--N", str(N), "--K", str(K), "--dtype", "bf16", "--output", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        size = Image.open(out).size
+    print(f"CLI: python -m diffusion_tts_torch.main --backend edm --arch imagenet64 --scorer "
+          f"imagenet --method eps_greedy --N {N} --K {K} --dtype bf16: {wall:.3f} s with the "
+          f"load, PNG {size}, launches {{'qkv_attention': {qk.LAUNCHES}}} [{tag}]")
+    if size != (64, 64) or qk.LAUNCHES != want:
+        raise AssertionError(f"the CLI run wrote a {size} PNG with {qk.LAUNCHES} attention "
+                             f"launches, expected (64, 64) and {want}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-json", default=None,
@@ -1452,13 +1750,14 @@ def main() -> None:
                 f"{'shortcut' if shortcut else 'no shortcut'}]")
             print(f"ptxas, {kind} ring kernel: " + "; ".join(lines))
 
-    # -- 3, 4, 4b. EDM; 5. training; 6, 6b, 7. SD
+    # -- 3, 4, 4b, 4c. EDM; 5. training; 6, 6b, 6c, 7. SD; 8. the CLI
     edm_searches, edm_line = edm_phases(tag)
     training_line = training_phases(tag, edm_line)
     sd_searches, sd_lines = sd_phases(tag)
+    cli_phase(tag)
     kernels = [edm_line, training_line] + sd_lines
 
-    # -- 8. the kernel line, then the result line
+    # -- 9. the kernel line, then the result line
     if args.kernels_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:

@@ -39,6 +39,14 @@ TINY_ADM = dict(
                       attn_resolutions=(8,), dropout=0.0),
 )
 NET_CONFIGS = {"imagenet64": IMAGENET64_ADM, "tiny_adm": TINY_ADM}
+# The ImageNet scorer's classifier (models/classifier.py::EncoderUNetModel)
+# for each arch's images and labels: the 64x64 classifier's defaults, and at
+# 16x16 with 10 classes the geometry of tests/goldens/classifier.npz.
+CLASSIFIER_CONFIGS = {
+    "imagenet64": {},
+    "tiny_adm": dict(image_size=16, model_channels=32, out_channels=10, num_res_blocks=1,
+                     attention_resolutions=(2,), channel_mult=(1, 2)),
+}
 
 
 def load_network(arch: str = "imagenet64", weights: str | None = None,
@@ -127,4 +135,4 @@ def generate_image_grid(
     return result
 
 
-__all__ = ["generate_image_grid", "load_network", "NET_CONFIGS"]
+__all__ = ["generate_image_grid", "load_network", "NET_CONFIGS", "CLASSIFIER_CONFIGS"]

@@ -11,8 +11,10 @@ unconditional half first, method 'eps_greedy'.
 
 The models are NCHW; the search works on NHWC latents [B, h, w, 4] and
 NHWC images [B, H, W, 3], the JAX package's layout, so both packages
-search over the same arrays. Everything runs on the models' device. Text
-encoding (CLIP) is not ported yet: prompts come in as ``prompt_embeds``.
+search over the same arrays. Everything runs on the models' device.
+Prompts come in as ``prompt_embeds`` or as text, which ``encode_prompt``
+encodes with the tokenizer and the port's CLIP text tower
+(models/clip.py) when the pipeline has both.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ import dataclasses
 import glob
 import json
 import os
+from typing import Any
 
 import torch
 
+from diffusion_tts_torch.models.clip import CLIPTextModel
 from diffusion_tts_torch.models.sd_import import load_diffusers, load_safetensors
 from diffusion_tts_torch.models.sd_unet import UNet2DConditionModel
 from diffusion_tts_torch.models.sd_vae import AutoencoderKL
@@ -77,6 +81,8 @@ def _find_weights(subdir: str) -> str:
 class StableDiffusionSearchPipeline:
     unet: UNet2DConditionModel
     vae: AutoencoderKL
+    text_encoder: CLIPTextModel | None = None  # fp32, on the UNet's device
+    tokenizer: Any = None  # a transformers CLIPTokenizer
     guidance_scale: float = 7.5
 
     @property
@@ -93,14 +99,25 @@ class StableDiffusionSearchPipeline:
                         device: torch.device | str = "cuda",
                         **kwargs) -> "StableDiffusionSearchPipeline":
         """A local diffusers-layout SD checkpoint: ``unet/`` and ``vae/``,
-        each a config.json and a .safetensors file."""
+        each a config.json and a .safetensors file, and, when present,
+        ``text_encoder/`` (loaded into the port's CLIP text tower, fp32) and
+        ``tokenizer/`` (transformers' CLIPTokenizer, imported only then)."""
         dev = resolve_device(device)
         unet = UNet2DConditionModel(**_config(os.path.join(path, "unet"), _UNET_KEYS),
                                     dtype=dtype)
         load_diffusers(unet, load_safetensors(_find_weights(os.path.join(path, "unet"))))
         vae = AutoencoderKL(**_config(os.path.join(path, "vae"), _VAE_KEYS), dtype=dtype)
         load_diffusers(vae, load_safetensors(_find_weights(os.path.join(path, "vae"))))
-        return cls(unet=unet.to(dev).eval(), vae=vae.to(dev).eval(), **kwargs)
+        text_encoder = tokenizer = None
+        if os.path.isdir(os.path.join(path, "text_encoder")):
+            text_encoder = CLIPTextModel.from_pretrained(os.path.join(path, "text_encoder"))
+            text_encoder = text_encoder.to(dev)
+        if os.path.isdir(os.path.join(path, "tokenizer")):
+            from transformers import CLIPTokenizer
+
+            tokenizer = CLIPTokenizer.from_pretrained(os.path.join(path, "tokenizer"))
+        return cls(unet=unet.to(dev).eval(), vae=vae.to(dev).eval(), text_encoder=text_encoder,
+                   tokenizer=tokenizer, **kwargs)
 
     @classmethod
     def random(cls, unet_config: dict, vae_config: dict, *, seed: int = 0,
@@ -122,9 +139,24 @@ class StableDiffusionSearchPipeline:
         return cls.random(TINY_UNET, TINY_VAE, seed=seed, dtype=dtype, device=device)
 
     # ------------------------------------------------------------- components
-    def encode_prompt(self, prompt, negative_prompt=None):
-        raise NotImplementedError("text encoding (CLIP) is not ported yet (ROADMAP.md Queue 1 "
-                                  "item 10); pass prompt_embeds")
+    @torch.no_grad()
+    def encode_prompt(self, prompt, negative_prompt=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """CLIP-encode the prompts and their negatives (reference pipeline
+        encode_prompt, :942-992). Returns (uncond, cond) [B, 77, D]."""
+        if self.tokenizer is None or self.text_encoder is None:
+            raise ValueError("pipeline has no tokenizer/text encoder; pass prompt_embeds")
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        neg = negative_prompt or [""] * len(prompts)
+        neg = [neg] * len(prompts) if isinstance(neg, str) else list(neg)
+        dev = next(self.text_encoder.parameters()).device
+
+        def enc(texts):
+            tok = self.tokenizer(texts, padding="max_length", truncation=True,
+                                 max_length=self.tokenizer.model_max_length, return_tensors="np")
+            return self.text_encoder(torch.as_tensor(tok["input_ids"], dtype=torch.long,
+                                                     device=dev))
+
+        return enc(neg), enc(prompts)
 
     def make_backend(self, cond: torch.Tensor, uncond: torch.Tensor, scorer, scorer_cond=None,
                      num_inference_steps: int = 100, eta: float = 1.0,

@@ -38,6 +38,76 @@ def test_port_imports_no_jax():
     assert "diffusion_tts_torch.training.loop" in names and "diffusion_tts_torch.train" in names
 
 
+_RUN_SCORERS = """
+import json, sys
+import numpy as np
+import torch
+from diffusion_tts_torch.models.clip import CLIPTextConfig, CLIPTextModel
+from diffusion_tts_torch.models.torch_import import load_into, random_state_dict
+from diffusion_tts_torch.pipelines import StableDiffusionSearchPipeline
+from diffusion_tts_torch.scorers import (BrightnessScorer, CLIPScorer, CompressibilityScorer,
+                                         ImageNetScorer)
+
+
+class StubTokenizer:
+    model_max_length = 77
+
+    def __call__(self, texts, padding, truncation, max_length, return_tensors):
+        ids = np.full((len(texts), max_length), 999, np.int64)
+        for i, text in enumerate(texts):
+            ids[i, :len(text)] = [ord(c) % 900 for c in text]
+        return {"input_ids": ids}
+
+
+images = torch.rand(2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+tiny = dict(image_size=16, model_channels=32, out_channels=10, num_res_blocks=1,
+            attention_resolutions=(2,), channel_mult=(1, 2))
+scores = [BrightnessScorer()(images), CompressibilityScorer()(images),
+          CompressibilityScorer(mode="dct")(images),
+          ImageNetScorer(device="cpu", **tiny)(images, torch.tensor([1, 2])),
+          CLIPScorer.random_init(device="cpu")(images, torch.tensor([[5, 7, 999]]))]
+text = CLIPTextModel(CLIPTextConfig(hidden_size=32, intermediate_size=64, num_attention_heads=4,
+                                    num_hidden_layers=2, vocab_size=1000))
+pipe = StableDiffusionSearchPipeline.tiny_random(device="cpu")
+pipe.text_encoder = load_into(text, random_state_dict(text, 0)).eval()
+pipe.tokenizer = StubTokenizer()
+uncond, cond = pipe.encode_prompt(["a cat", "a dog"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "tensorflow", "diffusion_tts_tpu"))
+print(json.dumps([[s.shape[0] for s in scores], list(cond.shape), bad]))
+"""
+
+
+def test_scorers_and_prompt_encoding_import_no_jax():
+    """Building and running all four scorers and encoding a prompt leave no
+    module of JAX, Flax, TensorFlow or the JAX package in sys.modules
+    (transformers' torch CLIP model would pull them in where installed)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _RUN_SCORERS], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    sizes, cond_shape, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sizes == [2] * 5 and cond_shape == [2, 77, 32] and bad == [], out.stdout
+
+
+def test_scorers_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from diffusion_tts_torch import main as cli
+    from diffusion_tts_torch.scorers import CLIPScorer, ImageNetScorer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ImageNetScorer()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CLIPScorer.random_init()
+    for backend, scorer in (("edm", "imagenet"), ("edm", "compressibility"),
+                            ("sd", "clip"), ("sd", "compressibility")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main(["--backend", backend, "--scorer", scorer, "--arch", "tiny_adm",
+                      "--output", str(tmp_path / "x.png")])
+    assert not (tmp_path / "x.png").exists()
+    assert CLIPScorer.random_init(device="cpu").device.type == "cpu"
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from diffusion_tts_torch import main as cli
     from diffusion_tts_torch.backends import edm_entry

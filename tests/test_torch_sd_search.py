@@ -120,7 +120,7 @@ def test_pipeline_call_and_nfe(rig):
     assert images.shape == (1, 32, 32, 3) and torch.isfinite(scores).all()
     torch.testing.assert_close(images, again, atol=0, rtol=0)
     assert not torch.equal(images, other)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="no tokenizer/text encoder"):
         pipe(prompt="a photo")
 
 
