@@ -8,7 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
      fails without a card;
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
      process per source, all at once), and ptxas's register and spill lines
-     for the conv kernels' ring route;
+     for the conv kernels' ring route and for the attention kernels at
+     d = 256;
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
@@ -34,7 +35,20 @@ Phases, each of which raises on failure (nothing is caught):
      twice from one seed, bit-identical; then the qkv attention kernel
      against its plain version at the batches these searches add (4, 16),
      untimed;
-  5. training (the EDM backend's): the attention backward kernels against
+  4d. the CIFAR-10 DDPM++ path (``--arch cifar10``: the SongUNet at full
+     width, 128 channels, mult (2, 2, 2), 4 blocks, one attention head of
+     256 at 16x16 and the decoder's 8x8_in0; bf16, random weights from numpy
+     seed 0): the qkv attention kernel at d = 256 against its plain version
+     at [8, 256, 768] and [8, 64, 768] (bf16 on "mma", fp32 with TF32 off on
+     "fma"; kernel, plain, SDPA, bound and ``fma_ms`` times); full-width
+     forwards in fp32 and bf16 on the card against fp32 on the CPU (1e-3 /
+     5e-2 of the largest magnitude) of the CIFAR-10 net, of NCSN++ (the
+     ncsnpp preset under VEPrecond) and of the ImageNet-64 ADM under
+     iDDPMPrecond; eps-greedy (18 steps, 2 samples, N=4, K=2, brightness)
+     through generate_image_grid(arch="cifar10"): 432 attention launches,
+     all on "mma"; then rejection, beam and MCTS as in 4b (6 launches per
+     denoiser call);
+ 5. training (the EDM backend's): the attention backward kernels against
      their plain version at the flagship's [16, T, 3C] training shapes (bf16,
      each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
      fp32 within 1e-4; one [2, 4096, 8, 40] call through ``attention``), with
@@ -50,6 +64,16 @@ Phases, each of which raises on failure (nothing is caught):
      batch 32 as 2 rounds of 16, dropout 0.10, 1 warm step and 4 timed steps,
      the forward and backward launches counted (all of them on "mma"), a
      snapshot and a state dump written, read back and held equal;
+ 5b. DDPM++ / VP training (the training CLI's --arch ddpmpp --precond vp
+     --cond 1 --bf16 1 --augment 0): the backward kernels at d = 256 against
+     their plain version at [32, 256, 768] and [32, 64, 768] in bf16 and one
+     shape in fp32 (both on "fma": the backward's mma route stops at d = 80),
+     with kernel, plain, library and bound times; one full-width VPLoss
+     forward + backward at batch 2 on the card against the CPU as in 5; the
+     CLI's dry run; training_loop at full width on an in-memory random
+     32x32 dataset, batch 64 as 2 rounds of 32, dropout 0.10, 1 warm and 4
+     timed steps: 6 forward and 12 backward attention launches a micro-batch
+     (60 / 120), forward on "mma", backward on "fma";
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
@@ -152,7 +176,7 @@ from diffusion_tts_torch.backends.edm_entry import (
     load_network,
 )
 from diffusion_tts_torch.models.clip import CLIP_VIT_L14, SD15_TEXT, CLIPModel, CLIPTextModel
-from diffusion_tts_torch.models.preconds import EDMPrecond
+from diffusion_tts_torch.models.preconds import EDMPrecond, VEPrecond, VPPrecond
 from diffusion_tts_torch.models.torch_import import load_into, random_state_dict
 from diffusion_tts_torch.models import sd_layers, sd_vae
 from diffusion_tts_torch.models.sd_unet import UNet2DConditionModel
@@ -181,7 +205,7 @@ from diffusion_tts_torch.search.nfe import nfe_per_sample
 from diffusion_tts_torch.training import checkpoints
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
 from diffusion_tts_torch.training.loop import LoopConfig, training_loop
-from diffusion_tts_torch.training.loss import EDMLoss
+from diffusion_tts_torch.training.loss import EDMLoss, VPLoss
 from diffusion_tts_torch.training.train_step import TrainConfig, TrainState
 from diffusion_tts_torch.utils.config import SearchParams
 
@@ -204,6 +228,18 @@ SD_METHOD_RUNS = (("rejection", SearchParams(N=4), SD_STEPS),
                   ("mcts", SearchParams(N=2, S=2), SD_STEPS))
 # Training: batch 32 as 2 accumulation rounds of micro-batch 16, 1 warm + 4 timed steps.
 TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
+# Phases 4d and 5b: the CIFAR-10 DDPM++ net's attention sites (T, heads, sites
+# per forward), one head of 256: the four 16x16 encoder blocks and the
+# decoder's 16x16_block4 at T = 256, the decoder's 8x8_in0 at T = 64.
+CIFAR_SITES, CIFAR_D = ((256, 1, 5), (64, 1, 1)), 256
+# NCSN++ (the training CLI's ncsnpp preset) at CIFAR-10's size and labels
+NCSNPP_CIFAR = dict(edm_entry.CIFAR10_DDPMPP, model_kwargs=dict(
+    train_cli.ARCH_PRESETS["ncsnpp"]["model_kwargs"], dropout=0.0))
+# The net `train --arch ddpmpp --cond 1` builds on a 32x32 10-class dataset;
+# batch 64 as 2 rounds of micro-batch 32.
+DDPMPP_TRAIN = dict(img_resolution=32, img_channels=3, label_dim=10, model_type="SongUNet",
+                    model_kwargs=train_cli.ARCH_PRESETS["ddpmpp"]["model_kwargs"])
+CIFAR_TRAIN_BATCH = 64
 
 
 ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_LAUNCHES,
@@ -225,15 +261,17 @@ def read_routes() -> dict:
     return {name: dict(routes) for name, routes in ROUTE_COUNTERS.items()}
 
 
-def check_routes(path: str, got: dict, want: dict) -> None:
+def check_routes(path: str, got: dict, want: dict, routes: dict | None = None) -> None:
     """Every launch of ``want``'s kernels on ``path`` took the kernel's
-    redesigned route (FAST_ROUTE): ``got`` from read_routes(), ``want``
-    {kernel name: launches}."""
+    redesigned route (FAST_ROUTE, or the route ``routes`` names for the
+    kernel on this path): ``got`` from read_routes(), ``want`` {kernel name:
+    launches}."""
     for name, n in want.items():
-        expected = {**dict.fromkeys(got[name], 0), FAST_ROUTE[name]: n}
+        route = (routes or {}).get(name, FAST_ROUTE[name])
+        expected = {**dict.fromkeys(got[name], 0), route: n}
         if got[name] != expected:
             raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
-                                 f"expected all {n} launches on {FAST_ROUTE[name]}")
+                                 f"expected all {n} launches on {route}")
     print(f"  routes on the {path} path: " + ", ".join(f"{k} {got[k]}" for k in want))
 
 
@@ -341,21 +379,21 @@ def bound(flops: float, moved_bytes: float, dtype: torch.dtype) -> tuple[float, 
     return max(ops, mem) * 1e3, "operations" if ops >= mem else "bytes"
 
 
-def attention_bound_ms(b: int, t: int, heads: int, dtype: torch.dtype) -> tuple[float, str]:
+def attention_bound_ms(b: int, t: int, heads: int, dtype: torch.dtype,
+                       d: int = 64) -> tuple[float, str]:
     """Least time for one call: 4*B*H*T^2*d operations at the dtype's peak,
     or reading [B, T, 3C] and writing [B, T, C] at the memory rate."""
-    d = 64
     ops = 4 * b * heads * t * t * d / PEAK_FLOPS[dtype]
     moved = b * t * 4 * heads * d * torch.finfo(dtype).bits // 8 / PEAK_BYTES
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
 def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
-                    timed: bool = True) -> dict:
-    """The kernel against its plain version at [b, t, 3C]; with ``timed``,
-    the row's times and route columns too."""
+                    timed: bool = True, d: int = 64) -> dict:
+    """The kernel against its plain version at [b, t, 3C] with heads of
+    width ``d``; with ``timed``, the row's times and route columns too."""
     g = torch.Generator(device="cuda").manual_seed(1000 * t + b)
-    qkv = torch.randn((b, t, 3 * heads * 64), device="cuda", generator=g).to(dtype)
+    qkv = torch.randn((b, t, 3 * heads * d), device="cuda", generator=g).to(dtype)
     out = qk.qkv_self_attention(qkv, heads)
     ref = qk.qkv_self_attention_plain(qkv, heads)
     torch.cuda.synchronize()
@@ -365,21 +403,21 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
     tol = TOL[dtype]
     ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
     if not timed:
-        print(f"  qkv_attention {[b, t, 3 * heads * 64]} {str(dtype).split('.')[-1]:>8} "
+        print(f"  qkv_attention {[b, t, 3 * heads * d]} {str(dtype).split('.')[-1]:>8} "
               f"heads={heads:2d}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) "
               f"[{tag}]")
         if not ok:
             raise AssertionError(f"qkv_attention [{b}, {t}] disagrees with its plain version")
-        return dict(shape=[b, t, 3 * heads * 64], max_abs_err=max_abs, max_rel_err=max_rel)
-    q, k, v = (x.reshape(b, t, heads, 64).transpose(1, 2).contiguous()
+        return dict(shape=[b, t, 3 * heads * d], max_abs_err=max_abs, max_rel_err=max_rel)
+    q, k, v = (x.reshape(b, t, heads, d).transpose(1, 2).contiguous()
                for x in qkv.chunk(3, dim=-1))
-    row = dict(shape=[b, t, 3 * heads * 64], heads=heads, dtype=str(dtype).split(".")[-1],
+    row = dict(shape=[b, t, 3 * heads * d], heads=heads, dtype=str(dtype).split(".")[-1],
                max_abs_err=max_abs, max_rel_err=max_rel,
                ms=time_ms(lambda: qk.qkv_self_attention(qkv, heads)),
                plain_ms=time_ms(lambda: qk.qkv_self_attention_plain(qkv, heads), reps=5),
                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
-    row["bound_ms"], row["bound_by"] = attention_bound_ms(b, t, heads, dtype)
-    route_columns(row, qk.forward_route(dtype, 64), 4 * b * heads * t * t * 64,
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(b, t, heads, dtype, d)
+    route_columns(row, qk.forward_route(dtype, d), 4 * b * heads * t * t * d,
                   lambda: qk.qkv_self_attention(qkv, heads, route="fma"), None)
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
@@ -754,7 +792,8 @@ def check_conv_up2(key, dtype, tag, timed=True):
 # ----------------------------------------------------------------- training
 
 
-def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str) -> dict:
+def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
+                        d: int = 64) -> dict:
     """The backward kernels through qkv_self_attention's backward() at
     [B, T, 3C] against the plain version; each of dq, dk, dv within the
     dtype's tolerance of that gradient's largest magnitude. ``ms`` times the
@@ -764,8 +803,8 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     autograd engine's dispatch, not the device. ``fma_ms`` times the same
     call on the "fma" route (the first design) where the row is on "mma",
     in turns with ``ms``; ``tflops`` counts the 14*B*H*T^2*d operations the
-    two kernels run (S and dP in each)."""
-    d, c = 64, heads * 64
+    two kernels run (S and dP in each). ``d`` is the head width."""
+    c = heads * d
     gen = torch.Generator(device="cuda").manual_seed(7000 + t + b)
     qkv = torch.randn((b, t, 3 * c), device="cuda", generator=gen).to(dtype).requires_grad_(True)
     g = torch.randn((b, t, c), device="cuda", generator=gen).to(dtype)
@@ -860,21 +899,24 @@ def check_twin_gradients() -> None:
             raise AssertionError(f"{name}: the wrapper's gradient disagrees with its twin's")
 
 
-def training_net(dtype: torch.dtype, device: str, dropout: float = 0.0) -> EDMPrecond:
-    """The full-width ImageNet-64 ADM as the training CLI builds it (fp32
+def training_net(dtype: torch.dtype, device: str, dropout: float = 0.0,
+                 cfg: dict = IMAGENET64_ADM, precond=EDMPrecond) -> torch.nn.Module:
+    """The full-width net of ``cfg`` under ``precond`` (default: the
+    ImageNet-64 ADM under EDM) as the training CLI builds it (fp32
     parameters, compute in ``dtype``), with random weights in every layer:
     from the architecture's init, which zeroes conv1, proj and out_conv, no
     gradient would reach an attention site in the first step."""
-    cfg = dict(IMAGENET64_ADM, model_kwargs=dict(IMAGENET64_ADM["model_kwargs"], dropout=dropout))
-    net = EDMPrecond(dtype=dtype, param_dtype=torch.float32, **cfg)
+    cfg = dict(cfg, model_kwargs=dict(cfg["model_kwargs"], dropout=dropout))
+    net = precond(dtype=dtype, param_dtype=torch.float32, **cfg)
     return load_into(net, random_state_dict(net, 0)).to(device)
 
 
-def loss_and_grads(net: EDMPrecond, images, labels, draws) -> tuple[float, dict]:
+def loss_and_grads(net: torch.nn.Module, images, labels, draws,
+                   loss_fn=EDMLoss()) -> tuple[float, dict]:
     dev = next(net.parameters()).device
     net.train().zero_grad(set_to_none=True)
-    loss = EDMLoss()(lambda x, s, lab, al: net(x, s, lab, al), images.to(dev), labels.to(dev),
-                     **{k: v.to(dev) for k, v in draws.items()}).mean()
+    loss = loss_fn(lambda x, s, lab, al: net(x, s, lab, al), images.to(dev), labels.to(dev),
+                   **{k: v.to(dev) for k, v in draws.items()}).mean()
     loss.backward()
     missing = [n for n, p in net.named_parameters() if p.grad is None]
     if missing:
@@ -882,28 +924,33 @@ def loss_and_grads(net: EDMPrecond, images, labels, draws) -> tuple[float, dict]
     return loss.item(), {n: p.grad.detach().float().cpu() for n, p in net.named_parameters()}
 
 
-def check_training_forward_backward() -> None:
-    """One full-width EDM loss forward + backward, batch 2, dropout off, the
-    draws from a seed: fp32 on the card against fp32 on the CPU, then bf16
-    compute with fp32 parameters on the card."""
+def check_training_forward_backward(cfg: dict = IMAGENET64_ADM, precond=EDMPrecond,
+                                    loss_fn=EDMLoss()) -> None:
+    """One full-width loss forward + backward (default: the ADM under EDM),
+    batch 2, dropout off, the draws from a seed: fp32 on the card against
+    fp32 on the CPU, then bf16 compute with fp32 parameters on the card."""
+    res, label_dim = cfg["img_resolution"], cfg["label_dim"]
     g = torch.Generator().manual_seed(21)
-    images = torch.rand((2, 64, 64, 3), generator=g) * 2 - 1
-    labels = torch.eye(1000)[[3, 977]]
-    draws = dict(u=torch.randn((2, 1, 1, 1), generator=g),
-                 noise=torch.randn((2, 64, 64, 3), generator=g))
+    images = torch.rand((2, res, res, 3), generator=g) * 2 - 1
+    labels = torch.eye(label_dim)[[3, (label_dim - 23) % label_dim]]
+    u_draw = torch.randn if isinstance(loss_fn, EDMLoss) else torch.rand  # VP, VE: uniform
+    draws = dict(u=u_draw((2, 1, 1, 1), generator=g),
+                 noise=torch.randn((2, res, res, 3), generator=g))
+    run = lambda dtype, device: loss_and_grads(
+        training_net(dtype, device, cfg=cfg, precond=precond), images, labels, draws, loss_fn)
     t0 = time.perf_counter()
-    loss_ref, grads_ref = loss_and_grads(training_net(torch.float32, "cpu"), images, labels, draws)
+    loss_ref, grads_ref = run(torch.float32, "cpu")
     cpu_s = time.perf_counter() - t0
-    loss32, grads32 = loss_and_grads(training_net(torch.float32, "cuda"), images, labels, draws)
-    loss16, grads16 = loss_and_grads(training_net(torch.bfloat16, "cuda"), images, labels, draws)
+    loss32, grads32 = run(torch.float32, "cuda")
+    loss16, grads16 = run(torch.bfloat16, "cuda")
     worst = max((grads32[n] - r).abs().max().item() / r.abs().max().item()
                 for n, r in grads_ref.items())
     # in float64: fp32 sums over 296M elements are off by percents
     flat = lambda grads: torch.cat([grads[n].reshape(-1) for n in grads_ref]).double()
     cosine = F.cosine_similarity(flat(grads16), flat(grads_ref), dim=0).item()
     rel32, rel16 = (abs(x - loss_ref) / abs(loss_ref) for x in (loss32, loss16))
-    print(f"training forward + backward [2,64,64,3], {len(grads_ref)} parameters, vs fp32 on the "
-          f"CPU ({cpu_s:.1f} s): loss {loss_ref:.6f}; fp32 card loss rel err {rel32:.3e} (limit "
+    print(f"training forward + backward {type(loss_fn).__name__} [2,{res},{res},3], "
+          f"{len(grads_ref)} parameters, vs fp32 on the CPU ({cpu_s:.1f} s): loss {loss_ref:.6f}; fp32 card loss rel err {rel32:.3e} (limit "
           f"1e-4), worst gradient err / max {worst:.3e} (limit 1e-3); bf16 compute + fp32 "
           f"parameters loss rel err {rel16:.3e} (limit 5e-2), gradient cosine {cosine:.5f} "
           f"(limit 0.99)")
@@ -912,29 +959,38 @@ def check_training_forward_backward() -> None:
     torch.cuda.empty_cache()
 
 
-def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) -> dict:
+def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict], *,
+                        cfg: dict = IMAGENET64_ADM, precond=EDMPrecond, precond_name: str = "edm",
+                        loss_fn=EDMLoss(), batch: int = TRAIN_BATCH, rounds: int = TRAIN_ROUNDS,
+                        sites_of: tuple = SITES, routes_of: dict | None = None,
+                        label: str = "ImageNet-64 ADM") -> dict:
     """TRAIN_STEPS steps through training_loop, the function the training CLI
-    calls, at full width in bf16: every step its own tick, so that
-    stats.jsonl times each (the tick's drain waits for the device)."""
+    calls, at full width in bf16 compute with fp32 parameters, dropout 0.10
+    (default: the ImageNet-64 ADM under EDM; ``sites_of`` its attention
+    sites, ``routes_of`` the routes its launches must take where they are not
+    FAST_ROUTE's): every step its own tick, so that stats.jsonl times each
+    (the tick's drain waits for the device)."""
+    res, label_dim = cfg["img_resolution"], cfg["label_dim"]
     g = np.random.default_rng(0)
-    labels = g.integers(0, 1000, 256)
-    labels[0] = 999  # the largest label sets the one-hot width
-    data = ImageDataset(g.integers(0, 256, (256, 64, 64, 3), dtype=np.uint8), labels)
-    net = training_net(torch.bfloat16, "cuda", dropout=0.10)
+    labels = g.integers(0, label_dim, 256)
+    labels[0] = label_dim - 1  # the largest label sets the one-hot width
+    data = ImageDataset(g.integers(0, 256, (256, res, res, 3), dtype=np.uint8), labels)
+    make = lambda: training_net(torch.bfloat16, "cuda", dropout=0.10, cfg=cfg, precond=precond)
+    net = make()
     before = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
-    micro = TRAIN_BATCH // TRAIN_ROUNDS
-    train_cfg = TrainConfig(lr=1e-4, lr_rampup_kimg=2 * TRAIN_BATCH / 1000,
-                            grad_accum_rounds=TRAIN_ROUNDS, total_batch=TRAIN_BATCH)
+    micro = batch // rounds
+    train_cfg = TrainConfig(lr=1e-4, lr_rampup_kimg=2 * batch / 1000, grad_accum_rounds=rounds,
+                            total_batch=batch)
     with tempfile.TemporaryDirectory() as run_dir:
-        loop_cfg = LoopConfig(run_dir=run_dir, total_kimg=1000, kimg_per_tick=TRAIN_BATCH / 1000,
+        loop_cfg = LoopConfig(run_dir=run_dir, total_kimg=1000, kimg_per_tick=batch / 1000,
                               snapshot_ticks=TRAIN_STEPS, state_dump_ticks=TRAIN_STEPS, seed=0,
-                              batch_size=TRAIN_BATCH, batch_gpu=micro)
+                              batch_size=batch, batch_gpu=micro)
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state = training_loop(
-            net=net, net_config=dict(IMAGENET64_ADM, precond="edm"),
-            data_iter=batch_iterator(data, TRAIN_BATCH, seed=0), loss_fn=EDMLoss(),
+            net=net, net_config=dict(cfg, precond=precond_name),
+            data_iter=batch_iterator(data, batch, seed=0), loss_fn=loss_fn,
             train_cfg=train_cfg, loop_cfg=loop_cfg, device="cuda", max_ticks=TRAIN_STEPS)
         torch.cuda.synchronize()
         launches, routes = read_launches(), read_routes()
@@ -944,35 +1000,35 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) ->
         kimg = state.nimg // 1000
         ema, config = checkpoints.load_snapshot(
             os.path.join(run_dir, f"network-snapshot-{kimg:06d}.pt"))
-        fresh = training_net(torch.bfloat16, "cuda", dropout=0.10)
+        fresh = make()
         back = checkpoints.load_state(
             os.path.join(run_dir, f"training-state-{kimg:06d}.pt"),
             like=TrainState.create(fresh, train_cfg))
     losses = [t["Loss/loss"]["mean"] for t in ticks]
-    step_ms = [t["Timing/sec_per_kimg"]["mean"] * TRAIN_BATCH for t in ticks]
+    step_ms = [t["Timing/sec_per_kimg"]["mean"] * batch for t in ticks]
     timed = sorted(step_ms[1:])
     median = (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
-    sites = sum(n for _, _, n in SITES)
-    want = {"attention": sites * TRAIN_ROUNDS * TRAIN_STEPS,
-            "attention_bwd": sites * qk.BWD_LAUNCHES_PER_CALL * TRAIN_ROUNDS * TRAIN_STEPS}
-    per_micro = lambda rows: sum(r["ms"] * n for r, (_, _, n) in zip(rows, SITES))
-    fwd_ms, bwd_ms = per_micro(fwd_rows) * TRAIN_ROUNDS, per_micro(bwd_rows) * TRAIN_ROUNDS
-    print(f"training main path: training_loop, ImageNet-64 ADM bf16 compute / fp32 parameters, "
-          f"batch {TRAIN_BATCH} as {TRAIN_ROUNDS} x {micro}, dropout 0.10, Adam: step ms "
-          f"{[round(m, 1) for m in step_ms]} (first is the warm step), median of the timed "
-          f"{median:.1f} ms = {TRAIN_BATCH / median * 1e3:.2f} img/s, peak memory {peak:.2f} GiB, "
-          f"losses {[round(x, 4) for x in losses]}, attention kernels per step (timed alone at "
-          f"batch {micro}, summed over the {sites} sites and {TRAIN_ROUNDS} rounds): forward "
-          f"{fwd_ms:.1f} ms = {fwd_ms / median:.1%}, backward {bwd_ms:.1f} ms = "
+    sites = sum(n for _, _, n in sites_of)
+    want = {"attention": sites * rounds * TRAIN_STEPS,
+            "attention_bwd": sites * qk.BWD_LAUNCHES_PER_CALL * rounds * TRAIN_STEPS}
+    per_micro = lambda rows: sum(r["ms"] * n for r, (_, _, n) in zip(rows, sites_of))
+    fwd_ms, bwd_ms = per_micro(fwd_rows) * rounds, per_micro(bwd_rows) * rounds
+    print(f"training main path: training_loop, {label} {precond_name} bf16 compute / fp32 "
+          f"parameters, {type(loss_fn).__name__}, batch {batch} as {rounds} x {micro}, dropout "
+          f"0.10, Adam: step ms {[round(m, 1) for m in step_ms]} (first is the warm step), median "
+          f"of the timed {median:.1f} ms = {batch / median * 1e3:.2f} img/s, peak memory "
+          f"{peak:.2f} GiB, losses {[round(x, 4) for x in losses]}, attention kernels per step "
+          f"(timed alone at batch {micro}, summed over the {sites} sites and {rounds} rounds): "
+          f"forward {fwd_ms:.1f} ms = {fwd_ms / median:.1%}, backward {bwd_ms:.1f} ms = "
           f"{bwd_ms / median:.1%} of a step, launches {launches} [{tag}]")
     for name, n in launches.items():
         if n != want.get(name, 0):
             raise AssertionError(f"{name} launched {n} times in training, expected "
                                  f"{want.get(name, 0)}")
-    check_routes("training", routes, want)
+    check_routes(f"{label} training", routes, want, routes_of)
     if not (len(losses) == TRAIN_STEPS and all(np.isfinite(losses))):
         raise AssertionError(f"training losses are not finite: {losses}")
-    if state.nimg != TRAIN_BATCH * TRAIN_STEPS or back.nimg != state.nimg:
+    if state.nimg != batch * TRAIN_STEPS or back.nimg != state.nimg:
         raise AssertionError(f"nimg is {state.nimg} / {back.nimg} after {TRAIN_STEPS} steps")
     moved = [(p.detach().cpu() - before[n]).abs().max().item()
              for n, p in state.net.named_parameters()]
@@ -999,7 +1055,7 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict]) ->
     torch.cuda.empty_cache()
     return {"launches": launches["attention_bwd"], "forward_launches": launches["attention"],
             "routes": routes["attention_bwd"], "step_ms": step_ms,
-            "img_per_s": TRAIN_BATCH / median * 1e3, "peak_gib": peak}
+            "img_per_s": batch / median * 1e3, "peak_gib": peak}
 
 
 def training_phases(tag: str, edm_line: dict) -> dict:
@@ -1062,6 +1118,149 @@ def training_phases(tag: str, edm_line: dict) -> dict:
         "routes": run["routes"],
         "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
         "train_peak_gib": run["peak_gib"], "shapes": rows,
+    }
+
+
+# ------------------------------------------------------- CIFAR-10 DDPM++
+
+
+def check_forward(name: str, make, x: torch.Tensor, sigma: torch.Tensor,
+                  labels: torch.Tensor) -> tuple[float, float]:
+    """One forward of ``make(dtype, device)``'s net (random weights from a
+    numpy seed, eval mode) in fp32 and in bf16 on the card against fp32 on
+    the CPU: (fp32 err, bf16 err), each the largest difference over the
+    largest magnitude, within 1e-3 and 5e-2."""
+    with torch.no_grad():
+        y_ref = make(torch.float32, "cpu")(x, sigma, labels)
+        ys = [make(dtype, "cuda")(x.cuda(), sigma.cuda(), labels.cuda()).cpu()
+              for dtype in (torch.float32, torch.bfloat16)]
+    torch.cuda.empty_cache()
+    scale = y_ref.abs().max().item()
+    e32, e16 = ((y - y_ref).abs().max().item() / scale for y in ys)
+    print(f"{name} forward {list(x.shape)} vs fp32 on the CPU (max abs err / max abs): "
+          f"fp32 card {e32:.3e}, bf16 card {e16:.3e}")
+    if not (e32 < 1e-3 and e16 < 5e-2 and torch.isfinite(ys[1]).all()):
+        raise AssertionError(f"{name}: full-width forward disagrees with the CPU: fp32 {e32}, "
+                             f"bf16 {e16}")
+    return e32, e16
+
+
+def seeded_net(cfg: dict, precond):
+    """make(dtype, device): ``precond`` over ``cfg``'s net in eval mode,
+    random weights from numpy seed 0."""
+    def make(dtype, device):
+        net = precond(dtype=dtype, **cfg)
+        return load_into(net, random_state_dict(net, 0)).to(device).eval()
+    return make
+
+
+def cifar_phase(tag: str) -> tuple[list[dict], dict]:
+    """Phase 4d: the CIFAR-10 DDPM++ serving path. Returns (the searches'
+    lines, the d = 256 attention summary for the kernel line)."""
+    print("CIFAR-10 DDPM++: qkv attention at d = 256 vs plain:")
+    rows = [check_attention(N * SAMPLES, t, heads, dtype, tag, d=CIFAR_D)
+            for dtype in (torch.bfloat16, torch.float32) for t, heads, _ in CIFAR_SITES]
+    main_rows = rows[:len(CIFAR_SITES)]
+
+    g = torch.Generator().manual_seed(6)
+    sigma = torch.tensor([80.0, 0.5])
+    x = torch.randn((2, 32, 32, 3), generator=g) * sigma.view(2, 1, 1, 1)
+    labels = torch.eye(10)[[3, 7]]
+    check_forward("CIFAR-10 DDPM++ (EDMPrecond)", lambda dtype, device: load_network(
+        "cifar10", dtype=dtype, device=device, seed=0), x, sigma, labels)
+    check_forward("NCSN++ (VEPrecond, the ncsnpp preset at 32x32)",
+                  seeded_net(NCSNPP_CIFAR, VEPrecond), x, sigma, labels)
+    x64 = torch.randn((2, 64, 64, 3), generator=g) * sigma.view(2, 1, 1, 1)
+    check_forward("ImageNet-64 ADM (iDDPMPrecond)", lambda dtype, device: load_network(
+        "imagenet64", precond="iddpm", dtype=dtype, device=device, seed=0), x64, sigma,
+        torch.eye(1000)[[3, 977]])
+
+    t0 = time.perf_counter()
+    net = load_network("cifar10", dtype=torch.bfloat16, device="cuda", seed=0)
+    load_s = time.perf_counter() - t0
+    params = SearchParams(N=N, K=K)
+    search = lambda: generate_image_grid(
+        arch="cifar10", scorer=BrightnessScorer(), method="eps_greedy", params=params, seed=0,
+        gridw=SAMPLES, num_steps=STEPS, dtype=torch.bfloat16, device="cuda", net=net)
+    reset_launches()
+    result, first_s = timed_run(search)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, routes = read_launches(), read_routes()
+    _, again_s = timed_run(search)  # the same request again: steady state, not counted
+    calls, _ = method_calls("eps_greedy", "edm", STEPS, params, SAMPLES)
+    expected = sum(n for _, _, n in CIFAR_SITES) * sum(calls.values())
+    nfe = nfe_per_sample("eps_greedy", STEPS, params) * SAMPLES
+    print(f"CIFAR-10 DDPM++ path: eps_greedy 18 steps B={SAMPLES} N={N} K={K} bf16: load "
+          f"{load_s:.2f} s, search {first_s:.3f} s first / {again_s:.3f} s again, {nfe} NFE, "
+          f"{nfe / first_s:.2f} / {nfe / again_s:.2f} NFE/s, peak memory {peak:.2f} GiB, "
+          f"scores {result.score.tolist()}, launches {{'qkv_attention': "
+          f"{launches['attention']}}} [{tag}]")
+    for name, n in launches.items():
+        if n != (expected if name == "attention" else 0):
+            raise AssertionError(f"{name} launched {n} times on the CIFAR-10 path, expected "
+                                 f"{expected if name == 'attention' else 0}")
+    check_routes("CIFAR-10", routes, {"attention": expected})
+    if not (torch.isfinite(result.score).all() and torch.isfinite(result.x).all()
+            and result.images.shape == (SAMPLES, 32, 32, 3)
+            and 0 <= result.images.min() <= result.images.max() <= 1):
+        raise AssertionError("CIFAR-10 path output is not finite images in [0, 1]")
+    searches = edm_methods_phase(net, tag, arch="cifar10", sites_of=CIFAR_SITES, d=CIFAR_D)
+    del net
+    torch.cuda.empty_cache()
+    per_forward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, CIFAR_SITES))
+    eps = dict(path="EDM cifar10", method="eps_greedy", steps=STEPS, N=N, K=K, samples=SAMPLES,
+               wall_s=first_s, again_s=again_s, nfe=nfe, nfe_per_s=nfe / first_s,
+               peak_gib=peak, launches={"qkv_attention": launches["attention"]})
+    return [eps] + searches, {
+        "launches": launches["attention"],
+        # times: the 6 attention sites of one bf16 forward at the search's
+        # batch (N * samples), summed
+        "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
+        "bound_ms": per_forward("bound_ms"), "library_ms": per_forward("library_ms"),
+        "fma_ms": per_forward("fma_ms"), "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
+        "nfe_per_s": nfe / again_s, "shapes": rows,
+    }
+
+
+def cifar_training_phase(tag: str) -> dict:
+    """Phase 5b: the DDPM++ / VP training path (the training CLI's --arch
+    ddpmpp --precond vp --cond 1 --bf16 1 --augment 0 at full width). Returns
+    the d = 256 backward summary for the kernel line."""
+    print("attention backward kernels at d = 256 vs plain:")
+    micro = CIFAR_TRAIN_BATCH // TRAIN_ROUNDS
+    main_rows = [check_attention_bwd(micro, t, heads, torch.bfloat16, tag, d=CIFAR_D)
+                 for t, heads, _ in CIFAR_SITES]
+    rows = main_rows + [check_attention_bwd(micro, 256, 1, torch.float32, tag, d=CIFAR_D)]
+    fwd_rows = [check_attention(micro, t, heads, torch.bfloat16, tag, d=CIFAR_D)
+                for t, heads, _ in CIFAR_SITES]
+    check_training_forward_backward(DDPMPP_TRAIN, VPPrecond, VPLoss())
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i in range(2):
+            Image.fromarray(np.full((32, 32, 3), 40 * i, np.uint8)).save(
+                os.path.join(data, f"img{i}.png"))
+        train_cli.main(["--outdir", os.path.join(tmp, "runs"), "--data", data, "--arch",
+                        "ddpmpp", "--precond", "vp", "--augment", "0", "--bf16", "1",
+                        "--dry-run"])
+    run = check_training_loop(
+        tag, fwd_rows, main_rows, cfg=DDPMPP_TRAIN, precond=VPPrecond, precond_name="vp",
+        loss_fn=VPLoss(), batch=CIFAR_TRAIN_BATCH, sites_of=CIFAR_SITES,
+        routes_of={"attention_bwd": qk.backward_route(torch.bfloat16, CIFAR_D)},
+        label="CIFAR-10 DDPM++")
+    per_backward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, CIFAR_SITES))
+    return {
+        "launches": run["launches"], "forward_launches": run["forward_launches"],
+        # times: the 6 sites of one bf16 backward at the micro-batch (32), summed
+        "ms": per_backward("ms"), "plain_ms": per_backward("plain_ms"),
+        "bound_ms": per_backward("bound_ms"), "library_ms": per_backward("library_ms"),
+        "max_abs_err": max(r["max_abs_err"] for r in rows), "routes": run["routes"],
+        "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
+        "train_peak_gib": run["peak_gib"], "shapes": rows + fwd_rows,
     }
 
 
@@ -1361,18 +1560,22 @@ def timed_run(run) -> tuple[object, float]:
 
 
 @torch.no_grad()
-def edm_methods_phase(net: EDMPrecond, tag: str) -> list[dict]:
-    """Phase 4b: rejection, beam and MCTS through generate_image_grid on the
-    phase 4 net, each run's launches held against its structure, then the
-    qkv attention kernel against its plain version at the batches these
-    searches give it and eps-greedy's does not."""
-    sites = sum(n for _, _, n in SITES)
+def edm_methods_phase(net: torch.nn.Module, tag: str, arch: str = "imagenet64",
+                      sites_of: tuple = SITES, d: int = 64) -> list[dict]:
+    """Phases 4b and 4d: rejection, beam and MCTS through generate_image_grid
+    on the ``arch`` net (attention sites ``sites_of``, heads of width ``d``),
+    each run's launches held against its structure, then the qkv attention
+    kernel against its plain version at the batches these searches give it
+    and eps-greedy's does not."""
+    sites = sum(n for _, _, n in sites_of)
+    res = edm_entry.NET_CONFIGS[arch]["img_resolution"]
+    path = "EDM" if arch == "imagenet64" else f"EDM {arch}"
     lines, batches = [], set()
     capture = EntryCapture(edm_entry)
     try:
         for method, p, steps in EDM_METHOD_RUNS:
             run = lambda: generate_image_grid(
-                arch="imagenet64", scorer=BrightnessScorer(), method=method, params=p, seed=0,
+                arch=arch, scorer=BrightnessScorer(), method=method, params=p, seed=0,
                 gridw=SAMPLES, num_steps=steps, dtype=torch.bfloat16, device="cuda", net=net)
             calls, _ = method_calls(method, "edm", steps, p, SAMPLES)
             nfe = nfe_per_sample(method, steps, p) * SAMPLES
@@ -1383,15 +1586,15 @@ def edm_methods_phase(net: EDMPrecond, tag: str) -> list[dict]:
             result, wall = timed_run(run)
             launches, routes = read_launches(), read_routes()
             want = {"attention": sites * sum(calls.values())}
-            lines.append(search_line("EDM", method, p, steps, SAMPLES, wall, nfe,
+            lines.append(search_line(path, method, p, steps, SAMPLES, wall, nfe,
                                      {"qkv_attention": launches["attention"]}, result.score, tag))
             for name, n in launches.items():
                 if n != want.get(name, 0):
-                    raise AssertionError(f"{name} launched {n} times by EDM {method}, expected "
-                                         f"{want.get(name, 0)}")
-            check_routes(f"EDM {method}", routes, want)
-            check_search_output(f"EDM {method}", capture, result.images, result.score,
-                                (SAMPLES, 64, 64, 3))
+                    raise AssertionError(f"{name} launched {n} times by {path} {method}, "
+                                         f"expected {want.get(name, 0)}")
+            check_routes(f"{path} {method}", routes, want)
+            check_search_output(f"{path} {method}", capture, result.images, result.score,
+                                (SAMPLES, res, res, 3))
             if method == "rejection":
                 check_rejection(capture, p, steps, tag)
             if method == "mcts":
@@ -1400,13 +1603,13 @@ def edm_methods_phase(net: EDMPrecond, tag: str) -> list[dict]:
                 print(f"  the same request again: {wall2:.3f} s, bit-identical "
                       f"{torch.equal(again.x, result.x)}")
                 if not torch.equal(again.x, result.x):
-                    raise AssertionError("two EDM MCTS runs from one seed differ")
+                    raise AssertionError(f"two {path} MCTS runs from one seed differ")
     finally:
         capture.remove()
-    print("EDM kernels vs plain at the other searches' batches (untimed):")
+    print(f"{path} kernels vs plain at the other searches' batches (untimed):")
     for b in sorted(batches - {N * SAMPLES}):
-        for t, heads, _ in SITES:
-            check_attention(b, t, heads, torch.bfloat16, tag, timed=False)
+        for t, heads, _ in sites_of:
+            check_attention(b, t, heads, torch.bfloat16, tag, timed=False, d=d)
     return lines
 
 
@@ -1749,13 +1952,23 @@ def main() -> None:
                 f"conv3x3_same[{'gn' if prologue else 'no gn'}, "
                 f"{'shortcut' if shortcut else 'no shortcut'}]")
             print(f"ptxas, {kind} ring kernel: " + "; ".join(lines))
+    for name in ("qkv_attention", "attention_bwd"):  # the kernels at the DDPM++ head, d = 256
+        if name in built:
+            for entry, lines in ptxas_lines(built[name][1], "Li256E").items():
+                print(f"ptxas, {name} D = 256, {entry}: " + "; ".join(lines))
 
-    # -- 3, 4, 4b, 4c. EDM; 5. training; 6, 6b, 6c, 7. SD; 8. the CLI
+    # -- 3, 4, 4b, 4c. EDM; 4d. CIFAR-10; 5. training; 5b. DDPM++ training;
+    #    6, 6b, 6c, 7. SD; 8. the CLI
     edm_searches, edm_line = edm_phases(tag)
+    cifar_searches, edm_line["d256"] = cifar_phase(tag)
     training_line = training_phases(tag, edm_line)
+    training_line["d256"] = cifar_training_phase(tag)
     sd_searches, sd_lines = sd_phases(tag)
     cli_phase(tag)
     kernels = [edm_line, training_line] + sd_lines
+    edm_searches += cifar_searches
+    for line in (edm_line, training_line):
+        line["max_abs_err"] = max(line["max_abs_err"], line["d256"]["max_abs_err"])
 
     # -- 9. the kernel line, then the result line
     if args.kernels_json:
@@ -1763,8 +1976,9 @@ def main() -> None:
         with open(args.kernels_json, "w") as f:
             json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches},
                       f, indent=1)
-    print(json.dumps({"kernels": [{k: v for k, v in kern.items() if k != "shapes"}
-                                  for kern in kernels]}))
+    without_shapes = lambda d: {k: without_shapes(v) if isinstance(v, dict) else v
+                                for k, v in d.items() if k != "shapes"}
+    print(json.dumps({"kernels": [without_shapes(kern) for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

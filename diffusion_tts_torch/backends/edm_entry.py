@@ -2,10 +2,12 @@
 save the image grid (counterpart of diffusion_tts_tpu/backends/edm_entry.py).
 
 The unified CLI calls this with the ImageNet-64 ADM config (18 steps,
-S_churn=40, S_min=0.05, S_max=50, S_noise=1.003; reference main.py:197-213).
-Weights come from an exported reference state dict (.npz) or are random,
-made with numpy from a seed. Everything runs on ``device``: the card by
-default, the CPU only when asked for.
+S_churn=40, S_min=0.05, S_max=50, S_noise=1.003; reference main.py:197-213)
+or, with ``--arch cifar10``, the CIFAR-10 DDPM++ SongUNet; ``tiny`` and
+``tiny_adm`` are the two families at test width. Weights come from an
+exported reference state dict (.npz) or are random, made with numpy from a
+seed. Everything runs on ``device``: the card by default, the CPU only when
+asked for.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from diffusion_tts_torch.models.preconds import EDMPrecond
+from diffusion_tts_torch.models.preconds import EDMPrecond, VEPrecond, VPPrecond, iDDPMPrecond
 from diffusion_tts_torch.models.torch_import import (
     load_into,
     load_reference_state_dict,
@@ -27,10 +29,27 @@ from diffusion_tts_torch.utils import rng
 from diffusion_tts_torch.utils.config import SearchParams
 from diffusion_tts_torch.utils.device import resolve_device
 
+PRECONDS = {"edm": EDMPrecond, "vp": VPPrecond, "ve": VEPrecond, "iddpm": iDDPMPrecond}
+
 IMAGENET64_ADM = dict(
     img_resolution=64, img_channels=3, label_dim=1000, model_type="DhariwalUNet",
     model_kwargs=dict(model_channels=192, channel_mult=(1, 2, 3, 4), num_blocks=3,
                       attn_resolutions=(32, 16, 8), dropout=0.0),
+)
+# The reference's CIFAR-10 DDPM++ (edm-cifar10-32x32-cond-vp.pkl's network,
+# reference train.py:116-119 with 4 blocks and attention at 16x16).
+CIFAR10_DDPMPP = dict(
+    img_resolution=32, img_channels=3, label_dim=10, model_type="SongUNet",
+    model_kwargs=dict(model_channels=128, channel_mult=(2, 2, 2), num_blocks=4,
+                      attn_resolutions=(16,), dropout=0.0, embedding_type="positional",
+                      encoder_type="standard", decoder_type="standard",
+                      resample_filter=(1, 1), channel_mult_noise=1),
+)
+# The SongUNet at test width (the JAX package's TINY_SMOKE).
+TINY_SMOKE = dict(
+    img_resolution=16, img_channels=3, label_dim=10, model_type="SongUNet",
+    model_kwargs=dict(model_channels=16, channel_mult=(1, 2), num_blocks=1,
+                      attn_resolutions=(8,), dropout=0.0),
 )
 # The flagship's architecture at test width (__graft_entry__._flagship(tiny=True)).
 TINY_ADM = dict(
@@ -38,7 +57,8 @@ TINY_ADM = dict(
     model_kwargs=dict(model_channels=32, channel_mult=(1, 2), num_blocks=1,
                       attn_resolutions=(8,), dropout=0.0),
 )
-NET_CONFIGS = {"imagenet64": IMAGENET64_ADM, "tiny_adm": TINY_ADM}
+NET_CONFIGS = {"imagenet64": IMAGENET64_ADM, "cifar10": CIFAR10_DDPMPP, "tiny": TINY_SMOKE,
+               "tiny_adm": TINY_ADM}
 # The ImageNet scorer's classifier (models/classifier.py::EncoderUNetModel)
 # for each arch's images and labels: the 64x64 classifier's defaults, and at
 # 16x16 with 10 classes the geometry of tests/goldens/classifier.npz.
@@ -49,14 +69,15 @@ CLASSIFIER_CONFIGS = {
 }
 
 
-def load_network(arch: str = "imagenet64", weights: str | None = None,
+def load_network(arch: str = "imagenet64", weights: str | None = None, precond: str = "edm",
                  dtype: torch.dtype = torch.float32, device: torch.device | str = "cuda",
-                 seed: int = 0) -> EDMPrecond:
-    """The EDM-preconditioned net on ``device`` in eval mode. weights: an
-    .npz reference state dict (tools/export_edm_checkpoint.py), or None for
-    random weights from ``seed``."""
+                 seed: int = 0) -> torch.nn.Module:
+    """The ``arch`` net under ``precond`` (a key of PRECONDS) on ``device``
+    in eval mode. weights: an .npz reference state dict
+    (tools/export_edm_checkpoint.py), or None for random weights from
+    ``seed``."""
     dev = resolve_device(device)
-    net = EDMPrecond(dtype=dtype, **NET_CONFIGS[arch])
+    net = PRECONDS[precond](dtype=dtype, **NET_CONFIGS[arch])
     if weights is None:
         state = random_state_dict(net, seed)
     else:
@@ -89,7 +110,7 @@ def generate_image_grid(
     dtype: torch.dtype = torch.float32,
     record_noises: bool = False,
     device: torch.device | str = "cuda",
-    net: EDMPrecond | None = None,
+    net: torch.nn.Module | None = None,
 ) -> SearchResult:
     """Run search and (optionally) save a gridh x gridw PNG. ``net`` is a
     network from ``load_network`` for ``arch``; when None it is loaded here
@@ -135,4 +156,5 @@ def generate_image_grid(
     return result
 
 
-__all__ = ["generate_image_grid", "load_network", "NET_CONFIGS", "CLASSIFIER_CONFIGS"]
+__all__ = ["generate_image_grid", "load_network", "NET_CONFIGS", "CLASSIFIER_CONFIGS",
+           "PRECONDS"]

@@ -42,12 +42,13 @@
 //     The products run on the tensor cores (mma.sync m16n8k16, bf16
 //     operands, fp32 accumulators: exactly the arithmetic of the function
 //     above).
-//   * fma (route 0): fp32 at every width, and bf16 at d = 4, 8 and 160. The
-//     products run on the CUDA cores in fp32 FMA, so that fp32 holds 1e-4
-//     against an fp32 reference with TF32 off (a TF32 product would not).
-//     bf16 can be sent here at any width, which times the first design. At
-//     d = 160 the mma route's dK and dV accumulators alone would take 160
-//     registers a thread.
+//   * fma (route 0): fp32 at every width, and bf16 at d = 4, 8, 160 and 256
+//     (256: the CIFAR-10 DDPM++ net's single head). The products run on the
+//     CUDA cores in fp32 FMA, so that fp32 holds 1e-4 against an fp32
+//     reference with TF32 off (a TF32 product would not). bf16 can be sent
+//     here at any width, which times the first design. At d = 160 the mma
+//     route's dK and dV accumulators alone would take 160 registers a
+//     thread, at d = 256 256 of them.
 //
 // The mma route, on the fragment helpers of csrc/mma_bf16.cuh:
 //   * 128 threads, four warps of 16 rows: in dq_mma_kernel 16 q rows each,
@@ -77,14 +78,23 @@
 //     stride must be 16-byte aligned; the wrapper refuses anything else.
 //
 // The fma route (the first design):
-//   * 256 threads as 16 x 16: each thread owns 4 x 4 of the S / dP tile
-//     (both products share one pass over d: four operand loads feed 32 FMAs)
-//     and 4 x DP/16 of each result. Operands are widened to fp32 in shared
-//     memory; dS (and P^T for dV) go through shared memory in the input
-//     dtype's rounding; rows are padded by one float against bank conflicts.
-//   * Head widths 4 ... 160 (the forward's, padded to 16 with zero columns);
-//     at d = 512 four fp32 operand tiles exceed a block's shared memory, and
-//     the wrapper raises.
+//   * 256 threads as 16 x 16 over 64 x 64 tiles: each thread owns 4 x 4 of
+//     the S / dP tile (both products share one pass over d: four operand
+//     loads feed 32 FMAs) and 4 x DP/16 of each result. Operands are widened
+//     to fp32 in shared memory; dS (and P^T for dV) go through shared memory
+//     in the input dtype's rounding; rows are padded by one float against
+//     bank conflicts.
+//   * Head widths 4 ... 256 (the forward's, padded to 16 with zero columns).
+//     At d = 256 four fp32 operand tiles of 64 x 257 take 263 KB, over a
+//     block's 227 KB, so the tiles there are 32 q rows by 32 keys (each
+//     thread 2 x 2 of S / dP and 2 x 16 of each result; 137 KB for dQ,
+//     140 KB for dK/dV). Of the two ways the design had (32-row tiles, or the
+//     64-row tiles with d streamed in halves, which would read every operand
+//     tile twice and hold half-sums of S and dP between the halves), the
+//     32-row tiles keep the kernels' code one for every width and give the
+//     training path's small grids (T = 64 or 256, one head) twice the
+//     blocks. At d = 512 even those tiles exceed a block's shared memory,
+//     and the wrapper raises.
 //
 // Both routes take explicit (batch, token, head) strides for q/k/v, for g and
 // for the results: the qkv form reads q, k and v as the thirds of [B, T, 3C]
@@ -100,9 +110,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;            // q rows and keys per tile
-constexpr int kPer = kTile / 16;     // rows / keys per thread
-constexpr int kSPitch = kTile + 1;   // dS / P smem row (floats)
+constexpr int kMmaTile = 64;  // the mma route's q rows and keys per tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -118,12 +126,18 @@ template <typename T> __device__ __forceinline__ float round_to(float p) {
   return to_f32(from_f32<T>(p));
 }
 
+// The fma route's tiles for head width D: 64 q rows and keys up to d = 160;
+// 32 at d = 256, where four fp32 operand tiles of 64 x 257 (263 KB) would not
+// fit a block's shared memory.
 template <int D>
 struct Shape {
-  static constexpr int kDP = (D + 15) / 16 * 16;  // D padded with zero columns
-  static constexpr int kCols = kDP / 16;          // result columns per thread
-  static constexpr int kPitch = kDP + 1;          // operand smem row (floats)
-  static constexpr int kOperand = kTile * kPitch; // floats of one operand tile
+  static constexpr int kTile = D > 160 ? 32 : 64;  // q rows and keys per tile
+  static constexpr int kPer = kTile / 16;          // rows / keys per thread
+  static constexpr int kSPitch = kTile + 1;        // dS / P smem row (floats)
+  static constexpr int kDP = (D + 15) / 16 * 16;   // D padded with zero columns
+  static constexpr int kCols = kDP / 16;           // result columns per thread
+  static constexpr int kPitch = kDP + 1;           // operand smem row (floats)
+  static constexpr int kOperand = kTile * kPitch;  // floats of one operand tile
   static constexpr int kDqSmem = (4 * kOperand + kTile * kSPitch) * (int)sizeof(float);
   static constexpr int kDkvSmem =
       (4 * kOperand + 2 * kTile * kSPitch + 2 * kTile) * (int)sizeof(float);
@@ -135,11 +149,12 @@ struct Shape {
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* base, int row0, int t,
                                           int64_t stride_t, int tid) {
-  constexpr int DP = Shape<D>::kDP;
-  for (int e = tid; e < kTile * DP; e += kThreads) {
+  using S = Shape<D>;
+  constexpr int DP = S::kDP;
+  for (int e = tid; e < S::kTile * DP; e += kThreads) {
     int r = e / DP, c = e % DP;
     int row = row0 + r;
-    dst[r * Shape<D>::kPitch + c] = (row < t && c < D) ? to_f32(base[row * stride_t + c]) : 0.f;
+    dst[r * S::kPitch + c] = (row < t && c < D) ? to_f32(base[row * stride_t + c]) : 0.f;
   }
 }
 
@@ -148,29 +163,30 @@ __device__ __forceinline__ void load_tile(float* dst, const T* base, int row0, i
 template <int D>
 __device__ __forceinline__ void two_products(const float* x, const float* y, const float* u,
                                              const float* w, int ty, int tx,
-                                             float (&a)[kPer][kPer], float (&c)[kPer][kPer]) {
+                                             float (&a)[Shape<D>::kPer][Shape<D>::kPer],
+                                             float (&c)[Shape<D>::kPer][Shape<D>::kPer]) {
   using S = Shape<D>;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+  for (int i = 0; i < S::kPer; ++i)
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) a[i][j] = c[i][j] = 0.f;
+    for (int j = 0; j < S::kPer; ++j) a[i][j] = c[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < S::kDP; ++d) {
-    float xv[kPer], yv[kPer], uv[kPer], wv[kPer];
+    float xv[S::kPer], yv[S::kPer], uv[S::kPer], wv[S::kPer];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
+    for (int i = 0; i < S::kPer; ++i) {
       xv[i] = x[(ty + 16 * i) * S::kPitch + d];
       uv[i] = u[(ty + 16 * i) * S::kPitch + d];
     }
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
+    for (int j = 0; j < S::kPer; ++j) {
       yv[j] = y[(tx + 16 * j) * S::kPitch + d];
       wv[j] = w[(tx + 16 * j) * S::kPitch + d];
     }
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < S::kPer; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
+      for (int j = 0; j < S::kPer; ++j) {
         a[i][j] = fmaf(xv[i], yv[j], a[i][j]);
         c[i][j] = fmaf(uv[i], wv[j], c[i][j]);
       }
@@ -180,17 +196,17 @@ __device__ __forceinline__ void two_products(const float* x, const float* y, con
 // acc[i][j] += sum_r p[ty + 16 i][r] * x[r][tx + 16 j] over the tile's rows r.
 template <int D>
 __device__ __forceinline__ void accumulate(const float* p, const float* x, int ty, int tx,
-                                           float (&acc)[kPer][Shape<D>::kCols]) {
+                                           float (&acc)[Shape<D>::kPer][Shape<D>::kCols]) {
   using S = Shape<D>;
 #pragma unroll 8
-  for (int r = 0; r < kTile; ++r) {
-    float pv[kPer], xv[S::kCols];
+  for (int r = 0; r < S::kTile; ++r) {
+    float pv[S::kPer], xv[S::kCols];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) pv[i] = p[(ty + 16 * i) * kSPitch + r];
+    for (int i = 0; i < S::kPer; ++i) pv[i] = p[(ty + 16 * i) * S::kSPitch + r];
 #pragma unroll
     for (int j = 0; j < S::kCols; ++j) xv[j] = x[r * S::kPitch + tx + 16 * j];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < S::kPer; ++i)
 #pragma unroll
       for (int j = 0; j < S::kCols; ++j) acc[i][j] = fmaf(pv[i], xv[j], acc[i][j]);
   }
@@ -198,15 +214,17 @@ __device__ __forceinline__ void accumulate(const float* p, const float* x, int t
 
 // Store acc * scale for rows row0 + ty + 16 i < t, columns tx + 16 j < D.
 template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* base, const float (&acc)[kPer][Shape<D>::kCols],
+__device__ __forceinline__ void store_rows(T* base,
+                                           const float (&acc)[Shape<D>::kPer][Shape<D>::kCols],
                                            float scale, int row0, int t, int64_t stride_t,
                                            int ty, int tx) {
+  using S = Shape<D>;
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < S::kPer; ++i) {
     int row = row0 + ty + 16 * i;
     if (row >= t) continue;
 #pragma unroll
-    for (int j = 0; j < Shape<D>::kCols; ++j) {
+    for (int j = 0; j < S::kCols; ++j) {
       int col = tx + 16 * j;
       if (col < D) base[row * stride_t + col] = from_f32<T>(acc[i][j] * scale);
     }
@@ -233,16 +251,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * S::kTile;
   const int64_t in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
   const int64_t stat_off = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t;
 
   load_tile<T, D>(qs, q + in_off, q0, t, in_st, tid);
   load_tile<T, D>(gs, g + blockIdx.z * g_sb + blockIdx.y * g_sh, q0, t, g_st, tid);
 
-  float row_lse[kPer], row_delta[kPer], acc[kPer][S::kCols];
+  float row_lse[S::kPer], row_delta[S::kPer], acc[S::kPer][S::kCols];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) {
+  for (int i = 0; i < S::kPer; ++i) {
     int row = q0 + ty + 16 * i;
     row_lse[i] = row < t ? lse[stat_off + row] : 0.f;
     row_delta[i] = row < t ? delta[stat_off + row] : 0.f;
@@ -250,19 +268,20 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int j = 0; j < S::kCols; ++j) acc[i][j] = 0.f;
   }
 
-  for (int k0 = 0; k0 < t; k0 += kTile) {
+  for (int k0 = 0; k0 < t; k0 += S::kTile) {
     load_tile<T, D>(ks, k + in_off, k0, t, in_st, tid);
     load_tile<T, D>(vs, v + in_off, k0, t, in_st, tid);
     __syncthreads();
 
-    float s[kPer][kPer], dp[kPer][kPer];
+    float s[S::kPer][S::kPer], dp[S::kPer][S::kPer];
     two_products<D>(qs, ks, gs, vs, ty, tx, s, dp);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < S::kPer; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
+      for (int j = 0; j < S::kPer; ++j) {
         float p = (k0 + tx + 16 * j < t) ? exp2f(s[i][j] * scale_log2e - row_lse[i]) : 0.f;
-        ds[(ty + 16 * i) * kSPitch + tx + 16 * j] = round_to<T>(p * (dp[i][j] - row_delta[i]));
+        ds[(ty + 16 * i) * S::kSPitch + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - row_delta[i]));
       }
     __syncthreads();
     accumulate<D>(ds, ks, ty, tx, acc);
@@ -291,13 +310,13 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float* qs = vs + S::kOperand;
   float* gs = qs + S::kOperand;
   float* pt = gs + S::kOperand;     // [kTile][kSPitch]: P^T in the input dtype's rounding
-  float* dst = pt + kTile * kSPitch;  // [kTile][kSPitch]: dS^T likewise
-  float* lse_s = dst + kTile * kSPitch;  // [kTile]
-  float* delta_s = lse_s + kTile;        // [kTile]
+  float* dst = pt + S::kTile * S::kSPitch;     // [kTile][kSPitch]: dS^T likewise
+  float* lse_s = dst + S::kTile * S::kSPitch;  // [kTile]
+  float* delta_s = lse_s + S::kTile;           // [kTile]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * S::kTile;
   const int64_t in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
   const int64_t g_off = blockIdx.z * g_sb + blockIdx.y * g_sh;
   const int64_t stat_off = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t;
@@ -305,16 +324,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   load_tile<T, D>(ks, k + in_off, k0, t, in_st, tid);
   load_tile<T, D>(vs, v + in_off, k0, t, in_st, tid);
 
-  float acc_k[kPer][S::kCols], acc_v[kPer][S::kCols];
+  float acc_k[S::kPer][S::kCols], acc_v[S::kPer][S::kCols];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i)
+  for (int i = 0; i < S::kPer; ++i)
 #pragma unroll
     for (int j = 0; j < S::kCols; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
 
-  for (int q0 = 0; q0 < t; q0 += kTile) {
+  for (int q0 = 0; q0 < t; q0 += S::kTile) {
     load_tile<T, D>(qs, q + in_off, q0, t, in_st, tid);
     load_tile<T, D>(gs, g + g_off, q0, t, g_st, tid);
-    if (tid < kTile) {
+    if (tid < S::kTile) {
       // a q row past the end gets lse = +inf, so its P and dS are 0
       int row = q0 + tid;
       lse_s[tid] = row < t ? lse[stat_off + row] : INFINITY;
@@ -322,16 +341,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     }
     __syncthreads();
 
-    float st[kPer][kPer], dpt[kPer][kPer];  // [key][q]
+    float st[S::kPer][S::kPer], dpt[S::kPer][S::kPer];  // [key][q]
     two_products<D>(ks, qs, vs, gs, ty, tx, st, dpt);
 #pragma unroll
-    for (int i = 0; i < kPer; ++i)
+    for (int i = 0; i < S::kPer; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
+      for (int j = 0; j < S::kPer; ++j) {
         int col = tx + 16 * j;
         float p = exp2f(st[i][j] * scale_log2e - lse_s[col]);
-        pt[(ty + 16 * i) * kSPitch + col] = round_to<T>(p);
-        dst[(ty + 16 * i) * kSPitch + col] = round_to<T>(p * (dpt[i][j] - delta_s[col]));
+        pt[(ty + 16 * i) * S::kSPitch + col] = round_to<T>(p);
+        dst[(ty + 16 * i) * S::kSPitch + col] = round_to<T>(p * (dpt[i][j] - delta_s[col]));
       }
     __syncthreads();
     accumulate<D>(pt, gs, ty, tx, acc_v);
@@ -357,7 +376,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   err = cudaFuncSetAttribute(dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              S::kDkvSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((t + kTile - 1) / kTile, h, b);
+  dim3 grid((t + S::kTile - 1) / S::kTile, h, b);
   const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
           *vp = static_cast<const T*>(v), *gp = static_cast<const T*>(g);
   dq_kernel<T, D><<<grid, kThreads, S::kDqSmem, stream>>>(
@@ -386,10 +405,10 @@ struct MmaShape {
   static constexpr int kPitch = kDS + 8;          // shared-memory row, in elements
   static constexpr int kChunks = D / 8;           // 16-byte pieces of a row with data
   // the resident pair, then the streamed pair's two rings
-  static constexpr int kRows = 2 * kTile + 2 * kStages * kTile;
+  static constexpr int kRows = 2 * kMmaTile + 2 * kStages * kMmaTile;
   static constexpr int kTileBytes = kRows * kPitch * (int)sizeof(bf16);
   // dkv: lse and delta of each stage's 64 q rows, after the tiles
-  static constexpr int kSmemBytes = kTileBytes + 2 * kStages * kTile * (int)sizeof(float);
+  static constexpr int kSmemBytes = kTileBytes + 2 * kStages * kMmaTile * (int)sizeof(float);
   static_assert(D % 8 == 0, "the mma route copies rows in 16-byte pieces");
   static_assert(kSmemBytes <= 232448, "tiles exceed a block's shared memory");
 };
@@ -407,13 +426,13 @@ __device__ __forceinline__ void zero_pad(bf16* tiles, int tid) {
   }
 }
 
-// Rows row0 .. row0 + kTile of a [T, D] slab (token stride stride_t) into a
+// Rows row0 .. row0 + kMmaTile of a [T, D] slab (token stride stride_t) into a
 // tile with MmaShape<D>::kPitch; rows at or past t are zero-filled.
 template <int D>
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int row0, int t,
                                           int64_t stride_t, int tid) {
   using C = MmaShape<D>;
-  for (int e = tid; e < kTile * C::kChunks; e += C::kThreads) {
+  for (int e = tid; e < kMmaTile * C::kChunks; e += C::kThreads) {
     const int r = e / C::kChunks, ch = e % C::kChunks;
     const bool ok = row0 + r < t;
     dtts::cp_async16(dst + r * C::kPitch + ch * 8,
@@ -511,14 +530,14 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using C = MmaShape<D>;
   constexpr int P = C::kPitch;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(bwd_smem);  // [kTile][P]
-  bf16* gs = qs + kTile * P;                      // [kTile][P]
-  bf16* ks = gs + kTile * P;                      // [kStages][kTile][P]
-  bf16* vs = ks + C::kStages * kTile * P;         // [kStages][kTile][P]
+  bf16* qs = reinterpret_cast<bf16*>(bwd_smem);  // [kMmaTile][P]
+  bf16* gs = qs + kMmaTile * P;                      // [kMmaTile][P]
+  bf16* ks = gs + kMmaTile * P;                      // [kStages][kMmaTile][P]
+  bf16* vs = ks + C::kStages * kMmaTile * P;         // [kStages][kMmaTile][P]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gr = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * kMmaTile;
   const int64_t in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
   const int64_t stat_off = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t;
   const bf16* kb = k + in_off;
@@ -543,20 +562,20 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[C::kNB][4];
   zero(acc);
 
-  const int ntiles = (t + kTile - 1) / kTile;
+  const int ntiles = (t + kMmaTile - 1) / kMmaTile;
   for (int it = 0; it < ntiles; ++it) {
     // The next tile goes into the stage that the previous iteration finished
     // reading (the barrier at the end of the loop body).
     if (it + 1 < ntiles) {
       const int nx = (it + 1) % C::kStages;
-      copy_rows<D>(ks + nx * kTile * P, kb, (it + 1) * kTile, t, in_st, tid);
-      copy_rows<D>(vs + nx * kTile * P, vb, (it + 1) * kTile, t, in_st, tid);
+      copy_rows<D>(ks + nx * kMmaTile * P, kb, (it + 1) * kMmaTile, t, in_st, tid);
+      copy_rows<D>(vs + nx * kMmaTile * P, vb, (it + 1) * kMmaTile, t, in_st, tid);
     }
     dtts::cp_async_commit();
     dtts::cp_async_wait<1>();  // everything but the copies just issued has landed
     __syncthreads();
-    const bf16* kt = ks + (it % C::kStages) * kTile * P;
-    const bf16* vt = vs + (it % C::kStages) * kTile * P;
+    const bf16* kt = ks + (it % C::kStages) * kMmaTile * P;
+    const bf16* vt = vs + (it % C::kStages) * kMmaTile * P;
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < C::kSteps; ++kk) {
@@ -572,7 +591,7 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = it * kTile + 8 * j + 2 * tq + (e & 1);
+        const int key = it * kMmaTile + 8 * j + 2 * tq + (e & 1);
         const float p =
             key < t ? exp2f(s[j][e] * scale_log2e - row_lse[e >> 1]) : 0.f;
         s[j][e] = p * (dp[j][e] - row_delta[e >> 1]);  // dS, fp32
@@ -604,26 +623,26 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using C = MmaShape<D>;
   constexpr int P = C::kPitch;
   extern __shared__ __align__(16) unsigned char bwd_smem[];
-  bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [kTile][P]
-  bf16* vs = ks + kTile * P;                      // [kTile][P]
-  bf16* qs = vs + kTile * P;                      // [kStages][kTile][P]
-  bf16* gs = qs + C::kStages * kTile * P;         // [kStages][kTile][P]
-  float* lse_s = reinterpret_cast<float*>(bwd_smem + C::kTileBytes);  // [kStages][kTile]
-  float* delta_s = lse_s + C::kStages * kTile;                         // [kStages][kTile]
+  bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [kMmaTile][P]
+  bf16* vs = ks + kMmaTile * P;                      // [kMmaTile][P]
+  bf16* qs = vs + kMmaTile * P;                      // [kStages][kMmaTile][P]
+  bf16* gs = qs + C::kStages * kMmaTile * P;         // [kStages][kMmaTile][P]
+  float* lse_s = reinterpret_cast<float*>(bwd_smem + C::kTileBytes);  // [kStages][kMmaTile]
+  float* delta_s = lse_s + C::kStages * kMmaTile;                         // [kStages][kMmaTile]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tq = lane & 3;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * kMmaTile;
   const int64_t in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
   const int64_t stat_off = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t;
   const bf16* qb = q + in_off;
   const bf16* gb = g + blockIdx.z * g_sb + blockIdx.y * g_sh;
   // A q row past the end gets lse = +inf, so its P and dS are 0.
   auto stage_stats = [&](int stage, int row0) {
-    if (tid < kTile) {
+    if (tid < kMmaTile) {
       const int row = row0 + tid;
-      lse_s[stage * kTile + tid] = row < t ? lse[stat_off + row] : INFINITY;
-      delta_s[stage * kTile + tid] = row < t ? delta[stat_off + row] : 0.f;
+      lse_s[stage * kMmaTile + tid] = row < t ? lse[stat_off + row] : INFINITY;
+      delta_s[stage * kMmaTile + tid] = row < t ? delta[stat_off + row] : 0.f;
     }
   };
 
@@ -640,22 +659,22 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   zero(acc_k);
   zero(acc_v);
 
-  const int ntiles = (t + kTile - 1) / kTile;
+  const int ntiles = (t + kMmaTile - 1) / kMmaTile;
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) {
       const int nx = (it + 1) % C::kStages;
-      copy_rows<D>(qs + nx * kTile * P, qb, (it + 1) * kTile, t, in_st, tid);
-      copy_rows<D>(gs + nx * kTile * P, gb, (it + 1) * kTile, t, g_st, tid);
-      stage_stats(nx, (it + 1) * kTile);
+      copy_rows<D>(qs + nx * kMmaTile * P, qb, (it + 1) * kMmaTile, t, in_st, tid);
+      copy_rows<D>(gs + nx * kMmaTile * P, gb, (it + 1) * kMmaTile, t, g_st, tid);
+      stage_stats(nx, (it + 1) * kMmaTile);
     }
     dtts::cp_async_commit();
     dtts::cp_async_wait<1>();
     __syncthreads();
     const int cur = it % C::kStages;
-    const bf16* qt = qs + cur * kTile * P;
-    const bf16* gt = gs + cur * kTile * P;
-    const float* ls = lse_s + cur * kTile;
-    const float* ds = delta_s + cur * kTile;
+    const bf16* qt = qs + cur * kMmaTile * P;
+    const bf16* gt = gs + cur * kMmaTile * P;
+    const float* ls = lse_s + cur * kMmaTile;
+    const float* ds = delta_s + cur * kMmaTile;
     if (it == 0) {
 #pragma unroll
       for (int kk = 0; kk < C::kSteps; ++kk) {
@@ -707,7 +726,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   err = cudaFuncSetAttribute(dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmemBytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((t + kTile - 1) / kTile, h, b);
+  dim3 grid((t + kMmaTile - 1) / kMmaTile, h, b);
   const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
              *vp = static_cast<const bf16*>(v), *gp = static_cast<const bf16*>(g);
   dq_mma_kernel<D><<<grid, C::kThreads, C::kTileBytes, stream>>>(
@@ -725,7 +744,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16, 32,
-// 40, 64, 80, 160. lse and delta are fp32 [B, H, T]: the forward kernel's row
+// 40, 64, 80, 160, 256. lse and delta are fp32 [B, H, T]: the forward kernel's row
 // log2-sum-exp2 and sum_d g*o. Strides are in elements for (batch, token,
 // head), the head width's stride being 1: one triple for q, k and v, one for
 // g, one for dq, dk and dv. route: 0 = fma (any dtype and width), 1 = mma
@@ -777,6 +796,7 @@ extern "C" int dtts_attention_bwd(const void* q, const void* k, const void* v, c
     DTTS_ATTN_BWD(64)
     DTTS_ATTN_BWD(80)
     DTTS_ATTN_BWD(160)
+    DTTS_ATTN_BWD(256)
   }
 #undef DTTS_ATTN_BWD
   return static_cast<int>(cudaErrorInvalidValue);

@@ -3,7 +3,8 @@
 //
 // Replaces two TPU kernels of diffusion_tts_tpu/ops/pallas/attention.py:
 //   * qkv_self_attention (_qkv_attn_kernel / _qkv_attn_pair_kernel), the
-//     EDM UNet's all-heads attention on the [B, T, 3C] projection, d = 64;
+//     EDM UNets' all-heads attention on the [B, T, 3C] projection: d = 64
+//     (the ADM), d = 256 (the CIFAR-10 DDPM++ SongUNet's single head);
 //   * flash_attention (_attn_kernel / _attn_kernel_dual), [B, T, H, D]
 //     attention: the SD UNet's self-attention (d = 40, 80, 160) and the SD
 //     VAE mid-block's single head (d = 512); d = 4 ... 32 serve the
@@ -20,8 +21,8 @@
 //
 // Routes. The caller picks one (ops/kernels/qkv_attention.py::forward_route)
 // and this file obeys:
-//   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 512, every main
-//     path's width. The products run on the tensor cores (mma.sync
+//   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every
+//     main path's width. The products run on the tensor cores (mma.sync
 //     m16n8k16, bf16 operands, fp32 accumulators: exactly the arithmetic of
 //     the function above).
 //   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
@@ -56,6 +57,14 @@
 //     with S recomputed per 128-column block, costs 2.5x). Q stays in shared
 //     memory there and its fragments are loaded per step; K/V tiles are 32
 //     keys; 199,680 bytes of shared memory, one block per SM.
+//   * d = 256, the DDPM++ net's single head: one warp's 16 x 256 fp32 O
+//     accumulator would be 128 registers a thread before S (32), the row
+//     state and the addresses, close to the 255 a thread may have. The
+//     d = 512 split serves here too: two warp groups of 4, 128 O columns
+//     (64 registers) each, 64-key K/V tiles, Q in shared memory; 168,960
+//     bytes of shared memory, one block per SM. Its 8 warps also give the
+//     SM twice the warps of the one-group form, which counts at the DDPM++
+//     net's grids: [8, 256, 768] is 32 blocks of 64 rows for 132 SMs.
 //
 // The fma route:
 //   * One block is one (batch, head, BQ-row q tile) of 256 threads as
@@ -66,7 +75,10 @@
 //   * K/V stream through shared memory in BK-key tiles (widened to fp32)
 //     with the same online softmax; DP rounds the width up to 16 with zero
 //     columns. Tiles per width keep the three fp32 tiles inside a block's
-//     shared memory: 64 x 64 up to d = 160, 32 x 32 at d = 512. K and P share
+//     shared memory: 64 x 64 up to d = 160, 32 x 32 at d = 256 and 512. At
+//     d = 256 64 x 64 tiles would fit (197 KB, one block per SM); 32 x 32
+//     (99 KB) was taken for the grid: the DDPM++ net's [8, 256, 768] gives
+//     64 blocks of 32 rows instead of 32 of 64, for 132 SMs. K and P share
 //     one buffer where P fits into it; rows are padded by one float.
 //
 // Both routes:
@@ -298,7 +310,7 @@ using bf16 = __nv_bfloat16;
 template <int D>
 struct MmaTiles {
   static constexpr int kDS = (D + 15) / 16 * 16;     // S's depth: D padded with zero columns
-  static constexpr int kGroups = kDS > 256 ? 2 : 1;  // warp groups splitting O's columns
+  static constexpr int kGroups = kDS >= 256 ? 2 : 1;  // warp groups splitting O's columns
   static constexpr int kDV = kDS / kGroups;          // O columns per warp
   static constexpr int kBQ = 64;                     // q rows per block: 4 row warps x 16
   static constexpr int kBK = kDS > 256 ? 32 : 64;    // keys per K/V tile
@@ -508,11 +520,11 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16,
-// 32, 40, 64, 80, 160, 512. Strides are in elements, the head width's stride being 1.
+// 32, 40, 64, 80, 160, 256, 512. Strides are in elements, the head width's stride being 1.
 // lse: null when serving; when training, an fp32 [B, H, T] buffer that takes
 // each row's log2-sum-exp2 of the scaled scores for the backward kernels
 // (csrc/attention_bwd.cu). route: 0 = fma (any dtype and width), 1 = mma
-// (bfloat16 at d = 16, 32, 40, 64, 80, 160, 512, every pointer and stride
+// (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every pointer and stride
 // 16-byte aligned). Returns the launch's cudaError_t (0 on success); the
 // caller raises on anything else.
 extern "C" int dtts_attention(const void* q, const void* k, const void* v, void* o,
@@ -534,6 +546,7 @@ extern "C" int dtts_attention(const void* q, const void* k, const void* v, void*
       DTTS_ATTN_MMA(64)
       DTTS_ATTN_MMA(80)
       DTTS_ATTN_MMA(160)
+      DTTS_ATTN_MMA(256)
       DTTS_ATTN_MMA(512)
     }
 #undef DTTS_ATTN_MMA
@@ -553,6 +566,7 @@ extern "C" int dtts_attention(const void* q, const void* k, const void* v, void*
     DTTS_ATTN(64, 64, 64)
     DTTS_ATTN(80, 64, 64)
     DTTS_ATTN(160, 64, 64)
+    DTTS_ATTN(256, 32, 32)
     DTTS_ATTN(512, 32, 32)
   }
 #undef DTTS_ATTN

@@ -4,6 +4,8 @@
         --method eps_greedy --N 4 --K 20 --dtype bf16
     python -m diffusion_tts_torch.main --backend edm --scorer imagenet \\
         --method eps_greedy --classifier-weights 64x64_classifier.pt --dtype bf16
+    python -m diffusion_tts_torch.main --backend edm --arch cifar10 --scorer brightness \\
+        --method eps_greedy --dtype bf16
     python -m diffusion_tts_torch.main --backend sd --scorer clip \\
         --method eps_greedy --sd-path <diffusers dir> --clip-path <CLIP dir> --dtype bf16
 
@@ -42,6 +44,9 @@ def get_scorer(backend: str, name: str, args):
     if name == "imagenet":
         from diffusion_tts_torch.backends.edm_entry import CLASSIFIER_CONFIGS
 
+        if args.arch not in CLASSIFIER_CONFIGS:
+            raise ValueError(f"the imagenet scorer has no classifier for --arch {args.arch}; "
+                             f"it serves {', '.join(CLASSIFIER_CONFIGS)}")
         kw = dict(device=args.device, **CLASSIFIER_CONFIGS[args.arch])
         if args.classifier_weights:
             return scorers.ImageNetScorer.from_torch_checkpoint(args.classifier_weights,
@@ -57,6 +62,8 @@ def get_scorer(backend: str, name: str, args):
 
 
 def main(argv=None):
+    from diffusion_tts_torch.backends.edm_entry import NET_CONFIGS
+
     parser = argparse.ArgumentParser(
         description="Unified Diffusion Image Generator (EDM/SD), PyTorch/CUDA",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -79,7 +86,9 @@ def main(argv=None):
     parser.add_argument("--S", type=int, default=8)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="cuda or cpu")
-    parser.add_argument("--arch", default="imagenet64", help="EDM arch: imagenet64|tiny_adm")
+    parser.add_argument("--arch", default="imagenet64", choices=sorted(NET_CONFIGS),
+                        help="EDM arch: the ImageNet-64 ADM, the CIFAR-10 DDPM++ SongUNet, "
+                             "or either at test width")
     parser.add_argument("--weights", default=None,
                         help="EDM reference state dict .npz (tools/export_edm_checkpoint.py)")
     parser.add_argument("--sd-path", default=None, help="local SD-1.5 diffusers directory")

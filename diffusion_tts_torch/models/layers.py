@@ -15,13 +15,17 @@ Behavioural counterparts of the reference's primitive modules
 
 Parameter names and shapes are the reference's, so a reference
 ``state_dict`` loads with only the qkv de-interleave applied
-(models/torch_import.py). Only the pieces the ADM (DhariwalUNet) uses are
-here: resampling with ``resample_filter=(1, 1)``, adaptive GroupNorm.
+(models/torch_import.py). The pieces of both UNets are here: the ADM's
+(DhariwalUNet: adaptive GroupNorm, ``resample_filter=(1, 1)``) and the
+DDPM++ / NCSN++ ones' (SongUNet: any resampling filter, fused resampling,
+the additive timestep bias before GroupNorm, Fourier features).
 """
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,6 +39,10 @@ def _init_(t: torch.Tensor, mode: str, scale: float, fan_in: int, fan_out: int) 
     with torch.no_grad():
         if scale == 0.0:
             t.zero_()
+        elif mode == "xavier_uniform":
+            t.copy_((torch.rand(t.shape) * 2 - 1) * math.sqrt(6.0 / (fan_in + fan_out)) * scale)
+        elif mode == "xavier_normal":
+            t.copy_(torch.randn(t.shape) * math.sqrt(2.0 / (fan_in + fan_out)) * scale)
         elif mode == "kaiming_uniform":
             t.copy_((torch.rand(t.shape) * 2 - 1) * math.sqrt(3.0 / fan_in) * scale)
         elif mode == "kaiming_normal":
@@ -66,19 +74,33 @@ class EDMLinear(nn.Module):
 
 
 class EDMConv(nn.Module):
-    """Conv with optional 2x up/downsampling (networks.py:49-90), for
-    ``resample_filter=(1, 1)``: up is nearest-2x duplication, down is a 2x2
-    mean. ``kernel=0`` resamples only. A 3x3 conv after an up runs as the
-    2x2-phase decomposition (ops/resample.py)."""
+    """Conv with optional 2x up/downsampling (networks.py:49-90). ``kernel=0``
+    resamples only (the SongUNet's aux paths). Up is a depthwise transposed
+    conv with the filter, down a depthwise strided conv; ``fused_resample``
+    gives up-then-conv and conv-then-down the reference's padding
+    arithmetic. With ``resample_filter=(1, 1)`` up is nearest-2x duplication
+    and down a 2x2 mean, run as such; a 3x3 conv after such an up runs as
+    the 2x2-phase decomposition (ops/resample.py)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, bias: bool = True,
-                 up: bool = False, down: bool = False, init_mode: str = "kaiming_normal",
-                 init_weight: float = 1.0, init_bias: float = 0.0,
-                 dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None):
+                 up: bool = False, down: bool = False,
+                 resample_filter: Sequence[int] = (1, 1), fused_resample: bool = False,
+                 init_mode: str = "kaiming_normal", init_weight: float = 1.0,
+                 init_bias: float = 0.0, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         assert not (up and down)
         self.up, self.down, self.dtype = up, down, dtype
-        self.out_channels = out_channels
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.fused_resample = fused_resample
+        # the plain nearest-2x / 2x2-mean path serves filter (1, 1) unfused
+        self.plain = tuple(resample_filter) == (1, 1) and not fused_resample
+        if not self.plain:
+            # the depthwise 2D kernel outer(f, f) / sum(f)^2 (networks.py:65-67),
+            # [1, 1, k, k]; out of the state dict: it follows from the filter
+            f = torch.tensor(resample_filter, dtype=torch.float32)
+            self.register_buffer("filter2d", (torch.outer(f, f) / f.sum() ** 2)[None, None],
+                                 persistent=False)
         self.weight = self.bias = None
         param_dtype = param_dtype or dtype
         if kernel:
@@ -94,14 +116,39 @@ class EDMConv(nn.Module):
         x = x.to(self.dtype)
         w = None if self.weight is None else self.weight.to(self.dtype)
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        if self.up and w is not None and w.shape[-1] == 3:
-            return nn_upsample2x_conv3x3(x, w, bias)
-        if self.up:
-            x = torch.repeat_interleave(torch.repeat_interleave(x, 2, dim=2), 2, dim=3)
-        if self.down:
-            x = F.avg_pool2d(x, 2)
-        if w is not None:
-            x = F.conv2d(x, w, bias, padding=w.shape[-1] // 2)
+        if self.plain:
+            if self.up and w is not None and w.shape[-1] == 3:
+                return nn_upsample2x_conv3x3(x, w, bias)
+            if self.up:
+                x = torch.repeat_interleave(torch.repeat_interleave(x, 2, dim=2), 2, dim=3)
+            if self.down:
+                x = F.avg_pool2d(x, 2)
+            if w is not None:
+                x = F.conv2d(x, w, bias, padding=w.shape[-1] // 2)
+            return x
+        w_pad = w.shape[-1] // 2 if w is not None else 0
+        f_pad = (self.filter2d.shape[-1] - 1) // 2
+        # per channel, times 4 for up (networks.py:79-87)
+        filt = lambda c, up: (self.filter2d * (4.0 if up else 1.0)).to(x.dtype).repeat(
+            c, 1, 1, 1)
+        if self.fused_resample and self.up and w is not None:
+            x = F.conv_transpose2d(x, filt(self.in_channels, True), stride=2,
+                                   padding=max(f_pad - w_pad, 0), groups=self.in_channels)
+            x = F.conv2d(x, w, padding=max(w_pad - f_pad, 0))
+        elif self.fused_resample and self.down and w is not None:
+            x = F.conv2d(x, w, padding=w_pad + f_pad)
+            x = F.conv2d(x, filt(self.out_channels, False), stride=2, groups=self.out_channels)
+        else:
+            if self.up:
+                x = F.conv_transpose2d(x, filt(self.in_channels, True), stride=2,
+                                       padding=f_pad, groups=self.in_channels)
+            if self.down:
+                x = F.conv2d(x, filt(self.in_channels, False), stride=2, padding=f_pad,
+                             groups=self.in_channels)
+            if w is not None:
+                x = F.conv2d(x, w, padding=w_pad)
+        if bias is not None:
+            x = x + bias.reshape(1, -1, 1, 1)
         return x
 
 
@@ -147,6 +194,19 @@ class EDMAdaptiveGroupNormSiLU(EDMGroupNorm):
         return F.silu(sh + gn * (ms + 1.0))
 
 
+class EDMPreBiasGroupNormSiLU(EDMGroupNorm):
+    """silu(GN(x + pre)), the SongUNet UNetBlock norm1 (networks.py:176) with
+    the additive timestep embedding ``pre`` [B, C]: the add in x.dtype, GN
+    with fp32 statistics and affine, the result cast to x.dtype, then SiLU
+    (the JAX package's op order, models/layers.py::EDMPreBiasGroupNormSiLU).
+    Plain ops, as the JAX package runs its EDM GroupNorms through XLA."""
+
+    def forward(self, x: torch.Tensor, pre: torch.Tensor) -> torch.Tensor:
+        x = x + pre.to(x.dtype)[:, :, None, None]
+        out = _group_norm_fp32(x, self.num_groups, self.weight, self.bias, self.eps)
+        return F.silu(out.to(x.dtype))
+
+
 class PositionalEmbedding(nn.Module):
     """DDPM++/ADM timestep embedding (networks.py:193-207):
     outer(t, freqs) -> cat[cos, sin], in fp32."""
@@ -165,16 +225,37 @@ class PositionalEmbedding(nn.Module):
         return torch.cat([torch.cos(args), torch.sin(args)], dim=1)
 
 
+class FourierEmbedding(nn.Module):
+    """NCSN++ random Fourier features (networks.py:213-220):
+    outer(t, 2 pi freqs) -> cat[cos, sin], in fp32. ``freqs`` is a buffer in
+    the state dict, so that a net loaded from a checkpoint (or from
+    ``torch_import.random_state_dict``) has the checkpoint's table; at
+    construction it is scale * N(0, 1) drawn with numpy from seed 0, never
+    from torch's global generator."""
+
+    def __init__(self, num_channels: int, scale: float = 16.0):
+        super().__init__()
+        self.scale = scale
+        freqs = np.random.default_rng(0).standard_normal(num_channels // 2) * scale
+        self.register_buffer("freqs", torch.from_numpy(freqs.astype(np.float32)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        args = torch.outer(x.float(), (2 * np.pi) * self.freqs.float())
+        return torch.cat([torch.cos(args), torch.sin(args)], dim=1)
+
+
 class UNetBlock(nn.Module):
-    """ADM residual block (networks.py:134-187): GN-SiLU-conv(resample),
-    adaptive timestep scale/shift, GN-SiLU-dropout-conv(zero-init), residual
-    with optional 1x1/resample skip, then optional self-attention with fp32
-    softmax. The ADM's settings are fixed here (skip_scale 1, adaptive
-    scale, no resample projection); the SongUNet's come with the second
-    slice of the port. The qkv projection's output channels are in
-    (q|k|v, head, d) order: models/torch_import.py de-interleaves the
-    reference's ((head, d), 3) layout at load time, so the kernel reads q,
-    k and v as contiguous thirds.
+    """The residual block of both UNets (networks.py:134-187): GN-SiLU-conv
+    (resample), the timestep embedding as adaptive scale/shift (the ADM) or
+    as a bias added before GN (``adaptive_scale=False``, the SongUNet),
+    GN-SiLU-dropout-conv(zero-init), the residual with an optional 1x1 or
+    resampling skip (1x1 when the widths differ or ``resample_proj``), times
+    ``skip_scale``; then optional self-attention with fp32 softmax over
+    ``num_heads`` heads (default out_channels / channels_per_head), its
+    residual times ``skip_scale`` again. The qkv projection's output
+    channels are in (q|k|v, head, d) order: models/torch_import.py
+    de-interleaves the reference's ((head, d), 3) layout at load time, so
+    the kernel reads q, k and v as contiguous thirds.
 
     Dropout is active in ``train()`` mode with ``dropout > 0`` and draws
     its keep mask from the ``generator`` handed to ``forward``, never from
@@ -182,38 +263,54 @@ class UNetBlock(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int,
                  up: bool = False, down: bool = False, attention: bool = False,
-                 channels_per_head: int = 64, dropout: float = 0.0, eps: float = 1e-5,
-                 init: dict | None = None, init_zero: dict | None = None,
+                 num_heads: int | None = None, channels_per_head: int = 64,
+                 dropout: float = 0.0, skip_scale: float = 1.0, eps: float = 1e-5,
+                 resample_filter: Sequence[int] = (1, 1), resample_proj: bool = False,
+                 adaptive_scale: bool = True, init: dict | None = None,
+                 init_zero: dict | None = None, init_attn: dict | None = None,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None):
         super().__init__()
         init = dict(init or {}, param_dtype=param_dtype)
         init_zero = dict(init_zero or {"init_weight": 0.0}, param_dtype=param_dtype)
+        init_attn = init if init_attn is None else dict(init_attn, param_dtype=param_dtype)
         self.out_channels = out_channels
-        self.num_heads = out_channels // channels_per_head if attention else 0
-        self.dropout, self.dtype = dropout, dtype
+        self.num_heads = 0 if not attention else (
+            num_heads if num_heads is not None else out_channels // channels_per_head)
+        self.dropout, self.skip_scale, self.dtype = dropout, skip_scale, dtype
+        self.adaptive_scale = adaptive_scale
 
         self.norm0 = EDMGroupNormSiLU(in_channels, eps=eps)
         self.conv0 = EDMConv(in_channels, out_channels, 3, up=up, down=down,
-                             dtype=dtype, **init)
-        self.affine = EDMLinear(emb_channels, out_channels * 2, dtype=dtype, **init)
-        self.norm1 = EDMAdaptiveGroupNormSiLU(out_channels, eps=eps)
+                             resample_filter=resample_filter, dtype=dtype, **init)
+        self.affine = EDMLinear(emb_channels, out_channels * (2 if adaptive_scale else 1),
+                                dtype=dtype, **init)
+        self.norm1 = (EDMAdaptiveGroupNormSiLU if adaptive_scale else
+                      EDMPreBiasGroupNormSiLU)(out_channels, eps=eps)
         self.conv1 = EDMConv(out_channels, out_channels, 3, dtype=dtype, **init_zero)
         self.skip = None
         if out_channels != in_channels or up or down:
-            kernel = 1 if out_channels != in_channels else 0
+            kernel = 1 if resample_proj or out_channels != in_channels else 0
             self.skip = EDMConv(in_channels, out_channels, kernel, up=up, down=down,
-                                dtype=dtype, **init)
+                                resample_filter=resample_filter, dtype=dtype, **init)
         if self.num_heads:
             self.norm2 = EDMGroupNorm(out_channels, eps=eps)
-            self.qkv = EDMConv(out_channels, out_channels * 3, 1, dtype=dtype, **init)
+            self.qkv = EDMConv(out_channels, out_channels * 3, 1, dtype=dtype, **init_attn)
             self.proj = EDMConv(out_channels, out_channels, 1, dtype=dtype, **init_zero)
+
+    def _scaled(self, x: torch.Tensor) -> torch.Tensor:
+        """x * skip_scale; at the ADM's 1 no launch (its forward is host-bound)."""
+        return x if self.skip_scale == 1.0 else x * self.skip_scale
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         orig = x
         x = self.conv0(self.norm0(x))
-        scale, shift = self.affine(emb).to(x.dtype).chunk(2, dim=1)  # [B, C] each
-        x = self.norm1(x, scale, shift)
+        params = self.affine(emb).to(x.dtype)
+        if self.adaptive_scale:
+            scale, shift = params.chunk(2, dim=1)  # [B, C] each
+            x = self.norm1(x, scale, shift)
+        else:
+            x = self.norm1(x, params)
         if self.training and self.dropout > 0.0:
             if generator is None:
                 raise ValueError("dropout in train() mode needs a generator")
@@ -221,7 +318,7 @@ class UNetBlock(nn.Module):
             x = x * keep.to(x.dtype) / (1.0 - self.dropout)
         x = self.conv1(x)
         skip = self.skip(orig) if self.skip is not None else orig
-        x = x + skip
+        x = self._scaled(x + skip)
 
         if self.num_heads:
             b, c, h, w = x.shape
@@ -229,7 +326,7 @@ class UNetBlock(nn.Module):
             qkv = qkv.permute(0, 2, 3, 1).reshape(b, h * w, 3 * c).contiguous()
             a = fused_qkv_self_attention(qkv, self.num_heads)  # [B, T, C]
             a = a.reshape(b, h, w, c).permute(0, 3, 1, 2)
-            x = self.proj(a) + x
+            x = self._scaled(self.proj(a) + x)
         return x
 
 
@@ -239,6 +336,8 @@ __all__ = [
     "EDMGroupNorm",
     "EDMGroupNormSiLU",
     "EDMAdaptiveGroupNormSiLU",
+    "EDMPreBiasGroupNormSiLU",
     "PositionalEmbedding",
+    "FourierEmbedding",
     "UNetBlock",
 ]

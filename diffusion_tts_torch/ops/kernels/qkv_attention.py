@@ -13,9 +13,10 @@ what bounds them on the H100 and what the designs do about that.
 thirds, each head-major (the layout ``models.torch_import`` produces) and
 returns ``[B, T, C]``. ``attention`` runs the same kernel on separate
 ``[B, T, H, D]`` q, k and v. The forward kernel takes the head widths in
-``HEAD_DIMS``: 64 (the EDM UNet), 40/80/160 (the SD UNet), 512 (the SD
-VAE's single head) and 4 ... 32 (the test-width SD nets); the backward
-kernels take ``BWD_HEAD_DIMS`` (all of those but 512). A CPU tensor goes
+``HEAD_DIMS``: 64 (the ADM), 256 (the CIFAR-10 DDPM++ SongUNet's single
+head), 40/80/160 (the SD UNet), 512 (the SD VAE's single head) and 4 ... 32
+(the test-width SD nets); the backward kernels take ``BWD_HEAD_DIMS`` (all
+of those but 512). A CPU tensor goes
 through the plain PyTorch versions; a CUDA tensor goes through the kernels
 or the call raises. ``LAUNCHES`` counts forward launches, ``BWD_LAUNCHES``
 backward launches (``BWD_LAUNCHES_PER_CALL`` = 2 per call: dQ, then dK/dV).
@@ -25,7 +26,8 @@ the launch: ``"mma"`` (the products on the tensor cores) and ``"fma"`` (fp32
 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "mma" for bf16 at
 the widths of ``MMA_HEAD_DIMS``, every width a main path runs;
 ``backward_route(dtype, d)`` gives "mma" for bf16 at ``BWD_MMA_HEAD_DIMS``
-(the training path's d = 64 among them; d = 160 stays on "fma"). fp32 and
+(the ADM training path's d = 64 among them; d = 160 and the DDPM++
+training path's d = 256 stay on "fma"). fp32 and
 the other bf16 widths take "fma". The mma routes copy rows in 16-byte
 pieces: the call raises, before any launch, on a pointer or a (batch,
 token, head) stride that is not a multiple of 16 bytes. ``ROUTE_LAUNCHES``
@@ -48,7 +50,7 @@ import torch
 from diffusion_tts_torch.ops.kernels import _launch
 
 _LOG2E = 1.4426950408889634
-HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 512)
+HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 256, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
 BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80)
@@ -286,8 +288,8 @@ def qkv_self_attention_bwd(qkv: torch.Tensor, out: torch.Tensor, g: torch.Tensor
 
 def _backward_route_of(route: str | None) -> str | None:
     """A forced "fma" forward takes the fma backward too; otherwise the
-    backward follows its own predicate (at d = 160 the forward's mma route
-    has no backward counterpart)."""
+    backward follows its own predicate (at d = 160 and 256 the forward's
+    mma route has no backward counterpart)."""
     return "fma" if route == "fma" else None
 
 

@@ -4,11 +4,11 @@ the repo's train.py):
     python -m diffusion_tts_torch.train --outdir=training-runs \\
         --data=datasets/imagenet-64x64.zip --cond=1 --arch=adm --bf16=1 --augment=0
 
-Same flags, run-dir naming, options dump and resume/transfer plumbing as the
-JAX CLI (reference edm/train.py:41-236). Runs on the card unless
-``--device cpu`` is given. Ported so far: ``--arch adm`` with
-``--precond edm`` and ``--augment 0``; the other choices raise and name the
-ROADMAP.md item that brings them.
+Same flags, arch presets (ddpmpp, ncsnpp, adm), precond/loss pairs (vp, ve,
+edm), run-dir naming, options dump and resume/transfer plumbing as the JAX
+CLI (reference edm/train.py:41-236). Runs on the card unless ``--device
+cpu`` is given. ``--augment > 0`` is not ported yet: it raises and names the
+ROADMAP.md item that brings it.
 """
 from __future__ import annotations
 
@@ -21,14 +21,22 @@ import torch
 
 ARCH_PRESETS = {
     # reference train.py:116-124
+    "ddpmpp": dict(model_type="SongUNet",
+                   model_kwargs=dict(embedding_type="positional", encoder_type="standard",
+                                     decoder_type="standard", channel_mult_noise=1,
+                                     resample_filter=(1, 1), model_channels=128,
+                                     channel_mult=(2, 2, 2))),
+    "ncsnpp": dict(model_type="SongUNet",
+                   model_kwargs=dict(embedding_type="fourier", encoder_type="residual",
+                                     decoder_type="standard", channel_mult_noise=2,
+                                     resample_filter=(1, 3, 3, 1), model_channels=128,
+                                     channel_mult=(2, 2, 2))),
     "adm": dict(model_type="DhariwalUNet",
                 model_kwargs=dict(model_channels=192, channel_mult=(1, 2, 3, 4))),
 }
 _NOT_YET_PORTED = {
     "augment": "--augment > 0 needs training/augment.py (ROADMAP.md Queue 1 item 12); "
                "pass --augment 0",
-    "arch": "--arch ddpmpp|ncsnpp needs the SongUNet (ROADMAP.md Queue 1 item 9)",
-    "precond": "--precond vp|ve needs the VP/VE preconditioners (ROADMAP.md Queue 1 item 9)",
 }
 
 
@@ -73,15 +81,11 @@ def main(argv=None):
 
     if args.augment > 0:
         raise NotImplementedError(_NOT_YET_PORTED["augment"])
-    if args.arch not in ARCH_PRESETS:
-        raise NotImplementedError(_NOT_YET_PORTED["arch"])
-    if args.precond != "edm":
-        raise NotImplementedError(_NOT_YET_PORTED["precond"])
 
-    from diffusion_tts_torch.models.preconds import EDMPrecond
+    from diffusion_tts_torch.models import preconds
+    from diffusion_tts_torch.training import loss as losses
     from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
     from diffusion_tts_torch.training.loop import LoopConfig, training_loop
-    from diffusion_tts_torch.training.loss import EDMLoss
     from diffusion_tts_torch.training.train_step import TrainConfig
     from diffusion_tts_torch.utils.device import resolve_device
     from diffusion_tts_torch.utils.logging_utils import Logger, print0
@@ -99,7 +103,10 @@ def main(argv=None):
     if args.cres is not None:
         model_kwargs["channel_mult"] = tuple(int(x) for x in args.cres.split(","))
 
-    loss_fn = EDMLoss()
+    precond_cls = {"vp": preconds.VPPrecond, "ve": preconds.VEPrecond,
+                   "edm": preconds.EDMPrecond}[args.precond]
+    loss_fn = {"vp": losses.VPLoss(), "ve": losses.VELoss(),
+               "edm": losses.EDMLoss()}[args.precond]
     if args.ls != 1.0:
         inner_loss = loss_fn
         loss_fn = lambda *a, **kw: args.ls * inner_loss(*a, **kw)
@@ -111,7 +118,7 @@ def main(argv=None):
     )
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the init is the same for every --seed, as in the JAX CLI
-        net = EDMPrecond(
+        net = precond_cls(
             img_resolution=res, img_channels=dataset.image_shape[2],
             label_dim=net_config["label_dim"], model_type=preset["model_type"],
             model_kwargs=model_kwargs,

@@ -47,11 +47,13 @@ def _close(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 256, 2, 64), (1, 256, 1, 40), (1, 128, 6, 64)])
+@pytest.mark.parametrize("shape", [(2, 256, 2, 64), (1, 256, 1, 40), (1, 128, 6, 64),
+                                   (1, 128, 1, 256)])
 def test_attention_bwd_plain_matches_jax(shape, dtype):
     """The twin against the explicit jnp backward and against the Pallas
     flash backward (stats -> dQ -> dK/dV, interpret mode); (1, 128, 6, 64)
-    is the training path's width (6 heads of 64 at its T = 1024 sites)."""
+    is the ADM training path's width (6 heads of 64 at its T = 1024 sites),
+    (1, 128, 1, 256) the DDPM++ net's single head."""
     td, jd = DTYPES[dtype]
     arrays = [_rand(shape, s) for s in range(4)]
     q, k, v, g = (torch.from_numpy(a).to(td) for a in arrays)

@@ -80,11 +80,11 @@ def _randn(shape, dtype, device, seed, scale=1.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,heads,d", [(256, 8, 40), (100, 8, 80), (64, 8, 160), (300, 1, 512),
-                                        (77, 4, 8)])
+                                        (77, 4, 8), (256, 1, 256), (77, 2, 256)])
 def test_attention_any_width_matches_plain(card, t, heads, d, dtype):
-    """The SD UNet's widths (40, 80, 160), the VAE's single d = 512 head
-    and a test-width net's d = 8, with a ragged last tile where T is not a
-    multiple of the tile."""
+    """The SD UNet's widths (40, 80, 160), the VAE's single d = 512 head,
+    the DDPM++ net's single d = 256 head and a test-width net's d = 8, with
+    a ragged last tile where T is not a multiple of the tile."""
     q, k, v = (_randn((2, t, heads, d), dtype, card, s) for s in range(3))
     before = qk.LAUNCHES
     out = qk.attention(q, k, v)
@@ -480,17 +480,18 @@ def _rel(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,heads,d", [(64, 12, 64), (256, 9, 64), (1024, 6, 64), (100, 3, 64),
-                                        (3, 1, 64), (200, 2, 40), (77, 2, 160), (50, 3, 8)])
+                                        (3, 1, 64), (200, 2, 40), (77, 2, 160), (50, 3, 8),
+                                        (256, 1, 256), (64, 1, 256), (100, 2, 256)])
 def test_attention_bwd_matches_plain(card, t, heads, d, dtype):
     """dq, dk and dv of the backward kernels against the plain twin, each
     within the forward's tolerance of that gradient's largest magnitude; the
     row statistic comes from the forward kernel. Ragged tiles included. Each
-    call takes the route its predicate gives: bf16 at d = 8 and 160 (and
-    fp32 everywhere) on the CUDA cores, the rest on the tensor cores."""
+    call takes the route its predicate gives: bf16 at d = 8, 160 and 256
+    (and fp32 everywhere) on the CUDA cores, the rest on the tensor cores."""
     q, k, v, g = (_randn((2, t, heads, d), dtype, card, s) for s in range(4))
     o = qk.attention(q, k, v)
     route = qk.backward_route(dtype, d)
-    assert (route == "fma") == (dtype == torch.float32 or d in (8, 160))
+    assert (route == "fma") == (dtype == torch.float32 or d in (8, 160, 256))
     before, routes = qk.BWD_LAUNCHES, _bwd_routes()
     got = qk.attention_bwd(q, k, v, o, g)
     torch.cuda.synchronize()
@@ -591,6 +592,37 @@ def test_qkv_attention_gradient_on_the_card(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t", [(8, 256), (8, 64), (32, 256)])
+def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
+    """The CIFAR-10 DDPM++ net's attention, one head of 256 on [B, T, 768]
+    (its 16x16 and 8x8 sites at the search's batch 8 and the training
+    micro-batch 32): the forward on its route (bf16: "mma"), and the qkv
+    form's backward on "fma", its thirds against the twin and two runs
+    bit-identical."""
+    heads, d = 1, 256
+    g = torch.Generator(device=card).manual_seed(b + t)
+    qkv = torch.randn((b, t, 3 * d), generator=g, device=card).to(dtype)
+    cot = _randn((b, t, d), dtype, card, 17)
+    route = qk.forward_route(dtype, d)
+    assert route == ("mma" if dtype == torch.bfloat16 else "fma")
+    before = _routes(qk)
+    lse = torch.empty((b, heads, t), device=card)
+    out = qk._qkv_forward(qkv, heads, lse)
+    assert _routes(qk) == {**before, route: before[route] + 1}
+    torch.testing.assert_close(out.float(), qk.qkv_self_attention_plain(qkv, heads).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    assert qk.backward_route(dtype, d) == "fma"
+    got = qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse)
+    assert torch.equal(got, qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse))
+    split = lambda x: x.reshape(b, t, heads, d)
+    ref = qk.attention_bwd_plain(*(split(x) for x in qkv.chunk(3, dim=-1)), split(out),
+                                 split(cot))
+    for a, r in zip(got.chunk(3, dim=-1), ref):
+        assert torch.isfinite(a).all() and _rel(split(a), r) <= TOL[dtype]
+
+
+@pytest.mark.cuda
 def test_attention_bwd_refuses_the_vae_head(card):
     q = _randn((1, 64, 1, 512), torch.bfloat16, card, 0).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="head widths"):
@@ -681,7 +713,7 @@ def test_attention_mma_route_at_full_sd_shapes(card, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route", ["fma", "mma"])
-@pytest.mark.parametrize("t,d", [(77, 40), (300, 64), (200, 512)])
+@pytest.mark.parametrize("t,d", [(77, 40), (300, 64), (200, 512), (200, 256)])
 def test_attention_lse_is_the_log2_sum_exp2_of_the_scores(card, route, t, d):
     """The row statistic the backward kernels read, on both routes: log2 of
     the sum of exp of the scaled scores, from fp32 scores on the same bf16

@@ -1,6 +1,7 @@
 """The port's training CLI (python -m diffusion_tts_torch.train) and loop on
-the CPU: a dry run, a two-tick run on a tiny PNG folder, a resumed run, and
-the choices that wait for their modules."""
+the CPU: a dry run, a two-tick run on a tiny PNG folder, a resumed run, every
+arch under every preconditioner, a DDPM++/VP run, and the choice that waits
+for its module."""
 import json
 import os
 
@@ -118,11 +119,48 @@ def test_loop_needs_a_card_unless_cpu_is_asked(monkeypatch, tmp_path, png_folder
 
 @pytest.mark.parametrize("flags,item", [
     (["--augment", "0.12"], "item 12"),
-    (["--augment", "0", "--arch", "ddpmpp"], "item 9"),
-    (["--augment", "0", "--arch", "ncsnpp"], "item 9"),
-    (["--augment", "0", "--arch", "adm", "--precond", "vp"], "item 9"),
-    (["--augment", "0", "--arch", "adm", "--precond", "ve"], "item 9"),
+    (["--augment", "0.12", "--arch", "ddpmpp"], "item 12"),
+    (["--augment", "0.12", "--arch", "ncsnpp"], "item 12"),
+    (["--augment", "0.12", "--arch", "adm", "--precond", "vp"], "item 12"),
+    (["--augment", "0.12", "--arch", "adm", "--precond", "ve"], "item 12"),
 ])
 def test_unported_choices_raise_and_name_the_roadmap_item(flags, item, tmp_path):
+    """--augment > 0 (training/augment.py) is the one choice not ported yet,
+    with every arch and precond."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         cli.main(["--outdir", str(tmp_path), "--data", str(tmp_path), "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("arch,model_type", [("ddpmpp", "SongUNet"), ("ncsnpp", "SongUNet"),
+                                             ("adm", "DhariwalUNet")])
+@pytest.mark.parametrize("precond", ["vp", "ve", "edm"])
+def test_every_arch_and_precond_builds(arch, model_type, precond, png_folder, tmp_path, capsys):
+    """Each preset under each preconditioner: the dry run names the pair in
+    the run dir and the net config (the root train.py's presets)."""
+    cli.main(["--outdir", str(tmp_path / "runs"), "--data", png_folder, "--device", "cpu",
+              "--dry-run", "--arch", arch, "--precond", precond, "--augment", "0",
+              "--cbase", "64", "--cres", "1"])
+    out = capsys.readouterr().out
+    opts = json.loads(out[:out.index("--dry-run")])
+    assert opts["run_dir"].endswith(f"00000-tiny-8x8-uncond-{arch}-{precond}")
+    cfg = opts["net_config"]
+    assert cfg["precond"] == precond and cfg["model_type"] == model_type
+    want = dict(cli.ARCH_PRESETS[arch]["model_kwargs"], model_channels=64, channel_mult=(1,),
+                dropout=0.13)
+    assert cfg["model_kwargs"] == json.loads(json.dumps(want))  # tuples are lists in JSON
+
+
+def test_ddpmpp_vp_run_on_a_png_folder(png_folder, tmp_path):
+    """--arch ddpmpp --precond vp trains: one tick, a VPPrecond snapshot with
+    a SongUNet inside, a finite VP loss."""
+    outdir = str(tmp_path / "runs")
+    cli.main(["--outdir", outdir, "--data", png_folder, "--device", "cpu", "--arch", "ddpmpp",
+              "--precond", "vp", "--cbase", "16", "--cres", "1", "--augment", "0", "--cond", "1",
+              "--batch", "16", "--batch-gpu", "8", "--duration", "0.001", "--tick", "1",
+              "--snap", "1", "--seed", "0", "--max-ticks", "1"])
+    run_dir = os.path.join(outdir, "00000-tiny-8x8-cond-ddpmpp-vp")
+    stats = [json.loads(line) for line in open(os.path.join(run_dir, "stats.jsonl"))]
+    assert np.isfinite(stats[0]["Loss/loss"]["mean"])
+    ema, config = checkpoints.load_snapshot(os.path.join(run_dir, "network-snapshot-final.pt"))
+    assert config["precond"] == "vp" and config["model_type"] == "SongUNet"
+    assert "model.enc.8x8_conv.weight" in ema and "model.dec.8x8_aux_conv.weight" in ema
