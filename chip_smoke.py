@@ -113,7 +113,29 @@ Phases, each of which raises on failure (nothing is caught):
      ImageNet-64, the ImageNet classifier's reward with random weights,
      eps-greedy N=4 K=2, bf16), its PNG written to a temporary directory,
      its 1584 attention launches held against the search's structure;
- 9. one JSON line of kernel numbers (each kernel's launches by method of
+ 9. the ablation sampler (samplers/edm.py::AblationSampler), the EDM
+     paper's three original samplers on the nets the port serves, at full
+     width with random weights from numpy seed 0: VP (euler, vp/vp/vp) on
+     the CIFAR-10 DDPM++ under VPPrecond, VE (euler, ve/ve/none) on the
+     NCSN++ preset at 32x32 under VEPrecond, iDDPM (euler, iddpm/linear/none)
+     on the ImageNet-64 ADM under iDDPMPrecond, each clamped to its net's
+     sigma range: 2 steps in fp32 at batch 2 on the card against the same
+     run on the CPU (1e-3 of the largest output), then 18 steps in bf16 at
+     batch 8 timed (wall s, NFE/s, peak GiB), its attention launches held
+     against the architecture (6 / 6 / 22 sites x 18 forwards, all on
+     "mma"); then eps-greedy (2 samples, N=4, K=2, 6 steps) through
+     EDMSearchBackend with the iDDPM sampler (22 x 12 launches);
+10. the bench twins, each through its main(argv) on the card, each run's
+     launches of every kernel held against the searches it makes: ``bench``
+     at its defaults (its JSON line printed by it; the FLOPs per image held
+     to the CPU test's 219,315,105,792, vs_baseline > 0), ``bench --sd`` at
+     the short SD configuration (6 steps, N=4, K=2, 2 calls), ``entry()``'s
+     forward at batch 4, ``tools.reward_bench`` on the ImageNet-64 ADM (bf16,
+     6 steps, N=2, K=2, B=2, S=2, seeds 0 and 1, all six methods; each
+     row's NFE is nfe_per_sample's) and ``tools.sd_reward_bench``
+     (brightness, 6 steps, seed 0: naive, rejection, eps-greedy), each
+     table printed as a JSON line;
+11. one JSON line of kernel numbers (each kernel's launches by method of
      4b / 6b under "method_launches"), then the result line.
 
 The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
@@ -144,9 +166,9 @@ The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
      every size, and the dct mode's bits on the card against the CPU (1e-4
      relative).
 
-With --kernels-json, the per-shape rows and the 4b / 4c / 6b / 6c search
-lines also go to that file. The script imports nothing of JAX; it needs the
-repository beside it.
+With --kernels-json, the per-shape rows, the 4b / 4c / 6b / 6c / 9 search
+lines and phase 10's lines also go to that file. The script imports nothing
+of JAX; it needs the repository beside it.
 """
 from __future__ import annotations
 
@@ -176,7 +198,7 @@ from diffusion_tts_torch.backends.edm_entry import (
     load_network,
 )
 from diffusion_tts_torch.models.clip import CLIP_VIT_L14, SD15_TEXT, CLIPModel, CLIPTextModel
-from diffusion_tts_torch.models.preconds import EDMPrecond, VEPrecond, VPPrecond
+from diffusion_tts_torch.models.preconds import EDMPrecond, VEPrecond, VPPrecond, iDDPMPrecond
 from diffusion_tts_torch.models.torch_import import load_into, random_state_dict
 from diffusion_tts_torch.models import sd_layers, sd_vae
 from diffusion_tts_torch.models.sd_unet import UNet2DConditionModel
@@ -199,8 +221,14 @@ from diffusion_tts_torch.scorers import (
     compressibility,
     native,
 )
+from diffusion_tts_torch.samplers.edm import AblationSampler
 from diffusion_tts_torch.scorers.clip import preprocess_images
-from diffusion_tts_torch.search import record_step_draws, replay_trajectory
+from diffusion_tts_torch.search import (
+    EDMSearchBackend,
+    record_step_draws,
+    replay_trajectory,
+    run_search,
+)
 from diffusion_tts_torch.search.nfe import nfe_per_sample
 from diffusion_tts_torch.training import checkpoints
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
@@ -241,6 +269,14 @@ DDPMPP_TRAIN = dict(img_resolution=32, img_channels=3, label_dim=10, model_type=
                     model_kwargs=train_cli.ARCH_PRESETS["ddpmpp"]["model_kwargs"])
 CIFAR_TRAIN_BATCH = 64
 
+# Kernel calls per SD-1.5 UNet forward and per VAE decode of 64x64 latents,
+# from the architecture and the routing predicates (phase 6 derives them
+# from the modules again and holds them equal): the UNet never exceeds
+# 64x64, so none of its convs is routed and each GroupNorm module is one call.
+SD_PER_UNET = {"attention": 16, "attention_bwd": 0, "group_norm_silu": 61, "geglu_ff": 16,
+               "group_norm_stats": 0, "conv3x3_same": 0, "conv3x3_up2": 0}
+SD_PER_DECODE = {"attention": 1, "attention_bwd": 0, "group_norm_silu": 12, "geglu_ff": 0,
+                 "group_norm_stats": 18, "conv3x3_same": 18, "conv3x3_up2": 3}
 
 ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_LAUNCHES,
                   "geglu_ff": gg.ROUTE_LAUNCHES, "conv3x3_same": cv.SAME_ROUTE_LAUNCHES,
@@ -273,6 +309,14 @@ def check_routes(path: str, got: dict, want: dict, routes: dict | None = None) -
             raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
                                  f"expected all {n} launches on {route}")
     print(f"  routes on the {path} path: " + ", ".join(f"{k} {got[k]}" for k in want))
+
+
+def launches_per_call() -> dict:
+    """Launches of one call of each kernel on its fast route."""
+    return {"attention": 1, "attention_bwd": qk.BWD_LAUNCHES_PER_CALL,
+            "group_norm_silu": gn.LAUNCHES_PER_CALL[FAST_ROUTE["group_norm_silu"]],
+            "geglu_ff": gg.LAUNCHES_PER_CALL, "group_norm_stats": gn.STATS_LAUNCHES_PER_CALL,
+            "conv3x3_same": 1, "conv3x3_up2": 1}
 
 
 def read_launches() -> dict:
@@ -1345,16 +1389,11 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
                 "geglu_ff": count(pipe16.unet, sd_layers.FeedForward), **zero}
     per_decode = {"attention": count(pipe16.vae, sd_vae.VAEAttention), "attention_bwd": 0,
                   "geglu_ff": 0, **decode_routing(pipe16.vae, SD15_UNET["sample_size"])}
-    if per_unet != {"attention": 16, "group_norm_silu": 61, "geglu_ff": 16, **zero} or \
-            per_decode != {"attention": 1, "attention_bwd": 0, "geglu_ff": 0, "group_norm_silu": 12,
-                           "group_norm_stats": 18, "conv3x3_same": 18, "conv3x3_up2": 3}:
+    if per_unet != SD_PER_UNET or per_decode != SD_PER_DECODE:
         raise AssertionError(f"unexpected SD-1.5 architecture or routing: {per_unet} {per_decode}")
     if count(pipe16.vae, sd_layers.GroupNorm) != 30:
         raise AssertionError("the VAE decoder should hold 30 GroupNorm modules")
-    per_call = {"attention": 1, "attention_bwd": qk.BWD_LAUNCHES_PER_CALL,
-                "group_norm_silu": gn.LAUNCHES_PER_CALL[FAST_ROUTE["group_norm_silu"]],
-                "geglu_ff": gg.LAUNCHES_PER_CALL, "group_norm_stats": gn.STATS_LAUNCHES_PER_CALL,
-                "conv3x3_same": 1, "conv3x3_up2": 1}
+    per_call = launches_per_call()
     forwards, decodes = SD_STEPS * (1 + SD_K), SD_STEPS * SD_K + 1
 
     params = SearchParams(N=SD_N, K=SD_K)
@@ -1477,21 +1516,23 @@ def method_calls(method: str, backend: str, steps: int, p: SearchParams,
                  samples: int) -> tuple[collections.Counter, collections.Counter]:
     """(model calls, VAE decodes) of one search, each {batch: calls}, from
     the method's structure (search/naive.py, beam.py, mcts.py with one
-    phase, zero_order.py's eps-greedy). EDM: the denoiser, twice a Heun
-    step, no decode. SD: the UNet, each batch CFG-doubled; rejection and
-    beam decode their candidates at the end, eps-greedy each lookahead, and
-    run_search the result."""
+    phase, zero_order.py, whose eps-greedy and zero-order make the same
+    calls). EDM: the denoiser, twice a Heun step, no decode. SD: the UNet,
+    each batch CFG-doubled; rejection and beam decode their candidates at
+    the end, eps-greedy each lookahead, and run_search the result."""
     n, m, s, k, c = p.N, p.B, p.S, p.K, collections.Counter
+    method = "eps_greedy" if method == "zero_order" else method
     if backend == "edm":
-        calls = {"rejection": c({n * samples: 2 * steps}), "beam": c({n * m * samples: 2 * steps}),
+        calls = {"naive": c({samples: 2 * steps}), "rejection": c({n * samples: 2 * steps}),
+                 "beam": c({n * m * samples: 2 * steps}),
                  "mcts": c({n * samples: 2 * (s + 1) * steps}) + c({s * samples: 2 * steps * steps}),
                  "eps_greedy": c({n * samples: 2 * steps * k})}
         return calls[method], c()
-    unet = {"rejection": c({2 * n * samples: steps}),
+    unet = {"naive": c({2 * samples: steps}), "rejection": c({2 * n * samples: steps}),
             "beam": c({2 * m * samples: steps}) + c({2 * n * m * samples: steps}),
             "mcts": c({2 * n * samples: (s + 1) * steps}) + c({2 * s * samples: steps * steps}),
             "eps_greedy": c({2 * samples: steps}) + c({2 * n * samples: steps * k})}
-    decode = {"rejection": c({n * samples: 1}) + c({samples: 1}),
+    decode = {"naive": c({samples: 1}), "rejection": c({n * samples: 1}) + c({samples: 1}),
               "beam": c({n * m * samples: steps}) + c({m * samples: 1}) + c({samples: 1}),
               "mcts": c({s * samples: steps}) + c({samples: 1}),
               "eps_greedy": c({n * samples: steps * k}) + c({samples: 1})}
@@ -1923,6 +1964,240 @@ def cli_phase(tag: str) -> None:
                              f"launches, expected (64, 64) and {want}")
 
 
+# ------------------------------------------------------- the ablation sampler
+
+
+def ablation_nets() -> tuple:
+    """Phase 9's rows: (name, make(dtype, device), config, attention sites,
+    head width, sampler options), the EDM paper's three original samplers
+    (edm/generate.py:270-283) on the nets the port serves."""
+    return (
+        ("VP", seeded_net(edm_entry.CIFAR10_DDPMPP, VPPrecond), edm_entry.CIFAR10_DDPMPP,
+         CIFAR_SITES, CIFAR_D, dict(solver="euler", discretization="vp", schedule="vp",
+                                    scaling="vp")),
+        ("VE", seeded_net(NCSNPP_CIFAR, VEPrecond), NCSNPP_CIFAR, CIFAR_SITES, CIFAR_D,
+         dict(solver="euler", discretization="ve", schedule="ve", scaling="none")),
+        ("iDDPM", seeded_net(IMAGENET64_ADM, iDDPMPrecond), IMAGENET64_ADM, SITES, 64,
+         dict(solver="euler", discretization="iddpm", schedule="linear", scaling="none")),
+    )
+
+
+def ablation_sampler(net, opts: dict, steps: int, labels: torch.Tensor) -> AblationSampler:
+    """``opts`` at ``steps`` over ``net`` (labels repeated to the batch), the
+    schedule clamped to the net's sigma range as the reference's sampler
+    clamps it."""
+    b = labels.shape[0]
+    return AblationSampler(
+        denoise=lambda x, sigma: net(x, sigma, labels.repeat(x.shape[0] // b, 1)),
+        num_steps=steps, net_sigma_min=float(net.sigma_min), net_sigma_max=float(net.sigma_max),
+        **opts)
+
+
+@torch.no_grad()
+def ablation_phase(tag: str) -> list[dict]:
+    """Phase 9: each sampler 2 steps in fp32 at batch 2 on the card against
+    the CPU, then 18 steps in bf16 at batch 8 timed with its launches; then
+    eps-greedy through EDMSearchBackend with the iDDPM sampler."""
+    lines = []
+    for name, make, cfg, sites_of, d, opts in ablation_nets():
+        res, label_dim = cfg["img_resolution"], cfg["label_dim"]
+        sites = sum(n for _, _, n in sites_of)
+        g = torch.Generator().manual_seed(9)
+        z, eps = torch.randn((2, res, res, 3), generator=g), torch.randn((2, 2, res, res, 3),
+                                                                         generator=g)
+        labels = torch.eye(label_dim)[[3, 7]]
+        outs = []
+        for device in ("cpu", "cuda"):
+            net = make(torch.float32, device)
+            sampler = ablation_sampler(net, opts, 2, labels.to(device))
+            outs.append(sampler.sample(z.to(device), eps.to(device)).cpu())
+            del net
+        torch.cuda.empty_cache()
+        err = rel_err(outs[1], outs[0])[1]
+        print(f"ablation {name} ({opts['solver']}, {opts['discretization']}, "
+              f"{opts['schedule']}, {opts['scaling']}): 2 steps fp32 batch 2, card vs CPU "
+              f"max_rel={err:.3e} (tol 1e-3) [{tag}]")
+        if not (err <= 1e-3 and torch.isfinite(outs[1]).all()):
+            raise AssertionError(f"the {name} ablation sampler disagrees with the CPU: {err}")
+
+        net = make(torch.bfloat16, "cuda")
+        b = N * SAMPLES
+        g = torch.Generator(device="cuda").manual_seed(10)
+        z = torch.randn((b, res, res, 3), device="cuda", generator=g)
+        eps = torch.randn((STEPS, b, res, res, 3), device="cuda", generator=g)
+        sampler = ablation_sampler(net, opts, STEPS, torch.eye(label_dim, device="cuda")[
+            torch.arange(b, device="cuda") % label_dim])
+        reset_launches()
+        x, wall = timed_run(lambda: sampler.sample(z, eps))
+        launches, routes = read_launches(), read_routes()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, again = timed_run(lambda: sampler.sample(z, eps))  # steady state, not counted
+        want = sites * STEPS  # euler: one forward a step
+        nfe = STEPS * b
+        print(f"ablation {name} on {cfg['model_type']} {res}x{res} ({type(net).__name__}), "
+              f"{STEPS} steps batch {b} bf16: {wall:.3f} s first / {again:.3f} s again, {nfe} "
+              f"NFE, {nfe / wall:.2f} / {nfe / again:.2f} NFE/s, peak memory {peak:.2f} GiB, "
+              f"launches {{'qkv_attention': {launches['attention']}}} at d = {d} [{tag}]")
+        for kernel, n in launches.items():
+            if n != (want if kernel == "attention" else 0):
+                raise AssertionError(f"{kernel} launched {n} times by the {name} sampler, "
+                                     f"expected {want if kernel == 'attention' else 0}")
+        check_routes(f"ablation {name}", routes, {"attention": want})
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"the {name} sampler's output is not finite")
+        lines.append(dict(path=f"ablation {name}", method="sample", steps=STEPS, samples=b,
+                          wall_s=wall, again_s=again, nfe=nfe, nfe_per_s=nfe / wall,
+                          peak_gib=peak,
+                          launches={"qkv_attention": launches["attention"]}, d=d))
+        del sampler
+
+    # eps-greedy through the search backend with the iDDPM sampler (the
+    # last row's net, still held): euler, so one forward per candidate expansion
+    steps, params = 6, SearchParams(N=N, K=K)
+    labels = torch.eye(1000, device="cuda")[[3, 977]]
+    backend = EDMSearchBackend(sampler=ablation_sampler(net, opts, steps, labels),
+                               scorer=BrightnessScorer())
+    z = torch.randn((SAMPLES, 64, 64, 3), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(12))
+    reset_launches()
+    result, wall = timed_run(lambda: run_search("eps_greedy", backend, z, 0, params))
+    launches, routes = read_launches(), read_routes()
+    want = sum(n for _, _, n in SITES) * steps * K
+    nfe = steps * K * N * SAMPLES
+    lines.append(search_line("ablation iDDPM", "eps_greedy", params, steps, SAMPLES, wall, nfe,
+                             {"qkv_attention": launches["attention"]}, result.score, tag))
+    _, lines[-1]["again_s"] = timed_run(lambda: run_search("eps_greedy", backend, z, 0, params))
+    print(f"  the same request again: {lines[-1]['again_s']:.3f} s")
+    for kernel, n in launches.items():
+        if n != (want if kernel == "attention" else 0):
+            raise AssertionError(f"{kernel} launched {n} times by eps-greedy through the iDDPM "
+                                 f"sampler, expected {want if kernel == 'attention' else 0}")
+    check_routes("ablation iDDPM eps_greedy", routes, {"attention": want})
+    if not (torch.isfinite(result.score).all() and result.images.shape == (SAMPLES, 64, 64, 3)
+            and 0 <= result.images.min() <= result.images.max() <= 1):
+        raise AssertionError("eps-greedy through the iDDPM sampler: not finite images in [0, 1]")
+    del net, backend
+    torch.cuda.empty_cache()
+    return lines
+
+
+# ------------------------------------------------------- the bench twins
+
+
+def expected_launches(edm_runs=(), sd_runs=(), edm_forwards: int = 0) -> dict:
+    """Each kernel's launches over searches of the port: ``edm_runs`` and
+    ``sd_runs`` as (method, params, steps, samples, runs) on the ImageNet-64
+    ADM and on SD-1.5, plus ``edm_forwards`` other ADM forwards."""
+    per_call = launches_per_call()
+    want = dict.fromkeys(per_call, 0)
+    sites = sum(n for _, _, n in SITES)
+    want["attention"] += sites * edm_forwards
+    for method, p, steps, samples, runs in edm_runs:
+        calls, _ = method_calls(method, "edm", steps, p, samples)
+        want["attention"] += sites * sum(calls.values()) * runs
+    for method, p, steps, samples, runs in sd_runs:
+        unet, decodes = method_calls(method, "sd", steps, p, samples)
+        for k in want:
+            want[k] += (SD_PER_UNET[k] * sum(unet.values()) + SD_PER_DECODE[k]
+                        * sum(decodes.values())) * per_call[k] * runs
+    return want
+
+
+def check_launches(path: str, got: dict, routes: dict, want: dict) -> None:
+    for kernel, n in got.items():
+        if n != want[kernel]:
+            raise AssertionError(f"{kernel} launched {n} times by {path}, expected {want[kernel]}")
+    check_routes(path, routes, {k: n for k, n in want.items() if n and k in FAST_ROUTE})
+
+
+def bench_phase(tag: str) -> list[dict]:
+    """Phase 10: the bench twins through their main(argv), on the card."""
+    from diffusion_tts_torch import bench
+    from diffusion_tts_torch.entry import BATCH, entry
+    from diffusion_tts_torch.tools import reward_bench, sd_reward_bench
+    from diffusion_tts_torch.utils.roofline import peak_flops
+
+    lines = []
+    # bench at its defaults: the flagship unit (1 warm-up + 4 repetitions of
+    # 20 iterations, each a Heun pair at batch 16) and SD at the paper's
+    # defaults, 2 calls
+    reset_launches()
+    t0 = time.perf_counter()
+    out = bench.main([])
+    wall = time.perf_counter() - t0
+    sd_default = SearchParams(N=4, K=20)
+    check_launches("bench", read_launches(), read_routes(), expected_launches(
+        edm_forwards=5 * 20 * 2, sd_runs=[("eps_greedy", sd_default, 18, 1, 2)]))
+    print(f"bench: {out['value']:.2f} NFE/s, vs_baseline {out['vs_baseline']:.5f} of "
+          f"{peak_flops('cuda') / 1e12:.0f} TFLOP/s on {out['flops_per_image']} canonical FLOP "
+          f"per image; SD "
+          f"{out['sd']['value']:.2f} NFE/s (raw UNet forwards), sol {out['sd']['sol']:.5f}, "
+          f"decode share {out['sd']['decode_flop_share']:.4f}; {wall:.1f} s with the loads [{tag}]")
+    if out["flops_per_image"] != 219_315_105_792:
+        raise AssertionError(f"the bench counted {out['flops_per_image']} FLOP per image, the "
+                             "CPU test holds 219,315,105,792")
+    if not (out["value"] > 0 and out["vs_baseline"] > 0 and out["sd"]["sol"] > 0):
+        raise AssertionError(f"the bench line is not positive: {out}")
+    lines.append(dict(path="bench", **out))
+
+    # bench --sd at the short SD configuration (6 steps, N=4, K=2, 2 calls)
+    reset_launches()
+    sd = bench.main(["--sd", "--steps", str(SD_STEPS), "--N", str(SD_N), "--K", str(SD_K),
+                     "--repeat", "2"])
+    check_launches("bench --sd", read_launches(), read_routes(), expected_launches(
+        sd_runs=[("eps_greedy", SearchParams(N=SD_N, K=SD_K), SD_STEPS, 1, 2)]))
+    if not (sd["value"] > 0 and sd["sol"] > 0 and 0 < sd["decode_flop_share"] < 1):
+        raise AssertionError(f"bench --sd: {sd}")
+    lines.append(dict(path="bench --sd", **sd))
+
+    # entry(): one forward at batch 4, zero weights
+    reset_launches()
+    fn, args = entry()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    check_launches("entry()", read_launches(), read_routes(), expected_launches(edm_forwards=1))
+    print(f"entry(): forward {tuple(y.shape)} {y.dtype}, finite {bool(torch.isfinite(y).all())} "
+          f"[{tag}]")
+    if tuple(y.shape) != (BATCH, 64, 64, 3) or y.dtype != torch.float32 or \
+            not torch.isfinite(y).all():
+        raise AssertionError(f"entry()'s forward gave {tuple(y.shape)} {y.dtype}")
+    del fn, args, y
+    torch.cuda.empty_cache()
+
+    # reward_bench on the flagship, all six methods
+    rb_params = SearchParams(N=2, K=2, B=2, S=2)
+    reset_launches()
+    rows = reward_bench.main(["--arch", "imagenet64", "--dtype", "bf16", "--steps", "6",
+                              "--N", "2", "--K", "2", "--B", "2", "--S", "2", "--seeds", "0,1"])
+    methods = [r["method"] for r in rows]
+    check_launches("reward_bench", read_launches(), read_routes(), expected_launches(
+        edm_runs=[(m, rb_params, 6, 2, 1) for m in methods]))
+    for row in rows:
+        if row["nfe_per_sample"] != nfe_per_sample(row["method"], 6, rb_params) or \
+                not np.isfinite(row["reward"]):
+            raise AssertionError(f"reward_bench row {row}")
+    if len(rows) != 6:
+        raise AssertionError(f"reward_bench ran {methods}")
+    print(json.dumps({"reward_bench": rows}))
+    lines.append(dict(path="reward_bench", rows=rows))
+
+    # sd_reward_bench: brightness, three methods of the matched-budget table
+    sd_methods = ("naive", "rejection", "eps_greedy")
+    reset_launches()
+    sdr = sd_reward_bench.main(["--steps", str(SD_STEPS), "--seeds", "0", "--methods",
+                                ",".join(sd_methods)])
+    check_launches("sd_reward_bench", read_launches(), read_routes(), expected_launches(
+        sd_runs=[(m, sd_reward_bench.METHOD_PARAMS[m], SD_STEPS, 1, 1) for m in sd_methods]))
+    for row in sdr["rows"]:
+        want = nfe_per_sample(row["method"], SD_STEPS, sd_reward_bench.METHOD_PARAMS[row["method"]],
+                              backend="sd")
+        if row["nfe_per_sample"] != want or not np.isfinite(row["reward"]):
+            raise AssertionError(f"sd_reward_bench row {row}")
+    print(json.dumps({"sd_reward_bench": sdr}))
+    lines.append(dict(path="sd_reward_bench", **sdr))
+    return lines
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-json", default=None,
@@ -1957,25 +2232,38 @@ def main() -> None:
             for entry, lines in ptxas_lines(built[name][1], "Li256E").items():
                 print(f"ptxas, {name} D = 256, {entry}: " + "; ".join(lines))
 
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, phase, *args):
+        start = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - start
+        print(f"[{name}: {phase_s[name]:.1f} s]", flush=True)
+        return out
+
     # -- 3, 4, 4b, 4c. EDM; 4d. CIFAR-10; 5. training; 5b. DDPM++ training;
     #    6, 6b, 6c, 7. SD; 8. the CLI
-    edm_searches, edm_line = edm_phases(tag)
-    cifar_searches, edm_line["d256"] = cifar_phase(tag)
-    training_line = training_phases(tag, edm_line)
-    training_line["d256"] = cifar_training_phase(tag)
-    sd_searches, sd_lines = sd_phases(tag)
-    cli_phase(tag)
+    edm_searches, edm_line = timed("3-4c EDM", edm_phases, tag)
+    cifar_searches, edm_line["d256"] = timed("4d CIFAR-10", cifar_phase, tag)
+    training_line = timed("5 training", training_phases, tag, edm_line)
+    training_line["d256"] = timed("5b DDPM++ training", cifar_training_phase, tag)
+    sd_searches, sd_lines = timed("6-7 SD", sd_phases, tag)
+    timed("8 CLI", cli_phase, tag)
+    # -- 9. the ablation sampler; 10. the bench twins
+    edm_searches += timed("9 ablation", ablation_phase, tag)
+    bench_lines = timed("10 benches", bench_phase, tag)
+    print(json.dumps({"phase_s": phase_s}))
     kernels = [edm_line, training_line] + sd_lines
     edm_searches += cifar_searches
     for line in (edm_line, training_line):
         line["max_abs_err"] = max(line["max_abs_err"], line["d256"]["max_abs_err"])
 
-    # -- 9. the kernel line, then the result line
+    # -- 11. the kernel line, then the result line
     if args.kernels_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:
-            json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches},
-                      f, indent=1)
+            json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches,
+                       "bench": bench_lines}, f, indent=1)
     without_shapes = lambda d: {k: without_shapes(v) if isinstance(v, dict) else v
                                 for k, v in d.items() if k != "shapes"}
     print(json.dumps({"kernels": [without_shapes(kern) for kern in kernels]}))

@@ -1,12 +1,22 @@
-"""DDIM tables of Stable Diffusion's scheduler (counterpart of
-diffusion_tts_tpu/ops/schedules.py::ddim_schedule and DDIMSchedule).
+"""Noise schedules of the EDM and SD samplers (counterpart of
+diffusion_tts_tpu/ops/schedules.py).
 
-Host numpy in float64, as the JAX package computes them: the scaled-linear
-beta schedule, the alpha-bar table and the 'leading'-spaced timestep
-subsequence (reference sd/diffusers/.../schedulers/scheduling_ddim.py:
-180-240, 305-341), and the iDDPM u-table that iDDPMPrecond rounds sigma to.
-The Karras, VP, VE and iDDPM step schedules of the EDM samplers come with a
-later slice of the port.
+Host numpy in float64, as the JAX package computes them:
+
+  * the Karras rho schedule of the EDM sampler and the VP, VE and iDDPM
+    discretizations of the ablation sampler (reference edm/main.py:78-80,
+    edm/generate.py:85-115), each returned as a numpy array in ``dtype``,
+    float32 by default, as the JAX functions return jnp.float32 by default;
+  * SD's DDIM tables: the scaled-linear betas, the alpha-bar table and the
+    'leading'-spaced timestep subsequence (reference sd/diffusers/.../
+    schedulers/scheduling_ddim.py:180-240, 305-341);
+  * the iDDPM u-table that iDDPMPrecond rounds sigma to.
+
+The float32 default is part of the result, not a convenience:
+``samplers/edm.py::AblationSampler`` takes each discretization through it
+and only then goes back to float64 for its table math, as the JAX
+package's sampler does with x64 off (its VP branch included), so that the
+port's tables equal the JAX package's rather than merely coming close.
 """
 from __future__ import annotations
 
@@ -14,6 +24,69 @@ import dataclasses
 import math
 
 import numpy as np
+
+
+def _finish(sigmas: np.ndarray, dtype, append_zero: bool) -> np.ndarray:
+    if append_zero:
+        sigmas = np.concatenate([sigmas, [0.0]])
+    return np.asarray(sigmas, dtype=dtype)
+
+
+def karras_sigmas(num_steps: int, sigma_min: float = 0.002, sigma_max: float = 80.0,
+                  rho: float = 7.0, *, dtype=np.float32, append_zero: bool = True) -> np.ndarray:
+    """Karras rho-spaced sigmas, optionally with a terminal 0:
+    sigma_i = (smax^(1/rho) + i/(N-1) (smin^(1/rho) - smax^(1/rho)))^rho
+    (reference edm/main.py:78-80)."""
+    steps = np.arange(num_steps, dtype=np.float64)
+    inv_rho = 1.0 / rho
+    sigmas = (sigma_max ** inv_rho + steps / max(num_steps - 1, 1)
+              * (sigma_min ** inv_rho - sigma_max ** inv_rho)) ** rho
+    return _finish(sigmas, dtype, append_zero)
+
+
+def vp_sigmas(num_steps: int, beta_d: float = 19.9, beta_min: float = 0.1,
+              epsilon_s: float = 1e-3, *, dtype=np.float32,
+              append_zero: bool = True) -> np.ndarray:
+    """VP discretization (reference edm/generate.py:97-101):
+    sigma(t) = sqrt(exp(beta_d/2 t^2 + beta_min t) - 1), t linear from 1 to
+    epsilon_s."""
+    steps = np.arange(num_steps, dtype=np.float64)
+    t = 1.0 + steps / max(num_steps - 1, 1) * (epsilon_s - 1.0)
+    sigmas = np.sqrt(np.exp(beta_d / 2.0 * t ** 2 + beta_min * t) - 1.0)
+    return _finish(sigmas, dtype, append_zero)
+
+
+def vp_betas_for_range(sigma_min: float, sigma_max: float,
+                       epsilon_s: float = 1e-3) -> tuple[float, float]:
+    """(beta_d, beta_min) whose VP sigma(t) is sigma_min at t = epsilon_s and
+    sigma_max at t = 1 (reference edm/generate.py:100-102)."""
+    beta_d = (2.0 * (math.log(sigma_min ** 2 + 1.0) / epsilon_s - math.log(sigma_max ** 2 + 1.0))
+              / (epsilon_s - 1.0))
+    beta_min = math.log(sigma_max ** 2 + 1.0) - 0.5 * beta_d
+    return beta_d, beta_min
+
+
+def vp_ablation_sigmas(num_steps: int, sigma_min: float | None = None,
+                       sigma_max: float | None = None, epsilon_s: float = 1e-3, *,
+                       dtype=np.float32, append_zero: bool = True) -> np.ndarray:
+    """VP discretization as the ablation sampler builds it: the default
+    range from the canonical beta_d = 19.9, beta_min = 0.1 schedule, the
+    betas solved again for the range (reference edm/generate.py:88-104)."""
+    canon = lambda t: math.sqrt(math.exp(0.5 * 19.9 * t ** 2 + 0.1 * t) - 1.0)
+    sigma_min = canon(epsilon_s) if sigma_min is None else sigma_min
+    sigma_max = canon(1.0) if sigma_max is None else sigma_max
+    beta_d, beta_min = vp_betas_for_range(sigma_min, sigma_max, epsilon_s)
+    return vp_sigmas(num_steps, beta_d=beta_d, beta_min=beta_min, epsilon_s=epsilon_s,
+                     dtype=dtype, append_zero=append_zero)
+
+
+def ve_sigmas(num_steps: int, sigma_min: float = 0.02, sigma_max: float = 100.0, *,
+              dtype=np.float32, append_zero: bool = True) -> np.ndarray:
+    """VE geometric sigmas (reference edm/generate.py:102-104)."""
+    steps = np.arange(num_steps, dtype=np.float64)
+    sigmas = np.sqrt(sigma_max ** 2 * (sigma_min ** 2 / sigma_max ** 2)
+                     ** (steps / max(num_steps - 1, 1)))
+    return _finish(sigmas, dtype, append_zero)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,4 +145,18 @@ def iddpm_sigma_table(M: int = 1000, C_1: float = 0.001, C_2: float = 0.008) -> 
     return u
 
 
-__all__ = ["DDIMSchedule", "ddim_schedule", "iddpm_sigma_table"]
+def iddpm_sigmas(num_steps: int, sigma_min: float = 0.002, sigma_max: float = 81.0,
+                 M: int = 1000, C_1: float = 0.001, C_2: float = 0.008, *,
+                 dtype=np.float32, append_zero: bool = True) -> np.ndarray:
+    """iDDPM discretization: evenly strided entries of the u-table within
+    [sigma_min, sigma_max] (reference edm/generate.py:106-112). The table
+    descends with its index, so the strided entries do too."""
+    u = iddpm_sigma_table(M=M, C_1=C_1, C_2=C_2)
+    u_filtered = u[np.logical_and(u >= sigma_min, u <= sigma_max)]
+    idx = (np.arange(num_steps, dtype=np.float64) * (len(u_filtered) - 1)
+           / max(num_steps - 1, 1)).round().astype(np.int64)
+    return _finish(u_filtered[idx], dtype, append_zero)
+
+
+__all__ = ["karras_sigmas", "vp_sigmas", "vp_ablation_sigmas", "vp_betas_for_range",
+           "ve_sigmas", "iddpm_sigmas", "iddpm_sigma_table", "DDIMSchedule", "ddim_schedule"]
