@@ -74,6 +74,14 @@ Phases, each of which raises on failure (nothing is caught):
      32x32 dataset, batch 64 as 2 rounds of 32, dropout 0.10, 1 warm and 4
      timed steps: 6 forward and 12 backward attention launches a micro-batch
      (60 / 120), forward on "mma", backward on "fma";
+ 5c. augmented DDPM++ / VP training at the training CLI's defaults
+     (--augment 0.12): the EDM augment pipe on the card against the CPU at
+     [32, 32, 32, 3] and [16, 64, 64, 3] under injected draws, fp32 with TF32
+     off (images within 1e-5 of their largest magnitude, labels equal), its
+     ms per call with the card's own draws, the CLI's dry run (augment_dim 9),
+     then training_loop as in 5b with the pipe and a map_augment of 9 inputs:
+     step ms and img/s beside 5b's from the same call, the pipe's share of a
+     step, the same 60 / 120 attention launches on "mma" / "fma";
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
@@ -86,6 +94,15 @@ Phases, each of which raises on failure (nothing is caught):
      and GEGLU all on "mma", conv3x3_same and conv3x3_up2 all on "ring",
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
      call's shape recorded;
+ 6d. the SD-1.5 VAE encoder on phase 6's VAE (random weights from numpy
+     seed 1): encode in fp32 and in bf16 on the card against fp32 on the CPU
+     at [1, 3, 256, 256] (1e-3 / 5e-2 of the largest magnitude of mean and
+     logvar), one 512x512 bf16 encode's launches held against the
+     encoder's architecture and the routing predicates (#2 once, GroupNorm
+     10, statistics and conv3x3_same 12, each on its fast route), encode
+     timed at 512x512, batches 1 and 4, beside its canonical FLOPs and
+     TFLOP/s, and one encode -> sample -> decode round trip (finite, the
+     input's shape); it runs after 6c and 7;
  6b. the other SD searches through the pipeline's __call__ (6 steps, one
      prompt): rejection (N=4), beam (B=2, N=4) and MCTS (N=2, S=2); per run
      as in 4b, the launches held against the UNet calls and VAE decodes the
@@ -134,7 +151,10 @@ Phases, each of which raises on failure (nothing is caught):
      6 steps, N=2, K=2, B=2, S=2, seeds 0 and 1, all six methods; each
      row's NFE is nfe_per_sample's) and ``tools.sd_reward_bench``
      (brightness, 6 steps, seed 0: naive, rejection, eps-greedy), each
-     table printed as a JSON line;
+     table printed as a JSON line; ``tools.train_bench`` at ``--arch cifar10
+     --batch 128 --steps 4`` and ``--arch imagenet64 --batch 16 --rounds 2
+     --steps 4`` (its JSON line, peak memory; #1 and #3 launched sites x
+     rounds x 5 steps and twice that, on the routes the predicates give);
 11. one JSON line of kernel numbers (each kernel's launches by method of
      4b / 6b under "method_launches"), then the result line.
 
@@ -174,8 +194,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import importlib.util
+import io
 import json
 import os
 import re
@@ -231,6 +253,7 @@ from diffusion_tts_torch.search import (
 )
 from diffusion_tts_torch.search.nfe import nfe_per_sample
 from diffusion_tts_torch.training import checkpoints
+from diffusion_tts_torch.training.augment import edm_augment_pipe
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
 from diffusion_tts_torch.training.loop import LoopConfig, training_loop
 from diffusion_tts_torch.training.loss import EDMLoss, VPLoss
@@ -583,8 +606,9 @@ def sd_pipeline_like(ref: StableDiffusionSearchPipeline, dtype: torch.dtype):
 
 
 class KernelShapes:
-    """Counts every kernel call of the SD modules by its shape while a search
-    runs. Forward hooks on the modules: attention [B, T, H, D], GroupNorm
+    """Counts every kernel call of the SD modules (``pipe``'s UNet and VAE
+    decoder, or the given ``modules``: the VAE encoder in phase 6d) by its
+    shape while they run. Forward hooks on the modules: attention [B, T, H, D], GroupNorm
     (x shape, groups, eps, silu) or, when the module was asked for its
     folded statistics, group_norm_stats (x shape, groups, eps), GEGLU
     (M, C, F). Recording stand-ins for the two conv functions, which the
@@ -595,10 +619,12 @@ class KernelShapes:
     NAMES = ("attention", "group_norm_silu", "geglu_ff", "group_norm_stats", "conv3x3_same",
              "conv3x3_up2")
 
-    def __init__(self, pipe: StableDiffusionSearchPipeline):
+    def __init__(self, pipe: StableDiffusionSearchPipeline | None = None, *,
+                 modules: tuple[torch.nn.Module, ...] | None = None):
         self.counts = {name: collections.Counter() for name in self.NAMES}
         self.handles = []
-        for m in list(pipe.unet.modules()) + list(pipe.vae.modules()):
+        roots = modules if modules is not None else (pipe.unet, pipe.vae.decoder)
+        for m in (m for root in roots for m in root.modules()):
             if isinstance(m, sd_layers.GroupNorm):
                 hook = self.group_norm
             elif isinstance(m, sd_layers.CrossAttention):
@@ -1007,13 +1033,14 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict], *,
                         cfg: dict = IMAGENET64_ADM, precond=EDMPrecond, precond_name: str = "edm",
                         loss_fn=EDMLoss(), batch: int = TRAIN_BATCH, rounds: int = TRAIN_ROUNDS,
                         sites_of: tuple = SITES, routes_of: dict | None = None,
-                        label: str = "ImageNet-64 ADM") -> dict:
+                        label: str = "ImageNet-64 ADM", augment_fn=None) -> dict:
     """TRAIN_STEPS steps through training_loop, the function the training CLI
     calls, at full width in bf16 compute with fp32 parameters, dropout 0.10
     (default: the ImageNet-64 ADM under EDM; ``sites_of`` its attention
     sites, ``routes_of`` the routes its launches must take where they are not
-    FAST_ROUTE's): every step its own tick, so that stats.jsonl times each
-    (the tick's drain waits for the device)."""
+    FAST_ROUTE's; ``augment_fn`` the augment pipe, whose labels the net's
+    augment_dim must take): every step its own tick, so that stats.jsonl
+    times each (the tick's drain waits for the device)."""
     res, label_dim = cfg["img_resolution"], cfg["label_dim"]
     g = np.random.default_rng(0)
     labels = g.integers(0, label_dim, 256)
@@ -1035,7 +1062,8 @@ def check_training_loop(tag: str, fwd_rows: list[dict], bwd_rows: list[dict], *,
         state = training_loop(
             net=net, net_config=dict(cfg, precond=precond_name),
             data_iter=batch_iterator(data, batch, seed=0), loss_fn=loss_fn,
-            train_cfg=train_cfg, loop_cfg=loop_cfg, device="cuda", max_ticks=TRAIN_STEPS)
+            train_cfg=train_cfg, loop_cfg=loop_cfg, augment_fn=augment_fn, device="cuda",
+            max_ticks=TRAIN_STEPS)
         torch.cuda.synchronize()
         launches, routes = read_launches(), read_routes()
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1308,18 +1336,123 @@ def cifar_training_phase(tag: str) -> dict:
     }
 
 
+def augment_draws(n: int, seed: int) -> dict:
+    """Post-gate values of every option of the EDM pipe for n images, about
+    half of each gated to 0 (the pipe's ``draws=`` names)."""
+    g = np.random.default_rng(seed)
+    gate = lambda *shape: g.uniform(size=shape) < 0.5
+    f = lambda a: np.asarray(a, np.float32)
+    return dict(xflip=f(g.integers(0, 2, n)), yflip=f(g.integers(0, 2, n) * gate(n)),
+                scale=f(g.standard_normal(n) * gate(n)),
+                rotate_frac=f(g.uniform(-np.pi, np.pi, n) * gate(n)),
+                aniso_w=f(g.standard_normal(n) * gate(n)),
+                aniso_r=f(g.uniform(-np.pi, np.pi, n) * gate(n)),
+                translate_frac=f(g.standard_normal((2, n)) * gate(1, n)))
+
+
+def augmented_training_phase(tag: str, ddpmpp: dict) -> dict:
+    """Phase 5c: the DDPM++ / VP training path at the training CLI's
+    defaults (--arch ddpmpp --precond vp --cond 1 --bf16 1, --augment 0.12):
+    the EDM augment pipe on the card against the CPU under injected draws
+    (fp32, TF32 off), its time per call, the CLI's dry run, and
+    training_loop at full width as in 5b with the pipe; ``ddpmpp`` is 5b's
+    summary, whose step times are printed beside. Returns the phase's
+    numbers."""
+    pipe = edm_augment_pipe(0.12)
+    g = torch.Generator().manual_seed(50)
+    call_ms, worst = {}, 0.0
+    for shape in ((32, 32, 32, 3), (16, 64, 64, 3)):
+        x = torch.rand(shape, generator=g) * 2 - 1
+        draws = augment_draws(shape[0], sum(shape))
+        want, want_lab = pipe(x, draws=draws)
+        got, got_lab = pipe(x.cuda(), draws=draws)
+        err = rel_err(got.cpu(), want)[1]
+        worst = max(worst, err)
+        if not (err <= 1e-5 and torch.equal(got_lab.cpu(), want_lab)):
+            raise AssertionError(f"augment pipe {list(shape)} on the card disagrees with the "
+                                 f"CPU: images {err}, labels equal "
+                                 f"{torch.equal(got_lab.cpu(), want_lab)}")
+        xc, gen = x.cuda(), torch.Generator(device="cuda").manual_seed(0)
+        call_ms[shape] = time_ms(lambda: pipe(xc, gen))
+        print(f"  augment pipe {list(shape)}: card vs CPU under injected draws, images max "
+              f"err / max {err:.3e} (limit 1e-5), labels equal; {call_ms[shape]:.3f} ms a call "
+              f"with the card's draws [{tag}]")
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i in range(2):
+            Image.fromarray(np.full((32, 32, 3), 40 * i, np.uint8)).save(
+                os.path.join(data, f"img{i}.png"))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_cli.main(["--outdir", os.path.join(tmp, "runs"), "--data", data, "--arch",
+                            "ddpmpp", "--precond", "vp", "--bf16", "1", "--dry-run"])
+        opts = json.loads(out.getvalue().split("--dry-run")[0])
+    if not (opts["augment"] == 0.12 and opts["net_config"]["model_kwargs"]["augment_dim"] == 9):
+        raise AssertionError(f"the training CLI's defaults did not build the pipe: {opts}")
+
+    cfg = dict(DDPMPP_TRAIN, model_kwargs=dict(DDPMPP_TRAIN["model_kwargs"], augment_dim=9))
+    sites = len(CIFAR_SITES)  # 5b's rows: the bf16 backward ones first, the forward ones last
+    run = check_training_loop(
+        tag, ddpmpp["shapes"][-sites:], ddpmpp["shapes"][:sites], cfg=cfg, precond=VPPrecond,
+        precond_name="vp", loss_fn=VPLoss(),
+        batch=CIFAR_TRAIN_BATCH, sites_of=CIFAR_SITES,
+        routes_of={"attention_bwd": qk.backward_route(torch.bfloat16, CIFAR_D)},
+        label="CIFAR-10 DDPM++ augmented", augment_fn=pipe)
+    timed = sorted(run["step_ms"][1:])
+    median = (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
+    micro = (CIFAR_TRAIN_BATCH // TRAIN_ROUNDS, 32, 32, 3)
+    share = TRAIN_ROUNDS * call_ms[micro] / median
+    print(f"augmented DDPM++ / VP step: median {median:.1f} ms = {run['img_per_s']:.2f} img/s "
+          f"(5b, unaugmented, this call: steps {[round(m, 1) for m in ddpmpp['train_step_ms']]} "
+          f"ms, {ddpmpp['train_img_per_s']:.2f} img/s); the pipe {TRAIN_ROUNDS} x "
+          f"{call_ms[micro]:.3f} ms = {share:.1%} of a step [{tag}]")
+    return {"step_ms": run["step_ms"], "img_per_s": run["img_per_s"], "peak_gib": run["peak_gib"],
+            "pipe_ms": {"x".join(map(str, k)): v for k, v in call_ms.items()},
+            "pipe_share": share, "pipe_max_rel_err": worst,
+            "launches": run["launches"], "forward_launches": run["forward_launches"]}
+
+
+def resnet_routing(n: collections.Counter, block: sd_layers.ResnetBlock2D, hw: int) -> None:
+    """Adds one resnet's kernel calls at hw x hw to ``n``: each conv on the
+    conv kernel with its GroupNorm's statistics, or its GroupNorm alone."""
+    cin, cout = block.conv1.in_channels, block.conv1.out_channels
+    for c in (cin, cout):  # conv1 is cin -> cout, conv2 cout -> cout
+        fused = cv.conv3_shape_eligible(hw, hw, c, cout)
+        n["conv3x3_same"] += fused
+        n["group_norm_stats" if fused else "group_norm_silu"] += 1
+
+
+def encode_routing(vae: sd_vae.AutoencoderKL, hw: int) -> dict:
+    """Kernel calls of one VAE encode of hw x hw images, from the encoder's
+    modules in forward order and the routing predicates."""
+    n = collections.Counter()
+    enc = vae.encoder
+    for conv in (enc.conv_in, enc.conv_out):  # 3 and 8 channels: never routed
+        if cv.conv3_shape_eligible(hw, hw, conv.in_channels, conv.out_channels):
+            raise AssertionError("conv_in / conv_out are not expected on the kernel route")
+    for block in enc.down_blocks:
+        for res in block.resnets:
+            resnet_routing(n, res, hw)
+        if hasattr(block, "downsamplers"):
+            hw //= 2
+    for block in enc.mid_block.resnets:
+        resnet_routing(n, block, hw)
+    n["attention"] += len(enc.mid_block.attentions)
+    n["group_norm_silu"] += sum(isinstance(m, sd_layers.GroupNorm)
+                                for m in enc.mid_block.attentions.modules())
+    n["group_norm_silu"] += 1  # conv_norm_out
+    return dict(n)
+
+
 def decode_routing(vae: sd_vae.AutoencoderKL, hw: int) -> dict:
     """Kernel calls of one VAE decode of hw x hw latents, from the decoder's
     modules in forward order and the routing predicates."""
     n = collections.Counter()
     dec = vae.decoder
-
-    def resnet(block: sd_layers.ResnetBlock2D, hw: int) -> None:
-        cin, cout = block.conv1.in_channels, block.conv1.out_channels
-        for c in (cin, cout):  # conv1 is cin -> cout, conv2 cout -> cout
-            fused = cv.conv3_shape_eligible(hw, hw, c, cout)
-            n["conv3x3_same"] += fused
-            n["group_norm_stats" if fused else "group_norm_silu"] += 1
 
     def up2(conv: sd_layers.Conv3x3, hw: int) -> bool:
         return cv.up2_eligible(torch.empty((1, conv.in_channels, hw, hw), device="meta"),
@@ -1329,12 +1462,12 @@ def decode_routing(vae: sd_vae.AutoencoderKL, hw: int) -> dict:
         if cv.conv3_shape_eligible(8 * hw, 8 * hw, conv.in_channels, conv.out_channels):
             raise AssertionError("conv_in / conv_out are not expected on the kernel route")
     for block in dec.mid_block.resnets:
-        resnet(block, hw)
+        resnet_routing(n, block, hw)
     n["group_norm_silu"] += sum(isinstance(m, sd_layers.GroupNorm)
                                 for m in dec.mid_block.attentions.modules())
     for block in dec.up_blocks:
         for res in block.resnets:
-            resnet(res, hw)
+            resnet_routing(n, res, hw)
         if hasattr(block, "upsamplers"):
             n["conv3x3_up2"] += up2(block.upsamplers[0].conv, hw)
             hw *= 2
@@ -1365,10 +1498,15 @@ def sd_forward_checks(ref, pipe32, pipe16) -> None:
 
 
 
-def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
+SD_CHECKS = {"attention": check_sd_attention, "group_norm_silu": check_group_norm,
+             "geglu_ff": check_geglu, "group_norm_stats": check_group_norm_stats,
+             "conv3x3_same": check_conv_same, "conv3x3_up2": check_conv_up2}
+
+
+def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict]:
     """Phases 6, 6b and 7: the SD main path, the other searches, then the
     SD kernels at the main path's shapes. Returns (the searches' lines,
-    the kernel lines)."""
+    the kernel lines, {kernel: the bf16 shape keys checked})."""
     t0 = time.perf_counter()
     ref = StableDiffusionSearchPipeline.random(SD15_UNET, SD15_VAE, seed=0, dtype=torch.float32,
                                                device="cpu")
@@ -1387,11 +1525,11 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
     per_unet = {"attention": count(pipe16.unet, sd_layers.BasicTransformerBlock),
                 "group_norm_silu": count(pipe16.unet, sd_layers.GroupNorm),
                 "geglu_ff": count(pipe16.unet, sd_layers.FeedForward), **zero}
-    per_decode = {"attention": count(pipe16.vae, sd_vae.VAEAttention), "attention_bwd": 0,
+    per_decode = {"attention": count(pipe16.vae.decoder, sd_vae.VAEAttention), "attention_bwd": 0,
                   "geglu_ff": 0, **decode_routing(pipe16.vae, SD15_UNET["sample_size"])}
     if per_unet != SD_PER_UNET or per_decode != SD_PER_DECODE:
         raise AssertionError(f"unexpected SD-1.5 architecture or routing: {per_unet} {per_decode}")
-    if count(pipe16.vae, sd_layers.GroupNorm) != 30:
+    if count(pipe16.vae.decoder, sd_layers.GroupNorm) != 30:
         raise AssertionError("the VAE decoder should hold 30 GroupNorm modules")
     per_call = launches_per_call()
     forwards, decodes = SD_STEPS * (1 + SD_K), SD_STEPS * SD_K + 1
@@ -1441,9 +1579,6 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
     torch.cuda.empty_cache()
 
     print("SD kernels vs plain, at every shape of the search:")
-    checks = {"attention": check_sd_attention, "group_norm_silu": check_group_norm,
-              "geglu_ff": check_geglu, "group_norm_stats": check_group_norm_stats,
-              "conv3x3_same": check_conv_same, "conv3x3_up2": check_conv_up2}
     fp32_shape = {"attention": (2, 1024, 8, 80),
                   "group_norm_silu": ((2, 640, 32, 32), 32, 1e-5, True),
                   "geglu_ff": (2048, 1280, 5120),
@@ -1458,7 +1593,7 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
                "conv3x3_same": ("conv3x3.cu", pallas + "conv3x3.py:497"),
                "conv3x3_up2": ("conv3x3.cu", pallas + "conv3x3.py:811")}
     lines = []
-    for name, check in checks.items():
+    for name, check in SD_CHECKS.items():
         rows = []
         for key, calls in sorted(shapes.counts[name].items(), key=str):
             row = check(key, torch.bfloat16, tag)
@@ -1488,7 +1623,107 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict]]:
     gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
     if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
         raise AssertionError(f"the SD search did not give GroupNorm its largest shapes: {gn_shapes}")
-    return searches + rewards, lines
+    return searches + rewards, lines, {name: set(c) for name, c in shapes.counts.items()}
+
+
+def sd_encoder_phase(tag: str, checked: dict) -> dict:
+    """Phase 6d: the SD-1.5 VAE encoder on phase 6's VAE (SD15_VAE, random
+    weights from numpy seed 1, as StableDiffusionSearchPipeline.random(seed=0)
+    draws them): encode in fp32 and bf16 on the card against fp32 on the CPU
+    at [1, 3, 256, 256], encode timed at 512x512 (batches 1 and 4, bf16) with
+    its canonical FLOPs, its kernel launches held against the encoder's
+    architecture and the routing predicates (each on its fast route), every
+    kernel call of one 512x512 bf16 encode held against its plain version at
+    its shape (those of ``checked``, phase 6's, are not checked again), and
+    one encode -> sample -> decode round trip. Returns the launches of one
+    512x512 encode, the predicted calls per encode, each kernel's largest
+    error at the encoder's shapes and the timings."""
+    from diffusion_tts_torch.utils.roofline import sd_vae_encode_flops
+
+    ref = sd_vae.AutoencoderKL(**SD15_VAE)
+    load_into(ref, random_state_dict(ref, 1)).eval()
+    vaes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.device("cuda"):
+            vaes[dtype] = sd_vae.AutoencoderKL(**SD15_VAE, dtype=dtype)
+        vaes[dtype].load_state_dict(ref.state_dict())
+        vaes[dtype].eval()
+    g = torch.Generator().manual_seed(60)
+    x = torch.rand((1, 3, 256, 256), generator=g) * 2 - 1
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = ref.encode(x)
+        cpu_s = time.perf_counter() - t0
+        for dtype, limit in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+            got = vaes[dtype].encode(x.cuda())
+            err = rel_err((got.mean.cpu(), got.logvar.cpu()), (want.mean, want.logvar))[1]
+            print(f"SD encode [1, 3, 256, 256] {str(dtype).split('.')[-1]} card vs fp32 CPU "
+                  f"({cpu_s:.1f} s), mean and logvar max abs err / max abs: {err:.3e} "
+                  f"(limit {limit})")
+            if not (err <= limit and torch.isfinite(got.mean).all()
+                    and torch.isfinite(got.logvar).all()):
+                raise AssertionError(f"SD encode in {dtype} disagrees with the CPU: {err}")
+    del ref, vaes[torch.float32]
+    torch.cuda.empty_cache()
+
+    vae = vaes[torch.bfloat16]
+    per_call = launches_per_call()
+    per_encode = {k: 0 for k in per_call}
+    per_encode.update(encode_routing(vae, 512))
+    want = {k: n * per_call[k] for k, n in per_encode.items()}
+    x512 = torch.rand((4, 3, 512, 512), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(61)) * 2 - 1
+    with torch.no_grad():
+        vae.encode(x512[:1])  # warm
+        torch.cuda.synchronize()
+        shapes = KernelShapes(modules=(vae.encoder,))
+        reset_launches()
+        try:
+            post = vae.encode(x512[:1])
+            torch.cuda.synchronize()
+        finally:
+            shapes.remove()
+        launches, routes = read_launches(), read_routes()
+        if launches != want:
+            raise AssertionError(f"one 512x512 encode launched {launches}, the encoder's "
+                                 f"architecture and the routing predicates give {want}")
+        check_routes("SD encode", routes, {k: n for k, n in want.items()
+                                           if n and k in FAST_ROUTE})
+        if post.mean.shape != (1, 4, 64, 64):
+            raise AssertionError(f"a 512x512 encode gave latents {tuple(post.mean.shape)}")
+        for name, calls in shapes.counts.items():
+            if sum(calls.values()) * per_call[name] != launches[name]:
+                raise AssertionError(f"{name}: the encoder's recorded calls {dict(calls)} do "
+                                     f"not add up to its {launches[name]} launches")
+        print("SD kernels vs plain at the encoder's shapes (512x512 bf16, untimed):")
+        errs, seen = {}, 0
+        for name, check in SD_CHECKS.items():
+            seen += len(set(shapes.counts[name]) & checked[name])
+            for key in sorted(set(shapes.counts[name]) - checked[name], key=str):
+                row = check(key, torch.bfloat16, tag, timed=False)
+                errs[name] = max(errs.get(name, 0.0), row["max_abs_err"])
+            torch.cuda.empty_cache()
+        print(f"  {sum(len(c) for c in shapes.counts.values())} shapes, {seen} of them "
+              f"checked in phase 6 already")
+        timing = {}
+        for batch in (1, 4):
+            xb = x512[:batch]
+            ms = time_ms(lambda: vae.encode(xb), reps=5)
+            flops = sd_vae_encode_flops(SD15_VAE, batch)["total_flops"]
+            timing[batch] = {"ms": ms, "flops": flops, "tflops": flops / ms / 1e9}
+            print(f"SD encode [{batch}, 3, 512, 512] bf16: {ms:.3f} ms, {flops} canonical FLOP, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s [{tag}]")
+        torch.cuda.reset_peak_memory_stats()
+        out = vae(x512[:1], torch.Generator(device="cuda").manual_seed(62))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches per 512x512 encode {per_encode}; round trip encode -> sample -> decode "
+          f"{list(out.shape)} {out.dtype}, peak memory {peak:.2f} GiB [{tag}]")
+    if out.shape != x512[:1].shape or not torch.isfinite(out).all():
+        raise AssertionError(f"the encode -> sample -> decode round trip gave {tuple(out.shape)}")
+    del vae, vaes, x512, post, out
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_encode": per_encode, "max_abs_err": errs,
+            "timing": timing}
 
 
 # ------------------------------------------------------- the other searches
@@ -1708,10 +1943,7 @@ def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: Kerne
     finally:
         capture.remove()
     print("SD kernels vs plain at the other searches' new shapes (untimed):")
-    checks = {"attention": check_sd_attention, "group_norm_silu": check_group_norm,
-              "geglu_ff": check_geglu, "group_norm_stats": check_group_norm_stats,
-              "conv3x3_same": check_conv_same, "conv3x3_up2": check_conv_up2}
-    for name, check in checks.items():
+    for name, check in SD_CHECKS.items():
         for key in sorted(set(fresh[name]) - set(eps_shapes.counts[name]), key=str):
             check(key, torch.bfloat16, tag, timed=False)
         torch.cuda.empty_cache()
@@ -2195,6 +2427,47 @@ def bench_phase(tag: str) -> list[dict]:
             raise AssertionError(f"sd_reward_bench row {row}")
     print(json.dumps({"sd_reward_bench": sdr}))
     lines.append(dict(path="sd_reward_bench", **sdr))
+    return lines + train_bench_runs(tag)
+
+
+def train_bench_runs(tag: str) -> list[dict]:
+    """Phase 10's train_bench runs on both nets: 1 warm-up step and 4 timed
+    ones, each of ``rounds`` micro-batches; the attention launches are the
+    net's sites per micro-batch forward (and twice that in the backward),
+    each on the route the predicates give at the net's head width."""
+    from diffusion_tts_torch.tools import train_bench
+
+    lines = []
+    for argv, sites_of, d in (
+            (["--arch", "cifar10", "--batch", "128", "--steps", "4"], CIFAR_SITES, CIFAR_D),
+            (["--arch", "imagenet64", "--batch", "16", "--rounds", "2", "--steps", "4"], SITES,
+             64)):
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row = train_bench.main(argv)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv else 1
+        calls = sum(n for _, _, n in sites_of) * rounds * (1 + 4 * row["chain"])
+        want = dict.fromkeys(launches_per_call(), 0)
+        want.update(attention=calls, attention_bwd=calls * qk.BWD_LAUNCHES_PER_CALL)
+        got, routes = read_launches(), read_routes()
+        if got != want:
+            raise AssertionError(f"train_bench {row['arch']} launched {got}, expected {want}")
+        check_routes(f"train_bench {row['arch']}", routes,
+                     {"attention": want["attention"], "attention_bwd": want["attention_bwd"]},
+                     {"attention": qk.forward_route(torch.bfloat16, d),
+                      "attention_bwd": qk.backward_route(torch.bfloat16, d)})
+        if not (row["img_per_s"] > 0 and row["sol"] > 0 and np.isfinite(row["loss"])):
+            raise AssertionError(f"train_bench row {row}")
+        print(f"train_bench {row['arch']}: batch {row['batch']} as {rounds} x "
+              f"{row['batch'] // rounds}, {row['step_ms']:.1f} ms a step, "
+              f"{row['img_per_s']:.2f} img/s, {row['step_gflops']:.1f} GFLOP a step, "
+              f"{row['model_tflops_s']:.2f} TFLOP/s, sol {row['sol']:.5f}, peak memory "
+              f"{peak:.2f} GiB [{tag}]")
+        lines.append(dict(path="train_bench", peak_gib=peak, launches=got, **row))
+        torch.cuda.empty_cache()
     return lines
 
 
@@ -2242,12 +2515,20 @@ def main() -> None:
         return out
 
     # -- 3, 4, 4b, 4c. EDM; 4d. CIFAR-10; 5. training; 5b. DDPM++ training;
-    #    6, 6b, 6c, 7. SD; 8. the CLI
+    #    5c. augmented DDPM++ training; 6, 6b, 6c, 7. SD; 6d. the SD encoder; 8. the CLI
     edm_searches, edm_line = timed("3-4c EDM", edm_phases, tag)
     cifar_searches, edm_line["d256"] = timed("4d CIFAR-10", cifar_phase, tag)
     training_line = timed("5 training", training_phases, tag, edm_line)
     training_line["d256"] = timed("5b DDPM++ training", cifar_training_phase, tag)
-    sd_searches, sd_lines = timed("6-7 SD", sd_phases, tag)
+    training_line["d256"]["augmented"] = timed("5c augmented DDPM++ training",
+                                               augmented_training_phase, tag,
+                                               training_line["d256"])
+    sd_searches, sd_lines, sd_checked = timed("6-7 SD", sd_phases, tag)
+    encoder = timed("6d SD encoder", sd_encoder_phase, tag, sd_checked)
+    for line in sd_lines:  # each kernel's launches in one 512x512 encode, as counted there
+        line["encode_launches"] = encoder["launches"][line["name"]]
+        line["max_abs_err"] = max(line["max_abs_err"],
+                                  encoder["max_abs_err"].get(line["name"], 0.0))
     timed("8 CLI", cli_phase, tag)
     # -- 9. the ablation sampler; 10. the bench twins
     edm_searches += timed("9 ablation", ablation_phase, tag)
@@ -2263,7 +2544,7 @@ def main() -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:
             json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches,
-                       "bench": bench_lines}, f, indent=1)
+                       "bench": bench_lines, "encoder": encoder}, f, indent=1)
     without_shapes = lambda d: {k: without_shapes(v) if isinstance(v, dict) else v
                                 for k, v in d.items() if k != "shapes"}
     print(json.dumps({"kernels": [without_shapes(kern) for kern in kernels]}))

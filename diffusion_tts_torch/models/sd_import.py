@@ -4,9 +4,8 @@ diffusion_tts_tpu/models/sd_import.py).
 The port's SD modules carry diffusers' names and shapes, so:
 
   * ``load_diffusers`` loads a diffusers state dict (the goldens' ``sd::``
-    entries, a checkpoint's ``.safetensors``) as it is; keys of parts the
-    module does not build (``UNPORTED_PREFIXES``, the VAE's encoder) are
-    skipped, any other missing or extra key raises;
+    entries, a checkpoint's ``.safetensors``) as it is; a missing or extra
+    key raises;
   * ``state_dict_from_flax_sd`` turns the JAX package's flax SD params
     (numpy leaves) into that state dict, inverting
     ``convert_diffusers_state_dict``: ``name_{i}`` -> ``name.{i}`` for the
@@ -34,9 +33,8 @@ _INDEXED = {"down_blocks", "up_blocks", "resnets", "attentions", "downsamplers",
 def load_diffusers(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:
     """Load a diffusers state dict into the port's module (rounded once to
     each parameter's dtype); raises on a missing or extra key."""
-    skip = getattr(module, "UNPORTED_PREFIXES", ())
     tensors = {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v, np.float32)))
-               for k, v in state.items() if not k.startswith(skip)}
+               for k, v in state.items()}
     return load_into(module, tensors)
 
 

@@ -88,9 +88,8 @@ class Conv3x3(Conv2d):
     route all three join the conv in one launch; elsewhere the same math runs
     as separate ops around cuDNN."""
 
-    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype,
-                 stride: int = 1):
-        super().__init__(in_channels, out_channels, 3, stride=stride, padding=1, dtype=dtype)
+    def __init__(self, in_channels: int, out_channels: int, dtype: torch.dtype):
+        super().__init__(in_channels, out_channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None,
                 gn: tuple[torch.Tensor, torch.Tensor] | None = None,
@@ -101,7 +100,7 @@ class Conv3x3(Conv2d):
         if shortcut is not None:
             sc_x, sc_w = shortcut[0].to(dtype), shortcut[1][:, :, 0, 0]
             bias = bias + shortcut[2]  # the shortcut's own bias, in the compute dtype
-        if self.stride == (1, 1) and _conv.conv3_eligible(x, self.weight):
+        if _conv.conv3_eligible(x, self.weight):
             kw = dict(gn_scale=gn[0], gn_shift=gn[1]) if gn is not None else {}
             if shortcut is not None:
                 return _conv.conv3x3_same(x, self.weight, bias, shortcut=(sc_x, sc_w), **kw)
@@ -111,7 +110,7 @@ class Conv3x3(Conv2d):
         if gn is not None:
             xn = x.float() * gn[0][:, :, None, None] + gn[1][:, :, None, None]
             x = F.silu(xn).to(dtype)
-        out = F.conv2d(x, self.weight, bias, self.stride, self.padding)
+        out = F.conv2d(x, self.weight, bias, padding=1)
         if residual is not None:
             out = out + residual
         if shortcut is not None:
@@ -296,13 +295,18 @@ class Transformer2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 3x3 conv with padding 1 (the UNet's downsampler)."""
+    """Stride-2 3x3 conv (diffusers downsampling.py): ``padding`` 1 on every
+    side (the UNet's downsampler), or 0 after a (0, 1) pad of H and W (the
+    VAE encoder's). A stock cuDNN conv either way: the conv kernel takes
+    stride 1 only, so this is a plain ``Conv2d``, not a ``Conv3x3``."""
 
-    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32, padding: int = 1):
         super().__init__()
-        self.conv = Conv3x3(channels, channels, dtype, stride=2)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=padding, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv.padding == (0, 0):
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

@@ -6,9 +6,10 @@ the repo's train.py):
 
 Same flags, arch presets (ddpmpp, ncsnpp, adm), precond/loss pairs (vp, ve,
 edm), run-dir naming, options dump and resume/transfer plumbing as the JAX
-CLI (reference edm/train.py:41-236). Runs on the card unless ``--device
-cpu`` is given. ``--augment > 0`` is not ported yet: it raises and names the
-ROADMAP.md item that brings it.
+CLI (reference edm/train.py:41-236), the augmentation pipe included:
+``--augment P > 0`` (default 0.12, the recipe's) trains on the EDM pipe's
+images at probability P and conditions the net on its 9 labels. Runs on
+the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -33,10 +34,6 @@ ARCH_PRESETS = {
                                      channel_mult=(2, 2, 2))),
     "adm": dict(model_type="DhariwalUNet",
                 model_kwargs=dict(model_channels=192, channel_mult=(1, 2, 3, 4))),
-}
-_NOT_YET_PORTED = {
-    "augment": "--augment > 0 needs training/augment.py (ROADMAP.md Queue 1 item 12); "
-               "pass --augment 0",
 }
 
 
@@ -79,11 +76,9 @@ def main(argv=None):
     p.add_argument("-n", "--dry-run", action="store_true")
     args = p.parse_args(argv)
 
-    if args.augment > 0:
-        raise NotImplementedError(_NOT_YET_PORTED["augment"])
-
     from diffusion_tts_torch.models import preconds
     from diffusion_tts_torch.training import loss as losses
+    from diffusion_tts_torch.training.augment import edm_augment_pipe
     from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
     from diffusion_tts_torch.training.loop import LoopConfig, training_loop
     from diffusion_tts_torch.training.train_step import TrainConfig
@@ -102,6 +97,10 @@ def main(argv=None):
         model_kwargs["model_channels"] = args.cbase
     if args.cres is not None:
         model_kwargs["channel_mult"] = tuple(int(x) for x in args.cres.split(","))
+    augment_fn = None
+    if args.augment > 0:
+        augment_fn = edm_augment_pipe(p=args.augment)
+        model_kwargs["augment_dim"] = augment_fn.label_dim
 
     precond_cls = {"vp": preconds.VPPrecond, "ve": preconds.VEPrecond,
                    "edm": preconds.EDMPrecond}[args.precond]
@@ -164,7 +163,7 @@ def main(argv=None):
         data_iter = batch_iterator(dataset, args.batch, seed=seed)
         training_loop(
             net=net, net_config=net_config, data_iter=data_iter, loss_fn=loss_fn,
-            train_cfg=train_cfg, loop_cfg=loop_cfg, device=device,
+            train_cfg=train_cfg, loop_cfg=loop_cfg, augment_fn=augment_fn, device=device,
             resume_state_path=args.resume, transfer_snapshot_path=args.transfer,
             max_ticks=args.max_ticks,
         )

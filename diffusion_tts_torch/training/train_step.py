@@ -78,9 +78,11 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor | N
                augment_fn: Callable | None = None,
                draws: Sequence[dict] | None = None) -> dict:
     """One step on images [R, micro, H, W, C] and labels [R, micro, L], R the
-    accumulation rounds. ``generator`` feeds the loss's draws, dropout and
-    label dropout; ``draws``, one ``dict(u=..., noise=...)`` per round, takes
-    the place of the loss's draws. Returns the metrics: ``loss`` (a tensor on
+    accumulation rounds. ``generator`` feeds the loss's draws, the augment
+    pipe's (``augment_fn``, training/augment.py), dropout and label dropout;
+    ``draws``, one ``dict(u=..., noise=...[, augment_draws=...])`` per round,
+    takes the place of the loss's draws (and of the pipe's, by the pipe's
+    ``draws=`` names). Returns the metrics: ``loss`` (a tensor on
     the device, so that the host does not wait for it), ``lr``, ``ema_beta``.
     """
     r = cfg.grad_accum_rounds

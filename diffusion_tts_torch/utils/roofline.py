@@ -1,7 +1,9 @@
-"""Matmul and conv FLOPs of one forward, counted from the op shapes
+"""Matmul and conv FLOPs of one forward (and of one training step's
+forward and backward), counted from the op shapes
 (counterpart of the FLOP half of diffusion_tts_tpu/utils/roofline.py:
 ``canonical_formulation``, ``analyze_fn``, ``sd_unet_flops``,
-``sd_vae_decode_flops``).
+``sd_vae_decode_flops``; the port adds ``sd_vae_encode_flops`` and the
+training step's count, ``analyze_train_fn`` / ``train_step_flops``).
 
 The count is the numerator of the benches' speed-of-light fraction: the
 useful matmul FLOPs of the reference formulation of a forward, a property
@@ -62,31 +64,44 @@ def nearest_upsample2x_conv3x3(x: torch.Tensor, w: torch.Tensor,
 def canonical_formulation():
     """The forward as the reference formulates it, for counting: the conv
     kernels' routes off (with them the GroupNorm fold into the conv
-    prologue and the fused up-conv) and the phased up-conv replaced by
-    ``nearest_upsample2x_conv3x3``. The attention, GroupNorm and GEGLU
-    wrappers need no switch: on CPU tensors, fake ones included, they run
-    their plain twins."""
+    prologue and the fused up-conv), the phased up-conv replaced by
+    ``nearest_upsample2x_conv3x3`` and the attention wrappers by their
+    plain twins, so that a backward is autograd's (four products per
+    attention; the flash backward's wrapper recomputes the scores, a fifth).
+    The GroupNorm and GEGLU wrappers need no switch: on CPU tensors, fake
+    ones included, they run their plain twins."""
     from diffusion_tts_torch.models import layers, sd_layers
-    from diffusion_tts_torch.ops.kernels import conv3x3
+    from diffusion_tts_torch.ops.kernels import conv3x3, qkv_attention
 
     saved = (conv3x3._NO_CONV_KERNELS, layers.nn_upsample2x_conv3x3,
-             sd_layers.nn_upsample2x_conv3x3)
+             sd_layers.nn_upsample2x_conv3x3, qkv_attention.qkv_self_attention,
+             qkv_attention.attention)
     conv3x3._NO_CONV_KERNELS = True
     layers.nn_upsample2x_conv3x3 = sd_layers.nn_upsample2x_conv3x3 = nearest_upsample2x_conv3x3
+    qkv_attention.qkv_self_attention = qkv_attention.qkv_self_attention_plain
+    qkv_attention.attention = qkv_attention.attention_plain
     try:
         yield
     finally:
         (conv3x3._NO_CONV_KERNELS, layers.nn_upsample2x_conv3x3,
-         sd_layers.nn_upsample2x_conv3x3) = saved
+         sd_layers.nn_upsample2x_conv3x3, qkv_attention.qkv_self_attention,
+         qkv_attention.attention) = saved
 
 
 class _FlopCounter(TorchDispatchMode):
     """Adds up the FLOPs of every product and convolution that reaches
-    dispatch, by op key (the JAX walker's keys)."""
+    dispatch, by op key (the JAX walker's keys), and by ``phase`` (the
+    caller sets it: "forward" or "backward")."""
 
     def __init__(self):
         super().__init__()
         self.ops = collections.Counter()
+        self.phases = collections.Counter()
+        self.phase = "forward"
+
+    def _add(self, key, flops: int) -> None:
+        self.ops[key] += flops
+        self.phases[self.phase] += flops
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -94,11 +109,11 @@ class _FlopCounter(TorchDispatchMode):
         if op in (_aten.mm, _aten.addmm):
             a, b = args[-2:]
             (m, k), n = a.shape, b.shape[1]
-            self.ops[("dot", m, k, n, 1)] += 2 * m * k * n
+            self._add(("dot", m, k, n, 1), 2 * m * k * n)
         elif op in (_aten.bmm, _aten.baddbmm):
             a, b = args[-2:]
             (batch, m, k), n = a.shape, b.shape[2]
-            self.ops[("dot", m, k, n, batch)] += 2 * batch * m * k * n
+            self._add(("dot", m, k, n, batch), 2 * batch * m * k * n)
         elif op is _aten.convolution:
             w, transposed, groups = args[1], args[6], args[8]
             if groups == 1:
@@ -108,8 +123,26 @@ class _FlopCounter(TorchDispatchMode):
                 b, cout, *spatial = out.shape
                 ksp = tuple(w.shape[2:])
                 taps = w.shape[1] * int(torch.Size(ksp).numel())
-                self.ops[("conv", ksp, w.shape[1], cout, tuple(spatial), b)] += (
-                    2 * b * int(torch.Size(spatial).numel()) * taps * cout)
+                self._add(("conv", ksp, w.shape[1], cout, tuple(spatial), b),
+                          2 * b * int(torch.Size(spatial).numel()) * taps * cout)
+        elif op is _aten.convolution_backward:
+            # (grad_output, input, weight, bias_sizes, stride, padding,
+            # dilation, transposed, output_padding, groups, output_mask): the
+            # input's and the weight's gradients each cost the forward's
+            # products; the bias's is a sum
+            grad_out, w, transposed, groups, mask = args[0], args[2], args[7], args[9], args[10]
+            if groups == 1:
+                if transposed:
+                    raise NotImplementedError("no formulation counts an ungrouped "
+                                              "transposed convolution")
+                b, cout, *spatial = grad_out.shape
+                ksp = tuple(w.shape[2:])
+                flops = (2 * b * int(torch.Size(spatial).numel()) * w.shape[1]
+                         * int(torch.Size(ksp).numel()) * cout)
+                for wrt, wanted in zip(("input", "weight"), mask[:2]):
+                    if wanted:
+                        self._add(("conv_grad_" + wrt, ksp, w.shape[1], cout, tuple(spatial), b),
+                                  flops)
         elif op in (_aten._scaled_dot_product_flash_attention,
                     _aten._scaled_dot_product_efficient_attention,
                     _aten._scaled_dot_product_cudnn_attention):
@@ -130,6 +163,49 @@ def analyze_fn(fn, *args) -> dict:
         fn(*args)
     ops = sorted(counter.ops.items(), key=lambda kv: -kv[1])
     return {"total_flops": sum(counter.ops.values()), "ops": ops}
+
+
+def analyze_train_fn(fn, *args) -> dict:
+    """Run ``loss = fn(*args)`` and ``loss.backward()`` as ``analyze_fn``
+    runs its function (fake CPU tensors, ``canonical_formulation()``, one
+    counting mode), with gradients on: ``{"total_flops", "forward_flops",
+    "backward_flops", "ops"}``. The backward's products are the autograd
+    formulas' (``mm`` for each linear's input and weight gradients,
+    ``convolution_backward`` counted by the gradients it computes), so a
+    product whose input needs no gradient (the first conv's, the
+    embedding's) adds one product to the backward, not two."""
+    counter = _FlopCounter()
+    with FakeTensorMode(allow_non_fake_inputs=True), canonical_formulation(), \
+            torch.enable_grad(), counter:
+        loss = fn(*args)
+        counter.phase = "backward"
+        loss.backward()
+    ops = sorted(counter.ops.items(), key=lambda kv: -kv[1])
+    return {"total_flops": sum(counter.ops.values()),
+            "forward_flops": counter.phases["forward"],
+            "backward_flops": counter.phases["backward"], "ops": ops}
+
+
+def train_step_flops(cfg: dict, micro: int, rounds: int = 1) -> dict:
+    """The products of one training step of the EDM-family net ``cfg``
+    (``backends/edm_entry.py``) under EDMPrecond and EDMLoss, as the train
+    bench runs it: ``rounds`` forwards and backwards of the loss at
+    ``micro`` images, in train mode (the optimizer and the EMA are
+    elementwise and not counted)."""
+    from diffusion_tts_torch.models.preconds import EDMPrecond
+    from diffusion_tts_torch.training.loss import EDMLoss
+
+    loss_fn = EDMLoss()
+
+    def loss():
+        net = EDMPrecond(**cfg).train()
+        res, ch, label_dim = cfg["img_resolution"], cfg["img_channels"], cfg["label_dim"]
+        labels = torch.zeros((micro, label_dim)) if label_dim else None
+        return loss_fn(lambda x, s, lab, al: net(x, s, lab, al),
+                       torch.zeros((micro, res, res, ch)), labels).mean()
+
+    one = analyze_train_fn(loss)
+    return {k: v * rounds if k != "ops" else v for k, v in one.items()}
 
 
 def denoiser_flops(cfg: dict, batch: int = 1, precond: str = "edm") -> dict:
@@ -174,6 +250,19 @@ def sd_vae_decode_flops(config: dict, batch: int, latent_res: int = 64) -> dict:
     return analyze_fn(forward)
 
 
+def sd_vae_encode_flops(config: dict, batch: int, res: int = 512) -> dict:
+    """One VAE encode of ``config`` (SD15_VAE) at ``batch`` images of res x
+    res, quant_conv included."""
+    from diffusion_tts_torch.models.sd_vae import AutoencoderKL
+
+    def forward():
+        vae = AutoencoderKL(**config).eval()
+        vae.encode(torch.zeros((batch, 3, res, res)))
+
+    return analyze_fn(forward)
+
+
 __all__ = ["DENSE_BF16_PEAK", "CPU_NOMINAL_PEAK", "peak_flops", "canonical_formulation",
-           "analyze_fn", "denoiser_flops", "sd_unet_flops", "sd_vae_decode_flops",
+           "analyze_fn", "analyze_train_fn", "train_step_flops", "denoiser_flops",
+           "sd_vae_encode_flops", "sd_unet_flops", "sd_vae_decode_flops",
            "nearest_upsample2x_conv3x3"]

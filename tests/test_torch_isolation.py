@@ -36,6 +36,40 @@ def test_port_imports_no_jax():
     n_modules = len(names)
     assert n_modules >= 30 and bad == [], out.stdout
     assert "diffusion_tts_torch.training.loop" in names and "diffusion_tts_torch.train" in names
+    assert {"diffusion_tts_torch.training.augment", "diffusion_tts_torch.tools.train_bench",
+            "diffusion_tts_torch.analysis.dmap"} <= set(names)
+
+
+_RUN_TRAINING_SIDE = """
+import json, sys
+import torch
+from diffusion_tts_torch.analysis import dmap
+from diffusion_tts_torch.models.sd_vae import AutoencoderKL
+from diffusion_tts_torch.tools import train_bench
+from diffusion_tts_torch.training.augment import edm_augment_pipe
+images, labels = edm_augment_pipe(1.0)(torch.zeros((2, 8, 8, 3)), torch.Generator().manual_seed(0))
+vae = AutoencoderKL(block_out_channels=(32, 64), layers_per_block=1).eval()
+with torch.no_grad():
+    post = vae.encode(torch.zeros((1, 3, 16, 16)))
+norms = dmap.noise_norms(torch.zeros((2, 2, 1, 4, 4, 3)))
+row = train_bench.main(["--device", "cpu", "--arch", "tiny", "--batch", "2", "--steps", "1"])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "flax", "optax", "diffusion_tts_tpu"))
+print(json.dumps([list(labels.shape), list(post.mean.shape), list(norms.shape), row["batch"], bad]))
+"""
+
+
+def test_augment_encoder_dmap_and_train_bench_run_without_jax():
+    """The augmentation pipe, the VAE encoder, the dmap analysis and the
+    train-bench twin run on the CPU with no module of JAX or the JAX
+    package in sys.modules."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _RUN_TRAINING_SIDE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    labels, mean, norms, batch, bad = json.loads(out.stdout.strip().splitlines()[-1])
+    assert labels == [2, 9] and mean == [1, 4, 8, 8] and norms == [2, 2] and batch == 2
+    assert bad == [], out.stdout
 
 
 _RUN_SCORERS = """

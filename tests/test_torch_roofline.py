@@ -1,7 +1,7 @@
 """The port's FLOP count (diffusion_tts_torch/utils/roofline.py) against the
 JAX package's ``analyze_fn`` under ``canonical_formulation()``: the
 flagship ADM at test and full width, the SongUNet families whose resample
-filters are grouped convs, and the SD UNet and VAE decode."""
+filters are grouped convs, and the SD UNet and VAE decode and encode."""
 import jax
 import jax.numpy as jnp
 import pytest
@@ -10,6 +10,7 @@ import torch
 from diffusion_tts_torch.backends import edm_entry
 from diffusion_tts_torch.models import layers
 from diffusion_tts_torch.ops.kernels import conv3x3
+from diffusion_tts_torch.ops.kernels import qkv_attention as qk
 from diffusion_tts_torch.utils import roofline
 from diffusion_tts_tpu.models import preconds as j_preconds
 from diffusion_tts_tpu.models.sd_unet import UNet2DConditionModel as JUNet
@@ -89,11 +90,15 @@ def test_grouped_resample_convs_are_skipped():
 
 
 def test_canonical_formulation_is_undone():
-    saved = (conv3x3._NO_CONV_KERNELS, layers.nn_upsample2x_conv3x3)
+    saved = (conv3x3._NO_CONV_KERNELS, layers.nn_upsample2x_conv3x3, qk.qkv_self_attention,
+             qk.attention)
     with roofline.canonical_formulation():
         assert conv3x3._NO_CONV_KERNELS
         assert layers.nn_upsample2x_conv3x3 is roofline.nearest_upsample2x_conv3x3
-    assert (conv3x3._NO_CONV_KERNELS, layers.nn_upsample2x_conv3x3) == saved
+        assert qk.qkv_self_attention is qk.qkv_self_attention_plain
+        assert qk.attention is qk.attention_plain
+    assert (conv3x3._NO_CONV_KERNELS, layers.nn_upsample2x_conv3x3, qk.qkv_self_attention,
+            qk.attention) == saved
 
 
 def test_phased_up_conv_counts_as_the_upsampled_conv():
@@ -117,4 +122,18 @@ def test_sd_vae_decode_count_matches_jax():
     formulation has routes to turn off)."""
     got = roofline.sd_vae_decode_flops(SD_VAE_KW, 2, latent_res=16)["total_flops"]
     want = j_roofline.sd_vae_decode_flops(JVAE(**SD_VAE_KW), 2, latent_res=16)["total_flops"]
+    assert got == pytest.approx(want, rel=1e-9, abs=0) and got > 0
+
+
+def test_sd_vae_encode_count_matches_jax():
+    """The golden-geometry VAE encode of 2 images of 128 x 128 (its first
+    block reaches the conv kernels' sizes), quant_conv included."""
+    got = roofline.sd_vae_encode_flops(SD_VAE_KW, 2, res=128)["total_flops"]
+    vae = JVAE(**SD_VAE_KW)
+    x = jax.ShapeDtypeStruct((2, 128, 128, 3), jnp.float32)
+    shapes = jax.eval_shape(lambda xx: vae.init({"params": jax.random.key(0)}, xx,
+                                                jax.random.key(0)), x)
+    with j_roofline.canonical_formulation():
+        want = j_roofline.analyze_fn(lambda v, xx: vae.apply(v, xx, method=JVAE.encode), shapes,
+                                     x)["total_flops"]
     assert got == pytest.approx(want, rel=1e-9, abs=0) and got > 0

@@ -147,8 +147,6 @@ def test_weight_round_trip():
         state = {k: v.numpy() for k, v in module.state_dict().items()}
         back = dict(_flatten(convert_diffusers_state_dict(state)["params"]))
         orig = {k: v.astype(np.float32) for k, v in _flatten(params)}
-        if module is t_vae:  # the encoder is not ported
-            orig = {k: v for k, v in orig.items() if k[0] not in ("encoder", "quant_conv")}
         assert back.keys() == orig.keys()
         for k in orig:
             np.testing.assert_array_equal(back[k], orig[k], err_msg=str(k))

@@ -79,8 +79,7 @@ def _decoder_pair(seed=0):
         {"params": jax.random.key(0)}, jnp.zeros((1, 16, 16, 3)), jax.random.key(1)))
     params = random_flax_params(shapes["params"], seed)
     t_mod = t_vae.AutoencoderKL(block_out_channels=WIDTHS, layers_per_block=1)
-    state = {k: v for k, v in state_dict_from_flax_sd(params).items()
-             if not k.startswith(t_mod.UNPORTED_PREFIXES)}
+    state = state_dict_from_flax_sd(params)
     assert set(state) == set(t_mod.state_dict())  # no new key for the fused routes
     load_diffusers(t_mod, state).eval()
     return (lambda z: j_vae.apply({"params": params}, z, method=JVAE.decode)), t_mod.decode

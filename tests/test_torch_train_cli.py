@@ -1,7 +1,7 @@
 """The port's training CLI (python -m diffusion_tts_torch.train) and loop on
 the CPU: a dry run, a two-tick run on a tiny PNG folder, a resumed run, every
-arch under every preconditioner, a DDPM++/VP run, and the choice that waits
-for its module."""
+arch under every preconditioner, a DDPM++/VP run, and the augmentation pipe
+at the recipe's --augment 0.12."""
 import json
 import os
 
@@ -11,6 +11,7 @@ import torch
 
 from diffusion_tts_torch import train as cli
 from diffusion_tts_torch.training import checkpoints
+from diffusion_tts_torch.training import loop as cli_loop
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
 from diffusion_tts_torch.training.loop import LoopConfig, training_loop
 from diffusion_tts_torch.training.loss import EDMLoss
@@ -117,18 +118,45 @@ def test_loop_needs_a_card_unless_cpu_is_asked(monkeypatch, tmp_path, png_folder
         cli.main(["--outdir", str(tmp_path), "--data", png_folder, "--dry-run", *TINY])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--augment", "0.12"], "item 12"),
-    (["--augment", "0.12", "--arch", "ddpmpp"], "item 12"),
-    (["--augment", "0.12", "--arch", "ncsnpp"], "item 12"),
-    (["--augment", "0.12", "--arch", "adm", "--precond", "vp"], "item 12"),
-    (["--augment", "0.12", "--arch", "adm", "--precond", "ve"], "item 12"),
+@pytest.mark.parametrize("flags,trains", [
+    (["--arch", "adm"], False),
+    (["--arch", "ddpmpp", "--precond", "vp"], True),
+    (["--arch", "ncsnpp"], False),
+    (["--arch", "adm", "--precond", "vp"], False),
+    (["--arch", "adm", "--precond", "ve"], False),
 ])
-def test_unported_choices_raise_and_name_the_roadmap_item(flags, item, tmp_path):
-    """--augment > 0 (training/augment.py) is the one choice not ported yet,
-    with every arch and precond."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        cli.main(["--outdir", str(tmp_path), "--data", str(tmp_path), "--device", "cpu", *flags])
+def test_augment_builds_the_pipe_and_map_augment(flags, trains, png_folder, tmp_path, capsys,
+                                                  monkeypatch):
+    """--augment 0.12 (the recipe's default) under each arch and precond: the
+    dry run's net config has augment_dim 9, and the net the CLI builds a
+    map_augment with 9 inputs; DDPM++/VP also trains one tick on the
+    augmented images."""
+    built = {}
+    real_loop = cli_loop.training_loop
+
+    def loop(**kw):
+        built.update(kw)
+        return real_loop(**kw)
+
+    monkeypatch.setattr(cli_loop, "training_loop", loop)
+    outdir = str(tmp_path / "runs")
+    args = ["--outdir", outdir, "--data", png_folder, "--device", "cpu", "--augment", "0.12",
+            "--cbase", "64" if "adm" in flags else "16", "--cres", "1", *flags]
+    cli.main(args + ["--dry-run"])
+    opts = json.loads(capsys.readouterr().out.split("--dry-run")[0])
+    assert opts["augment"] == 0.12 and opts["net_config"]["model_kwargs"]["augment_dim"] == 9
+    if not trains:
+        return
+    cli.main(args + ["--cond", "1", "--batch", "16", "--batch-gpu", "8", "--duration", "0.001",
+                     "--tick", "1", "--snap", "1", "--seed", "0", "--max-ticks", "1"])
+    pipe, net = built["augment_fn"], built["net"]
+    assert pipe.label_dim == 9 and pipe.p == 0.12 and pipe.xflip == 1e8
+    assert net.model.map_augment.weight.shape[1] == 9
+    run_dir = os.path.join(outdir, "00000-tiny-8x8-cond-ddpmpp-vp")
+    stats = [json.loads(line) for line in open(os.path.join(run_dir, "stats.jsonl"))]
+    assert np.isfinite(stats[0]["Loss/loss"]["mean"])
+    ema, _ = checkpoints.load_snapshot(os.path.join(run_dir, "network-snapshot-final.pt"))
+    assert ema["model.map_augment.weight"].shape[1] == 9
 
 
 @pytest.mark.parametrize("arch,model_type", [("ddpmpp", "SongUNet"), ("ncsnpp", "SongUNet"),
