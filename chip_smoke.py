@@ -155,8 +155,33 @@ Phases, each of which raises on failure (nothing is caught):
      --batch 128 --steps 4`` and ``--arch imagenet64 --batch 16 --rounds 2
      --steps 4`` (its JSON line, peak memory; #1 and #3 launched sites x
      rounds x 5 steps and twice that, on the routes the predicates give);
+12. parallelism through torch.distributed (it runs after 10; one card, so
+     NCCL at world size 1 and two gloo ranks on cuda:0): 12a / 12b,
+     ``entry.dryrun_multichip(1)`` over NCCL and ``(2)`` over two gloo ranks
+     sharing the card (each a training step, candidate-sharded eps-greedy,
+     beam and tiny-SD searches; their lines printed; their processes run
+     beside the untimed unsharded references of 12d and 12e); 12c, the full-width
+     ImageNet-64 ADM (bf16 compute, fp32 parameters, dropout 0), two steps
+     of 32 images as 2 gloo ranks x 16 under DistributedDataParallel,
+     against one process's 2 rounds x 16 under the same injected draws: the
+     all-reduced gradient's cosine with it >= 0.99 (bf16) and, in fp32 at
+     one step, within 1e-3 of its largest magnitude; both ranks' parameters
+     and EMA bit-identical after each step; per rank the step ms, the step
+     with DDP's sync skipped, one all_reduce of the gradient's 1.18 GB,
+     peak memory and the launches of #1 and #3 (44 / 88, on "mma"); the same
+     steps over NCCL at world size 1 in turns with the same steps outside a
+     group, beside phase 5's step, and one step of each under the profiler
+     (the device time the DDP wrapper adds); 12d, phase 4's
+     eps-greedy candidate-sharded over the two ranks: in fp32 (TF32 off)
+     the unsharded run's selections exactly, scores within 1e-4 relative,
+     then in bf16 each rank's wall time, NFE/s, peak memory and 1584 #1
+     launches at batch 4; 12e, ``tools/generate.py`` at ``--arch imagenet64
+     --steps 18 --seeds 0-7`` (random weights, fp32), ``--batch 8`` in one
+     process against ``--batch 2`` on the two ranks: every PNG within one
+     uint8 level, the differing pixels counted;
 11. one JSON line of kernel numbers (each kernel's launches by method of
-     4b / 6b under "method_launches"), then the result line.
+     4b / 6b under "method_launches"; phase 12's numbers under "parallel"),
+     then the result line.
 
 The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
  4c. the 64x64 noisy-ImageNet classifier (``EncoderUNetModel`` defaults,
@@ -187,7 +212,7 @@ The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
      relative).
 
 With --kernels-json, the per-shape rows, the 4b / 4c / 6b / 6c / 9 search
-lines and phase 10's lines also go to that file. The script imports nothing
+lines and phase 10's and 12's lines also go to that file. The script imports nothing
 of JAX; it needs the repository beside it.
 """
 from __future__ import annotations
@@ -205,14 +230,18 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
 from diffusion_tts_torch import main as cli
 from diffusion_tts_torch import train as train_cli
+from diffusion_tts_torch.entry import dryrun_multichip
 from diffusion_tts_torch.backends import edm_entry
 from diffusion_tts_torch.backends.edm_entry import (
     IMAGENET64_ADM,
@@ -229,6 +258,13 @@ from diffusion_tts_torch.ops.kernels import conv3x3 as cv
 from diffusion_tts_torch.ops.kernels import geglu_ff as gg
 from diffusion_tts_torch.ops.kernels import groupnorm as gn
 from diffusion_tts_torch.ops.kernels import qkv_attention as qk
+from diffusion_tts_torch.parallel.distributed import free_port, launch, process_group
+from diffusion_tts_torch.parallel.mesh import (
+    CandidateShards,
+    check_consistency,
+    make_mesh,
+    shard_train_step,
+)
 from diffusion_tts_torch.pipelines import sd_pipeline
 from diffusion_tts_torch.pipelines.sd_pipeline import (
     SD15_UNET,
@@ -252,12 +288,13 @@ from diffusion_tts_torch.search import (
     run_search,
 )
 from diffusion_tts_torch.search.nfe import nfe_per_sample
+from diffusion_tts_torch.tools import generate
 from diffusion_tts_torch.training import checkpoints
 from diffusion_tts_torch.training.augment import edm_augment_pipe
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
 from diffusion_tts_torch.training.loop import LoopConfig, training_loop
 from diffusion_tts_torch.training.loss import EDMLoss, VPLoss
-from diffusion_tts_torch.training.train_step import TrainConfig, TrainState
+from diffusion_tts_torch.training.train_step import TrainConfig, TrainState, train_step
 from diffusion_tts_torch.utils.config import SearchParams
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
@@ -969,16 +1006,25 @@ def check_twin_gradients() -> None:
             raise AssertionError(f"{name}: the wrapper's gradient disagrees with its twin's")
 
 
+_TRAINING_WEIGHTS: dict = {}
+
+
 def training_net(dtype: torch.dtype, device: str, dropout: float = 0.0,
                  cfg: dict = IMAGENET64_ADM, precond=EDMPrecond) -> torch.nn.Module:
     """The full-width net of ``cfg`` under ``precond`` (default: the
     ImageNet-64 ADM under EDM) as the training CLI builds it (fp32
     parameters, compute in ``dtype``), with random weights in every layer:
     from the architecture's init, which zeroes conv1, proj and out_conv, no
-    gradient would reach an attention site in the first step."""
+    gradient would reach an attention site in the first step. The weights
+    (numpy seed 0, load_network's) are drawn once per process and layout;
+    the net is built on ``device``, as the loaded state overwrites its init."""
     cfg = dict(cfg, model_kwargs=dict(cfg["model_kwargs"], dropout=dropout))
-    net = precond(dtype=dtype, param_dtype=torch.float32, **cfg)
-    return load_into(net, random_state_dict(net, 0)).to(device)
+    with torch.device(device):
+        net = precond(dtype=dtype, param_dtype=torch.float32, **cfg)
+    key = (precond, tuple((k, tuple(v.shape)) for k, v in net.state_dict().items()))
+    if key not in _TRAINING_WEIGHTS:
+        _TRAINING_WEIGHTS[key] = random_state_dict(net, 0)
+    return load_into(net, _TRAINING_WEIGHTS[key]).to(device)
 
 
 def loss_and_grads(net: torch.nn.Module, images, labels, draws,
@@ -2471,11 +2517,302 @@ def train_bench_runs(tag: str) -> list[dict]:
     return lines
 
 
+# ------------------------------------------------------- parallelism (phase 12)
+
+PAR_RANKS, PAR_STEPS = 2, 2  # 12c: two steps of 32 images, as 2 ranks x 16 (one round each)
+PAR_MICRO = TRAIN_BATCH // PAR_RANKS
+PAR_LR = dict(lr=1e-4, lr_rampup_kimg=2 * TRAIN_BATCH / 1000)  # step 2 moves the net
+
+
+def par_train_inputs() -> tuple[torch.Tensor, torch.Tensor, list[dict]]:
+    """12c's two batches of 32 (images, one-hot labels) and each step's
+    injected loss draws, from a seed, on the CPU."""
+    g = torch.Generator().manual_seed(12)
+    images = torch.rand((PAR_STEPS, TRAIN_BATCH, 64, 64, 3), generator=g) * 2 - 1
+    labels = torch.eye(1000)[torch.randint(0, 1000, (PAR_STEPS, TRAIN_BATCH), generator=g)]
+    draws = [dict(u=torch.randn((TRAIN_BATCH, 1, 1, 1), generator=g),
+                  noise=torch.randn((TRAIN_BATCH, 64, 64, 3), generator=g))
+             for _ in range(PAR_STEPS)]
+    return images, labels, draws
+
+
+def par_rounds(t: torch.Tensor, rounds: int) -> torch.Tensor:
+    return t.reshape((rounds, t.shape[0] // rounds) + t.shape[1:]).cuda()
+
+
+def par_step(state: TrainState, cfg: TrainConfig, share, i: int) -> float:
+    """train_step on ``share(t)`` of batch ``i`` and its draws (this rank's
+    share, or all of it) as cfg's rounds; returns the step's ms."""
+    images, labels, draws = par_train_inputs()
+    r = cfg.grad_accum_rounds
+    mine = {k: par_rounds(share(v), r) for k, v in draws[i].items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_step(state, par_rounds(share(images[i]), r), par_rounds(share(labels[i]), r),
+               EDMLoss(), cfg, draws=[{k: v[j] for k, v in mine.items()} for j in range(r)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def flat_grads(net: torch.nn.Module) -> torch.Tensor:
+    return torch.cat([p.grad.reshape(-1).float() for p in net.parameters()])
+
+
+def adm_search(net: torch.nn.Module, shards=None):
+    """Phase 4's eps-greedy (18 steps, 2 samples, N=4, K=2, brightness,
+    seed 0: every rank and the unsharded run draw the same noise on the
+    card) through generate_image_grid, optionally candidate-sharded."""
+    return generate_image_grid(
+        arch="imagenet64", scorer=BrightnessScorer(), method="eps_greedy",
+        params=SearchParams(N=N, K=K), seed=0, gridw=SAMPLES, num_steps=STEPS,
+        device=next(net.parameters()).device, net=net, record_noises=True,
+        candidate_sharding=shards)
+
+
+GENERATE_ARGS = ["--arch", "imagenet64", "--steps", "18", "--seeds", "0-7"]
+
+
+def grad_agreement(got: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> dict:
+    """fp32: the largest error over the largest magnitude; bf16: the cosine,
+    summed in float64 a chunk at a time (fp32 sums over 296M values are off
+    by percents)."""
+    if dtype == torch.float32:
+        return {"fp32_grad_err": ((got - ref).abs().max() / ref.abs().max()).item()}
+    dot = aa = bb = 0.0
+    for a, b in zip(got.split(1 << 24), ref.split(1 << 24)):
+        a, b = a.double(), b.double()
+        dot, aa, bb = dot + (a * b).sum().item(), aa + (a * a).sum().item(), bb + (b * b).sum().item()
+    return {"bf16_grad_cosine": dot / (aa * bb) ** 0.5}
+
+
+def rank_worker(workdir: str) -> None:
+    """One of phase 12's two gloo ranks on cuda:0 (started by
+    parallel_phase through parallel.distributed.launch): 12c's DDP steps,
+    12d's candidate-sharded search, 12e's generate share. Raises on any
+    disagreement; writes its numbers to workdir/rank{r}.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with process_group("gloo", timeout=300, device="cuda"):
+        rank_phases(workdir)
+
+
+def rank_phases(workdir: str) -> None:
+    rank, out = dist.get_rank(), {}
+    share = lambda t: t[rank * PAR_MICRO:(rank + 1) * PAR_MICRO]
+    mesh = make_mesh(device_type="cuda")
+    # -- 12c. the ADM's DDP steps: gradients against one process's, ranks alike
+    for dtype, steps in ((torch.float32, 1), (torch.bfloat16, PAR_STEPS)):
+        ref = None
+        if rank == 0:  # the reference: one process, 32 images as 2 rounds of 16
+            cfg = TrainConfig(**PAR_LR, grad_accum_rounds=TRAIN_ROUNDS, total_batch=TRAIN_BATCH)
+            state = TrainState.create(training_net(dtype, "cuda"), cfg)
+            par_step(state, cfg, lambda t: t, 0)
+            ref = flat_grads(state.net)
+            del state
+            torch.cuda.empty_cache()
+        cfg = TrainConfig(**PAR_LR, grad_accum_rounds=1, total_batch=TRAIN_BATCH)
+        state = shard_train_step(TrainState.create(training_net(dtype, "cuda"), cfg), mesh)
+        reset_launches()
+        ms, peak = [], 0.0
+        for i in range(steps):
+            torch.cuda.reset_peak_memory_stats()
+            ms.append(par_step(state, cfg, share, i))
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+            if i == 0 and ref is not None:
+                out.update(grad_agreement(flat_grads(state.net), ref, dtype))
+            check_consistency(state.net)
+            check_consistency(state.ema)
+        del ref
+        if dtype == torch.float32:
+            del state
+            torch.cuda.empty_cache()
+            continue
+        if rank == 0 and not (out["fp32_grad_err"] <= 1e-3 and out["bf16_grad_cosine"] >= 0.99):
+            raise AssertionError(f"the DDP gradients disagree with one process's: {out}")
+        launches, routes = read_launches(), read_routes()
+        sites = sum(n for _, _, n in SITES)
+        want = {"attention": sites * PAR_STEPS,
+                "attention_bwd": sites * qk.BWD_LAUNCHES_PER_CALL * PAR_STEPS}
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"rank {rank}: DDP training launched {launches}, want {want}")
+        check_routes(f"rank {rank} DDP training", routes, want)
+        out["train"] = dict(step_ms=ms, peak_gib=peak, launches=want)
+        # the sync's cost: the same step with DDP's all-reduce skipped, and one
+        # all_reduce of the gradient's 296M fp32 values alone
+        ddp = state.parallel.module
+        state.parallel.round = lambda last: ddp.no_sync()
+        out["train"]["no_sync_step_ms"] = par_step(state, cfg, share, 1)
+        grads = flat_grads(state.net)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(grads)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["train"]["allreduce_ms"] = min(times)
+        out["train"]["grad_mb"] = grads.numel() * 4 / 1e6
+        del state, ddp, grads
+        torch.cuda.empty_cache()
+    # -- 12d. candidate-sharded eps-greedy: phase 4's selections in fp32, timed in bf16
+    shards = CandidateShards()
+    want = torch.load(os.path.join(workdir, "search_fp32.pt"))
+    got = adm_search(load_network("imagenet64", device="cuda", seed=0), shards)
+    same = torch.equal(got.best_noises.cpu(), want["best_noises"])
+    score_err = ((got.score.cpu() - want["score"]).abs() / want["score"].abs()).max().item()
+    out["search_fp32"] = dict(same_selections=same, score_rel_err=score_err)
+    if not (same and score_err <= 1e-4):
+        raise AssertionError(f"rank {rank}: the sharded fp32 search left phase 4's selections: "
+                             f"{out['search_fp32']}")
+    net = load_network("imagenet64", dtype=torch.bfloat16, device="cuda", seed=0)
+    adm_search(net, shards)  # warm
+    reset_launches()
+    result, wall = timed_run(lambda: adm_search(net, shards))
+    launches, routes = read_launches(), read_routes()
+    want = STEPS * K * 2 * sum(n for _, _, n in SITES)  # 1584, each at batch 4
+    if launches["attention"] != want:
+        raise AssertionError(f"rank {rank}: the sharded search launched {launches}")
+    check_routes(f"rank {rank} candidate-sharded search", routes, {"attention": want})
+    nfe = nfe_per_sample("eps_greedy", STEPS, SearchParams(N=N, K=K)) * SAMPLES
+    out["search_bf16"] = dict(wall_s=wall, nfe=nfe, nfe_per_s=nfe / wall,
+                              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              launches=launches["attention"], scores=result.score.tolist())
+    del net, result
+    torch.cuda.empty_cache()
+    # -- 12e. this rank's share of generate at --batch 2
+    t0 = time.perf_counter()
+    generate.main(GENERATE_ARGS + ["--batch", "2", "--dist-backend", "gloo", "--outdir",
+                                   os.path.join(workdir, "two")])
+    out["generate_s"] = time.perf_counter() - t0
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def device_ms(fn) -> tuple[float, int]:
+    """(the summed duration of the card's kernels, their count) in one call
+    of ``fn``, from a torch.profiler trace (tools/torch_forward_profile.py's
+    accounting, less the ranges that ``record_function`` annotations, such
+    as DistributedDataParallel.forward, leave on the card's timeline)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    return sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3, len(kernels)
+
+
+def nccl_world_one() -> dict:
+    """12c's steps in this process over a real NCCL group of one rank (32
+    images as 2 rounds of 16 through the DDP wrapper), in turns with the
+    same steps of a state outside any group: one step of each batch each;
+    then one more step of each under the profiler, for the device time the
+    wrapper adds (the host's spread between steps is wider than its cost)."""
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        cfg = TrainConfig(**PAR_LR, grad_accum_rounds=TRAIN_ROUNDS, total_batch=TRAIN_BATCH)
+        states = {"plain": TrainState.create(training_net(torch.bfloat16, "cuda"), cfg),
+                  "nccl": shard_train_step(
+                      TrainState.create(training_net(torch.bfloat16, "cuda"), cfg),
+                      make_mesh(device_type="cuda"))}
+        ms = {name: [] for name in states}
+        for i in range(PAR_STEPS):
+            for name in ("plain", "nccl") if i % 2 == 0 else ("nccl", "plain"):
+                ms[name].append(par_step(states[name], cfg, lambda t: t, i))
+        dev = {name: device_ms(lambda: par_step(state, cfg, lambda t: t, 0))
+               for name, state in states.items()}
+        del states
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return dict(backend="nccl", world=1, step_ms=ms["nccl"], plain_step_ms=ms["plain"],
+                device_ms=dev["nccl"][0], plain_device_ms=dev["plain"][0],
+                kernels=dev["nccl"][1], plain_kernels=dev["plain"][1])
+
+
+def parallel_phase(tag: str, phase5_step_ms: float) -> dict:
+    """Phase 12: the parallel slice on the card (see the module docstring)."""
+    def timed_dryrun(n: int) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        return dryrun_multichip(n), time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        # -- 12a, 12b. dryrun_multichip over NCCL at one rank and two gloo ranks
+        # on cuda:0, their processes running beside the untimed references:
+        # phase 4's search unsharded in fp32, generate at --batch 8
+        runs = {n: pool.submit(timed_dryrun, n) for n in (1, 2)}
+        want = adm_search(load_network("imagenet64", device="cuda", seed=0))
+        torch.save({"best_noises": want.best_noises.cpu(), "score": want.score.cpu()},
+                   os.path.join(tmp, "search_fp32.pt"))
+        generate.main(GENERATE_ARGS + ["--batch", "8", "--outdir", os.path.join(tmp, "one")])
+        del want
+        torch.cuda.empty_cache()
+        dryrun = {n: run.result()[0] for n, run in runs.items()}
+        dryrun_s = {n: run.result()[1] for n, run in runs.items()}
+        if "(cuda, nccl)" not in dryrun[1] or "gloo, 2 ranks sharing 1 card" not in dryrun[2]:
+            raise AssertionError(f"dryrun_multichip took another transport: {dryrun}")
+        nccl = nccl_world_one()
+        t0 = time.perf_counter()
+        # four host threads a rank (of the machine's eight) for building and
+        # loading the full-width nets
+        launch([sys.executable, os.path.abspath(__file__), "--rank-worker", tmp], PAR_RANKS,
+               timeout=900, env=dict(os.environ, OMP_NUM_THREADS="4"))
+        group_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(PAR_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        from PIL import Image
+
+        diffs = [np.abs(np.asarray(Image.open(os.path.join(tmp, "one", name)), np.int16)
+                        - np.asarray(Image.open(os.path.join(tmp, "two", name)), np.int16))
+                 for name in sorted(os.listdir(os.path.join(tmp, "one")))]
+    gen = dict(images=len(diffs), max_level_diff=int(max(d.max() for d in diffs)),
+               pixels_differing=int(sum((d > 0).sum() for d in diffs)),
+               pixels=int(sum(d.size for d in diffs)))
+    if gen["images"] != 8 or gen["max_level_diff"] > 1:
+        raise AssertionError(f"generate at --batch 2 on two ranks left --batch 8's images: {gen}")
+    for n, line in dryrun.items():
+        print(f"  {line} ({dryrun_s[n]:.1f} s, beside the references)")
+    r0 = ranks[0]
+    print(f"12c DDP training, full-width ImageNet-64 ADM, 32 images as {PAR_RANKS} gloo ranks "
+          f"x {PAR_MICRO} on cuda:0 vs one process's 2 rounds x {PAR_MICRO}: gradient cosine "
+          f"{r0['bf16_grad_cosine']:.6f} (bf16, limit 0.99), err / max {r0['fp32_grad_err']:.3e} "
+          f"(fp32, limit 1e-3); both ranks' parameters and EMA bit-identical after each step "
+          f"[{tag}]")
+    for r, out in enumerate(ranks):
+        t = out["train"]
+        print(f"  rank {r}: step ms {[round(m, 1) for m in t['step_ms']]}, no-sync step "
+              f"{t['no_sync_step_ms']:.1f} ms, one all_reduce of {t['grad_mb']:.0f} MB "
+              f"{t['allreduce_ms']:.1f} ms, peak {t['peak_gib']:.2f} GiB, launches {t['launches']}")
+    print(f"  NCCL, world size 1, 32 as 2 x 16: step ms {[round(m, 1) for m in nccl['step_ms']]}, "
+          f"the same steps outside a group in turns {[round(m, 1) for m in nccl['plain_step_ms']]} "
+          f"(phase 5's median {phase5_step_ms:.1f} ms); one step's device time "
+          f"{nccl['device_ms']:.2f} ms in {nccl['kernels']} kernels, outside a group "
+          f"{nccl['plain_device_ms']:.2f} ms in {nccl['plain_kernels']}")
+    for r, out in enumerate(ranks):
+        s = out["search_bf16"]
+        print(f"12d candidate-sharded eps-greedy rank {r}: fp32 {out['search_fp32']}; bf16 wall "
+              f"{s['wall_s']:.3f} s, {s['nfe']} NFE, {s['nfe_per_s']:.2f} NFE/s, peak {s['peak_gib']:.2f} GiB, {s['launches']} "
+              f"attention launches at batch {N * SAMPLES // PAR_RANKS}")
+    print(f"12e generate --arch imagenet64 --steps 18 --seeds 0-7 fp32: --batch 8 in one process "
+          f"vs --batch 2 on {PAR_RANKS} gloo ranks: {gen} [{tag}]")
+    return dict(dryrun=list(dryrun.values()), dryrun_s=list(dryrun_s.values()),
+                nccl_world1=nccl, ranks=ranks, generate=gen,
+                group_s=group_s, phase5_step_ms=phase5_step_ms)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-json", default=None,
                         help="also write every kernel's per-shape rows to this file")
+    parser.add_argument("--rank-worker", default=None, metavar="DIR",
+                        help="run as one of phase 12's gloo ranks (the script starts them)")
     args = parser.parse_args()
+    if args.rank_worker:
+        rank_worker(args.rank_worker)
+        return
     # -- 1. environment
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card")
@@ -2533,6 +2870,9 @@ def main() -> None:
     # -- 9. the ablation sampler; 10. the bench twins
     edm_searches += timed("9 ablation", ablation_phase, tag)
     bench_lines = timed("10 benches", bench_phase, tag)
+    # -- 12. parallelism through torch.distributed
+    parallel = timed("12 parallel", parallel_phase, tag,
+                     TRAIN_BATCH / training_line["train_img_per_s"] * 1e3)
     print(json.dumps({"phase_s": phase_s}))
     kernels = [edm_line, training_line] + sd_lines
     edm_searches += cifar_searches
@@ -2544,10 +2884,12 @@ def main() -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:
             json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches,
-                       "bench": bench_lines, "encoder": encoder}, f, indent=1)
+                       "bench": bench_lines, "encoder": encoder, "parallel": parallel}, f,
+                      indent=1)
     without_shapes = lambda d: {k: without_shapes(v) if isinstance(v, dict) else v
                                 for k, v in d.items() if k != "shapes"}
-    print(json.dumps({"kernels": [without_shapes(kern) for kern in kernels]}))
+    print(json.dumps({"kernels": [without_shapes(kern) for kern in kernels],
+                      "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

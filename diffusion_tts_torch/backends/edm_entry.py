@@ -22,6 +22,7 @@ from diffusion_tts_torch.models.torch_import import (
     load_reference_state_dict,
     random_state_dict,
 )
+from diffusion_tts_torch.parallel.mesh import CandidateShards, candidate_rows
 from diffusion_tts_torch.samplers.edm import EDMHeunSampler
 from diffusion_tts_torch.search.api import SearchResult, run_search
 from diffusion_tts_torch.search.backend import EDMSearchBackend
@@ -111,10 +112,14 @@ def generate_image_grid(
     record_noises: bool = False,
     device: torch.device | str = "cuda",
     net: torch.nn.Module | None = None,
+    candidate_sharding: CandidateShards | None = None,
 ) -> SearchResult:
     """Run search and (optionally) save a gridh x gridw PNG. ``net`` is a
     network from ``load_network`` for ``arch``; when None it is loaded here
-    from ``weights`` (or made random from ``seed``) in ``dtype``."""
+    from ``weights`` (or made random from ``seed``) in ``dtype``. With
+    ``candidate_sharding`` every rank of its group makes this call and runs
+    its share of the candidates' forwards (and every rank saves the PNG
+    unless ``dest_path`` is None on the others)."""
     dev = resolve_device(device)
     if net is None:
         net = load_network(arch, weights, dtype=dtype, device=dev, seed=seed)
@@ -132,14 +137,14 @@ def generate_image_grid(
         labels = torch.eye(label_dim, device=dev)[cls]
 
     def denoise(x, sigma):
-        lab = labels.repeat(x.shape[0] // n_img, 1) if labels is not None else None
-        return net(x, sigma, lab)
+        return net(x, sigma, None if labels is None else candidate_rows(labels, x.shape[0]))
 
     sampler = EDMHeunSampler(denoise=denoise, num_steps=num_steps, sigma_min=sigma_min,
                              sigma_max=sigma_max, rho=rho, S_churn=S_churn, S_min=S_min,
                              S_max=S_max, S_noise=S_noise)
     backend = EDMSearchBackend(sampler=sampler, scorer=scorer,
-                               scorer_cond=labels if scorer_needs_labels else None)
+                               scorer_cond=labels if scorer_needs_labels else None,
+                               candidate_sharding=candidate_sharding)
     z = rng.normal(seed, (0,), (n_img, res, res, ch), dev)
     result = run_search(method, backend, z, seed, params or SearchParams(),
                         record_noises=record_noises)

@@ -54,6 +54,7 @@ def flagship_unit(dev: torch.device, profile: str | None, hb) -> dict:
     """The EDM flagship's eps-greedy expansion unit on ``dev``."""
     from diffusion_tts_torch.backends.edm_entry import load_network
     from diffusion_tts_torch.entry import _flagship
+    from diffusion_tts_torch.parallel.mesh import candidate_rows
     from diffusion_tts_torch.samplers.edm import EDMHeunSampler
     from diffusion_tts_torch.scorers import BrightnessScorer
     from diffusion_tts_torch.search.backend import EDMSearchBackend
@@ -74,7 +75,7 @@ def flagship_unit(dev: torch.device, profile: str | None, hb) -> dict:
                        device=dev, seed=1)
     labels = torch.eye(label_dim, device=dev)[torch.arange(batch, device=dev) % label_dim]
     sampler = EDMHeunSampler(
-        denoise=lambda x, s: net(x, s, labels.repeat(x.shape[0] // batch, 1)), num_steps=18,
+        denoise=lambda x, s: net(x, s, candidate_rows(labels, x.shape[0])), num_steps=18,
         sigma_min=0.002, sigma_max=80.0, S_churn=40.0, S_min=0.05, S_max=50.0, S_noise=1.003)
     backend = EDMSearchBackend(sampler=sampler, scorer=BrightnessScorer())
     x_cur = backend.init_latents(rng.normal(2, (), (batch, res, res, 3), dev))

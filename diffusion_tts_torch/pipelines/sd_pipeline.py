@@ -31,6 +31,7 @@ from diffusion_tts_torch.models.sd_import import load_diffusers, load_safetensor
 from diffusion_tts_torch.models.sd_unet import UNet2DConditionModel
 from diffusion_tts_torch.models.sd_vae import AutoencoderKL
 from diffusion_tts_torch.models.torch_import import load_into, random_state_dict
+from diffusion_tts_torch.parallel.mesh import CandidateShards, candidate_rows
 from diffusion_tts_torch.samplers.ddim import StochasticDDIMSampler
 from diffusion_tts_torch.search.api import run_search
 from diffusion_tts_torch.search.sd_backend import SDSearchBackend
@@ -160,20 +161,20 @@ class StableDiffusionSearchPipeline:
 
     def make_backend(self, cond: torch.Tensor, uncond: torch.Tensor, scorer, scorer_cond=None,
                      num_inference_steps: int = 100, eta: float = 1.0,
-                     guidance_scale: float | None = None) -> SDSearchBackend:
+                     guidance_scale: float | None = None,
+                     candidate_sharding: CandidateShards | None = None) -> SDSearchBackend:
         """A backend bound to cond/uncond embeddings [B, L, D]; with
         guidance > 1 every UNet call runs the unconditional and conditional
         halves as one batch (unconditional first)."""
         g = self.guidance_scale if guidance_scale is None else guidance_scale
-        b = cond.shape[0]
 
         def eps_model(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-            reps = x.shape[0] // b
+            n = x.shape[0]
             xin = x.permute(0, 3, 1, 2).contiguous()
             if g <= 1.0:
-                out = self.unet(xin, t, cond.repeat(reps, 1, 1))
+                out = self.unet(xin, t, candidate_rows(cond, n))
             else:
-                ctx = torch.cat([uncond.repeat(reps, 1, 1), cond.repeat(reps, 1, 1)])
+                ctx = torch.cat([candidate_rows(uncond, n), candidate_rows(cond, n)])
                 un, tx = self.unet(torch.cat([xin, xin]), torch.cat([t, t]), ctx).chunk(2)
                 out = un + g * (tx - un)
             return out.permute(0, 2, 3, 1)
@@ -185,7 +186,7 @@ class StableDiffusionSearchPipeline:
         sampler = StochasticDDIMSampler(eps_model=eps_model, num_steps=num_inference_steps,
                                         eta=eta)
         return SDSearchBackend(sampler=sampler, vae_decode=vae_decode, scorer=scorer,
-                               scorer_cond=scorer_cond)
+                               scorer_cond=scorer_cond, candidate_sharding=candidate_sharding)
 
     # ------------------------------------------------------------------ call
     @torch.no_grad()
@@ -195,10 +196,14 @@ class StableDiffusionSearchPipeline:
                  height: int | None = None, width: int | None = None, score_function=None,
                  scorer_cond=None, method: str = "eps_greedy",
                  params: SearchParams | dict | None = None, seed: int = 0,
-                 record_noises: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                 record_noises: bool = False,
+                 candidate_sharding: CandidateShards | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (images01 [B, H, W, 3] in [0, 1], scores [B]) on the
         pipeline's device: the counterpart of the reference's
-        (output, max_score)."""
+        (output, max_score). With ``candidate_sharding`` every rank of its
+        group makes this call and runs its share of the candidates'
+        forwards."""
         dev = self.device
         if prompt_embeds is None:
             uncond, cond = self.encode_prompt(prompt)
@@ -212,7 +217,8 @@ class StableDiffusionSearchPipeline:
         backend = self.make_backend(cond, uncond, score_function or _zero_scorer,
                                     scorer_cond=scorer_cond,
                                     num_inference_steps=num_inference_steps, eta=eta,
-                                    guidance_scale=guidance_scale)
+                                    guidance_scale=guidance_scale,
+                                    candidate_sharding=candidate_sharding)
         f = self.vae_scale_factor
         size = self.unet.sample_size * f
         shape = (cond.shape[0], (height or size) // f, (width or size) // f,

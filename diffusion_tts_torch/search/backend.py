@@ -4,8 +4,11 @@ diffusion_tts_tpu/search/backend.py::EDMSearchBackend).
 The searched variable is the churn noise ``eps`` of one Heun step
 (edm/main.py:84-85). Candidates are scored on the decoded predicted clean
 image, on the uint8 grid the reference feeds its scorers
-(edm/main.py:824-838). Candidate sharding comes with a later slice of the
-port.
+(edm/main.py:824-838). With ``candidate_sharding`` (a
+``parallel.mesh.CandidateShards``) each rank runs the Heun step of its slice
+of the flattened [N*B] candidates and gathers the rest, as the JAX backend's
+sharding constraint spreads them over a mesh; ``base_step`` and ``rollout``
+run whole on every rank.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ from typing import Any
 
 import torch
 
+from diffusion_tts_torch.parallel.mesh import CandidateShards
 from diffusion_tts_torch.samplers.edm import EDMHeunSampler
 from diffusion_tts_torch.scorers.base import quantize_to_uint8_grid
 
@@ -25,6 +29,7 @@ class EDMSearchBackend:
     sampler: EDMHeunSampler
     scorer: Any  # scorers.Scorer
     scorer_cond: torch.Tensor | None = None  # class labels [B, label_dim]
+    candidate_sharding: CandidateShards | None = None
 
     @property
     def num_steps(self) -> int:
@@ -42,7 +47,11 @@ class EDMSearchBackend:
         (x_next [N, B, ...], images01 [N*B, H, W, C])."""
         n, b = eps.shape[:2]
         x_flat = x.unsqueeze(0).expand(eps.shape).reshape((n * b,) + x.shape[1:])
-        x_next, pred_x0 = self.sampler.step(x_flat, i, eps.reshape((n * b,) + eps.shape[2:]))
+        eps_flat = eps.reshape((n * b,) + eps.shape[2:])
+        step = lambda xs, es: self.sampler.step(xs, i, es)
+        shards = self.candidate_sharding
+        x_next, pred_x0 = (step(x_flat, eps_flat) if shards is None
+                           else shards.map(step, x_flat, eps_flat))
         return x_next.reshape(eps.shape), quantize_to_uint8_grid(pred_x0)
 
     def advance(self, x: torch.Tensor, i, aux, eps: torch.Tensor) -> torch.Tensor:

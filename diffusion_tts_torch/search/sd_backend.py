@@ -8,7 +8,10 @@ DDIM variance noise gives latents_cand; a lookahead UNet call AT THE SAME t
 (the reference's quirk, :1386-1411) gives a refined pred-x0, which is
 VAE-decoded and scored on the (x*127.5+128) uint8 grid (:1413-1420). The
 committed step reuses the base prediction with the winning noise (:1435).
-The N candidates run as one batched UNet and one batched VAE call.
+The N candidates run as one batched UNet and one batched VAE call; with
+``candidate_sharding`` (a ``parallel.mesh.CandidateShards``) each rank runs
+the lookahead and the decode of its slice of the flattened [N*B]
+candidates and gathers the rest.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Any, Callable
 
 import torch
 
+from diffusion_tts_torch.parallel.mesh import CandidateShards
 from diffusion_tts_torch.samplers.ddim import StochasticDDIMSampler
 from diffusion_tts_torch.scorers.base import quantize_to_uint8_grid
 
@@ -30,6 +34,7 @@ class SDSearchBackend:
     vae_decode: Callable[[torch.Tensor], torch.Tensor]
     scorer: Any  # scorers.Scorer
     scorer_cond: Any = None
+    candidate_sharding: CandidateShards | None = None
 
     @property
     def num_steps(self) -> int:
@@ -49,11 +54,15 @@ class SDSearchBackend:
         flat = lambda t: t.unsqueeze(0).expand((n,) + t.shape).reshape((n * b,) + t.shape[1:])
         lat_cand, _ = self.sampler.step_math(flat(x), i, flat(aux),
                                              eps.reshape((n * b,) + eps.shape[2:]))
-        lookahead = self.sampler.eps_model(lat_cand,
-                                           self.sampler.timestep(i, n * b, x.device))
-        _, pred_x0 = self.sampler.step_math(lat_cand, i, lookahead, None)
-        images = quantize_to_uint8_grid(self.vae_decode(pred_x0))
-        return lat_cand.reshape(eps.shape), images
+
+        def decoded(lat):  # the lookahead at the same t, then the decode
+            lookahead = self.sampler.eps_model(lat, self.sampler.timestep(i, lat.shape[0],
+                                                                          lat.device))
+            return self.vae_decode(self.sampler.step_math(lat, i, lookahead, None)[1])
+
+        shards = self.candidate_sharding
+        images = decoded(lat_cand) if shards is None else shards.map(decoded, lat_cand)
+        return lat_cand.reshape(eps.shape), quantize_to_uint8_grid(images)
 
     def advance(self, x: torch.Tensor, i, aux: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         return self.sampler.step_math(x, i, aux, eps)[0]

@@ -60,6 +60,7 @@ def main(argv=None) -> list[dict]:
     args = ap.parse_args(argv)
 
     from diffusion_tts_torch.backends.edm_entry import NET_CONFIGS, load_network
+    from diffusion_tts_torch.parallel.mesh import candidate_rows
     from diffusion_tts_torch.samplers.edm import EDMHeunSampler
     from diffusion_tts_torch.scorers import BrightnessScorer, CompressibilityScorer
     from diffusion_tts_torch.search.api import run_search
@@ -87,7 +88,7 @@ def main(argv=None) -> list[dict]:
               if label_dim else None)
 
     def denoise(x, sigma):
-        return net(x, sigma, None if labels is None else labels.repeat(x.shape[0] // b, 1))
+        return net(x, sigma, None if labels is None else candidate_rows(labels, x.shape[0]))
 
     backend = EDMSearchBackend(
         sampler=EDMHeunSampler(denoise=denoise, num_steps=args.steps, S_churn=40.0, S_min=0.05,

@@ -1,8 +1,9 @@
-"""Train diffusion models (EDM recipes) on one NVIDIA card (counterpart of
+"""Train diffusion models (EDM recipes) on NVIDIA cards (counterpart of
 the repo's train.py):
 
     python -m diffusion_tts_torch.train --outdir=training-runs \\
         --data=datasets/imagenet-64x64.zip --cond=1 --arch=adm --bf16=1 --augment=0
+    torchrun --standalone --nproc_per_node=8 -m diffusion_tts_torch.train ...
 
 Same flags, arch presets (ddpmpp, ncsnpp, adm), precond/loss pairs (vp, ve,
 edm), run-dir naming, options dump and resume/transfer plumbing as the JAX
@@ -10,6 +11,13 @@ CLI (reference edm/train.py:41-236), the augmentation pipe included:
 ``--augment P > 0`` (default 0.12, the recipe's) trains on the EDM pipe's
 images at probability P and conditions the net on its 9 labels. Runs on
 the card unless ``--device cpu`` is given.
+
+Under torchrun the ranks train data-parallel (one card each over NCCL, or
+``--dist-backend gloo``, which lets ranks share a card or run on the CPU):
+``--batch`` is the global batch, ``--batch-gpu`` the micro-batch of one
+rank's accumulation round, so ``batch = batch_gpu x rounds x ranks``
+(reference training_loop.py:60-64); each rank reads its own rank-strided
+share of the data.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ def main(argv=None):
     p.add_argument("--duration", type=float, default=200.0, help="Mimg")
     p.add_argument("--batch", type=int, default=512)
     p.add_argument("--batch-gpu", type=int, default=None,
-                   help="microbatch per accumulation round")
+                   help="microbatch per accumulation round of one rank")
     p.add_argument("--cbase", type=int, default=None)
     p.add_argument("--cres", type=str, default=None, help="comma-separated channel multipliers")
     p.add_argument("--lr", type=float, default=1e-3)
@@ -73,10 +81,26 @@ def main(argv=None):
                    help="accepted as in the JAX CLI and without effect: eager PyTorch has no "
                         "compiled program whose boundary it could move")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default="nccl",
+                   help="torch.distributed backend under torchrun: nccl (one rank per card) "
+                        "or gloo (ranks may share a card; the CPU). The JAX CLI has no such "
+                        "flag: XLA picks its own transport")
     p.add_argument("-n", "--dry-run", action="store_true")
     args = p.parse_args(argv)
 
+    # the process group before anything else (the reference's dist.init() at
+    # train.py:81); nothing happens without torchrun's environment
+    from diffusion_tts_torch.parallel.distributed import process_group
+
+    with process_group(args.dist_backend, device=args.device):
+        _train(args)
+
+
+def _train(args) -> None:
+    import torch.distributed as dist
+
     from diffusion_tts_torch.models import preconds
+    from diffusion_tts_torch.parallel.distributed import rank, rank_device, world_size
     from diffusion_tts_torch.training import loss as losses
     from diffusion_tts_torch.training.augment import edm_augment_pipe
     from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
@@ -85,7 +109,10 @@ def main(argv=None):
     from diffusion_tts_torch.utils.device import resolve_device
     from diffusion_tts_torch.utils.logging_utils import Logger, print0
 
-    device = resolve_device(args.device)
+    device = rank_device(resolve_device(args.device))
+    world = world_size()
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} does not divide over {world} ranks")
     dataset = ImageDataset(path=args.data, use_labels=bool(args.cond), xflip=bool(args.xflip))
     if args.cond and dataset.label_dim == 0:
         raise SystemExit("--cond=1 requires labels specified in dataset.json")
@@ -136,8 +163,12 @@ def main(argv=None):
                     if (m := re.match(r"(\d+)-", d))]
         run_dir = os.path.join(args.outdir, f"{max(existing, default=-1) + 1:05d}-{desc}")
 
-    rounds = max(args.batch // (args.batch_gpu or args.batch), 1)
+    rounds = max(args.batch // ((args.batch_gpu or args.batch // world) * world), 1)
     seed = args.seed if args.seed is not None else int.from_bytes(os.urandom(2), "little")
+    if world > 1:  # every rank takes rank 0's seed and run dir, as the reference does
+        shared = [seed, run_dir]
+        dist.broadcast_object_list(shared, src=0)
+        seed, run_dir = shared
     train_cfg = TrainConfig(
         lr=args.lr, grad_accum_rounds=rounds, total_batch=args.batch,
         ema_halflife_kimg=args.ema * 1000.0,
@@ -155,12 +186,15 @@ def main(argv=None):
         print0("--dry-run: exiting")
         return
 
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        json.dump(opts_dump, f, indent=2, default=str)
-    logger = Logger(os.path.join(run_dir, "log.txt"), "a")
+    logger = None
+    if rank() == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+            json.dump(opts_dump, f, indent=2, default=str)
+        logger = Logger(os.path.join(run_dir, "log.txt"), "a")
     try:
-        data_iter = batch_iterator(dataset, args.batch, seed=seed)
+        data_iter = batch_iterator(dataset, args.batch // world, shard=rank(),
+                                   num_shards=world, seed=seed)
         training_loop(
             net=net, net_config=net_config, data_iter=data_iter, loss_fn=loss_fn,
             train_cfg=train_cfg, loop_cfg=loop_cfg, augment_fn=augment_fn, device=device,
@@ -168,7 +202,8 @@ def main(argv=None):
             max_ticks=args.max_ticks,
         )
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 if __name__ == "__main__":

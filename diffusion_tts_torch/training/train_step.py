@@ -11,17 +11,26 @@ EMA (:142-148). The JAX package's ``accum_unroll`` and ``accum_flat_carry``
 work around the TPU runtime and have no counterpart.
 
 The state is updated in place: the net's parameters, the EMA copy, the
-optimizer's moments and ``nimg``.
+optimizer's moments and ``nimg``. A state made data-parallel by
+``parallel/mesh.py::shard_train_step`` (DistributedDataParallel) or sharded
+by ``parallel/sharding_rules.py::shard_state`` (FSDP2) carries in
+``parallel`` how a rank runs its share: the module its forwards go
+through, the rounds whose backward skips the gradient sync, and what is
+left to reduce after the last. The mean over R and the NaN scrub then act
+on the reduced gradient, as in the JAX package, where the mean over the
+sharded batch comes first.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,11 +58,20 @@ class TrainState:
     ema: nn.Module  # their exponential moving average, never differentiated
     opt: torch.optim.Adam
     nimg: int = 0  # images seen (the reference's cur_nimg counter)
+    # None in one process; else parallel/mesh.py::DataParallel or
+    # parallel/sharding_rules.py::ModelSharded
+    parallel: Any = None
 
     @classmethod
     def create(cls, net: nn.Module, cfg: TrainConfig) -> "TrainState":
         ema = copy.deepcopy(net).eval().requires_grad_(False)
         return cls(net=net, ema=ema, opt=make_optimizer(cfg, net.parameters()))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (FSDP2's parameters and gradients);
+    any other tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def lr_at(cfg: TrainConfig, nimg: int) -> float:
@@ -91,19 +109,24 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor | N
     net = state.net.train()
     params = [p for p in net.parameters() if p.requires_grad]
     state.opt.zero_grad(set_to_none=True)
+    par = state.parallel
+    forward = net if par is None else par.module
 
     def denoise(x, sigma, lab, augment_labels):
-        return net(x, sigma, lab, augment_labels, generator)
+        return forward(x, sigma, lab, augment_labels, generator)
 
     loss_sum = torch.zeros((), device=images.device)
     for j in range(r):
         lab = None if labels is None else labels[j]
-        loss = loss_fn(denoise, images[j], lab, generator, augment_fn,
-                       **(draws[j] if draws is not None else {})).mean()
-        loss.backward()  # gradients of the rounds add up in .grad
+        with contextlib.nullcontext() if par is None else par.round(last=j == r - 1):
+            loss = loss_fn(denoise, images[j], lab, generator, augment_fn,
+                           **(draws[j] if draws is not None else {})).mean()
+            loss.backward()  # gradients of the rounds add up in .grad
         loss_sum += loss.detach()
+    if par is not None:
+        par.reduce()
 
-    grads = [p.grad for p in params if p.grad is not None]
+    grads = [_local(p.grad) for p in params if p.grad is not None]
     with torch.no_grad():
         torch._foreach_div_(grads, float(r))
         for g in grads:
@@ -119,7 +142,8 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor | N
     state.nimg += cfg.total_batch
     beta = ema_beta_at(cfg, state.nimg)
     with torch.no_grad():
-        ema, cur = list(state.ema.parameters()), list(net.parameters())
+        ema = [_local(p) for p in state.ema.parameters()]
+        cur = [_local(p) for p in net.parameters()]
         torch._foreach_sub_(ema, cur)
         torch._foreach_mul_(ema, beta)
         torch._foreach_add_(ema, cur)

@@ -2,13 +2,15 @@
 diffusion_tts_tpu/utils/logging_utils.py).
 
 Counterparts of dnnlib.util.Logger (dnnlib/util.py:55-116) and
-dist.print0 (torch_utils/distributed.py:55-57). Training runs in one
-process until distributed training is ported, so ``print0`` always prints.
+dist.print0 (torch_utils/distributed.py:55-57): ``print0`` prints on rank 0
+of the process group only (in one process, always).
 """
 from __future__ import annotations
 
 import sys
 from typing import TextIO
+
+from diffusion_tts_torch.parallel.distributed import rank
 
 
 class Logger:
@@ -48,8 +50,9 @@ class Logger:
 
 
 def print0(*args, **kwargs) -> None:
-    """Print on process 0 (distributed.py:55-57): the only process."""
-    print(*args, **kwargs)
+    """Print on rank 0 only (distributed.py:55-57)."""
+    if rank() == 0:
+        print(*args, **kwargs)
 
 
 def format_time(seconds: float) -> str:

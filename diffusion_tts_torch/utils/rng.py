@@ -49,6 +49,20 @@ def uniform(seed: int, path: tuple[int, ...], shape, device) -> torch.Tensor:
                       device=device, dtype=torch.float32)
 
 
+def per_seed_generators(seeds, device: torch.device | str = "cpu",
+                        *path: int) -> list[torch.Generator]:
+    """One generator per image seed, each seeded from ``(seed, *path)``:
+    the reference's StackedRandomGenerator (edm/generate.py:182-196). The
+    draws a seed sees do not depend on the batch or rank it lands in."""
+    return [generator(int(s), *path, device=device) for s in seeds]
+
+
+def stacked_normal(generators: list[torch.Generator], shape) -> torch.Tensor:
+    """Per-seed standard-normal fp32 draws: [len(generators), *shape]."""
+    return torch.stack([torch.randn(shape, generator=g, device=g.device, dtype=torch.float32)
+                        for g in generators])
+
+
 def unit_normalize(x: torch.Tensor, dims=None, eps: float = 0.0) -> torch.Tensor:
     """x / ||x||_2 over ``dims`` (default: all but the leading axis), the
     norm floored at ``eps`` or, when it is 0, the dtype's smallest normal."""
@@ -58,4 +72,5 @@ def unit_normalize(x: torch.Tensor, dims=None, eps: float = 0.0) -> torch.Tensor
     return x / torch.clamp(norm, min=eps if eps > 0 else torch.finfo(x.dtype).tiny)
 
 
-__all__ = ["fold_in_path", "generator", "normal", "uniform", "unit_normalize"]
+__all__ = ["fold_in_path", "generator", "normal", "uniform", "per_seed_generators",
+           "stacked_normal", "unit_normalize"]

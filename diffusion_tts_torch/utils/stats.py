@@ -4,10 +4,11 @@ diffusion_tts_tpu/utils/stats.py).
 Counterpart of the reference's training_stats
 (edm/torch_utils/training_stats.py:55-266): every report accumulates
 [count, sum, sum-of-squares] per metric; a collector turns the moments into
-mean/std. Training runs in one process until distributed training is
-ported, so ``report0`` is ``report`` and ``sync`` (the reference's
-cross-process all_reduce) does nothing. The jsonl format matches the
-reference's stats.jsonl (training_loop.py:195-201).
+mean/std. ``Collector.sync()`` is the reference's ``Collector.update()``
+all_reduce (training_stats.py:233-266): it sums the per-metric moment
+vectors across the ranks of the process group (one process: nothing to
+do). The jsonl format matches the reference's stats.jsonl
+(training_loop.py:195-201).
 """
 from __future__ import annotations
 
@@ -17,6 +18,10 @@ from collections import defaultdict
 from typing import Any
 
 import numpy as np
+import torch
+import torch.distributed as dist
+
+from diffusion_tts_torch.parallel.distributed import rank, world_size
 
 
 class Collector:
@@ -32,8 +37,14 @@ class Collector:
             self._moments[name] += np.array([v.size, v.sum(), np.square(v).sum()])
 
     def report0(self, name: str, value) -> None:
-        """Rank-0-only report (training_stats.py:102-108)."""
-        self.report(name, value)
+        """Rank-0-only report (training_stats.py:102-108): only rank 0
+        contributes a value, but every rank registers the name (the
+        reference reports an empty list on the others), so that sync()'s
+        same-name-set contract holds."""
+        if rank() == 0:
+            self.report(name, value)
+        else:
+            self._moments[name] += 0.0
 
     def mean(self, name: str) -> float:
         m = self._moments.get(name)
@@ -50,7 +61,19 @@ class Collector:
         return float(np.sqrt(var))
 
     def sync(self) -> None:
-        """Sum the moments across processes: one process, nothing to do."""
+        """Sum the moment vectors across the ranks, in sorted-name order, in
+        one all_reduce. Every rank must have reported the same names since
+        the last sync, the contract of the reference's per-name
+        all_reduce."""
+        names = sorted(self._moments)
+        if world_size() == 1 or not names:
+            return
+        stacked = torch.from_numpy(np.stack([self._moments[n] for n in names]))
+        if dist.get_backend() == "nccl":  # NCCL reduces device tensors only
+            stacked = stacked.to(torch.device("cuda", torch.cuda.current_device()))
+        dist.all_reduce(stacked)
+        for name, row in zip(names, stacked.cpu().numpy()):
+            self._moments[name] = row
 
     def as_dict(self) -> dict[str, dict[str, float]]:
         return {

@@ -1,8 +1,10 @@
 """Shared helpers of the tests of the PyTorch port (tests/test_torch_*.py):
 the flagship's architecture and the SD UNet/VAE at test width, in both
 packages, with the same random weights."""
+import concurrent.futures
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -173,3 +175,26 @@ def assert_mcts_arenas_match(j_make, bargs, t_backend, z, params, j_params, tabl
         js = np.asarray(j_tree.states)
         assert np.abs(t_tree.states.numpy() - js).max() <= state_tol * np.abs(js).max(), i
     return t_mcts.mcts_result(t_tree).x.numpy(), np.asarray(j_mcts.mcts_result(j_tree).x)
+
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_dist_worker.py")
+
+
+def start_ranks(case: str, ranks: int, workdir, inputs: dict):
+    """Write tests/_torch_dist_worker.py's inputs for ``case`` and start its
+    gloo ranks in the background (180 s to finish); returns a future."""
+    from diffusion_tts_torch.parallel.distributed import launch
+
+    torch.save(inputs, os.path.join(workdir, f"{case}.inputs.pt"))
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    fut = pool.submit(launch, [sys.executable, WORKER, case, str(workdir)], ranks, timeout=180,
+                      cwd=os.path.dirname(os.path.dirname(WORKER)))
+    pool.shutdown(wait=False)
+    return fut
+
+
+def rank_results(case: str, ranks: int, workdir, fut) -> list[dict]:
+    """Every rank's output of a ``start_ranks`` group, once it has ended."""
+    fut.result()
+    return [torch.load(os.path.join(workdir, f"{case}.rank{r}.pt"), weights_only=False)
+            for r in range(ranks)]
