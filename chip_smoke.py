@@ -179,9 +179,30 @@ Phases, each of which raises on failure (nothing is caught):
      --steps 18 --seeds 0-7`` (random weights, fp32), ``--batch 8`` in one
      process against ``--batch 2`` on the two ranks: every PNG within one
      uint8 level, the differing pixels counted;
+13. the last three tools, on the card at full width (it runs after 12):
+     13a, ``tools.reward_curve --quick`` at its defaults (the CIFAR-10
+     DDPM++ in fp32, the tool's only dtype, 8 seeds, 18 steps, the exact
+     JPEG compressibility): each row's NFE is nfe_per_sample's, #1 launched
+     6 sites x (72 + 36) forwards = 648 times at d = 256, all on the route
+     the predicate gives fp32 ("fma"), its calls by shape held against the
+     searches' batches (eps-greedy 32, rejection 16, at T = 256 and 64),
+     #1 against its plain version at each of those shapes phase 4d did not
+     check in fp32 (untimed), the rows and the wall time printed; 13b, ``tools.sd_bench`` at its defaults (SD-1.5 in bf16, batch 1, n 4,
+     4 iterations, weights from its own numpy draw): its JSON line, each
+     kernel launched 20 x its calls per UNet forward and VAE decode (5
+     calls of 4 iterations, each a batch-8 UNet call and a batch-4 decode),
+     every kernel shape it gives that 6, 6b and 7 did not check held
+     against the plain version (untimed), the latents finite; 13c,
+     ``examples.sd_all_scorers.run`` on phase 6's bf16 pipeline and 6c's
+     CLIP ViT-L/14 (both wait on the host from the end of phase 7, so that
+     no peak memory reading of 6d-12 holds them) at the example's MASTER_PARAMS (N=4, K=20) and 6 steps
+     (cut from 18 for time): three 512x512 PNGs, each scorer's launches
+     ``method_calls`` x the per-call counts (UNet {2: 6, 8: 120}, decode
+     {4: 120, 1: 1}), its best score finite and its scorer's score of the
+     returned images again within 1e-4, its wall time printed;
 11. one JSON line of kernel numbers (each kernel's launches by method of
-     4b / 6b under "method_launches"; phase 12's numbers under "parallel"),
-     then the result line.
+     4b / 6b under "method_launches"; phase 12's numbers under "parallel",
+     phase 13's under "tools"), then the result line.
 
 The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
  4c. the 64x64 noisy-ImageNet classifier (``EncoderUNetModel`` defaults,
@@ -212,7 +233,7 @@ The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
      relative).
 
 With --kernels-json, the per-shape rows, the 4b / 4c / 6b / 6c / 9 search
-lines and phase 10's and 12's lines also go to that file. The script imports nothing
+lines and phase 10's, 12's and 13's lines also go to that file. The script imports nothing
 of JAX; it needs the repository beside it.
 """
 from __future__ import annotations
@@ -288,7 +309,8 @@ from diffusion_tts_torch.search import (
     run_search,
 )
 from diffusion_tts_torch.search.nfe import nfe_per_sample
-from diffusion_tts_torch.tools import generate
+from diffusion_tts_torch.examples import sd_all_scorers
+from diffusion_tts_torch.tools import generate, reward_curve, sd_bench
 from diffusion_tts_torch.training import checkpoints
 from diffusion_tts_torch.training.augment import edm_augment_pipe
 from diffusion_tts_torch.training.dataset import ImageDataset, batch_iterator
@@ -1549,10 +1571,13 @@ SD_CHECKS = {"attention": check_sd_attention, "group_norm_silu": check_group_nor
              "conv3x3_same": check_conv_same, "conv3x3_up2": check_conv_up2}
 
 
-def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict]:
+def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
     """Phases 6, 6b and 7: the SD main path, the other searches, then the
     SD kernels at the main path's shapes. Returns (the searches' lines,
-    the kernel lines, {kernel: the bf16 shape keys checked})."""
+    the kernel lines, {kernel: the bf16 shape keys of the eps-greedy search},
+    what phase 13 takes again: the bf16 pipeline and 6c's CLIP scorer, both
+    moved to the host, and {kernel: every bf16 shape key checked by 6, 6b
+    and 7})."""
     t0 = time.perf_counter()
     ref = StableDiffusionSearchPipeline.random(SD15_UNET, SD15_VAE, seed=0, dtype=torch.float32,
                                                device="cpu")
@@ -1619,9 +1644,9 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict]:
             and 0 <= images.min() <= images.max() <= 1):
         raise AssertionError("SD main path output is not finite images in [0, 1]")
     del images
-    searches = sd_methods_phase(pipe16, emb, shapes, per_unet, per_decode, per_call, tag)
-    rewards = sd_rewards_phase(pipe16, per_unet, per_decode, per_call, tag)
-    del pipe16
+    searches, other_shapes = sd_methods_phase(pipe16, emb, shapes, per_unet, per_decode,
+                                              per_call, tag)
+    rewards, clip = sd_rewards_phase(pipe16, per_unet, per_decode, per_call, tag)
     torch.cuda.empty_cache()
 
     print("SD kernels vs plain, at every shape of the search:")
@@ -1669,7 +1694,23 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict]:
     gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
     if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
         raise AssertionError(f"the SD search did not give GroupNorm its largest shapes: {gn_shapes}")
-    return searches + rewards, lines, {name: set(c) for name, c in shapes.counts.items()}
+    checked = {name: set(c) for name, c in shapes.counts.items()}
+    kept = {"pipe": pipe16, "clip": clip,
+            "checked": {name: checked[name] | other_shapes[name] for name in checked}}
+    move_kept(kept, "cpu")
+    return searches + rewards, lines, checked, kept
+
+
+def move_kept(kept: dict, device: str) -> float:
+    """Phase 6's bf16 pipeline and 6c's CLIP scorer to ``device``, in
+    seconds: they wait on the host from phase 6 to phase 13, so that no peak
+    memory reading in between holds their weights."""
+    t0 = time.perf_counter()
+    for module in (kept["pipe"].unet, kept["pipe"].vae, kept["clip"].model):
+        module.to(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
 
 
 def sd_encoder_phase(tag: str, checked: dict) -> dict:
@@ -1937,11 +1978,13 @@ def edm_methods_phase(net: torch.nn.Module, tag: str, arch: str = "imagenet64",
 
 @torch.no_grad()
 def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: KernelShapes,
-                     per_unet: dict, per_decode: dict, per_call: dict, tag: str) -> list[dict]:
+                     per_unet: dict, per_decode: dict, per_call: dict,
+                     tag: str) -> tuple[list[dict], dict]:
     """Phase 6b: rejection, beam and MCTS through the pipeline's __call__,
     each run's launches held against its structure, then every kernel
     against its plain version at each shape these searches give it and
-    eps-greedy's (``eps_shapes``) does not."""
+    eps-greedy's (``eps_shapes``) does not. Returns the searches' lines and
+    {kernel: the shape keys these searches gave it}."""
     lines, fresh = [], {name: collections.Counter() for name in KernelShapes.NAMES}
     capture = EntryCapture(sd_pipeline)
     try:
@@ -1993,7 +2036,7 @@ def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: Kerne
         for key in sorted(set(fresh[name]) - set(eps_shapes.counts[name]), key=str):
             check(key, torch.bfloat16, tag, timed=False)
         torch.cuda.empty_cache()
-    return lines
+    return lines, {name: set(c) for name, c in fresh.items()}
 
 
 # ------------------------------------------------------------------ rewards
@@ -2156,13 +2199,14 @@ def edm_rewards_phase(net: EDMPrecond, tag: str) -> list[dict]:
 
 @torch.no_grad()
 def sd_rewards_phase(pipe: StableDiffusionSearchPipeline, per_unet: dict, per_decode: dict,
-                     per_call: dict, tag: str) -> list[dict]:
+                     per_call: dict, tag: str) -> tuple[list[dict], CLIPScorer]:
     """Phase 6c: SD-1.5's text tower and CLIP ViT-L/14 at full width
     against the CPU, then eps-greedy on the phase 6 pipeline with prompt
     embeddings from the text tower, once with CLIP (the prompt's text
     features as scorer_cond, as the CLI passes them) and once with
     compressibility, and compressibility's two modes on the images those
-    searches produced."""
+    searches produced. Returns the searches' lines and the CLIP scorer,
+    which phase 13 uses again."""
     print("SD rewards:")
     text_cpu = CLIPTextModel(SD15_TEXT)
     load_into(text_cpu, random_state_dict(text_cpu, 1)).eval()
@@ -2213,7 +2257,7 @@ def sd_rewards_phase(pipe: StableDiffusionSearchPipeline, per_unet: dict, per_de
     finally:
         capture.remove()
     check_compressibility("SD", torch.cat(produced), 150000.0, tag)
-    return lines
+    return lines, clip
 
 
 def cli_phase(tag: str) -> None:
@@ -2803,6 +2847,228 @@ def parallel_phase(tag: str, phase5_step_ms: float) -> dict:
                 group_s=group_s, phase5_step_ms=phase5_step_ms)
 
 
+# ---------------------------------------------------------- the tools (phase 13)
+# 13c's steps, cut from the example's 18 for time: 126 UNet calls and 121
+# decodes a scorer instead of 378 and 361.
+ALL_SCORERS_STEPS = 6
+
+
+class LookaheadCapture:
+    """Stands in for ``sd_bench.lookahead`` while sd_bench.main runs: it
+    records every kernel call of the unit's UNet and decoder by shape
+    (KernelShapes, installed at the first call) and the latents each call
+    returns."""
+
+    def __init__(self):
+        self.run, self.shapes, self.latents = sd_bench.lookahead, None, []
+        sd_bench.lookahead = self
+
+    def __call__(self, unet, vae, lat, eps, ctx, iters):
+        if self.shapes is None:
+            self.shapes = KernelShapes(modules=(unet, vae.decoder))
+        out = self.run(unet, vae, lat, eps, ctx, iters)
+        self.latents.append(out[0])
+        return out
+
+    def remove(self) -> None:
+        sd_bench.lookahead = self.run
+        if self.shapes is not None:
+            self.shapes.remove()
+
+
+class AttentionShapes:
+    """Stands in for ``qk.qkv_self_attention`` while a tool runs: counts its
+    calls by (B, T, heads, d, dtype)."""
+
+    def __init__(self):
+        self.run, self.counts = qk.qkv_self_attention, collections.Counter()
+        qk.qkv_self_attention = self
+
+    def __call__(self, qkv, heads, **kw):
+        b, t, width = qkv.shape
+        self.counts[(b, t, heads, width // (3 * heads), qkv.dtype)] += 1
+        return self.run(qkv, heads, **kw)
+
+    def remove(self) -> None:
+        qk.qkv_self_attention = self.run
+
+
+class PipelineRecorder:
+    """Stands in for the pipeline handed to ``sd_all_scorers.run``: each
+    call's launches (counted from 0 just before it), routes, wall time,
+    scorer, condition and output; every other attribute is the pipeline's."""
+
+    def __init__(self, pipe: StableDiffusionSearchPipeline):
+        self.pipe, self.calls = pipe, []
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def __call__(self, **kw):
+        reset_launches()
+        (images, scores), wall = timed_run(lambda: self.pipe(**kw))
+        self.calls.append(dict(scorer=kw["score_function"], cond=kw["scorer_cond"],
+                               images=images, scores=scores, wall_s=wall,
+                               launches=read_launches(), routes=read_routes()))
+        return images, scores
+
+
+def reward_curve_run(tag: str) -> dict:
+    """13a: ``reward_curve --quick`` at its defaults (the CIFAR-10 DDPM++,
+    fp32, 8 seeds, 18 steps, the exact JPEG compressibility): its rows, #1's
+    launches and calls by shape, and #1 against its plain version at each
+    shape that phase 4d did not check in fp32."""
+    shapes = AttentionShapes()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "curve.json")
+            reset_launches()
+            t0 = time.perf_counter()
+            rows = reward_curve.main(["--quick", "--device", "cuda", "--json", path])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, routes = read_launches(), read_routes()
+            with open(path) as f:
+                written = json.load(f)
+    finally:
+        shapes.remove()
+    seeds = 8
+    calls, want_shapes = 0, collections.Counter()
+    for (method, over), row in zip(reward_curve.sweep(True), rows):
+        p = SearchParams().replace(**over)
+        edm_calls, _ = method_calls(method, "edm", STEPS, p, seeds)
+        calls += sum(edm_calls.values())
+        for b, n in edm_calls.items():
+            for t, heads, sites in CIFAR_SITES:
+                want_shapes[(b, t, heads, CIFAR_D, torch.float32)] += n * sites
+        if row["method"] != method or row["nfe_per_sample"] != nfe_per_sample(method, STEPS, p) \
+                or not np.isfinite(row["reward"]):
+            raise AssertionError(f"reward_curve row {row}")
+    if len(rows) != 2 or written["rows"] != rows or set(written) != {"config", "weights",
+                                                                     "device", "rows"}:
+        raise AssertionError(f"reward_curve wrote {written}")
+    want = dict.fromkeys(launches, 0)
+    want["attention"] = sum(n for _, _, n in CIFAR_SITES) * calls
+    route = qk.forward_route(torch.float32, CIFAR_D)
+    for kernel, n in launches.items():
+        if n != want[kernel]:
+            raise AssertionError(f"{kernel} launched {n} times by reward_curve, expected "
+                                 f"{want[kernel]}")
+    check_routes("reward_curve", routes, {"attention": want["attention"]}, {"attention": route})
+    if shapes.counts != want_shapes:
+        raise AssertionError(f"reward_curve's #1 calls by shape {dict(shapes.counts)}, expected "
+                             f"{dict(want_shapes)}")
+    # phase 4d's fp32 rows: the eps-greedy batch N * SAMPLES at each site
+    checked = {(N * SAMPLES, t, heads, CIFAR_D, torch.float32) for t, heads, _ in CIFAR_SITES}
+    new = sorted(set(shapes.counts) - checked, key=str)
+    for b, t, heads, d, dtype in new:
+        check_attention(b, t, heads, dtype, tag, timed=False, d=d)
+    print(json.dumps({"reward_curve": rows}))
+    print(f"reward_curve --quick: {wall:.2f} s with the load, {want['attention']} #1 launches "
+          f"at d = {CIFAR_D} on {route} (fp32, the tool's default) in {len(shapes.counts)} "
+          f"shapes, {len(new)} not checked by phase 4d (held against plain above) [{tag}]")
+    return dict(rows=rows, wall_s=wall, launches=launches, shapes=len(shapes.counts),
+                new_shapes=len(new))
+
+
+def sd_bench_run(tag: str, checked: dict) -> dict:
+    """13b: ``sd_bench`` at its defaults (SD-1.5 in bf16, batch 1, n 4, 4
+    iterations): its launches, the kernel shapes that 6, 6b and 7 did not
+    check (``checked``) against their plain versions, finite latents."""
+    capture = LookaheadCapture()
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        line = sd_bench.main([])
+        wall = time.perf_counter() - t0
+        launches, routes = read_launches(), read_routes()
+    finally:
+        capture.remove()
+    per_call = launches_per_call()
+    calls = 5 * 4  # compile_s's call and 4 timed, 4 iterations each
+    want = {k: calls * (SD_PER_UNET[k] + SD_PER_DECODE[k]) * per_call[k] for k in per_call}
+    check_launches("sd_bench", launches, routes, want)
+    for name, shape_calls in capture.shapes.counts.items():
+        if sum(shape_calls.values()) * per_call[name] != launches[name]:
+            raise AssertionError(f"{name}: sd_bench's recorded calls {dict(shape_calls)} do "
+                                 f"not add up to its {launches[name]} launches")
+    new = 0
+    for name, check in SD_CHECKS.items():
+        for key in sorted(set(capture.shapes.counts[name]) - checked[name], key=str):
+            check(key, torch.bfloat16, tag, timed=False)
+            new += 1
+    total = sum(len(c) for c in capture.shapes.counts.values())
+    finite = all(torch.isfinite(lat).all() for lat in capture.latents)
+    print(f"sd_bench: {line['value']} NFE/s (a CFG pair counts 2), compile_s "
+          f"{line['compile_s']}, {wall:.2f} s with the build of the nets; {total} kernel "
+          f"shapes, {new} not checked by phases 6, 6b and 7 (held against plain above); "
+          f"latents {tuple(capture.latents[-1].shape)} finite {finite} [{tag}]")
+    if len(capture.latents) != 5 or not finite or tuple(capture.latents[-1].shape) != \
+            (1, 4, 64, 64) or not line["value"] > 0:
+        raise AssertionError(f"sd_bench: {line}, {len(capture.latents)} calls")
+    return dict(line=line, wall_s=wall, launches=launches, shapes=total, new_shapes=new)
+
+
+def all_scorers_run(tag: str, pipe: StableDiffusionSearchPipeline, clip: CLIPScorer) -> dict:
+    """13c: ``sd_all_scorers.run`` on phase 6's bf16 pipeline and 6c's
+    CLIP ViT-L/14 at MASTER_PARAMS, ALL_SCORERS_STEPS steps: three PNGs,
+    each scorer's launches, its best score against the scorer on the
+    returned images."""
+    from PIL import Image
+
+    master = SearchParams(**sd_all_scorers.MASTER)
+    want = expected_launches(sd_runs=[("eps_greedy", master, ALL_SCORERS_STEPS, 1, 1)])
+    recorder = PipelineRecorder(pipe)
+    with tempfile.TemporaryDirectory() as d:
+        best = sd_all_scorers.run(recorder, clip, prompt="A beautiful landscape",
+                                  method="eps_greedy", steps=ALL_SCORERS_STEPS, seed=0, outdir=d)
+        pngs = {f: Image.open(os.path.join(d, f)).size for f in sorted(os.listdir(d))}
+    names = ("brightness", "compressibility", "clip")
+    if list(best) != list(names) or pngs != {f"sd_eps_greedy_{n}.png": (512, 512)
+                                             for n in names}:
+        raise AssertionError(f"sd_all_scorers wrote {pngs}, best {best}")
+    per_scorer = {}
+    for name, call in zip(names, recorder.calls):
+        path = f"sd_all_scorers/{name}"
+        check_launches(path, call["launches"], call["routes"], want)
+        images, scores = call["images"], call["scores"]
+        again = call["scorer"](images, call["cond"])
+        err = (again - scores).abs().max().item()
+        if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
+                and tuple(images.shape) == (1, 512, 512, 3)
+                and 0 <= images.min() <= images.max() <= 1 and err <= 1e-4
+                and best[name] == float(scores[0])):
+            raise AssertionError(f"{path}: scores {scores.tolist()}, again {again.tolist()}")
+        per_scorer[name] = dict(best=best[name], wall_s=call["wall_s"],
+                                launches={k: v for k, v in call["launches"].items() if v})
+        print(f"  {path}: {call['wall_s']:.3f} s, best {best[name]:.5f}, the scorer again "
+              f"max_abs {err:.3e} (tol 1e-4) [{tag}]")
+    print(f"sd_all_scorers: eps_greedy {ALL_SCORERS_STEPS} steps (cut from 18) at MASTER_PARAMS "
+          f"{sd_all_scorers.MASTER}, launches per scorer {want} [{tag}]")
+    return dict(steps=ALL_SCORERS_STEPS, scorers=per_scorer, launches_per_scorer=want)
+
+
+def tools_phase(tag: str, kept: dict) -> dict:
+    """Phase 13: the reward curve, the SD lookahead bench and the SD
+    all-scorers example on the card at full width (13c on the pipeline and
+    CLIP scorer that phase 6 left on the host, moved back first)."""
+    def all_scorers():
+        move_s = move_kept(kept, "cuda")
+        print(f"  phase 6's pipeline and CLIP scorer back on the card: {move_s:.2f} s")
+        return dict(all_scorers_run(tag, kept["pipe"], kept["clip"]), move_s=move_s)
+
+    out = {}
+    for part, run in (("13a", lambda: reward_curve_run(tag)),
+                      ("13b", lambda: sd_bench_run(tag, kept["checked"])),
+                      ("13c", all_scorers)):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["phase_s"] = time.perf_counter() - t0
+        print(f"  [{part}: {out[part]['phase_s']:.1f} s]")
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-json", default=None,
@@ -2860,7 +3126,7 @@ def main() -> None:
     training_line["d256"]["augmented"] = timed("5c augmented DDPM++ training",
                                                augmented_training_phase, tag,
                                                training_line["d256"])
-    sd_searches, sd_lines, sd_checked = timed("6-7 SD", sd_phases, tag)
+    sd_searches, sd_lines, sd_checked, sd_kept = timed("6-7 SD", sd_phases, tag)
     encoder = timed("6d SD encoder", sd_encoder_phase, tag, sd_checked)
     for line in sd_lines:  # each kernel's launches in one 512x512 encode, as counted there
         line["encode_launches"] = encoder["launches"][line["name"]]
@@ -2873,6 +3139,9 @@ def main() -> None:
     # -- 12. parallelism through torch.distributed
     parallel = timed("12 parallel", parallel_phase, tag,
                      TRAIN_BATCH / training_line["train_img_per_s"] * 1e3)
+    # -- 13. the reward curve, the SD lookahead bench, the SD all-scorers example
+    tools = timed("13 tools", tools_phase, tag, sd_kept)
+    del sd_kept
     print(json.dumps({"phase_s": phase_s}))
     kernels = [edm_line, training_line] + sd_lines
     edm_searches += cifar_searches
@@ -2884,12 +3153,12 @@ def main() -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.kernels_json)), exist_ok=True)
         with open(args.kernels_json, "w") as f:
             json.dump({"gpu": tag, "kernels": kernels, "searches": edm_searches + sd_searches,
-                       "bench": bench_lines, "encoder": encoder, "parallel": parallel}, f,
-                      indent=1)
+                       "bench": bench_lines, "encoder": encoder, "parallel": parallel,
+                       "tools": tools}, f, indent=1)
     without_shapes = lambda d: {k: without_shapes(v) if isinstance(v, dict) else v
                                 for k, v in d.items() if k != "shapes"}
     print(json.dumps({"kernels": [without_shapes(kern) for kern in kernels],
-                      "parallel": parallel}))
+                      "parallel": parallel, "tools": tools}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

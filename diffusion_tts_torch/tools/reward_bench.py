@@ -28,6 +28,33 @@ import torch
 METHODS = "naive,rejection,beam,zero_order,eps_greedy,mcts"
 
 
+def seeded_backend(net, arch: str, seeds: list[int], steps: int, scorer,
+                   dev: torch.device):
+    """The reward tools' EDM search: ``net`` with one class label per seed
+    (seed mod label_dim, tiled to the candidate rows), the Heun sampler
+    with churn 40, and each seed's latents from its own generator.
+    Returns (backend, latents [len(seeds), res, res, ch])."""
+    from diffusion_tts_torch.backends.edm_entry import NET_CONFIGS
+    from diffusion_tts_torch.parallel.mesh import candidate_rows
+    from diffusion_tts_torch.samplers.edm import EDMHeunSampler
+    from diffusion_tts_torch.search.backend import EDMSearchBackend
+    from diffusion_tts_torch.utils import rng
+
+    cfg = NET_CONFIGS[arch]
+    res, ch, label_dim = cfg["img_resolution"], cfg["img_channels"], cfg["label_dim"]
+    labels = (torch.eye(label_dim, device=dev)[torch.tensor(seeds, device=dev) % label_dim]
+              if label_dim else None)
+
+    def denoise(x, sigma):
+        return net(x, sigma, None if labels is None else candidate_rows(labels, x.shape[0]))
+
+    backend = EDMSearchBackend(
+        sampler=EDMHeunSampler(denoise=denoise, num_steps=steps, S_churn=40.0, S_min=0.05,
+                               S_max=50.0, S_noise=1.003),
+        scorer=scorer)
+    return backend, torch.stack([rng.normal(s, (), (res, res, ch), dev) for s in seeds])
+
+
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="tiny")
@@ -59,24 +86,17 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
 
-    from diffusion_tts_torch.backends.edm_entry import NET_CONFIGS, load_network
-    from diffusion_tts_torch.parallel.mesh import candidate_rows
-    from diffusion_tts_torch.samplers.edm import EDMHeunSampler
+    from diffusion_tts_torch.backends.edm_entry import load_network
     from diffusion_tts_torch.scorers import BrightnessScorer, CompressibilityScorer
     from diffusion_tts_torch.search.api import run_search
-    from diffusion_tts_torch.search.backend import EDMSearchBackend
     from diffusion_tts_torch.search.nfe import nfe_per_sample
-    from diffusion_tts_torch.utils import rng
     from diffusion_tts_torch.utils.config import SearchParams
     from diffusion_tts_torch.utils.device import profiled, resolve_device
 
     dev = resolve_device(args.device)
     net = load_network(args.arch, args.weights, device=dev,
                        dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32)
-    cfg = NET_CONFIGS[args.arch]
-    res, ch, label_dim = cfg["img_resolution"], cfg["img_channels"], cfg["label_dim"]
     seeds = [int(s) for s in args.seeds.split(",")]
-    b = len(seeds)
     if args.scorer == "brightness":
         scorer = BrightnessScorer()
     else:  # jpeg: exact sizes on the host in every call; dct: the on-device proxy
@@ -84,17 +104,7 @@ def main(argv=None) -> list[dict]:
                                        else "dct")
     params = SearchParams(N=args.N, K=args.K, B=args.B, S=args.S, eps=args.eps,
                           lambda_=args.lambda_)
-    labels = (torch.eye(label_dim, device=dev)[torch.tensor(seeds, device=dev) % label_dim]
-              if label_dim else None)
-
-    def denoise(x, sigma):
-        return net(x, sigma, None if labels is None else candidate_rows(labels, x.shape[0]))
-
-    backend = EDMSearchBackend(
-        sampler=EDMHeunSampler(denoise=denoise, num_steps=args.steps, S_churn=40.0, S_min=0.05,
-                               S_max=50.0, S_noise=1.003),
-        scorer=scorer)
-    z = torch.stack([rng.normal(s, (), (res, res, ch), dev) for s in seeds])
+    backend, z = seeded_backend(net, args.arch, seeds, args.steps, scorer, dev)
 
     rows, base_reward = [], None
     for method in args.methods.split(","):

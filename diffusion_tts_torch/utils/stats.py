@@ -31,8 +31,13 @@ class Collector:
         self._moments: dict[str, np.ndarray] = defaultdict(lambda: np.zeros(3))
 
     def report(self, name: str, value) -> None:
+        """Adds the finite values of ``value``. The name is registered even
+        when none is finite, so that every rank holds the same names for
+        sync() (a rank whose losses were all NaN would otherwise hold one
+        name fewer and desynchronize the all_reduce)."""
         v = np.asarray(value, np.float64).reshape(-1)
         v = v[np.isfinite(v)]
+        self._moments[name] += 0.0
         if v.size:
             self._moments[name] += np.array([v.size, v.sum(), np.square(v).sum()])
 
@@ -41,10 +46,7 @@ class Collector:
         contributes a value, but every rank registers the name (the
         reference reports an empty list on the others), so that sync()'s
         same-name-set contract holds."""
-        if rank() == 0:
-            self.report(name, value)
-        else:
-            self._moments[name] += 0.0
+        self.report(name, value if rank() == 0 else [])
 
     def mean(self, name: str) -> float:
         m = self._moments.get(name)
@@ -76,9 +78,12 @@ class Collector:
             self._moments[name] = row
 
     def as_dict(self) -> dict[str, dict[str, float]]:
+        """{name: {num, mean, std}} of the names with at least one value
+        (after sync(): on any rank), as the JAX package's collector, which
+        never registers a name without one, writes them."""
         return {
             k: {"num": int(m[0]), "mean": self.mean(k), "std": self.std(k)}
-            for k, m in self._moments.items()
+            for k, m in self._moments.items() if m[0]
         }
 
     def reset(self) -> None:

@@ -200,6 +200,18 @@ def case_search(inp) -> dict:
     return out
 
 
+def case_stats_nonfinite(inp) -> dict:
+    """Rank 0's losses are all NaN, rank 1's finite: both ranks must get
+    through sync() and hold the same moments (2 ranks)."""
+    from diffusion_tts_torch.utils.stats import Collector
+
+    col = Collector()
+    col.report("Loss/loss", [float("nan")] * 4 if dist.get_rank() == 0 else [1.0, 2.0])
+    col.report0("Timing/sec_per_kimg", 3.0)
+    col.sync()
+    return {"stats": col.as_dict()}
+
+
 def case_lost_peer(inp) -> dict:
     """Rank 1 leaves without joining rank 0's all_reduce, which must raise."""
     if dist.get_rank() == 1:
@@ -209,7 +221,7 @@ def case_lost_peer(inp) -> dict:
 
 
 CASES = {"train": case_train, "hsdp": case_hsdp, "search": case_search,
-         "lost_peer": case_lost_peer}
+         "stats_nonfinite": case_stats_nonfinite, "lost_peer": case_lost_peer}
 
 
 def main() -> None:

@@ -1,7 +1,9 @@
 """The port's bench and tool entry points on the CPU: the bench twin
 (diffusion_tts_torch/bench.py), entry(), the SD end-to-end bench and the
 reward-bench twins (diffusion_tts_torch/tools/), held against the JAX
-tools' row keys and the JAX package's NFE count."""
+tools' row keys and the JAX package's NFE count; and that every entry
+point, the reward curve, the SD lookahead bench and the all-scorers
+example included, refuses to run without a card unless given the CPU."""
 import ast
 import json
 import os
@@ -12,7 +14,14 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from diffusion_tts_torch import bench
 from diffusion_tts_torch import entry as t_entry
-from diffusion_tts_torch.tools import reward_bench, sd_e2e_bench, sd_reward_bench
+from diffusion_tts_torch.examples import sd_all_scorers
+from diffusion_tts_torch.tools import (
+    reward_bench,
+    reward_curve,
+    sd_bench,
+    sd_e2e_bench,
+    sd_reward_bench,
+)
 from diffusion_tts_tpu.search.nfe import nfe_per_sample as j_nfe_per_sample
 from diffusion_tts_tpu.utils.config import SearchParams as JSearchParams
 
@@ -141,6 +150,9 @@ ENTRY_POINTS = {
     "reward_bench": lambda: reward_bench.main(["--arch", "tiny"]),
     "sd_reward_bench": lambda: sd_reward_bench.main(["--tiny"]),
     "sd_e2e_bench": lambda: sd_e2e_bench.main(["--tiny"]),
+    "reward_curve": lambda: reward_curve.main(["--arch", "tiny", "--quick"]),
+    "sd_bench": lambda: sd_bench.main(["--tiny"]),
+    "sd_all_scorers": lambda: sd_all_scorers.main(["--tiny"]),
 }
 
 

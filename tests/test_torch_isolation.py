@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
     assert n_modules >= 30 and bad == [], out.stdout
     assert "diffusion_tts_torch.training.loop" in names and "diffusion_tts_torch.train" in names
     assert {"diffusion_tts_torch.training.augment", "diffusion_tts_torch.tools.train_bench",
-            "diffusion_tts_torch.analysis.dmap"} <= set(names)
+            "diffusion_tts_torch.analysis.dmap", "diffusion_tts_torch.tools.reward_curve",
+            "diffusion_tts_torch.tools.sd_bench",
+            "diffusion_tts_torch.examples.sd_all_scorers"} <= set(names)
 
 
 _RUN_TRAINING_SIDE = """
