@@ -9,7 +9,7 @@ Phases, each of which raises on failure (nothing is caught):
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
      process per source, all at once), and ptxas's register and spill lines
      for the conv kernels' ring route and for the attention kernels at
-     d = 256;
+     d = 160 and 256 (the backward's wide mma form among them);
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
@@ -66,14 +66,15 @@ Phases, each of which raises on failure (nothing is caught):
      snapshot and a state dump written, read back and held equal;
  5b. DDPM++ / VP training (the training CLI's --arch ddpmpp --precond vp
      --cond 1 --bf16 1 --augment 0): the backward kernels at d = 256 against
-     their plain version at [32, 256, 768] and [32, 64, 768] in bf16 and one
-     shape in fp32 (both on "fma": the backward's mma route stops at d = 80),
-     with kernel, plain, library and bound times; one full-width VPLoss
-     forward + backward at batch 2 on the card against the CPU as in 5; the
-     CLI's dry run; training_loop at full width on an in-memory random
-     32x32 dataset, batch 64 as 2 rounds of 32, dropout 0.10, 1 warm and 4
-     timed steps: 6 forward and 12 backward attention launches a micro-batch
-     (60 / 120), forward on "mma", backward on "fma";
+     their plain version at [32, 256, 768] and [32, 64, 768] in bf16 (on
+     "mma", the wide form; ``fma_ms`` times the first design in turns with
+     it) and one shape in fp32 (on "fma"), with kernel, plain, library and
+     bound times; one full-width VPLoss forward + backward at batch 2 on the
+     card against the CPU as in 5; the CLI's dry run; training_loop at full
+     width on an in-memory random 32x32 dataset, batch 64 as 2 rounds of 32,
+     dropout 0.10, 1 warm and 4 timed steps: 6 forward and 12 backward
+     attention launches a micro-batch (60 / 120), forward and backward on
+     "mma";
  5c. augmented DDPM++ / VP training at the training CLI's defaults
      (--augment 0.12): the EDM augment pipe on the card against the CPU at
      [32, 32, 32, 3] and [16, 64, 64, 3] under injected draws, fp32 with TF32
@@ -81,7 +82,7 @@ Phases, each of which raises on failure (nothing is caught):
      ms per call with the card's own draws, the CLI's dry run (augment_dim 9),
      then training_loop as in 5b with the pipe and a map_augment of 9 inputs:
      step ms and img/s beside 5b's from the same call, the pipe's share of a
-     step, the same 60 / 120 attention launches on "mma" / "fma";
+     step, the same 60 / 120 attention launches on "mma";
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
@@ -931,8 +932,12 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     as the library's backward is timed: at the small sites both are the
     autograd engine's dispatch, not the device. ``fma_ms`` times the same
     call on the "fma" route (the first design) where the row is on "mma",
-    in turns with ``ms``; ``tflops`` counts the 14*B*H*T^2*d operations the
-    two kernels run (S and dP in each). ``d`` is the head width."""
+    in turns with ``ms``; such a row also has the device time of one call on
+    each route and of the library's backward (``device_ms``,
+    ``fma_device_ms``, ``library_device_ms``: the kernels' durations over 20
+    calls under torch.profiler, device_ms(), divided by 20), which the
+    host's call rate does not reach. ``tflops`` counts the 14*B*H*T^2*d operations
+    the two kernels run (S and dP in each). ``d`` is the head width."""
     c = heads * d
     gen = torch.Generator(device="cuda").manual_seed(7000 + t + b)
     qkv = torch.randn((b, t, 3 * c), device="cuda", generator=gen).to(dtype).requires_grad_(True)
@@ -954,11 +959,11 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     max_abs, max_rel = max(e[0] for e in errs), max(e[1] for e in errs)
     lq, lk, lv = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     lo, lg = F.scaled_dot_product_attention(lq, lk, lv), split(g).transpose(1, 2).contiguous()
+    library = lambda: torch.autograd.grad(lo, (lq, lk, lv), lg, retain_graph=True)
     row = dict(shape=[b, t, 3 * c], heads=heads, dtype=str(dtype).split(".")[-1],
                max_abs_err=max_abs, max_rel_err=max_rel,
                autograd_ms=time_ms(via_autograd), plain_ms=time_ms(plain, reps=3),
-               library_ms=time_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), lg,
-                                                              retain_graph=True)))
+               library_ms=time_ms(library))
     # the least any implementation needs: S, dP, dV, dQ, dK; q, k, v, o, g read
     # once and dq, dk, dv written once
     row["bound_ms"], row["bound_by"] = bound(10 * b * heads * t * t * d,
@@ -966,15 +971,20 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     row["route"] = qk.backward_route(dtype, d)
     if row["route"] == "mma":
         row["ms"], row["fma_ms"] = time_in_turns(backward, lambda: backward("fma"))
+        row["device_ms"], row["fma_device_ms"], row["library_device_ms"] = (
+            device_ms(lambda fn=fn: [fn() for _ in range(20)])[0] / 20
+            for fn in (backward, lambda: backward("fma"), library))
     else:
         row["ms"] = row["fma_ms"] = time_ms(backward)
     row["tflops"] = 14 * b * heads * t * t * d / row["ms"] / 1e9
+    device = (f" device_ms={row['device_ms']:.4f} fma_device_ms={row['fma_device_ms']:.4f} "
+              f"library_device_ms={row['library_device_ms']:.4f}" if "device_ms" in row else "")
     print(f"  attention_bwd {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {TOL[dtype]}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s; through autograd "
           f"{row['autograd_ms']:.4f}) fma_ms={row['fma_ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) [{tag}]")
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){device} [{tag}]")
     if not (max_rel <= TOL[dtype] and torch.isfinite(got).all()):
         raise AssertionError(f"attention_bwd disagrees with its plain version: {row}")
     return row
@@ -1398,6 +1408,11 @@ def cifar_training_phase(tag: str) -> dict:
         # times: the 6 sites of one bf16 backward at the micro-batch (32), summed
         "ms": per_backward("ms"), "plain_ms": per_backward("plain_ms"),
         "bound_ms": per_backward("bound_ms"), "library_ms": per_backward("library_ms"),
+        # the first design (the fma route) on the same inputs, in turns
+        "fma_ms": per_backward("fma_ms"), "route": main_rows[0]["route"],
+        # device times (torch.profiler): the host's call rate left out
+        "device_ms": per_backward("device_ms"), "fma_device_ms": per_backward("fma_device_ms"),
+        "library_device_ms": per_backward("library_device_ms"),
         "max_abs_err": max(r["max_abs_err"] for r in rows), "routes": run["routes"],
         "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
         "train_peak_gib": run["peak_gib"], "shapes": rows + fwd_rows,
@@ -3103,10 +3118,11 @@ def main() -> None:
                 f"conv3x3_same[{'gn' if prologue else 'no gn'}, "
                 f"{'shortcut' if shortcut else 'no shortcut'}]")
             print(f"ptxas, {kind} ring kernel: " + "; ".join(lines))
-    for name in ("qkv_attention", "attention_bwd"):  # the kernels at the DDPM++ head, d = 256
+    for name in ("qkv_attention", "attention_bwd"):  # the kernels at d = 160 and 256
         if name in built:
-            for entry, lines in ptxas_lines(built[name][1], "Li256E").items():
-                print(f"ptxas, {name} D = 256, {entry}: " + "; ".join(lines))
+            for d in (160, 256):
+                for entry, lines in ptxas_lines(built[name][1], f"Li{d}E").items():
+                    print(f"ptxas, {name} D = {d}, {entry}: " + "; ".join(lines))
 
     phase_s = {"build": time.perf_counter() - t0}
 

@@ -37,20 +37,20 @@
 //
 // Routes. The caller picks one (ops/kernels/qkv_attention.py::
 // backward_route) and this file obeys:
-//   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, every width up to 80
-//     of the forward's mma route (the training path's d = 64 among them).
-//     The products run on the tensor cores (mma.sync m16n8k16, bf16
-//     operands, fp32 accumulators: exactly the arithmetic of the function
-//     above).
-//   * fma (route 0): fp32 at every width, and bf16 at d = 4, 8, 160 and 256
-//     (256: the CIFAR-10 DDPM++ net's single head). The products run on the
-//     CUDA cores in fp32 FMA, so that fp32 holds 1e-4 against an fp32
-//     reference with TF32 off (a TF32 product would not). bf16 can be sent
-//     here at any width, which times the first design. At d = 160 the mma
-//     route's dK and dV accumulators alone would take 160 registers a
-//     thread, at d = 256 256 of them.
+//   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, every width
+//     up to 256 of the forward's mma route (the ADM training path's d = 64
+//     and the DDPM++ training path's d = 256 among them). The products run
+//     on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
+//     accumulators: exactly the arithmetic of the function above). Up to
+//     d = 80 four warps hold a block's results (the narrow form); at 160 and
+//     256 eight warps split the results' columns (the wide form).
+//   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
+//     8. The products run on the CUDA cores in fp32 FMA, so that fp32 holds
+//     1e-4 against an fp32 reference with TF32 off (a TF32 product would
+//     not). bf16 can be sent here at any width, which times the first design.
 //
-// The mma route, on the fragment helpers of csrc/mma_bf16.cuh:
+// The mma route's narrow form (d <= 80), on the fragment helpers of
+// csrc/mma_bf16.cuh:
 //   * 128 threads, four warps of 16 rows: in dq_mma_kernel 16 q rows each,
 //     in dkv_mma_kernel 16 keys each. The block's resident pair (Q and g, or
 //     K and V) is copied once and its A fragments are loaded once with
@@ -76,6 +76,58 @@
 //     written once; the copies never touch them. Row pitch = width + 8
 //     elements, which makes every ldmatrix conflict-free. Every pointer and
 //     stride must be 16-byte aligned; the wrapper refuses anything else.
+//
+// The mma route's wide form (d = 160 and 256: the DDPM++ net's one head, and
+// the SD UNet's widest). In the narrow form each thread holds its rows' dK
+// and dV accumulators, 2 d fp32 registers: 512 at d = 256, over the 255 a
+// thread may have, and 320 at 160. The budget, for 64-row blocks:
+//   * Registers. A block's 64 x 256 dK and dV are 32,768 fp32 values, 128 a
+//     thread over 8 warps. So 256 threads, one block per SM: warp w owns
+//     result rows 16 (w % 4) .. + 15 and half the columns, (w / 4) * d/2 ..:
+//     2 x 64 accumulator registers a thread in dkv_wide_kernel, 64 in
+//     dq_wide_kernel (2 x 40 and 40 at d = 160).
+//   * P^T and dS^T (dkv), dS (dq): computed once a tile and shared through
+//     shared memory. Each warp computes a 16 x 32 piece of the 64 x 64
+//     tile (S^T = K.Q^T and dP^T = V.g^T over all of d: 2 x 16 accumulator
+//     registers), rounds P and dS to bf16 and writes them to exchange tiles
+//     (64 x 72 bf16, 9.2 KB each); after one barrier every warp reads its 16
+//     rows' A fragments from them with ldmatrix, for its half of the result
+//     columns. Design (b) of three:
+//       (a) each warp group computes S^T and dP^T for its own rows, as the
+//           forward's d = 256 route does with S: no exchange, but 1.5x the
+//           products in dkv and 1.67x in dq;
+//       (c) wgmma (m64nNk16, a 64-row result in one warp group's
+//           registers), the only way to the full tensor-core rate: one warp
+//           group cannot hold dK and dV at d = 256 either (2 x 128 registers
+//           a thread), so two groups would exchange P^T and dS^T as here,
+//           and it adds shared-memory descriptors over swizzled tiles, which
+//           only the card's compiler and a chip run can check. Left to a
+//           later redesign: with the mma.sync, the ldmatrix or the streamed
+//           copies stripped out (tools/torch_attention_bwd_probe.py), this
+//           form loses only a small part of its time each (PERF.md §6).
+//           What is left is the latency of each warp's chain of loads and
+//           products, two warps to an SM quarter, and the per-launch cost
+//           of loading the resident pair; wgmma's asynchronous products and
+//           a producer warp's copies are what hide those.
+//   * The resident pair's A fragments are loaded per k16 step: held in
+//     registers they would take 2 x 64 at d = 256.
+//   * Shared memory, bf16 at a pitch of d + 8 (conflict-free ldmatrix; the
+//     exchange tiles' pitch of 72 likewise): the resident pair 2 x 64 x 264
+//     x 2 B = 67.6 KB, the two-stage ring of the streamed pair 135 KB, the
+//     exchange tiles, dkv's lse and delta 1 KB: 212 KB (dq) and 222 KB (dkv)
+//     of a block's 227 KB at d = 256, 138 KB and 148 KB at d = 160.
+//   * The copies of tile i + 1 (16-byte cp.async) are issued right after the
+//     barrier that opens tile i, which every warp passes only when it is
+//     done with tile i - 1, and land while tile i is computed. Two barriers
+//     a tile: open, and exchange.
+//   * The grid. [32, 256, 768] gives 4 x 32 = 128 blocks of 64 rows a
+//     kernel, one wave on 132 SMs. Where the 64-row blocks would fill no
+//     more than half the SMs ([32, 64, 768]: 32 blocks), a block takes 32
+//     rows (8 warps as 2 row pairs x 4 column quarters, exchange tiles of
+//     32 x 64, 173 KB / 179 KB): twice the blocks, still one wave. At
+//     d = 160 a quarter of the columns (40) is no multiple of the 16 that
+//     one ldmatrix.x4 covers, so d = 160 keeps 64-row blocks.
+//   * d is a multiple of 16 at both widths: no zero columns.
 //
 // The fma route (the first design):
 //   * 256 threads as 16 x 16 over 64 x 64 tiles: each thread owns 4 x 4 of
@@ -426,16 +478,17 @@ __device__ __forceinline__ void zero_pad(bf16* tiles, int tid) {
   }
 }
 
-// Rows row0 .. row0 + kMmaTile of a [T, D] slab (token stride stride_t) into a
-// tile with MmaShape<D>::kPitch; rows at or past t are zero-filled.
-template <int D>
+// Rows row0 .. row0 + ROWS of a [T, D] slab (token stride stride_t) into a
+// tile with a row pitch of D rounded up to 16, plus 8, by NT threads; rows at
+// or past t are zero-filled.
+template <int D, int ROWS = kMmaTile, int NT = MmaShape<D>::kThreads>
 __device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, int row0, int t,
                                           int64_t stride_t, int tid) {
-  using C = MmaShape<D>;
-  for (int e = tid; e < kMmaTile * C::kChunks; e += C::kThreads) {
-    const int r = e / C::kChunks, ch = e % C::kChunks;
+  constexpr int kChunks = D / 8, kPitch = (D + 15) / 16 * 16 + 8;
+  for (int e = tid; e < ROWS * kChunks; e += NT) {
+    const int r = e / kChunks, ch = e % kChunks;
     const bool ok = row0 + r < t;
-    dtts::cp_async16(dst + r * C::kPitch + ch * 8,
+    dtts::cp_async16(dst + r * kPitch + ch * 8,
                      src + (ok ? (int64_t)(row0 + r) * stride_t + ch * 8 : 0), ok);
   }
 }
@@ -483,25 +536,26 @@ __device__ __forceinline__ void two_products_mma(const uint32_t (&a)[MmaShape<D>
 }
 
 // acc += A.X for one k16 step: A given as fragments, X rows k0 .. k0 + 15 of
-// a [64][d] tile in shared memory, all kDS columns.
-template <int D>
-__device__ __forceinline__ void accumulate_mma(float (&acc)[MmaShape<D>::kNB][4],
-                                               const uint32_t (&a)[4], const bf16* x, int k0,
+// a [rows][d] tile in shared memory (row pitch `pitch`), NB n8 blocks of
+// columns from c0.
+template <int NB>
+__device__ __forceinline__ void accumulate_mma(float (&acc)[NB][4], const uint32_t (&a)[4],
+                                               const bf16* x, int pitch, int k0, int c0,
                                                int lane) {
 #pragma unroll
-  for (int j = 0; j < MmaShape<D>::kNB / 2; ++j) {
+  for (int j = 0; j < NB / 2; ++j) {
     uint32_t f[4];
-    dtts::load_b2_trans(f, x, MmaShape<D>::kPitch, k0, j * 16, lane);
+    dtts::load_b2_trans(f, x, pitch, k0, c0 + j * 16, lane);
     dtts::mma_bf16(acc[2 * j], a, f[0], f[1]);
     dtts::mma_bf16(acc[2 * j + 1], a, f[2], f[3]);
   }
 }
 
 // Store acc * scale for the warp's rows row0 + g and row0 + g + 8 below t,
-// columns below D, as bf16 pairs.
-template <int D>
-__device__ __forceinline__ void store_mma(bf16* base, const float (&acc)[MmaShape<D>::kNB][4],
-                                          float scale, int row0, int t, int64_t stride_t,
+// columns col0 + 8 j + ... below D, as bf16 pairs.
+template <int D, int NB>
+__device__ __forceinline__ void store_mma(bf16* base, const float (&acc)[NB][4], float scale,
+                                          int row0, int col0, int t, int64_t stride_t,
                                           int lane) {
   const int g = lane >> 2, tq = lane & 3;
 #pragma unroll
@@ -509,8 +563,8 @@ __device__ __forceinline__ void store_mma(bf16* base, const float (&acc)[MmaShap
     const int row = row0 + g + 8 * r;
     if (row >= t) continue;
 #pragma unroll
-    for (int j = 0; j < MmaShape<D>::kNB; ++j) {
-      const int col = 8 * j + 2 * tq;
+    for (int j = 0; j < NB; ++j) {
+      const int col = col0 + 8 * j + 2 * tq;
       if (col < D)
         *reinterpret_cast<__nv_bfloat162*>(base + row * stride_t + col) =
             __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
@@ -601,12 +655,12 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4];
       pack_a(a, s, kk);
-      accumulate_mma<D>(acc, a, kt, kk * 16, lane);
+      accumulate_mma(acc, a, kt, P, kk * 16, 0, lane);
     }
     __syncthreads();  // this stage is read: the next iteration's copies may overwrite it
   }
-  store_mma<D>(dq + blockIdx.z * out_sb + blockIdx.y * out_sh, acc, scale, q0 + warp * 16, t,
-               out_st, lane);
+  store_mma<D>(dq + blockIdx.z * out_sb + blockIdx.y * out_sh, acc, scale, q0 + warp * 16, 0,
+               t, out_st, lane);
 }
 
 // dK and dV: one block per (batch, head, 64-key tile); Q/g tiles stream. The
@@ -700,23 +754,23 @@ dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t a[4];
       pack_a(a, st, kk);
-      accumulate_mma<D>(acc_v, a, gt, kk * 16, lane);
+      accumulate_mma(acc_v, a, gt, P, kk * 16, 0, lane);
       pack_a(a, dpt, kk);
-      accumulate_mma<D>(acc_k, a, qt, kk * 16, lane);
+      accumulate_mma(acc_k, a, qt, P, kk * 16, 0, lane);
     }
     __syncthreads();  // this stage is read: the next iteration may overwrite it
   }
   const int64_t out_off = blockIdx.z * out_sb + blockIdx.y * out_sh;
-  store_mma<D>(dk + out_off, acc_k, scale, k0 + warp * 16, t, out_st, lane);
-  store_mma<D>(dv + out_off, acc_v, 1.f, k0 + warp * 16, t, out_st, lane);
+  store_mma<D>(dk + out_off, acc_k, scale, k0 + warp * 16, 0, t, out_st, lane);
+  store_mma<D>(dv + out_off, acc_v, 1.f, k0 + warp * 16, 0, t, out_st, lane);
 }
 
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* g,
-                       const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                       int b, int h, int t, const int64_t* in_s, const int64_t* g_s,
-                       const int64_t* out_s, float scale_log2e, float scale,
-                       cudaStream_t stream) {
+cudaError_t launch_narrow(const void* q, const void* k, const void* v, const void* g,
+                          const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                          int b, int h, int t, const int64_t* in_s, const int64_t* g_s,
+                          const int64_t* out_s, float scale_log2e, float scale,
+                          cudaStream_t stream) {
   using C = MmaShape<D>;
   // The attribute is per device, so it is set on every launch.
   cudaError_t err = cudaFuncSetAttribute(dq_mma_kernel<D>,
@@ -741,6 +795,318 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- mma route, the wide form
+
+// Tile shapes of the wide form for head width D and BM resident rows a block
+// (64, or 32 where the grid is small): 8 warps as kRG row groups of 16 by kCG
+// column groups; BN streamed rows a tile.
+template <int D, int BM>
+struct WideShape {
+  static constexpr int kThreads = 256;
+  static constexpr int kBN = 64;                // streamed rows a tile
+  static constexpr int kStages = 2;             // ring depth of the streamed pair
+  static constexpr int kRG = BM / 16;           // warps along the result rows
+  static constexpr int kCG = 8 / kRG;           // warps along the result columns
+  static constexpr int kSteps = D / 16;         // k16 steps over d
+  static constexpr int kSCols = kBN / kCG;      // streamed rows of a warp's S piece
+  static constexpr int kSB = kSCols / 8;        // its n8 blocks
+  static constexpr int kDV = D / kCG;           // result columns of a warp
+  static constexpr int kNB = kDV / 8;           // their n8 blocks
+  static constexpr int kPitch = D + 8;          // operand tile row, in elements
+  static constexpr int kXPitch = kBN + 8;       // exchange tile row, in elements
+  static constexpr int kTileBytes = (2 * BM + 2 * kStages * kBN) * kPitch * (int)sizeof(bf16);
+  static constexpr int kXBytes = BM * kXPitch * (int)sizeof(bf16);  // one exchange tile
+  static constexpr int kDqSmem = kTileBytes + kXBytes;
+  // dkv: two exchange tiles (P^T, dS^T), then each stage's lse and delta
+  static constexpr int kDkvSmem =
+      kTileBytes + 2 * kXBytes + 2 * kStages * kBN * (int)sizeof(float);
+  // whether the shape's warps cover the tiles in whole ldmatrix.x4 pieces
+  static constexpr bool kFits = D % 16 == 0 && kDV % 16 == 0 && kSCols % 16 == 0 &&
+                                kRG * kCG == 8 && kDkvSmem <= 232448;
+};
+
+// x += A.B^T and y += C.E^T for a warp's 16 rows (rows r0.. of the resident
+// [BM][D] tiles a and c) and its kSCols streamed rows (rows n0.. of the
+// [kBN][D] tiles b and e), over all of d; every fragment from shared memory.
+template <int D, int BM>
+__device__ __forceinline__ void two_products_wide(const bf16* a, const bf16* b, const bf16* c,
+                                                  const bf16* e, int r0, int n0, int lane,
+                                                  float (&x)[WideShape<D, BM>::kSB][4],
+                                                  float (&y)[WideShape<D, BM>::kSB][4]) {
+  using C = WideShape<D, BM>;
+  constexpr int P = C::kPitch;
+  zero(x);
+  zero(y);
+  // two k16 steps at a time: unrolled whole, dkv_wide_kernel spills at d = 256
+#pragma unroll 2
+  for (int kk = 0; kk < C::kSteps; ++kk) {
+    uint32_t fa[4], fc[4];
+    dtts::load_a(fa, a, P, r0, kk * 16, lane);
+    dtts::load_a(fc, c, P, r0, kk * 16, lane);
+#pragma unroll
+    for (int j = 0; j < C::kSB / 2; ++j) {
+      uint32_t f[4];
+      dtts::load_b2(f, b, P, n0 + j * 16, kk * 16, lane);
+      dtts::mma_bf16(x[2 * j], fa, f[0], f[1]);
+      dtts::mma_bf16(x[2 * j + 1], fa, f[2], f[3]);
+      dtts::load_b2(f, e, P, n0 + j * 16, kk * 16, lane);
+      dtts::mma_bf16(y[2 * j], fc, f[0], f[1]);
+      dtts::mma_bf16(y[2 * j + 1], fc, f[2], f[3]);
+    }
+  }
+}
+
+// acc += X[r0.., :].Y[:, c0..] over the tile's kBN streamed rows: X an
+// exchange tile [BM][kXPitch], Y a streamed [kBN][D] tile.
+template <int D, int BM>
+__device__ __forceinline__ void accumulate_wide(float (&acc)[WideShape<D, BM>::kNB][4],
+                                                const bf16* x, const bf16* y, int r0, int c0,
+                                                int lane) {
+  using C = WideShape<D, BM>;
+#pragma unroll
+  for (int kk = 0; kk < C::kBN / 16; ++kk) {
+    uint32_t a[4];
+    dtts::load_a(a, x, C::kXPitch, r0, kk * 16, lane);
+    accumulate_mma(acc, a, y, C::kPitch, kk * 16, c0, lane);
+  }
+}
+
+// dQ: one block per (batch, head, BM-row q tile); K/V tiles stream. Each tile:
+// S = Q.K^T and dP = g.V^T, a 16 x kSCols piece a warp; dS in bf16 to the
+// exchange tile; then dQ += dS.K for the warp's rows and columns.
+template <int D, int BM>
+__global__ void __launch_bounds__(WideShape<D, BM>::kThreads, 1)
+dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ g,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dq, int t, int64_t in_sb, int64_t in_st, int64_t in_sh,
+               int64_t g_sb, int64_t g_st, int64_t g_sh, int64_t out_sb, int64_t out_st,
+               int64_t out_sh, float scale_log2e, float scale) {
+  using C = WideShape<D, BM>;
+  constexpr int P = C::kPitch, BN = C::kBN, NT = C::kThreads;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(bwd_smem);  // [BM][P]
+  bf16* gs = qs + BM * P;                        // [BM][P]
+  bf16* ks = gs + BM * P;                        // [kStages][BN][P]
+  bf16* vs = ks + C::kStages * BN * P;           // [kStages][BN][P]
+  bf16* xs = vs + C::kStages * BN * P;           // [BM][kXPitch]: dS in bf16
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp % C::kRG, wc = warp / C::kRG;
+  const int q0 = blockIdx.x * BM;
+  const int64_t in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
+  const int64_t stat_off = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t;
+  const bf16* kb = k + in_off;
+  const bf16* vb = v + in_off;
+
+  copy_rows<D, BM, NT>(qs, q + in_off, q0, t, in_st, tid);
+  copy_rows<D, BM, NT>(gs, g + blockIdx.z * g_sb + blockIdx.y * g_sh, q0, t, g_st, tid);
+  copy_rows<D, BN, NT>(ks, kb, 0, t, in_st, tid);
+  copy_rows<D, BN, NT>(vs, vb, 0, t, in_st, tid);
+  dtts::cp_async_commit();
+
+  // lse and delta of this lane's rows g and g + 8 (rows past t are never stored)
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wr * 16 + gr + 8 * r;
+    row_lse[r] = row < t ? lse[stat_off + row] : 0.f;
+    row_delta[r] = row < t ? delta[stat_off + row] : 0.f;
+  }
+  float acc[C::kNB][4];
+  zero(acc);
+
+  const int ntiles = (t + BN - 1) / BN;
+  for (int it = 0; it < ntiles; ++it) {
+    dtts::cp_async_wait<0>();
+    // Tile it has landed, and every warp is done with tile it - 1: its stage
+    // and the exchange tile may be overwritten.
+    __syncthreads();
+    if (it + 1 < ntiles) {
+      const int nx = (it + 1) % C::kStages;
+      copy_rows<D, BN, NT>(ks + nx * BN * P, kb, (it + 1) * BN, t, in_st, tid);
+      copy_rows<D, BN, NT>(vs + nx * BN * P, vb, (it + 1) * BN, t, in_st, tid);
+      dtts::cp_async_commit();
+    }
+    const bf16* kt = ks + (it % C::kStages) * BN * P;
+    const bf16* vt = vs + (it % C::kStages) * BN * P;
+
+    float s[C::kSB][4], dp[C::kSB][4];  // S = Q.K^T, dP = g.V^T
+    two_products_wide<D, BM>(qs, kt, gs, vt, wr * 16, wc * C::kSCols, lane, s, dp);
+    // Element e of block j is row g + 8 (e >> 1), key it*BN + col + (e & 1).
+#pragma unroll
+    for (int j = 0; j < C::kSB; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = wc * C::kSCols + 8 * j + 2 * tq, key = it * BN + col;
+        const float p0 = key < t ? exp2f(s[j][2 * r] * scale_log2e - row_lse[r]) : 0.f;
+        const float p1 = key + 1 < t ? exp2f(s[j][2 * r + 1] * scale_log2e - row_lse[r]) : 0.f;
+        *reinterpret_cast<uint32_t*>(xs + (wr * 16 + gr + 8 * r) * C::kXPitch + col) =
+            dtts::pack_bf16x2(p0 * (dp[j][2 * r] - row_delta[r]),
+                              p1 * (dp[j][2 * r + 1] - row_delta[r]));
+      }
+    __syncthreads();  // the tile's dS is whole
+    accumulate_wide<D, BM>(acc, xs, kt, wr * 16, wc * C::kDV, lane);  // dQ += dS.K
+  }
+  store_mma<D>(dq + blockIdx.z * out_sb + blockIdx.y * out_sh, acc, scale, q0 + wr * 16,
+               wc * C::kDV, t, out_st, lane);
+}
+
+// dK and dV: one block per (batch, head, BM-key tile); Q/g tiles stream. Each
+// tile: S^T = K.Q^T and dP^T = V.g^T, a 16 x kSCols piece a warp; P^T and dS^T
+// in bf16 to the exchange tiles; then dV += P^T.g and dK += dS^T.Q for the
+// warp's rows and columns.
+template <int D, int BM>
+__global__ void __launch_bounds__(WideShape<D, BM>::kThreads, 1)
+dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ g,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int64_t in_sb,
+                int64_t in_st, int64_t in_sh, int64_t g_sb, int64_t g_st, int64_t g_sh,
+                int64_t out_sb, int64_t out_st, int64_t out_sh, float scale_log2e,
+                float scale) {
+  using C = WideShape<D, BM>;
+  constexpr int P = C::kPitch, BN = C::kBN, NT = C::kThreads, XP = C::kXPitch;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(bwd_smem);  // [BM][P]
+  bf16* vs = ks + BM * P;                        // [BM][P]
+  bf16* qs = vs + BM * P;                        // [kStages][BN][P]
+  bf16* gs = qs + C::kStages * BN * P;           // [kStages][BN][P]
+  bf16* pt = gs + C::kStages * BN * P;           // [BM][XP]: P^T in bf16
+  bf16* dst = pt + BM * XP;                      // [BM][XP]: dS^T in bf16
+  float* lse_s = reinterpret_cast<float*>(dst + BM * XP);  // [kStages][BN]
+  float* delta_s = lse_s + C::kStages * BN;                // [kStages][BN]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int wr = warp % C::kRG, wc = warp / C::kRG;
+  const int k0 = blockIdx.x * BM;
+  const int64_t in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
+  const int64_t stat_off = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * t;
+  const bf16* qb = q + in_off;
+  const bf16* gb = g + blockIdx.z * g_sb + blockIdx.y * g_sh;
+  // A q row past the end gets lse = +inf, so its P and dS are 0.
+  auto stage_stats = [&](int stage, int row0) {
+    if (tid < BN) {
+      const int row = row0 + tid;
+      lse_s[stage * BN + tid] = row < t ? lse[stat_off + row] : INFINITY;
+      delta_s[stage * BN + tid] = row < t ? delta[stat_off + row] : 0.f;
+    }
+  };
+
+  copy_rows<D, BM, NT>(ks, k + in_off, k0, t, in_st, tid);
+  copy_rows<D, BM, NT>(vs, v + in_off, k0, t, in_st, tid);
+  copy_rows<D, BN, NT>(qs, qb, 0, t, in_st, tid);
+  copy_rows<D, BN, NT>(gs, gb, 0, t, g_st, tid);
+  dtts::cp_async_commit();
+  stage_stats(0, 0);
+
+  float acc_k[C::kNB][4], acc_v[C::kNB][4];
+  zero(acc_k);
+  zero(acc_v);
+
+  const int ntiles = (t + BN - 1) / BN;
+  for (int it = 0; it < ntiles; ++it) {
+    dtts::cp_async_wait<0>();
+    // Tile it has landed (its lse and delta too), and every warp is done with
+    // tile it - 1: its stage and the exchange tiles may be overwritten.
+    __syncthreads();
+    if (it + 1 < ntiles) {
+      const int nx = (it + 1) % C::kStages;
+      copy_rows<D, BN, NT>(qs + nx * BN * P, qb, (it + 1) * BN, t, in_st, tid);
+      copy_rows<D, BN, NT>(gs + nx * BN * P, gb, (it + 1) * BN, t, g_st, tid);
+      dtts::cp_async_commit();
+      stage_stats(nx, (it + 1) * BN);
+    }
+    const int cur = it % C::kStages;
+    const bf16* qt = qs + cur * BN * P;
+    const bf16* gt = gs + cur * BN * P;
+    const float* ls = lse_s + cur * BN;
+    const float* ds = delta_s + cur * BN;
+
+    float st[C::kSB][4], dpt[C::kSB][4];  // S^T = K.Q^T, dP^T = V.g^T
+    two_products_wide<D, BM>(ks, qt, vs, gt, wr * 16, wc * C::kSCols, lane, st, dpt);
+    // Element e of block j is key g + 8 (e >> 1), q row it*BN + col + (e & 1).
+#pragma unroll
+    for (int j = 0; j < C::kSB; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = wc * C::kSCols + 8 * j + 2 * tq, at = (wr * 16 + gr + 8 * r) * XP + col;
+        const float p0 = exp2f(st[j][2 * r] * scale_log2e - ls[col]);
+        const float p1 = exp2f(st[j][2 * r + 1] * scale_log2e - ls[col + 1]);
+        *reinterpret_cast<uint32_t*>(pt + at) = dtts::pack_bf16x2(p0, p1);
+        *reinterpret_cast<uint32_t*>(dst + at) = dtts::pack_bf16x2(
+            p0 * (dpt[j][2 * r] - ds[col]), p1 * (dpt[j][2 * r + 1] - ds[col + 1]));
+      }
+    __syncthreads();  // the tile's P^T and dS^T are whole
+    accumulate_wide<D, BM>(acc_v, pt, gt, wr * 16, wc * C::kDV, lane);   // dV += P^T.g
+    accumulate_wide<D, BM>(acc_k, dst, qt, wr * 16, wc * C::kDV, lane);  // dK += dS^T.Q
+  }
+  const int64_t out_off = blockIdx.z * out_sb + blockIdx.y * out_sh;
+  store_mma<D>(dk + out_off, acc_k, scale, k0 + wr * 16, wc * C::kDV, t, out_st, lane);
+  store_mma<D>(dv + out_off, acc_v, 1.f, k0 + wr * 16, wc * C::kDV, t, out_st, lane);
+}
+
+template <int D, int BM>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* g,
+                        const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                        int b, int h, int t, const int64_t* in_s, const int64_t* g_s,
+                        const int64_t* out_s, float scale_log2e, float scale,
+                        cudaStream_t stream) {
+  using C = WideShape<D, BM>;
+  static_assert(C::kFits, "the wide form's warps do not cover these tiles");
+  // The attribute is per device, so it is set on every launch.
+  cudaError_t err = cudaFuncSetAttribute(dq_wide_kernel<D, BM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         C::kDqSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkv_wide_kernel<D, BM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((t + BM - 1) / BM, h, b);
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *gp = static_cast<const bf16*>(g);
+  dq_wide_kernel<D, BM><<<grid, C::kThreads, C::kDqSmem, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dq), t, in_s[0], in_s[1], in_s[2], g_s[0],
+      g_s[1], g_s[2], out_s[0], out_s[1], out_s[2], scale_log2e, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_wide_kernel<D, BM><<<grid, C::kThreads, C::kDkvSmem, stream>>>(
+      qp, kp, vp, gp, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t, in_s[0],
+      in_s[1], in_s[2], g_s[0], g_s[1], g_s[2], out_s[0], out_s[1], out_s[2], scale_log2e,
+      scale);
+  return cudaGetLastError();
+}
+
+// The mma route: the narrow form up to d = 80, the wide form above, with
+// 32-row blocks where 64-row ones would fill no more than half the SMs and
+// the shape allows them.
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* g,
+                       const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                       int b, int h, int t, const int64_t* in_s, const int64_t* g_s,
+                       const int64_t* out_s, float scale_log2e, float scale,
+                       cudaStream_t stream) {
+  if constexpr (D <= 80) {
+    return launch_narrow<D>(q, k, v, g, lse, delta, dq, dk, dv, b, h, t, in_s, g_s, out_s,
+                            scale_log2e, scale, stream);
+  } else {
+    if constexpr (WideShape<D, 32>::kFits) {
+      int device = 0, sms = 0;
+      cudaError_t err = cudaGetDevice(&device);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+      if (err != cudaSuccess) return err;
+      if (2 * (int64_t)((t + 63) / 64) * b * h <= sms)
+        return launch_wide<D, 32>(q, k, v, g, lse, delta, dq, dk, dv, b, h, t, in_s, g_s,
+                                  out_s, scale_log2e, scale, stream);
+    }
+    return launch_wide<D, 64>(q, k, v, g, lse, delta, dq, dk, dv, b, h, t, in_s, g_s, out_s,
+                              scale_log2e, scale, stream);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16, 32,
@@ -748,8 +1114,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 // log2-sum-exp2 and sum_d g*o. Strides are in elements for (batch, token,
 // head), the head width's stride being 1: one triple for q, k and v, one for
 // g, one for dq, dk and dv. route: 0 = fma (any dtype and width), 1 = mma
-// (bfloat16 at d = 16, 32, 40, 64, 80, every pointer and stride 16-byte
-// aligned). Two launches (dQ, then dK/dV). Returns the first failing
+// (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, every pointer and stride
+// 16-byte aligned). Two launches (dQ, then dK/dV). Returns the first failing
 // launch's cudaError_t (0 on success); the caller raises on anything else.
 extern "C" int dtts_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                   const float* lse, const float* delta, void* dq, void* dk,
@@ -773,6 +1139,8 @@ extern "C" int dtts_attention_bwd(const void* q, const void* k, const void* v, c
       DTTS_ATTN_BWD_MMA(40)
       DTTS_ATTN_BWD_MMA(64)
       DTTS_ATTN_BWD_MMA(80)
+      DTTS_ATTN_BWD_MMA(160)
+      DTTS_ATTN_BWD_MMA(256)
     }
 #undef DTTS_ATTN_BWD_MMA
     return static_cast<int>(cudaErrorInvalidValue);

@@ -26,9 +26,8 @@ the launch: ``"mma"`` (the products on the tensor cores) and ``"fma"`` (fp32
 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "mma" for bf16 at
 the widths of ``MMA_HEAD_DIMS``, every width a main path runs;
 ``backward_route(dtype, d)`` gives "mma" for bf16 at ``BWD_MMA_HEAD_DIMS``
-(the ADM training path's d = 64 among them; d = 160 and the DDPM++
-training path's d = 256 stay on "fma"). fp32 and
-the other bf16 widths take "fma". The mma routes copy rows in 16-byte
+(the ADM training path's d = 64 and the DDPM++ training path's d = 256
+among them). fp32 and the other bf16 widths take "fma". The mma routes copy rows in 16-byte
 pieces: the call raises, before any launch, on a pointer or a (batch,
 token, head) stride that is not a multiple of 16 bytes. ``ROUTE_LAUNCHES``
 and ``BWD_ROUTE_LAUNCHES`` count launches per route. A caller may ask for
@@ -53,7 +52,7 @@ _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 256, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
-BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80)
+BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80, 160, 256)
 BWD_LAUNCHES_PER_CALL = 2
 _ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
              + (_launch.F32, _launch.PTR, _launch.INT, _launch.PTR))
@@ -288,8 +287,8 @@ def qkv_self_attention_bwd(qkv: torch.Tensor, out: torch.Tensor, g: torch.Tensor
 
 def _backward_route_of(route: str | None) -> str | None:
     """A forced "fma" forward takes the fma backward too; otherwise the
-    backward follows its own predicate (at d = 160 and 256 the forward's
-    mma route has no backward counterpart)."""
+    backward follows its own predicate (which gives the forward's "mma" at
+    every width up to 256)."""
     return "fma" if route == "fma" else None
 
 

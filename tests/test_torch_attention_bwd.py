@@ -79,11 +79,14 @@ def test_attention_functions_pass_gradcheck():
     assert torch.autograd.gradcheck(t_kernel.attention, (q, k, v))
 
 
-@pytest.mark.parametrize("t,heads", [(64, 3), (256, 2)])
-def test_fused_qkv_gradient_matches_jax(t, heads):
+@pytest.mark.parametrize("t,heads,d", [pytest.param(64, 3, 64, id="64-3"),
+                                        pytest.param(256, 2, 64, id="256-2"),
+                                        pytest.param(64, 1, 256, id="64-1-256")])
+def test_fused_qkv_gradient_matches_jax(t, heads, d):
     """d sum(out^2) / d qkv through the port's wrapper (its Function's
-    backward) against jax.grad through the JAX wrapper."""
-    x = _rand((2, t, 3 * heads * 64), seed=t + heads)
+    backward) against jax.grad through the JAX wrapper; the last case is the
+    DDPM++ net's one head of 256 at its 8x8 site, [2, 64, 768]."""
+    x = _rand((2, t, 3 * heads * d), seed=t + heads)
     qkv = torch.from_numpy(x).requires_grad_(True)
     out = t_attention.fused_qkv_self_attention(qkv, heads)
     assert out.grad_fn is not None and "QKVAttention" in type(out.grad_fn).__name__

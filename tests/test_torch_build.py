@@ -95,10 +95,11 @@ def test_attention_route_is_the_one_the_source_states(dtype, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_route_is_the_one_the_source_states(dtype, d):
     """csrc/attention_bwd.cu's mma widths, as stated and as dispatched: the
-    training path's d = 64 among them, d = 160 left on the CUDA cores."""
+    ADM training path's d = 64, the SD UNet's widest d = 160 and the DDPM++
+    training path's d = 256 among them."""
     stated, dispatched = _mma_widths_in_source("attention_bwd", "DTTS_ATTN_BWD_MMA")
     assert stated == dispatched == qk.BWD_MMA_HEAD_DIMS
-    assert 64 in stated and 160 not in stated
+    assert 64 in stated and 160 in stated and 256 in stated
     want = "mma" if dtype == torch.bfloat16 and d in stated else "fma"
     assert qk.backward_route(dtype, d) == want
 

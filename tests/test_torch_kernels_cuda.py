@@ -486,12 +486,12 @@ def test_attention_bwd_matches_plain(card, t, heads, d, dtype):
     """dq, dk and dv of the backward kernels against the plain twin, each
     within the forward's tolerance of that gradient's largest magnitude; the
     row statistic comes from the forward kernel. Ragged tiles included. Each
-    call takes the route its predicate gives: bf16 at d = 8, 160 and 256
-    (and fp32 everywhere) on the CUDA cores, the rest on the tensor cores."""
+    call takes the route its predicate gives: bf16 at d = 8 (and fp32
+    everywhere) on the CUDA cores, the rest on the tensor cores."""
     q, k, v, g = (_randn((2, t, heads, d), dtype, card, s) for s in range(4))
     o = qk.attention(q, k, v)
     route = qk.backward_route(dtype, d)
-    assert (route == "fma") == (dtype == torch.float32 or d in (8, 160, 256))
+    assert (route == "fma") == (dtype == torch.float32 or d == 8)
     before, routes = qk.BWD_LAUNCHES, _bwd_routes()
     got = qk.attention_bwd(q, k, v, o, g)
     torch.cuda.synchronize()
@@ -521,6 +521,23 @@ def test_attention_bwd_mma_route_matches_plain(card, d, t):
     assert _bwd_routes() == {**before, "mma": before["mma"] + qk.BWD_LAUNCHES_PER_CALL}
     for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
         assert a.shape == q.shape and a.dtype == q.dtype and torch.isfinite(a).all()
+        assert _rel(a, r) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,d", [(32, 200, 256), (2, 200, 256), (16, 130, 160)])
+def test_attention_bwd_wide_form_matches_plain(card, b, t, d):
+    """The mma route's wide form (d = 160, 256) with ragged last tiles at
+    both of its block sizes on a 132-SM card: [32, 200] at d = 256 fills the
+    card with 64-row blocks, [2, 200] takes 32-row ones, d = 160 always 64."""
+    q, k, v, g = (_randn((b, t, 1, d), torch.bfloat16, card, 40 + s) for s in range(4))
+    o = qk.attention(q, k, v)
+    before = _bwd_routes()
+    got = qk.attention_bwd(q, k, v, o, g)
+    torch.cuda.synchronize()
+    assert _bwd_routes() == {**before, "mma": before["mma"] + qk.BWD_LAUNCHES_PER_CALL}
+    for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
+        assert a.shape == q.shape and torch.isfinite(a).all()
         assert _rel(a, r) <= TOL[torch.bfloat16]
 
 
@@ -597,9 +614,9 @@ def test_qkv_attention_gradient_on_the_card(card, dtype):
 def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
     """The CIFAR-10 DDPM++ net's attention, one head of 256 on [B, T, 768]
     (its 16x16 and 8x8 sites at the search's batch 8 and the training
-    micro-batch 32): the forward on its route (bf16: "mma"), and the qkv
-    form's backward on "fma", its thirds against the twin and two runs
-    bit-identical."""
+    micro-batch 32): the forward and the qkv form's backward on their routes
+    (bf16: "mma", fp32: "fma"), the backward's thirds against the twin and
+    two runs bit-identical."""
     heads, d = 1, 256
     g = torch.Generator(device=card).manual_seed(b + t)
     qkv = torch.randn((b, t, 3 * d), generator=g, device=card).to(dtype)
@@ -612,7 +629,7 @@ def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
     assert _routes(qk) == {**before, route: before[route] + 1}
     torch.testing.assert_close(out.float(), qk.qkv_self_attention_plain(qkv, heads).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
-    assert qk.backward_route(dtype, d) == "fma"
+    assert qk.backward_route(dtype, d) == route
     got = qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse)
     assert torch.equal(got, qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse))
     split = lambda x: x.reshape(b, t, heads, d)
