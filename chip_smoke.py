@@ -8,28 +8,32 @@ Phases, each of which raises on failure (nothing is caught):
      fails without a card;
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
      process per source, all at once), and ptxas's register and spill lines
-     for the conv kernels' ring route and for the attention kernels at
-     d = 160 and 256 (the backward's wide mma form among them);
+     for the conv kernels' ring route, for the attention kernels at
+     d = 160 and 256 (the backward's wide mma form among them) and for the
+     forward's wgmma kernels (each width, one and two consumer warpgroups);
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
      plain and library (scaled_dot_product_attention, timed only here)
      times beside the least time the card could take; each row names the
-     route its predicate gave (bf16: "mma", the tensor cores; fp32: "fma")
-     and, at bf16, times the CUDA-core "fma" route too (``fma_ms``: the
-     first design, from the same run), with the achieved TFLOP/s;
+     route its predicate gave (bf16 at d = 64: "wgmma", the Hopper design;
+     fp32: "fma") and, at bf16, times the CUDA-core "fma" route too
+     (``fma_ms``: the first design, from the same run) and the mma.sync
+     design (``mma_ms``, in turns with wgmma), with the achieved TFLOP/s
+     and the device times of both designs and of SDPA by CUDA-graph replay
+     (``device_ms``, ``mma_device_ms``, ``library_device_ms``);
   4. EDM main path: the full-width ImageNet-64 EDMPrecond/DhariwalUNet in
      bf16 with random weights from a numpy seed, one forward held against
      the same weights in fp32 on the CPU, then eps-greedy search (18 steps,
      2 samples, N=4, K=2) through the entry point, with every kernel's
-     launches counted, each on the route its predicate gives (every one on
-     "mma");
+     launches counted, each on the route its predicate gives (every one of
+     the 1584 on "wgmma");
  4b. the other EDM searches through the same entry point on the same net:
      rejection (N=4) and beam (B=2, N=4) at 18 steps, MCTS (N=2, S=2, one
      phase) at 6 steps, 2 samples each; per run its wall time, NFE, NFE/s,
      peak memory, scores and launches; the launches held against the
      method's structure (22 per denoiser call: 792 / 792 / 2376), all on
-     "mma"; finite images in [0, 1] whose score, computed again, is the
+     "wgmma"; finite images in [0, 1] whose score, computed again, is the
      returned one; rejection's x against replay_trajectory of its best
      candidate's recorded noise (2e-2 of x's largest magnitude); MCTS run
      twice from one seed, bit-identical; then the qkv attention kernel
@@ -46,7 +50,7 @@ Phases, each of which raises on failure (nothing is caught):
      ncsnpp preset under VEPrecond) and of the ImageNet-64 ADM under
      iDDPMPrecond; eps-greedy (18 steps, 2 samples, N=4, K=2, brightness)
      through generate_image_grid(arch="cifar10"): 432 attention launches,
-     all on "mma"; then rejection, beam and MCTS as in 4b (6 launches per
+     all on "mma" (d = 256 stays there); then rejection, beam and MCTS as in 4b (6 launches per
      denoiser call);
  5. training (the EDM backend's): the attention backward kernels against
      their plain version at the flagship's [16, T, 3C] training shapes (bf16,
@@ -62,7 +66,8 @@ Phases, each of which raises on failure (nothing is caught):
      compute with fp32 parameters;
      then ``training_loop`` at full width in bf16 on an in-memory dataset:
      batch 32 as 2 rounds of 16, dropout 0.10, 1 warm step and 4 timed steps,
-     the forward and backward launches counted (all of them on "mma"), a
+     the forward and backward launches counted (forward on "wgmma", with
+     the row statistic; backward on "mma"), a
      snapshot and a state dump written, read back and held equal;
  5b. DDPM++ / VP training (the training CLI's --arch ddpmpp --precond vp
      --cond 1 --bf16 1 --augment 0): the backward kernels at d = 256 against
@@ -92,7 +97,9 @@ Phases, each of which raises on failure (nothing is caught):
      the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
-     and GEGLU all on "mma", conv3x3_same and conv3x3_up2 all on "ring",
+     on "wgmma" but the VAE decoder's d = 512 head on "mma": 288 and 13 of
+     an eps-greedy search's 301; GEGLU all on "mma", conv3x3_same and
+     conv3x3_up2 all on "ring",
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
      call's shape recorded;
  6d. the SD-1.5 VAE encoder on phase 6's VAE (random weights from numpy
@@ -119,7 +126,9 @@ Phases, each of which raises on failure (nothing is caught):
      the output's largest magnitude (statistics: of the largest mean and of
      the largest rstd), with kernel, plain, library and bound times (5
      repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
-     rows as in phase 3 (route, ``fma_ms``, TFLOP/s); conv rows with their
+     rows as in phase 3 (route: "wgmma" at d = 40, 80, 160, "mma" at the
+     VAE's 512; ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s);
+     conv rows with their
      route, ``v1_ms`` (bf16: the first design, timed in turns with the ring:
      ring, v1, v1, ring, the lesser of each pair) and TFLOP/s; GroupNorm rows
      with their route, ``v1_ms`` (slab and v1 in turns, as the conv's), TB/s,
@@ -140,8 +149,8 @@ Phases, each of which raises on failure (nothing is caught):
      sigma range: 2 steps in fp32 at batch 2 on the card against the same
      run on the CPU (1e-3 of the largest output), then 18 steps in bf16 at
      batch 8 timed (wall s, NFE/s, peak GiB), its attention launches held
-     against the architecture (6 / 6 / 22 sites x 18 forwards, all on
-     "mma"); then eps-greedy (2 samples, N=4, K=2, 6 steps) through
+     against the architecture (6 / 6 / 22 sites x 18 forwards, on "mma" at
+     d = 256 and "wgmma" at the ADM's 64); then eps-greedy (2 samples, N=4, K=2, 6 steps) through
      EDMSearchBackend with the iDDPM sampler (22 x 12 launches);
 10. the bench twins, each through its main(argv) on the card, each run's
      launches of every kernel held against the searches it makes: ``bench``
@@ -169,7 +178,8 @@ Phases, each of which raises on failure (nothing is caught):
      one step, within 1e-3 of its largest magnitude; both ranks' parameters
      and EMA bit-identical after each step; per rank the step ms, the step
      with DDP's sync skipped, one all_reduce of the gradient's 1.18 GB,
-     peak memory and the launches of #1 and #3 (44 / 88, on "mma"); the same
+     peak memory and the launches of #1 and #3 (44 / 88, on "wgmma" and
+     "mma"); the same
      steps over NCCL at world size 1 in turns with the same steps outside a
      group, beside phase 5's step, and one step of each under the profiler
      (the device time the DDP wrapper adds); 12d, phase 4's
@@ -365,7 +375,12 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
                   "geglu_ff": gg.ROUTE_LAUNCHES, "conv3x3_same": cv.SAME_ROUTE_LAUNCHES,
                   "conv3x3_up2": cv.UP2_ROUTE_LAUNCHES, "group_norm_silu": gn.ROUTE_LAUNCHES}
 # Each kernel's redesigned route, which every launch of a main path must take.
-FAST_ROUTE = {"attention": "mma", "attention_bwd": "mma", "geglu_ff": "mma",
+# The attention forward's follows the head width (qk.forward_route at bf16):
+# "wgmma" at the ADM's 64 and the SD UNet's 40, 80 and 160, the widths of
+# FAST_ROUTE's entry; "mma" at the DDPM++ net's 256 and the VAE's 512, which
+# a path at those widths names (check_routes's ``routes``), and an SD search
+# splits its launches between the two (sd_attention_routes).
+FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "mma",
               "conv3x3_same": "ring", "conv3x3_up2": "ring", "group_norm_silu": "slab"}
 
 
@@ -383,15 +398,23 @@ def read_routes() -> dict:
 def check_routes(path: str, got: dict, want: dict, routes: dict | None = None) -> None:
     """Every launch of ``want``'s kernels on ``path`` took the kernel's
     redesigned route (FAST_ROUTE, or the route ``routes`` names for the
-    kernel on this path): ``got`` from read_routes(), ``want`` {kernel name:
-    launches}."""
+    kernel on this path, or the {route: launches} split it gives): ``got``
+    from read_routes(), ``want`` {kernel name: launches}."""
     for name, n in want.items():
         route = (routes or {}).get(name, FAST_ROUTE[name])
-        expected = {**dict.fromkeys(got[name], 0), route: n}
-        if got[name] != expected:
+        split = route if isinstance(route, dict) else {route: n}
+        expected = {**dict.fromkeys(got[name], 0), **split}
+        if got[name] != expected or sum(split.values()) != n:
             raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
-                                 f"expected all {n} launches on {route}")
+                                 f"expected its {n} launches as {split}")
     print(f"  routes on the {path} path: " + ", ".join(f"{k} {got[k]}" for k in want))
+
+
+def sd_attention_routes(unet_calls: int, decodes: int) -> dict:
+    """SD attention launches by route: the UNet's (d = 40, 80, 160) on
+    "wgmma", the VAE decoder mid-block's (d = 512) on "mma"."""
+    return {"wgmma": SD_PER_UNET["attention"] * unet_calls,
+            "mma": SD_PER_DECODE["attention"] * decodes}
 
 
 def launches_per_call() -> dict:
@@ -489,14 +512,37 @@ def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int 
     timed in turns with the ring or the slab (which sets the row's ``ms``
     anew) unless the row is on v1."""
     row["route"] = route
-    if route in ("mma", "fma"):
-        row["fma_ms"] = time_ms(first) if route == "mma" else row["ms"]
+    if route in ("wgmma", "mma", "fma"):
+        row["fma_ms"] = time_ms(first) if route != "fma" else row["ms"]
     elif route in ("ring", "slab"):
         row["ms"], row["v1_ms"] = time_in_turns(kernel, first, reps)
     else:
         row["v1_ms"] = row["ms"]
     if flops:
         row["tflops"] = flops / row["ms"] / 1e9
+
+
+def attention_designs(row: dict, flops: float, kernel, mma_call, library) -> None:
+    """A bf16 attention row's tensor-core designs side by side: ``mma_ms``,
+    the mma.sync design (the first tensor-core one), timed in turns with the
+    row's own route (which sets ``ms`` anew: wgmma, mma, mma, wgmma, the
+    lesser of each pair), and the device times of the route, of the mma design and of the
+    library call (``device_ms``, ``mma_device_ms``, ``library_device_ms``:
+    20 calls under no_grad captured once in a CUDA graph and timed by
+    replay). On a row whose route is "mma" the two designs are one."""
+    with torch.no_grad():
+        if row["route"] == "mma":
+            row["mma_ms"] = row["ms"]
+            row["device_ms"], row["library_device_ms"] = graph_ms([kernel, library])
+            row["mma_device_ms"] = row["device_ms"]
+        else:
+            row["ms"], row["mma_ms"] = time_in_turns(kernel, mma_call)
+            row["device_ms"], row["mma_device_ms"], row["library_device_ms"] = graph_ms(
+                [kernel, mma_call, library])
+    row["tflops"] = flops / row["ms"] / 1e9
+    print(f"    designs: {row['route']} {row['ms']:.4f} ms, mma {row['mma_ms']:.4f} ms (in "
+          f"turns); device ms by graph replay: {row['route']} {row['device_ms']:.4f}, mma "
+          f"{row['mma_device_ms']:.4f}, library {row['library_device_ms']:.4f}")
 
 
 def bound(flops: float, moved_bytes: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -546,6 +592,11 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
     row["bound_ms"], row["bound_by"] = attention_bound_ms(b, t, heads, dtype, d)
     route_columns(row, qk.forward_route(dtype, d), 4 * b * heads * t * t * d,
                   lambda: qk.qkv_self_attention(qkv, heads, route="fma"), None)
+    if dtype == torch.bfloat16:
+        attention_designs(row, 4 * b * heads * t * t * d,
+                          lambda: qk.qkv_self_attention(qkv, heads),
+                          lambda: qk.qkv_self_attention(qkv, heads, route="mma"),
+                          lambda: F.scaled_dot_product_attention(q, k, v))
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) fma_ms={row['fma_ms']:.4f} "
@@ -647,6 +698,11 @@ def edm_phases(tag: str) -> tuple[list[dict], dict]:
         "bound_ms": per_forward("bound_ms"),
         "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": per_forward("library_ms"), "fma_ms": per_forward("fma_ms"),
+        # the mma.sync design in turns with wgmma, and the device times of the
+        # two designs and of SDPA by CUDA-graph replay
+        "mma_ms": per_forward("mma_ms"), "device_ms": per_forward("device_ms"),
+        "mma_device_ms": per_forward("mma_device_ms"),
+        "library_device_ms": per_forward("library_device_ms"),
         "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
         "shapes": rows,
     }
@@ -791,11 +847,15 @@ def check_sd_attention(key, dtype, tag, timed=True):
                for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     item = torch.finfo(dtype).bits // 8
-    return kernel_row("attention", key, dtype, qk.attention(q, k, v), qk.attention_plain(q, k, v),
-                      lambda: qk.attention(q, k, v), lambda: qk.attention_plain(q, k, v),
-                      lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag, timed=timed,
-                      route=(qk.forward_route(dtype, d), lambda: qk.attention(q, k, v, route="fma")))
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    row = kernel_row("attention", key, dtype, qk.attention(q, k, v), qk.attention_plain(q, k, v),
+                     lambda: qk.attention(q, k, v), lambda: qk.attention_plain(q, k, v), library,
+                     (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag, timed=timed,
+                     route=(qk.forward_route(dtype, d), lambda: qk.attention(q, k, v, route="fma")))
+    if timed and dtype == torch.bfloat16:
+        attention_designs(row, 4 * b * h * t * t * d, lambda: qk.attention(q, k, v),
+                          lambda: qk.attention(q, k, v, route="mma"), library)
+    return row
 
 
 def check_group_norm(key, dtype, tag, timed=True):
@@ -1349,7 +1409,8 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
         if n != (expected if name == "attention" else 0):
             raise AssertionError(f"{name} launched {n} times on the CIFAR-10 path, expected "
                                  f"{expected if name == 'attention' else 0}")
-    check_routes("CIFAR-10", routes, {"attention": expected})
+    check_routes("CIFAR-10", routes, {"attention": expected},
+                 {"attention": qk.forward_route(torch.bfloat16, CIFAR_D)})
     if not (torch.isfinite(result.score).all() and torch.isfinite(result.x).all()
             and result.images.shape == (SAMPLES, 32, 32, 3)
             and 0 <= result.images.min() <= result.images.max() <= 1):
@@ -1368,6 +1429,8 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
         "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"), "library_ms": per_forward("library_ms"),
         "fma_ms": per_forward("fma_ms"), "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "mma_ms": per_forward("mma_ms"), "device_ms": per_forward("device_ms"),
+        "library_device_ms": per_forward("library_device_ms"),
         "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
         "nfe_per_s": nfe / again_s, "shapes": rows,
     }
@@ -1400,7 +1463,8 @@ def cifar_training_phase(tag: str) -> dict:
     run = check_training_loop(
         tag, fwd_rows, main_rows, cfg=DDPMPP_TRAIN, precond=VPPrecond, precond_name="vp",
         loss_fn=VPLoss(), batch=CIFAR_TRAIN_BATCH, sites_of=CIFAR_SITES,
-        routes_of={"attention_bwd": qk.backward_route(torch.bfloat16, CIFAR_D)},
+        routes_of={"attention": qk.forward_route(torch.bfloat16, CIFAR_D),
+                   "attention_bwd": qk.backward_route(torch.bfloat16, CIFAR_D)},
         label="CIFAR-10 DDPM++")
     per_backward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, CIFAR_SITES))
     return {
@@ -1483,7 +1547,8 @@ def augmented_training_phase(tag: str, ddpmpp: dict) -> dict:
         tag, ddpmpp["shapes"][-sites:], ddpmpp["shapes"][:sites], cfg=cfg, precond=VPPrecond,
         precond_name="vp", loss_fn=VPLoss(),
         batch=CIFAR_TRAIN_BATCH, sites_of=CIFAR_SITES,
-        routes_of={"attention_bwd": qk.backward_route(torch.bfloat16, CIFAR_D)},
+        routes_of={"attention": qk.forward_route(torch.bfloat16, CIFAR_D),
+                   "attention_bwd": qk.backward_route(torch.bfloat16, CIFAR_D)},
         label="CIFAR-10 DDPM++ augmented", augment_fn=pipe)
     timed = sorted(run["step_ms"][1:])
     median = (timed[len(timed) // 2 - 1] + timed[len(timed) // 2]) / 2
@@ -1653,7 +1718,8 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
                                  f"expected {want}")
     check_routes("SD", routes, {name: launches[name] for name in
                                 ("attention", "geglu_ff", "conv3x3_same", "conv3x3_up2",
-                                 "group_norm_silu")})
+                                 "group_norm_silu")},
+                 {"attention": sd_attention_routes(forwards, decodes)})
     if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
             and images.shape == (SD_PROMPTS, 512, 512, 3)
             and 0 <= images.min() <= images.max() <= 1):
@@ -1688,7 +1754,7 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
         if sum(r["calls_per_search"] for r in rows) * per_call[name] != launches[name]:
             raise AssertionError(f"{name}: the recorded calls do not add up to its launches")
         rows.append(check(fp32_shape[name], torch.float32, tag))
-        total = lambda k: sum(r[k] * r.get("calls_per_search", 0) for r in rows)
+        total = lambda k: sum(r.get(k, 0) * r.get("calls_per_search", 0) for r in rows)
         lines.append({
             "name": name, "route": "cuda", "source": f"diffusion_tts_torch/csrc/{sources[name][0]}",
             "replaces": sources[name][1], "launches": launches[name],
@@ -1699,7 +1765,8 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
                 "bound_by"],
             "library_ms": total("library_ms"), "shapes": rows,
         })
-        for first in ("fma_ms", "v1_ms", "device_ms", "v1_device_ms", "library_device_ms"):
+        for first in ("fma_ms", "v1_ms", "mma_ms", "device_ms", "v1_device_ms",
+                      "mma_device_ms", "library_device_ms"):
             if first in rows[0]:
                 lines[-1][first] = total(first)
         if name in ROUTE_COUNTERS:  # launches of the search per design
@@ -1790,7 +1857,7 @@ def sd_encoder_phase(tag: str, checked: dict) -> dict:
             raise AssertionError(f"one 512x512 encode launched {launches}, the encoder's "
                                  f"architecture and the routing predicates give {want}")
         check_routes("SD encode", routes, {k: n for k, n in want.items()
-                                           if n and k in FAST_ROUTE})
+                                           if n and k in FAST_ROUTE}, {"attention": "mma"})
         if post.mean.shape != (1, 4, 64, 64):
             raise AssertionError(f"a 512x512 encode gave latents {tuple(post.mean.shape)}")
         for name, calls in shapes.counts.items():
@@ -1970,7 +2037,8 @@ def edm_methods_phase(net: torch.nn.Module, tag: str, arch: str = "imagenet64",
                 if n != want.get(name, 0):
                     raise AssertionError(f"{name} launched {n} times by {path} {method}, "
                                          f"expected {want.get(name, 0)}")
-            check_routes(f"{path} {method}", routes, want)
+            check_routes(f"{path} {method}", routes, want,
+                         {"attention": qk.forward_route(torch.bfloat16, d)})
             check_search_output(f"{path} {method}", capture, result.images, result.score,
                                 (SAMPLES, res, res, 3))
             if method == "rejection":
@@ -2029,7 +2097,9 @@ def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: Kerne
                                          f"from the recorded calls), expected {want}")
             check_routes(f"SD {method}", routes, {name: launches[name] for name in
                                                   ("attention", "geglu_ff", "conv3x3_same",
-                                                   "conv3x3_up2", "group_norm_silu")})
+                                                   "conv3x3_up2", "group_norm_silu")},
+                         {"attention": sd_attention_routes(sum(unet.values()),
+                                                           sum(decodes.values()))})
             check_search_output(f"SD {method}", capture, images, scores,
                                 (SD_PROMPTS, 512, 512, 3))
             for name in fresh:
@@ -2140,7 +2210,8 @@ def check_compressibility(path: str, images: torch.Tensor, max_size: float, tag:
 
 
 def reward_search(path: str, name: str, run, scorer, capture: EntryCapture, want: dict,
-                  steps: int, p: SearchParams, samples: int, nfe: int, shape, tag: str):
+                  steps: int, p: SearchParams, samples: int, nfe: int, shape, tag: str,
+                  routes_of: dict | None = None):
     """One eps-greedy search with a reward: timed, its launches held against
     ``want`` ({kernel: launches}, every other kernel 0) on the fast routes,
     its output checked; then run again with the scorer timed for its share
@@ -2153,7 +2224,7 @@ def reward_search(path: str, name: str, run, scorer, capture: EntryCapture, want
             raise AssertionError(f"{kernel} launched {n} times by {path} eps_greedy with {name}, "
                                  f"expected {want.get(kernel, 0)}")
     check_routes(f"{path} eps_greedy/{name}", routes,
-                 {k: n for k, n in want.items() if k in FAST_ROUTE})
+                 {k: n for k, n in want.items() if k in FAST_ROUTE}, routes_of)
     check_search_output(f"{path} eps_greedy/{name}", capture, images, scores, shape)
     timed = TimedScorer(scorer)
     _, wall2 = timed_run(lambda: run(timed))
@@ -2265,8 +2336,10 @@ def sd_rewards_phase(pipe: StableDiffusionSearchPipeline, per_unet: dict, per_de
                 return pipe(prompt_embeds=emb, num_inference_steps=SD_STEPS, score_function=s,
                             scorer_cond=cond, method="eps_greedy", params=params, seed=0)
 
-            line, images = reward_search("SD", name, run, scorer, capture, want, SD_STEPS,
-                                         params, SD_PROMPTS, nfe, (SD_PROMPTS, 512, 512, 3), tag)
+            line, images = reward_search(
+                "SD", name, run, scorer, capture, want, SD_STEPS, params, SD_PROMPTS, nfe,
+                (SD_PROMPTS, 512, 512, 3), tag,
+                {"attention": sd_attention_routes(sum(unet.values()), sum(decodes.values()))})
             lines.append(line)
             produced.append(images)
     finally:
@@ -2379,7 +2452,8 @@ def ablation_phase(tag: str) -> list[dict]:
             if n != (want if kernel == "attention" else 0):
                 raise AssertionError(f"{kernel} launched {n} times by the {name} sampler, "
                                      f"expected {want if kernel == 'attention' else 0}")
-        check_routes(f"ablation {name}", routes, {"attention": want})
+        check_routes(f"ablation {name}", routes, {"attention": want},
+                     {"attention": qk.forward_route(torch.bfloat16, d)})
         if not torch.isfinite(x).all():
             raise AssertionError(f"the {name} sampler's output is not finite")
         lines.append(dict(path=f"ablation {name}", method="sample", steps=STEPS, samples=b,
@@ -2440,11 +2514,25 @@ def expected_launches(edm_runs=(), sd_runs=(), edm_forwards: int = 0) -> dict:
     return want
 
 
-def check_launches(path: str, got: dict, routes: dict, want: dict) -> None:
+def expected_attention_routes(edm_runs=(), sd_runs=(), edm_forwards: int = 0) -> dict:
+    """expected_launches's attention launches by route: the VAE decoder's on
+    "mma" (sd_attention_routes), the ADM's and the SD UNet's on "wgmma"."""
+    total = expected_launches(edm_runs, sd_runs, edm_forwards)["attention"]
+    decodes = sum(sum(method_calls(method, "sd", steps, p, samples)[1].values()) * runs
+                  for method, p, steps, samples, runs in sd_runs)
+    mma = sd_attention_routes(0, decodes)["mma"]
+    return {"wgmma": total - mma, "mma": mma}
+
+
+def check_launches(path: str, got: dict, routes: dict, want: dict,
+                   attention: dict | None = None) -> None:
+    """``got`` equals ``want``; every launch on its fast route, attention's
+    split by route as ``attention`` gives it where it is not all "wgmma"."""
     for kernel, n in got.items():
         if n != want[kernel]:
             raise AssertionError(f"{kernel} launched {n} times by {path}, expected {want[kernel]}")
-    check_routes(path, routes, {k: n for k, n in want.items() if n and k in FAST_ROUTE})
+    check_routes(path, routes, {k: n for k, n in want.items() if n and k in FAST_ROUTE},
+                 {"attention": attention} if attention else None)
 
 
 def bench_phase(tag: str) -> list[dict]:
@@ -2463,8 +2551,9 @@ def bench_phase(tag: str) -> list[dict]:
     out = bench.main([])
     wall = time.perf_counter() - t0
     sd_default = SearchParams(N=4, K=20)
-    check_launches("bench", read_launches(), read_routes(), expected_launches(
-        edm_forwards=5 * 20 * 2, sd_runs=[("eps_greedy", sd_default, 18, 1, 2)]))
+    bench_work = dict(edm_forwards=5 * 20 * 2, sd_runs=[("eps_greedy", sd_default, 18, 1, 2)])
+    check_launches("bench", read_launches(), read_routes(), expected_launches(**bench_work),
+                   expected_attention_routes(**bench_work))
     print(f"bench: {out['value']:.2f} NFE/s, vs_baseline {out['vs_baseline']:.5f} of "
           f"{peak_flops('cuda') / 1e12:.0f} TFLOP/s on {out['flops_per_image']} canonical FLOP "
           f"per image; SD "
@@ -2481,8 +2570,9 @@ def bench_phase(tag: str) -> list[dict]:
     reset_launches()
     sd = bench.main(["--sd", "--steps", str(SD_STEPS), "--N", str(SD_N), "--K", str(SD_K),
                      "--repeat", "2"])
-    check_launches("bench --sd", read_launches(), read_routes(), expected_launches(
-        sd_runs=[("eps_greedy", SearchParams(N=SD_N, K=SD_K), SD_STEPS, 1, 2)]))
+    sd_runs = [("eps_greedy", SearchParams(N=SD_N, K=SD_K), SD_STEPS, 1, 2)]
+    check_launches("bench --sd", read_launches(), read_routes(),
+                   expected_launches(sd_runs=sd_runs), expected_attention_routes(sd_runs=sd_runs))
     if not (sd["value"] > 0 and sd["sol"] > 0 and 0 < sd["decode_flop_share"] < 1):
         raise AssertionError(f"bench --sd: {sd}")
     lines.append(dict(path="bench --sd", **sd))
@@ -2523,8 +2613,9 @@ def bench_phase(tag: str) -> list[dict]:
     reset_launches()
     sdr = sd_reward_bench.main(["--steps", str(SD_STEPS), "--seeds", "0", "--methods",
                                 ",".join(sd_methods)])
-    check_launches("sd_reward_bench", read_launches(), read_routes(), expected_launches(
-        sd_runs=[(m, sd_reward_bench.METHOD_PARAMS[m], SD_STEPS, 1, 1) for m in sd_methods]))
+    sd_runs = [(m, sd_reward_bench.METHOD_PARAMS[m], SD_STEPS, 1, 1) for m in sd_methods]
+    check_launches("sd_reward_bench", read_launches(), read_routes(),
+                   expected_launches(sd_runs=sd_runs), expected_attention_routes(sd_runs=sd_runs))
     for row in sdr["rows"]:
         want = nfe_per_sample(row["method"], SD_STEPS, sd_reward_bench.METHOD_PARAMS[row["method"]],
                               backend="sd")
@@ -3002,7 +3093,7 @@ def sd_bench_run(tag: str, checked: dict) -> dict:
     per_call = launches_per_call()
     calls = 5 * 4  # compile_s's call and 4 timed, 4 iterations each
     want = {k: calls * (SD_PER_UNET[k] + SD_PER_DECODE[k]) * per_call[k] for k in per_call}
-    check_launches("sd_bench", launches, routes, want)
+    check_launches("sd_bench", launches, routes, want, sd_attention_routes(calls, calls))
     for name, shape_calls in capture.shapes.counts.items():
         if sum(shape_calls.values()) * per_call[name] != launches[name]:
             raise AssertionError(f"{name}: sd_bench's recorded calls {dict(shape_calls)} do "
@@ -3032,7 +3123,9 @@ def all_scorers_run(tag: str, pipe: StableDiffusionSearchPipeline, clip: CLIPSco
     from PIL import Image
 
     master = SearchParams(**sd_all_scorers.MASTER)
-    want = expected_launches(sd_runs=[("eps_greedy", master, ALL_SCORERS_STEPS, 1, 1)])
+    sd_runs = [("eps_greedy", master, ALL_SCORERS_STEPS, 1, 1)]
+    want = expected_launches(sd_runs=sd_runs)
+    attention = expected_attention_routes(sd_runs=sd_runs)
     recorder = PipelineRecorder(pipe)
     with tempfile.TemporaryDirectory() as d:
         best = sd_all_scorers.run(recorder, clip, prompt="A beautiful landscape",
@@ -3045,7 +3138,7 @@ def all_scorers_run(tag: str, pipe: StableDiffusionSearchPipeline, clip: CLIPSco
     per_scorer = {}
     for name, call in zip(names, recorder.calls):
         path = f"sd_all_scorers/{name}"
-        check_launches(path, call["launches"], call["routes"], want)
+        check_launches(path, call["launches"], call["routes"], want, attention)
         images, scores = call["images"], call["scores"]
         again = call["scorer"](images, call["cond"])
         err = (again - scores).abs().max().item()
@@ -3123,6 +3216,13 @@ def main() -> None:
             for d in (160, 256):
                 for entry, lines in ptxas_lines(built[name][1], f"Li{d}E").items():
                     print(f"ptxas, {name} D = {d}, {entry}: " + "; ".join(lines))
+    if "qkv_attention" in built:  # the wgmma route's kernels, by <D, consumers, K/V tile>
+        for entry, lines in ptxas_lines(built["qkv_attention"][1],
+                                        "attention_wgmma_kernel").items():
+            d, nc, bk = re.search(r"attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                                  entry).groups()
+            print(f"ptxas, qkv_attention wgmma D = {d}, {nc} consumer warpgroup(s), {bk}-key "
+                  f"tiles: " + "; ".join(lines))
 
     phase_s = {"build": time.perf_counter() - t0}
 

@@ -1,5 +1,5 @@
 // Self-attention for Hopper (sm_90a), any supported head width, plain C
-// interface, two routes.
+// interface, three routes.
 //
 // Replaces two TPU kernels of diffusion_tts_tpu/ops/pallas/attention.py:
 //   * qkv_self_attention (_qkv_attn_kernel / _qkv_attn_pair_kernel), the
@@ -17,18 +17,78 @@
 //
 // What bounds it on this card: operations. At the path's shapes attention
 // does 4*T*d FLOPs per q row against 2*3*d input bytes, about T/1.5
-// FLOP/byte in bf16, far above the H100's 295 FLOP/byte balance point.
+// FLOP/byte in bf16, far above the H100's 295 FLOP/byte balance point. At
+// d = 40 the exponentials weigh as much as the products: B*H*T^2 exp2 on
+// the SFU (16 a clock per SM) against 4*B*H*T^2*d FLOPs on the tensor cores;
+// at [8, 4096, 8, 40] about 0.29 ms against 0.174 ms.
 //
 // Routes. The caller picks one (ops/kernels/qkv_attention.py::forward_route)
 // and this file obeys:
-//   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every
-//     main path's width. The products run on the tensor cores (mma.sync
-//     m16n8k16, bf16 operands, fp32 accumulators: exactly the arithmetic of
-//     the function above).
+//   * wgmma (route 2): bf16 at d = 40, 64, 80, 160, the ADM's and the SD
+//     UNet's widths. Hopper's asynchronous warpgroup products (wgmma) fed by
+//     TMA, below.
+//   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, 512, the
+//     first tensor-core design: the products run through the warp-level mma.sync
+//     m16n8k16 (bf16 operands, fp32 accumulators: exactly the arithmetic of
+//     the function above). The route takes d = 16 and 32 (test nets), 256
+//     (the CIFAR-10 DDPM++ net's one head) and 512 (the SD VAE's one head);
+//     forced (route="mma") it also takes the wgmma widths, which times this
+//     design beside the new one. d = 256 stays here: its grids are 32-64
+//     blocks of 64 rows for 132 SMs and its calls are bound by the host
+//     (PERF.md). d = 512 stays here: it beats SDPA at the VAE's batch 4.
 //   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
 //     8. The products run on the CUDA cores in fp32 FMA, so that fp32 holds
 //     1e-4 against an fp32 reference with TF32 off (a TF32 product would
 //     not). bf16 can be sent here too, which times the first design.
+//
+// The wgmma route (attention_wgmma_kernel):
+//   * Work tiles of (batch, head, 64 NC q rows): NC consumer warpgroups of
+//     64 rows each and one producer warp. NC = 2 (128-row tiles) unless
+//     T <= 64 or 128-row tiles would give the grid fewer tiles than the
+//     card has SMs (the SD UNet's [2, 256, 8, 160]: 32 tiles); then NC = 1
+//     (the C entry picks it from the SM count).
+//   * Persistent: min(tiles, SMs) blocks, each walking the tiles blockIdx.x,
+//     + gridDim.x, ... (q tile fastest, so the tiles in flight share K and V
+//     in L2). The producer loads the next tile's Q and first K/V tiles while
+//     the consumers finish the current one: at the ADM's [8, 1024, 6 heads]
+//     (8 K/V tiles a work tile) that hides 10% that one block per tile paid
+//     at each tile's start and end.
+//   * The producer's one lane issues TMA loads: Q once a tile (freed when
+//     the tile's last S has read it), then K and V tiles of BK keys (128;
+//     64 at d = 160 and wherever T <= 64, where 128 keys would be half
+//     masked) into a ring of 2 (d = 40, 80) or 3 stages, each with full and
+//     empty mbarriers for K and for V (K is freed as soon as S has read it).
+//   * Registers: at most 168 a thread, what three warps of an SM
+//     sub-partition may hold (153-166 used at NC = 2, no spills). A producer
+//     warpgroup with setmaxnreg did not get the consumers more from ptxas:
+//     192-key tiles spilled alike. The tile descriptors are built from one
+//     base each, so that the compiler does not hold one a k16 step.
+//   * Layouts: Q, K and V are read through 4-D tensor maps (d, H, T, B)
+//     encoded on the host for each call (cuTensorMapEncodeTiled through
+//     cudaGetDriverEntryPointByVersion: no -lcuda), passed as
+//     __grid_constant__ parameters. The qkv layout [B, T, 3C] is three maps
+//     at offsets 0, C and 2C with byte strides 2d, 6C and 6TC; [B, T, H, D]
+//     is three maps of its own. Columns past d and tokens past T arrive
+//     zero-filled; scores of keys past T are masked to -inf.
+//   * Widths that do not tile a 128-byte swizzle atom: a box is 16, 32 or
+//     64 columns (32-, 64- or 128-byte rows, swizzled at that width: d = 40
+//     and 80 take 16, d = 160 32, d = 64 64). S = Q.K^T is wgmma
+//     m64nBKk16 with both operands read from shared memory through
+//     descriptors (K-major), its depth d rounded up to 16 (40 -> 48); P.V is
+//     m64nDPk16 with DP the columns the boxes cover (48, 64, 80, 160) and V
+//     the MN-major B operand.
+//   * The online softmax runs on S's fp32 accumulators in registers: ex2
+//     with 1/sqrt(d)*log2(e) folded in, row max and sum over the four lanes
+//     of a row. P is rounded to bf16 in registers and is the A operand of
+//     P.V as it stands (the accumulator layout is the A fragment layout):
+//     P never touches shared memory.
+//   * Overlap: each warpgroup issues S_j, then P_{j-1}.V_{j-1}, and runs the
+//     softmax of S_j while P.V is in flight (wgmma.wait_group 1); O's
+//     rescale by the previous tile's factor runs while S_j does. The two
+//     warpgroups take turns to issue (named barriers 1 and 2), so one's
+//     exponentials run while the other's products do.
+//   * Nothing gives way: a refused encode, launch or misaligned input is an
+//     error (the wrapper raises), never a fall back to the mma route.
 //
 // The mma route, FlashAttention-2 style:
 //   * One block per (batch, head, 64-row q tile); four warps each own 16 q
@@ -91,6 +151,7 @@
 //     backward kernels (csrc/attention_bwd.cu), which then need no statistics
 //     pass of their own (the TPU forward saves none, and its backward starts
 //     with one more q.k^T pass). A null pointer, as in serving, writes nothing.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -517,6 +578,652 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   return cudaGetLastError();
 }
 
+// -------------------------------------------------------------- wgmma route
+
+// Hopper's asynchronous building blocks, in inline PTX: mbarriers, TMA tensor
+// loads and warpgroup matrix products.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// The producer's arrival, announcing `bytes` of TMA transactions to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`. A wait
+// that outlasts about ten seconds traps: the launch then fails with an error
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0) start = now;
+    else if (now - start > (1ll << 34)) __trap();
+  }
+}
+
+// A 4-D box of the tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous product's issue or its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle mode (1 = 128 B, 2 = 64 B,
+// 3 = 32 B).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint32_t mode) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)mode << 62;
+}
+
+// m64nNk16 products, bf16 operands, fp32 accumulators in the layout
+// d[4 j + 2 r + c] = (row 16 warp + g + 8 r, column 8 j + 2 t + c), lane = 4 g + t.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// Tile shapes of the wgmma route for head width D and K/V tiles of BK keys
+// (128; 64 at d = 160, and at T <= 64, where a 128-key tile is half masked).
+template <int D, int BK = (D > 128 ? 64 : 128)>
+struct WgTiles {
+  static constexpr int kDS = (D + 15) / 16 * 16;  // S's depth: D padded to k16 (40 -> 48)
+  // Columns a TMA box carries: 16, 32 or 64 bf16 (32-, 64- or 128-byte rows,
+  // swizzled at that width).
+  static constexpr int kBW = D == 64 ? 64 : D == 160 ? 32 : 16;
+  static constexpr int kDP = (D + kBW - 1) / kBW * kBW;  // columns the boxes cover; P.V's N
+  static constexpr int kRowBytes = 2 * kBW;
+  static constexpr int kBoxes = kDP / kBW;
+  static constexpr uint32_t kMode = kBW == 64 ? 1 : kBW == 32 ? 2 : 3;  // descriptor swizzle
+  static constexpr int kBK = BK;                  // keys per K/V tile
+  // K/V ring depth: 2 at d = 40 and 80, 3 at 64 and 160, the faster of 2,
+  // 3 and 4 at each width (tools/torch_attention_fwd_probe.py).
+  static constexpr int kStages = D == 40 || D == 80 ? 2 : 3;
+  static constexpr int kQBytes = 64 * kDP * 2;    // one consumer warpgroup's 64 q rows
+  static constexpr int kTileBytes = kBK * kDP * 2;  // one K or V tile
+  static constexpr int smem_bytes(int nc) {
+    return 1024 + nc * kQBytes + 2 * kStages * kTileBytes + 8 * (2 + 4 * kStages);
+  }
+  static_assert(kDP % 16 == 0 && kDP <= 256, "P.V runs at N = kDP");
+};
+
+// One persistent block per SM: NC consumer warpgroups of 64 q rows each and
+// one producer warp (one lane issues every TMA load). The block walks the
+// work tiles (batch, head, 64 NC q rows) blockIdx.x, + gridDim.x, ... in
+// order, q tile fastest, so the tiles in flight share their K and V in L2;
+// the producer loads the next tile's Q and first K/V tiles while the
+// consumers finish the current one. The producer is a lone warp: with
+// three warps on each SM sub-partition a thread may hold 168 registers, all
+// the consumers need at BK = 128.
+template <int NC>
+constexpr int wgmma_threads() { return 128 * NC + 32; }
+
+template <int D, int NC, int BKV>
+__global__ void __launch_bounds__(wgmma_threads<NC>(), 1)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int h,
+                       int t, int work, int64_t out_sb, int64_t out_st, int64_t out_sh,
+                       float scale_log2e, float* __restrict__ lse) {
+  using C = WgTiles<D, BKV>;
+  constexpr int BK = C::kBK, S = C::kStages, RB = C::kRowBytes;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  // Swizzled tiles need their swizzle's alignment; 1024 bytes serves all three.
+  const uint32_t base = (dtts::smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;                           // [NC][kBoxes][64][kBW]
+  const uint32_t k_s = q_s + NC * C::kQBytes;          // [S][kBoxes][BK][kBW]
+  const uint32_t v_s = k_s + S * C::kTileBytes;        // [S][kBoxes][BK][kBW]
+  // mbarriers: q_full, q_empty, then k_full[S], v_full[S], k_empty[S], v_empty[S]
+  const uint32_t bar = v_s + S * C::kTileBytes;
+  const uint32_t q_full = bar, q_empty = bar + 8u;
+  auto k_full = [&](int s) { return bar + 8u * (2 + s); };
+  auto v_full = [&](int s) { return bar + 8u * (2 + S + s); };
+  auto k_empty = [&](int s) { return bar + 8u * (2 + 2 * S + s); };
+  auto v_empty = [&](int s) { return bar + 8u * (2 + 3 * S + s); };
+
+  const int w = threadIdx.x / 128;  // the consumer warpgroup; NC is the producer warp
+  const int qtiles = (t + 64 * NC - 1) / (64 * NC);
+  const int ntiles = (t + BK - 1) / BK;  // K/V tiles per work tile
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * NC);  // lane 0 of every consumer warp
+    for (int s = 0; s < S; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 4 * NC);
+      mbar_init(v_empty(s), 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (w == NC) {
+    if (threadIdx.x == 128 * NC) {
+      int it = 0;  // K/V tiles loaded so far, over all work tiles: the ring's position
+      for (int tile = blockIdx.x, n = 0; tile < work; tile += gridDim.x, ++n) {
+        const int q0 = tile % qtiles * 64 * NC, head = tile / qtiles % h;
+        const int batch = tile / qtiles / h;
+        if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // the previous tile's S is done
+        mbar_expect_tx(q_full, NC * C::kQBytes);
+        for (int c = 0; c < NC; ++c)
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            tma_load_4d(q_s + c * C::kQBytes + bx * 64 * RB, &qmap, q_full, bx * C::kBW, head,
+                        q0 + 64 * c, batch);
+        for (int j = 0; j < ntiles; ++j, ++it) {
+          const int s = it % S, parity = ((it / S) - 1) & 1;
+          if (it >= S) mbar_wait(k_empty(s), parity);  // the consumers are done with it
+          mbar_expect_tx(k_full(s), C::kTileBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            tma_load_4d(k_s + s * C::kTileBytes + bx * BK * RB, &kmap, k_full(s), bx * C::kBW,
+                        head, j * BK, batch);
+          if (it >= S) mbar_wait(v_empty(s), parity);
+          mbar_expect_tx(v_full(s), C::kTileBytes);
+          for (int bx = 0; bx < C::kBoxes; ++bx)
+            tma_load_4d(v_s + s * C::kTileBytes + bx * BK * RB, &vmap, v_full(s), bx * C::kBW,
+                        head, j * BK, batch);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup w: q rows q0 + 64 w ... q0 + 64 w + 63 of each work tile.
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, tq = lane & 3;
+    const uint32_t qw = q_s + w * C::kQBytes;
+
+    // Descriptors of the tiles' starts; a k16 step adds its byte offset / 16
+    // to the address field. Each use starts from a copy the compiler cannot
+    // see through, so that it does not hoist one 64-bit descriptor per step
+    // out of the loop (at d = 160 that held 20 registers and spilled).
+    const uint64_t q_desc = wgmma_desc(qw, 16, 8 * RB, C::kMode);
+    const uint64_t k_desc = wgmma_desc(k_s, 16, 8 * RB, C::kMode);
+    const uint64_t v_desc = wgmma_desc(v_s, BK * RB, 8 * RB, C::kMode);
+    auto opaque = [](uint64_t x) {
+      asm volatile("" : "+l"(x));
+      return x;
+    };
+    // S = Q.K^T over the padded depth: k16 step kk reads box kk*16/kBW at
+    // byte offset (kk*16 % kBW)*2; K-major, 8-row groups kRowBytes*8 apart.
+    auto issue_s = [&](float (&sc)[BK / 2], int stage) {
+      const uint64_t da = opaque(q_desc);
+      const uint64_t db = opaque(k_desc) + stage * (C::kTileBytes >> 4);
+#pragma unroll
+      for (int kk = 0; kk < C::kDS / 16; ++kk) {
+        const int bx = kk * 16 / C::kBW, off = (kk * 16 % C::kBW) * 2;
+        wgmma_ss<BK>(sc, da + ((bx * 64 * RB + off) >> 4), db + ((bx * BK * RB + off) >> 4),
+                     kk > 0);
+      }
+    };
+    // O += P.V: k16 step kk takes keys 16 kk ...; V is MN-major: kBW columns
+    // per swizzle atom, atoms (boxes) BK*kRowBytes apart, 8-key groups
+    // 8*kRowBytes apart.
+    auto issue_pv = [&](float (&acc)[C::kDP / 2], const uint32_t (&p)[BK / 16][4], int stage) {
+      const uint64_t dv = opaque(v_desc) + stage * (C::kTileBytes >> 4);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<C::kDP>(acc, p[kk], dv + (kk * 16 * RB >> 4));
+    };
+
+    float acc[C::kDP / 2];
+    float m[2], l[2];  // rows g and g + 8
+    float sc[BK / 2];
+    uint32_t p[BK / 16][4];
+
+    // The online softmax of K/V tile j in the log2 domain, in place: sc
+    // becomes the unrounded weights, m and l move on, alpha rescales O.
+    auto softmax = [&](int j, float (&alpha)[2]) {
+      if ((j + 1) * BK > t) {  // the ragged last tile: keys past t score -inf
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          if (j * BK + 8 * (i / 4) + 2 * tq + (i & 1) >= t) sc[i] = -INFINITY;
+      }
+      // A row's max and sum run as four independent chains (element
+      // 4 q + 2 r + c of row r goes to chain 2 (q & 1) + c), so that the
+      // FMNMX and FADD latencies are not paid 32 times in a row.
+      float mx[2][4], ls[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mx[r][k] = -INFINITY, ls[r][k] = 0.f;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        float& x = mx[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
+        x = fmaxf(x, sc[i]);
+      }
+      float neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float row = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+        row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, 1));
+        row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, 2));
+        const float m_new = fmaxf(m[r], row * scale_log2e);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        neg[r] = -m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]));
+        ls[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)] += sc[i];
+      }
+      // this lane's part of the fp32 row sum of the unrounded weights
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        l[r] = fmaf(l[r], alpha[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
+    };
+    // P rounded to bf16 is the A operand as it stands: k16 step kk holds
+    // n8 blocks 2 kk and 2 kk + 1 of S.
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        p[kk][0] = dtts::pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+        p[kk][1] = dtts::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+        p[kk][2] = dtts::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+        p[kk][3] = dtts::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+
+    // Ping-pong (two consumers): a warpgroup issues its products only in
+    // its turn (named barrier 1 + w) and then hands the turn over, so one
+    // warpgroup's exponentials run while the other's products do.
+    auto take_turn = [&]() {
+      if constexpr (NC == 2) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+    };
+    auto pass_turn = [&]() {
+      if constexpr (NC == 2) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+    };
+    auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+      for (int i = 0; i < C::kDP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    };
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    if (w == 1) pass_turn();  // warpgroup 0 goes first
+    int it = 0;  // K/V tiles consumed so far, over all work tiles
+    for (int tile = blockIdx.x, n = 0; tile < work; tile += gridDim.x, ++n, it += ntiles) {
+      const int q0 = tile % qtiles * 64 * NC, head = tile / qtiles % h;
+      const int batch = tile / qtiles / h;
+#pragma unroll
+      for (int i = 0; i < C::kDP / 2; ++i) acc[i] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
+      float alpha[2];
+
+      mbar_wait(q_full, n & 1);
+      mbar_wait(k_full(it % S), (it / S) & 1);
+      take_turn();
+      wgmma_fence();
+      issue_s(sc, it % S);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(k_empty(it % S));
+      if (ntiles == 1) release(q_empty);  // Q is read: the next tile's may come
+      softmax(0, alpha);
+      pack();
+
+      for (int j = 1; j < ntiles; ++j) {
+        const int s = (it + j) % S, sp = (it + j - 1) % S;
+        // S_j on the tensor cores, then P_{j-1}.V_{j-1} behind it; the
+        // softmax of S_j runs while P.V is in flight. O's rescale by the
+        // previous tile's alpha runs while S_j does.
+        mbar_wait(k_full(s), ((it + j) / S) & 1);
+        take_turn();
+        fence_regs(acc);
+        wgmma_fence();
+        issue_s(sc, s);
+        wgmma_commit();
+        rescale(alpha);
+        mbar_wait(v_full(sp), ((it + j - 1) / S) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_pv(acc, p, sp);
+        wgmma_commit();
+        pass_turn();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        release(k_empty(s));
+        if (j == ntiles - 1) release(q_empty);
+        softmax(j, alpha);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(v_empty(sp));
+        pack();
+      }
+      const int sl = (it + ntiles - 1) % S;
+      mbar_wait(v_full(sl), ((it + ntiles - 1) / S) & 1);
+      take_turn();
+      rescale(alpha);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_pv(acc, p, sl);
+      wgmma_commit();
+      // Warpgroup 1 was handed one turn before the first: it hands back all
+      // but its last.
+      if (w == 0 || tile + gridDim.x < work) pass_turn();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(v_empty(sl));
+
+      bf16* ob = o + batch * out_sb + head * out_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = q0 + 64 * w + 16 * warp + g + 8 * r;
+        if (row >= t) continue;
+        // Training: the row's log2-sum-exp2 of the scaled scores, [B, H, T].
+        if (lse != nullptr && tq == 0)
+          lse[((int64_t)batch * h + head) * t + row] = m[r] + log2f(l[r]);
+        const float inv = 1.f / l[r];
+#pragma unroll
+        for (int j = 0; j < C::kDP / 8; ++j) {
+          const int col = 8 * j + 2 * tq;
+          if (col < D)
+            *reinterpret_cast<__nv_bfloat162*>(ob + row * out_st + col) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Returned for a failed encode: kEncodeFailed + the CUresult (the wrapper
+// raises on it as on any other non-zero return).
+constexpr int kEncodeFailed = 1000;
+
+// The (d, H, T, B) map of one of q, k, v, whose boxes are kBW columns of
+// `rows` tokens of one head; columns past d and tokens past t read as zero.
+template <int D>
+int encode_map(CUtensorMap* map, const void* ptr, int b, int h, int t, int64_t sb, int64_t st,
+               int64_t sh, int rows) {
+  using C = WgTiles<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kBW, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = C::kBW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : C::kBW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                    : CU_TENSOR_MAP_SWIZZLE_32B;
+  // OOB_FILL_NONE fills the columns past d and the tokens past t with zeros.
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)res;
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
+template <int D, int NC, int BK>
+cudaError_t launch_wgmma_nc(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                            void* o, int b, int h, int t, int64_t out_sb, int64_t out_st,
+                            int64_t out_sh, float scale_log2e, float* lse, cudaStream_t stream) {
+  const int smem = WgTiles<D, BK>::smem_bytes(NC);
+  cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel<D, NC, BK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int work = (t + 64 * NC - 1) / (64 * NC) * h * b;  // work tiles
+  const int blocks = work < sm_count() ? work : sm_count();
+  constexpr int threads = wgmma_threads<NC>();
+  attention_wgmma_kernel<D, NC, BK><<<blocks, threads, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), h, t, work, out_sb, out_st, out_sh, scale_log2e, lse);
+  return cudaGetLastError();
+}
+
+// Two consumer warpgroups (128-row q tiles) unless t <= 64 or 128-row tiles
+// would give the grid fewer blocks than the card has SMs; then one (64 rows).
+int wgmma_consumers(int b, int h, int t) {
+  return t > 64 && (int64_t)b * h * ((t + 127) / 128) >= sm_count() ? 2 : 1;
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int h, int t,
+                 int64_t in_sb, int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
+                 int64_t out_sh, float scale_log2e, float* lse, cudaStream_t stream) {
+  constexpr int kBK = WgTiles<D>::kBK, kShortBK = 64;  // K/V tile keys; at t <= 64
+  const int bk = t <= 64 ? kShortBK : kBK;
+  CUtensorMap qm, km, vm;
+  int err = encode_map<D>(&qm, q, b, h, t, in_sb, in_st, in_sh, 64);
+  if (err == 0) err = encode_map<D>(&km, k, b, h, t, in_sb, in_st, in_sh, bk);
+  if (err == 0) err = encode_map<D>(&vm, v, b, h, t, in_sb, in_st, in_sh, bk);
+  if (err != 0) return err;
+  if (t <= 64)
+    return launch_wgmma_nc<D, 1, kShortBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                           scale_log2e, lse, stream);
+  if (wgmma_consumers(b, h, t) == 2)
+    return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                      scale_log2e, lse, stream);
+  return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh, scale_log2e,
+                                    lse, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16,
@@ -525,14 +1232,31 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
 // each row's log2-sum-exp2 of the scaled scores for the backward kernels
 // (csrc/attention_bwd.cu). route: 0 = fma (any dtype and width), 1 = mma
 // (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every pointer and stride
-// 16-byte aligned). Returns the launch's cudaError_t (0 on success); the
-// caller raises on anything else.
+// 16-byte aligned), 2 = wgmma (bfloat16 at d = 40, 64, 80, 160, aligned the
+// same way). Returns the launch's cudaError_t (0 on success), or
+// kEncodeFailed + the CUresult of a refused tensor map; the caller raises on
+// anything but 0.
 extern "C" int dtts_attention(const void* q, const void* k, const void* v, void* o,
                               int dtype, int d, int b, int h, int t, int64_t in_sb,
                               int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
                               int64_t out_sh, float scale_log2e, float* lse, int route,
                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define DTTS_ATTN_WGMMA(D)                                                                  \
+  case D:                                                                                   \
+    return launch_wgmma<D>(q, k, v, o, b, h, t, in_sb, in_st, in_sh, out_sb, out_st, out_sh, \
+                           scale_log2e, lse, s);
+    switch (d) {
+      DTTS_ATTN_WGMMA(40)
+      DTTS_ATTN_WGMMA(64)
+      DTTS_ATTN_WGMMA(80)
+      DTTS_ATTN_WGMMA(160)
+    }
+#undef DTTS_ATTN_WGMMA
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DTTS_ATTN_MMA(D)                                                                    \

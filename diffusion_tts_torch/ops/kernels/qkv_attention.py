@@ -21,17 +21,23 @@ through the plain PyTorch versions; a CUDA tensor goes through the kernels
 or the call raises. ``LAUNCHES`` counts forward launches, ``BWD_LAUNCHES``
 backward launches (``BWD_LAUNCHES_PER_CALL`` = 2 per call: dQ, then dK/dV).
 
-Both the forward and the backward kernels have two routes, picked before
-the launch: ``"mma"`` (the products on the tensor cores) and ``"fma"`` (fp32
-FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "mma" for bf16 at
-the widths of ``MMA_HEAD_DIMS``, every width a main path runs;
-``backward_route(dtype, d)`` gives "mma" for bf16 at ``BWD_MMA_HEAD_DIMS``
-(the ADM training path's d = 64 and the DDPM++ training path's d = 256
-among them). fp32 and the other bf16 widths take "fma". The mma routes copy rows in 16-byte
-pieces: the call raises, before any launch, on a pointer or a (batch,
-token, head) stride that is not a multiple of 16 bytes. ``ROUTE_LAUNCHES``
-and ``BWD_ROUTE_LAUNCHES`` count launches per route. A caller may ask for
-``route="fma"`` at any shape, which times the first design.
+The forward kernel has three routes, picked before the launch: "wgmma"
+(Hopper's asynchronous warpgroup products fed by TMA), "mma" (the
+warp-level mma.sync products of the first tensor-core design) and "fma"
+(fp32 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "wgmma" for
+bf16 at ``WGMMA_HEAD_DIMS`` (the ADM's 64, the SD UNet's 40, 80 and 160),
+"mma" for bf16 at the other widths of ``MMA_HEAD_DIMS`` (16 and 32 of the
+test nets, the DDPM++ net's 256 and the VAE's 512, which stay there: see
+``csrc/qkv_attention.cu``'s header) and "fma" otherwise. The backward
+kernels have two: ``backward_route(dtype, d)`` gives "mma" for bf16 at
+``BWD_MMA_HEAD_DIMS`` (the ADM training path's d = 64 and the DDPM++
+training path's d = 256 among them), "fma" otherwise. The tensor-core
+routes read rows in 16-byte pieces (TMA's rule too): the call raises,
+before any launch, on a pointer or a (batch, token, head) stride that is
+not a multiple of 16 bytes. ``ROUTE_LAUNCHES`` and ``BWD_ROUTE_LAUNCHES``
+count launches per route. A caller may ask for ``route="fma"`` at any shape
+and for ``route="mma"`` at any bf16 width of ``MMA_HEAD_DIMS``, which times
+the earlier designs; nothing falls back from one route to another.
 
 Both functions are differentiable (``torch.autograd.Function``). When a
 gradient is asked for, the forward kernel also writes each row's
@@ -51,9 +57,15 @@ from diffusion_tts_torch.ops.kernels import _launch
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 256, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
+WGMMA_HEAD_DIMS = (40, 64, 80, 160)
+# The forward's routes, in the order of their codes in csrc/qkv_attention.cu;
+# the backward keeps _launch.ROUTES.
+ROUTES = _launch.ROUTES + ("wgmma",)
+ROUTE_CODES = {route: code for code, route in enumerate(ROUTES)}
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
 BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80, 160, 256)
 BWD_LAUNCHES_PER_CALL = 2
+_ENCODE_FAILED = 1000  # csrc/qkv_attention.cu's kEncodeFailed: a tensor map was refused
 _ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
              + (_launch.F32, _launch.PTR, _launch.INT, _launch.PTR))
 _BWD_ARGTYPES = ((_launch.PTR,) * 9 + (_launch.INT,) * 5 + (_launch.I64,) * 9
@@ -61,14 +73,17 @@ _BWD_ARGTYPES = ((_launch.PTR,) * 9 + (_launch.INT,) * 5 + (_launch.I64,) * 9
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-ROUTE_LAUNCHES = {route: 0 for route in _launch.ROUTES}
+ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
 BWD_ROUTE_LAUNCHES = {route: 0 for route in _launch.ROUTES}
 
 
 def forward_route(dtype: torch.dtype, d: int) -> str:
     """The forward kernel's route for inputs of ``dtype`` and head width
-    ``d``: "mma" for bf16 at a width of MMA_HEAD_DIMS, else "fma"."""
-    return "mma" if dtype == torch.bfloat16 and d in MMA_HEAD_DIMS else "fma"
+    ``d``: "wgmma" for bf16 at a width of WGMMA_HEAD_DIMS, "mma" for bf16 at
+    the other widths of MMA_HEAD_DIMS, else "fma"."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if d in WGMMA_HEAD_DIMS else "mma" if d in MMA_HEAD_DIMS else "fma"
 
 
 def backward_route(dtype: torch.dtype, d: int) -> str:
@@ -78,12 +93,14 @@ def backward_route(dtype: torch.dtype, d: int) -> str:
 
 
 def _pick_route(want: str, route: str | None, dtype: torch.dtype, d: int, widths) -> str:
-    """``route`` if given (None takes ``want``): "fma" at any shape, "mma"
-    only where the predicate gave it."""
+    """``route`` if given (None takes ``want``): "fma" at any shape, a
+    tensor-core route only where the predicate gave it (or, for "mma", a
+    tensor-core route: ``widths`` are the widths it takes)."""
     route = route or want
-    if route not in (want, "fma"):
-        raise ValueError(f"the mma route takes bfloat16 at head widths {widths}, "
-                         f"got {dtype} at {d}")
+    allowed = (want, "fma", "mma") if want == "wgmma" else (want, "fma")
+    if route not in allowed:
+        raise ValueError(f"the {route} route takes bfloat16 at head widths "
+                         f"{WGMMA_HEAD_DIMS if route == 'wgmma' else widths}, got {dtype} at {d}")
     return route
 
 
@@ -158,14 +175,16 @@ def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int
     takes ``forward_route``'s; "fma" may be asked for at any shape."""
     global LAUNCHES
     route = _pick_route(forward_route(out.dtype, d), route, out.dtype, d, MMA_HEAD_DIMS)
-    if route == "mma":
+    if route != "fma":
         _launch.check_aligned("attention", (q_ptr, k_ptr, v_ptr, out.data_ptr()),
                               in_strides + out_strides, out.element_size())
     fn = _launch.bind("qkv_attention", "dtts_attention", _ARGTYPES)
     err = fn(q_ptr, k_ptr, v_ptr, out.data_ptr(), _launch.DTYPE_CODES[out.dtype], d, b, h, t,
              *in_strides, *out_strides, _LOG2E / math.sqrt(d),
-             None if lse is None else lse.data_ptr(), _launch.ROUTE_CODES[route],
-             _launch.stream(out))
+             None if lse is None else lse.data_ptr(), ROUTE_CODES[route], _launch.stream(out))
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"attention: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - _ENCODE_FAILED} (or the driver has no entry point for it)")
     _launch.raise_on(err, "attention")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
@@ -287,8 +306,8 @@ def qkv_self_attention_bwd(qkv: torch.Tensor, out: torch.Tensor, g: torch.Tensor
 
 def _backward_route_of(route: str | None) -> str | None:
     """A forced "fma" forward takes the fma backward too; otherwise the
-    backward follows its own predicate (which gives the forward's "mma" at
-    every width up to 256)."""
+    backward follows its own predicate ("mma" at every bf16 width up to
+    256)."""
     return "fma" if route == "fma" else None
 
 
@@ -348,7 +367,8 @@ def qkv_self_attention(qkv: torch.Tensor, heads: int, *, route: str | None = Non
                        ) -> torch.Tensor:
     """All-heads self-attention, [B, T, 3C] -> [B, T, C] in qkv.dtype.
     ``route``: None takes ``forward_route``'s (and ``backward_route``'s for
-    the gradient); "fma" forces the CUDA-core kernels, forward and backward."""
+    the gradient); "fma" forces the CUDA-core kernels, forward and backward;
+    "mma" forces the mma.sync forward at a "wgmma" width."""
     if qkv.device.type != "cpu":
         _launch.check(qkv, "qkv_self_attention")
         if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
@@ -383,5 +403,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention", "attention_plain",
            "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "forward_route",
            "backward_route", "LAUNCHES", "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTE_LAUNCHES",
-           "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS", "MMA_HEAD_DIMS", "BWD_HEAD_DIMS",
-           "BWD_MMA_HEAD_DIMS"]
+           "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS", "MMA_HEAD_DIMS", "WGMMA_HEAD_DIMS", "ROUTES",
+           "BWD_HEAD_DIMS", "BWD_MMA_HEAD_DIMS"]

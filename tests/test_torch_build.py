@@ -4,8 +4,9 @@
 every ``csrc`` header the source includes, so an edited header is rebuilt and
 a stale library is never loaded. The wrappers of the attention (forward and
 backward) and GEGLU kernels pick a route in Python (``forward_route``,
-``backward_route``, ``route``) and refuse, before any launch, what the
-tensor-core route cannot take; so do the conv kernels (``conv_route``:
+``backward_route``, ``route``; the forward's three: "wgmma", "mma",
+"fma") and refuse, before any launch, what the tensor-core routes cannot
+take; so do the conv kernels (``conv_route``:
 "ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_kernels_cuda.py.
@@ -73,11 +74,12 @@ def test_library_path_ignores_headers_not_included(csrc):
     assert build.library_path("groupnorm") == before
 
 
-def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA"):
-    """The mma route's widths as csrc/<name>.cu states them in its header
-    and as its C entry dispatches them (the ``macro(d)`` cases)."""
+def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA", route="mma", code=1):
+    """A tensor-core route's widths as csrc/<name>.cu states them in its
+    header ("<route> (route <code>): bf16 at d = ...,") and as its C entry
+    dispatches them (the ``macro(d)`` cases)."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    stated = re.search(r"mma \(route 1\): bf16 at d = ([\d, ]+),", src).group(1)
+    stated = re.search(rf"\b{route} \(route {code}\): bf16 at d = ([\d, ]+),", src).group(1)
     cases = re.findall(rf"{macro}\((\d+)\)", src)
     return tuple(int(d) for d in stated.split(", ")), tuple(int(d) for d in cases)
 
@@ -85,10 +87,31 @@ def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA"):
 @pytest.mark.parametrize("d", qk.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_route_is_the_one_the_source_states(dtype, d):
+    """Three routes: bf16 on "wgmma" at the widths csrc/qkv_attention.cu
+    states and dispatches for route 2 (the ADM's 64, the SD UNet's 40, 80,
+    160), on "mma" at the other mma widths (which the mma kernel still
+    takes at every one of its widths, for ``route="mma"``), fp32 on "fma"."""
     stated, dispatched = _mma_widths_in_source()
     assert stated == dispatched == qk.MMA_HEAD_DIMS
-    want = "mma" if dtype == torch.bfloat16 and d in stated else "fma"
+    wg_stated, wg_dispatched = _mma_widths_in_source(macro="DTTS_ATTN_WGMMA", route="wgmma",
+                                                     code=2)
+    assert wg_stated == wg_dispatched == qk.WGMMA_HEAD_DIMS
+    assert set(wg_stated) <= set(stated) and 256 not in wg_stated and 512 not in wg_stated
+    want = "fma"
+    if dtype == torch.bfloat16:
+        want = "wgmma" if d in wg_stated else "mma" if d in stated else "fma"
     assert qk.forward_route(dtype, d) == want
+
+
+def test_attention_route_codes_follow_the_source():
+    """The forward's route codes are the C entry's (0 fma, 1 mma, 2 wgmma);
+    the backward and GEGLU keep the two shared ones."""
+    assert qk.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
+    assert set(qk.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
+    assert set(qk.BWD_ROUTE_LAUNCHES) == set(gg.ROUTE_LAUNCHES) == set(_launch.ROUTES) == \
+        {"fma", "mma"}
+    src = (build.CSRC / "qkv_attention.cu").read_text()
+    assert "if (route == 2) {" in src and "if (route == 1) {" in src
 
 
 @pytest.mark.parametrize("d", qk.BWD_HEAD_DIMS)
@@ -147,6 +170,35 @@ def test_geglu_refuses_a_misaligned_operand_before_any_launch(no_launch, monkeyp
                             forced="mma")
 
 
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "mma_pointer",
+                                  "wgmma_fp32", "wgmma_at_256", "wgmma_at_512"])
+def test_attention_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
+    """A wgmma width (40) with a misaligned pointer or stride, on its own
+    route or forced onto "mma", is refused before any launch (TMA and the
+    mma copies both read 16-byte pieces); so is "wgmma" asked for in fp32 or
+    at a width that is not its own. Nothing falls back to another route."""
+    d = {"wgmma_at_256": 256, "wgmma_at_512": 512}.get(case, 40)
+    b, t, h = 1, 4, 2
+    dtype = torch.float32 if case == "wgmma_fp32" else torch.bfloat16
+    out = torch.empty((b, t, h, d), dtype=dtype)
+    ptrs = [out.data_ptr()] * 3
+    strides = [t * h * d, h * d, d]
+    if case in ("pointer", "mma_pointer"):
+        ptrs[2] += 2
+    if case == "token_stride":
+        strides[1] = h * d + 4
+    if case == "head_stride":
+        strides[2] = d + 4
+    route = {"mma_pointer": "mma", "wgmma_fp32": "wgmma", "wgmma_at_256": "wgmma",
+             "wgmma_at_512": "wgmma"}.get(case)
+    before = (qk.LAUNCHES, dict(qk.ROUTE_LAUNCHES))
+    match = "wgmma route takes bfloat16" if route == "wgmma" else "16-byte"
+    with pytest.raises(ValueError, match=match):
+        qk._launch_kernel(*ptrs, out, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
+                          route=route)
+    assert (qk.LAUNCHES, qk.ROUTE_LAUNCHES) == before
+
+
 @pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "fp32_forced"])
 def test_attention_refuses_what_the_mma_route_cannot_take(no_launch, case):
     b, t, h, d = 1, 4, 2, 40
@@ -201,7 +253,7 @@ def test_the_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version():
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((2, 16, 2, 40), generator=g).bfloat16() for _ in range(3))
     want = qk.attention_plain(q, k, v)
-    for route in (None, "fma", "mma"):
+    for route in (None, "fma", "mma", "wgmma"):
         assert torch.equal(qk.attention(q, k, v, route=route), want)
     x, w0, b0 = torch.randn((8, 16), generator=g), torch.randn((64, 16), generator=g), \
         torch.randn(64, generator=g)

@@ -706,12 +706,13 @@ def _routes(module):
 @pytest.mark.parametrize("t", [1, 77, 300, 1000])
 @pytest.mark.parametrize("d", qk.MMA_HEAD_DIMS)
 def test_attention_mma_route_matches_plain(card, d, t):
-    """Every width of the tensor-core route, with T = 1 and ragged last tiles;
-    the call takes the route its predicate gives."""
+    """Every width of the mma route, with T = 1 and ragged last tiles: the
+    call takes the route its predicate gives, and at the wgmma widths the mma
+    route is still served when asked for (route="mma", the earlier design)."""
     q, k, v = (_randn((2, t, 2, d), torch.bfloat16, card, s) for s in range(3))
-    assert qk.forward_route(q.dtype, d) == "mma"
+    assert qk.forward_route(q.dtype, d) == ("wgmma" if d in qk.WGMMA_HEAD_DIMS else "mma")
     before = _routes(qk)
-    out = qk.attention(q, k, v)
+    out = qk.attention(q, k, v, route="mma")
     torch.cuda.synchronize()
     assert _routes(qk) == {**before, "mma": before["mma"] + 1}
     assert out.shape == q.shape and out.dtype == q.dtype
@@ -722,17 +723,22 @@ def test_attention_mma_route_matches_plain(card, d, t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 4096, 8, 40), (1, 4096, 1, 512)])
 def test_attention_mma_route_at_full_sd_shapes(card, shape):
-    """The SD UNet's largest self-attention and the VAE mid-block's head."""
+    """The SD UNet's largest self-attention (on "mma" when asked for; its
+    own route is "wgmma") and the VAE mid-block's head."""
     q, k, v = (_randn(shape, torch.bfloat16, card, s) for s in range(3))
-    out = qk.attention(q, k, v)
+    out = qk.attention(q, k, v, route="mma")
     assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.bfloat16]
 
 
+LSE_CASES = ([(route, t, d) for route in ("fma", "mma")
+              for t, d in [(77, 40), (300, 64), (200, 512), (200, 256)]]
+             + [("wgmma", t, d) for t, d in [(77, 40), (300, 64), (200, 80), (100, 160)]])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["fma", "mma"])
-@pytest.mark.parametrize("t,d", [(77, 40), (300, 64), (200, 512), (200, 256)])
+@pytest.mark.parametrize("route,t,d", LSE_CASES)
 def test_attention_lse_is_the_log2_sum_exp2_of_the_scores(card, route, t, d):
-    """The row statistic the backward kernels read, on both routes: log2 of
+    """The row statistic the backward kernels read, on every route: log2 of
     the sum of exp of the scaled scores, from fp32 scores on the same bf16
     inputs (fp32 sums in another order: 1e-4 absolute, about 1e-5 of it)."""
     b, h = 2, 2
@@ -742,6 +748,79 @@ def test_attention_lse_is_the_log2_sum_exp2_of_the_scores(card, route, t, d):
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
     want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
     torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------------------- the wgmma route
+
+WGMMA_CASES = [(d, t) for d in qk.WGMMA_HEAD_DIMS for t in (64, 77, 256, 1024)] + [(40, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bthd", "qkv"])
+@pytest.mark.parametrize("d,t", WGMMA_CASES)
+def test_attention_wgmma_route_matches_plain(card, d, t, layout):
+    """Every width of the wgmma route in both layouts ([B, T, H, D] through
+    ``attention``, [B, T, 3C] through ``qkv_self_attention``), at T = 64
+    (one consumer warpgroup), 77 (a ragged edge), 256, 1024 and, at d = 40,
+    the SD UNet's 4096: within 2e-2 of the largest output, on the route its
+    predicate gives."""
+    b, h = (2, 3) if t < 4096 else (1, 8)
+    before = _routes(qk)
+    if layout == "bthd":
+        q, k, v = (_randn((b, t, h, d), torch.bfloat16, card, s) for s in range(3))
+        out, want = qk.attention(q, k, v), qk.attention_plain(q, k, v)
+    else:
+        qkv = _randn((b, t, 3 * h * d), torch.bfloat16, card, 3)
+        out, want = qk.qkv_self_attention(qkv, h), qk.qkv_self_attention_plain(qkv, h)
+    torch.cuda.synchronize()
+    assert qk.forward_route(torch.bfloat16, d) == "wgmma"
+    assert _routes(qk) == {**before, "wgmma": before["wgmma"] + 1}
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t", [(40, 77), (64, 1024), (80, 256), (160, 64), (160, 300)])
+def test_attention_wgmma_lse_and_repeat(card, d, t):
+    """The training statistic (log2-sum-exp2, fp32 [B, H, T]) within 1e-3 of
+    the mma route's on the same qkv, and two runs of the wgmma route bit for
+    bit the same, output and statistic."""
+    b, h = 2, 2
+    qkv = _randn((b, t, 3 * h * d), torch.bfloat16, card, 4)
+    lse, lse_mma, lse2 = (torch.full((b, h, t), float("nan"), device=card) for _ in range(3))
+    out = qk._qkv_forward(qkv, h, lse)
+    again = qk._qkv_forward(qkv, h, lse2)
+    out_mma = qk._qkv_forward(qkv, h, lse_mma, route="mma")
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+    assert (lse - lse_mma).abs().max().item() <= 1e-3
+    assert _rel_err(out, out_mma) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pointer", "token_stride"])
+def test_attention_wgmma_refuses_a_misaligned_input(card, case):
+    """TMA reads 16-byte-aligned rows: a q|k|v that starts 2 bytes off, or a
+    token stride of 42 elements (84 bytes), is refused before any launch;
+    nothing falls back to another route."""
+    b, t, h, d = 1, 64, 2, 40
+    if case == "pointer":
+        flat = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16, device=card)
+        q = flat[1:].view(b, t, h, d)
+        before = _routes(qk)
+        with pytest.raises(ValueError, match="16-byte"):
+            qk.attention(q, q, q)
+        with pytest.raises(ValueError, match="16-byte"):
+            qk.attention(q, q, q, route="mma")
+    else:
+        out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=card)
+        ptr = out.data_ptr()
+        before = _routes(qk)
+        with pytest.raises(ValueError, match="16-byte"):
+            qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, (t * 42, 42, d),
+                              (t * h * d, h * d, d))
+    assert _routes(qk) == before
 
 
 @pytest.mark.cuda
