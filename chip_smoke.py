@@ -9,8 +9,10 @@ Phases, each of which raises on failure (nothing is caught):
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
      process per source, all at once), and ptxas's register and spill lines
      for the conv kernels' ring route, for the attention kernels at
-     d = 160 and 256 (the backward's wide mma form among them) and for the
-     forward's wgmma kernels (each width, one and two consumer warpgroups);
+     d = 160 and 256 (the backward's wide mma form among them), for the
+     forward's wgmma kernels (each width, one and two consumer warpgroups)
+     and for GEGLU's (each launch, tile rows and tile columns; the kernel
+     line carries them as ``ptxas``);
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
@@ -98,7 +100,7 @@ Phases, each of which raises on failure (nothing is caught):
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
      on "wgmma" but the VAE decoder's d = 512 head on "mma": 288 and 13 of
-     an eps-greedy search's 301; GEGLU all on "mma", conv3x3_same and
+     an eps-greedy search's 301; GEGLU all on "wgmma", conv3x3_same and
      conv3x3_up2 all on "ring",
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
      call's shape recorded;
@@ -127,7 +129,10 @@ Phases, each of which raises on failure (nothing is caught):
      the largest rstd), with kernel, plain, library and bound times (5
      repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
      rows as in phase 3 (route: "wgmma" at d = 40, 80, 160, "mma" at the
-     VAE's 512; ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s);
+     VAE's 512; GEGLU "wgmma" at every bf16 shape, "fma" in fp32;
+     ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s; GEGLU's rows
+     also name the wgmma plan and hold two calls bit-identical, the split
+     depth of the C = 1280 call at M = 128 among them);
      conv rows with their
      route, ``v1_ms`` (bf16: the first design, timed in turns with the ring:
      ring, v1, v1, ring, the lesser of each pair) and TFLOP/s; GroupNorm rows
@@ -380,7 +385,7 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
 # FAST_ROUTE's entry; "mma" at the DDPM++ net's 256 and the VAE's 512, which
 # a path at those widths names (check_routes's ``routes``), and an SD search
 # splits its launches between the two (sd_attention_routes).
-FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "mma",
+FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "wgmma",
               "conv3x3_same": "ring", "conv3x3_up2": "ring", "group_norm_silu": "slab"}
 
 
@@ -522,14 +527,15 @@ def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int 
         row["tflops"] = flops / row["ms"] / 1e9
 
 
-def attention_designs(row: dict, flops: float, kernel, mma_call, library) -> None:
-    """A bf16 attention row's tensor-core designs side by side: ``mma_ms``,
-    the mma.sync design (the first tensor-core one), timed in turns with the
-    row's own route (which sets ``ms`` anew: wgmma, mma, mma, wgmma, the
-    lesser of each pair), and the device times of the route, of the mma design and of the
-    library call (``device_ms``, ``mma_device_ms``, ``library_device_ms``:
-    20 calls under no_grad captured once in a CUDA graph and timed by
-    replay). On a row whose route is "mma" the two designs are one."""
+def tensor_core_designs(row: dict, flops: float, kernel, mma_call, library) -> None:
+    """A bf16 attention or GEGLU row's tensor-core designs side by side:
+    ``mma_ms``, the mma.sync design (the first tensor-core one), timed in
+    turns with the row's own route (which sets ``ms`` anew: wgmma, mma, mma,
+    wgmma, the lesser of each pair), and the device times of the route, of
+    the mma design and of the library call (``device_ms``,
+    ``mma_device_ms``, ``library_device_ms``: 20 calls under no_grad
+    captured once in a CUDA graph and timed by replay). On a row whose
+    route is "mma" the two designs are one."""
     with torch.no_grad():
         if row["route"] == "mma":
             row["mma_ms"] = row["ms"]
@@ -593,10 +599,10 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
     route_columns(row, qk.forward_route(dtype, d), 4 * b * heads * t * t * d,
                   lambda: qk.qkv_self_attention(qkv, heads, route="fma"), None)
     if dtype == torch.bfloat16:
-        attention_designs(row, 4 * b * heads * t * t * d,
-                          lambda: qk.qkv_self_attention(qkv, heads),
-                          lambda: qk.qkv_self_attention(qkv, heads, route="mma"),
-                          lambda: F.scaled_dot_product_attention(q, k, v))
+        tensor_core_designs(row, 4 * b * heads * t * t * d,
+                            lambda: qk.qkv_self_attention(qkv, heads),
+                            lambda: qk.qkv_self_attention(qkv, heads, route="mma"),
+                            lambda: F.scaled_dot_product_attention(q, k, v))
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) fma_ms={row['fma_ms']:.4f} "
@@ -853,8 +859,8 @@ def check_sd_attention(key, dtype, tag, timed=True):
                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag, timed=timed,
                      route=(qk.forward_route(dtype, d), lambda: qk.attention(q, k, v, route="fma")))
     if timed and dtype == torch.bfloat16:
-        attention_designs(row, 4 * b * h * t * t * d, lambda: qk.attention(q, k, v),
-                          lambda: qk.attention(q, k, v, route="mma"), library)
+        tensor_core_designs(row, 4 * b * h * t * t * d, lambda: qk.attention(q, k, v),
+                            lambda: qk.attention(q, k, v, route="mma"), library)
     return row
 
 
@@ -895,6 +901,11 @@ def check_group_norm(key, dtype, tag, timed=True):
 
 
 def check_geglu(key, dtype, tag, timed=True):
+    """The row of kernel_row with the route columns (``fma_ms``); at bf16
+    also the wgmma and mma designs side by side (tensor_core_designs), the
+    route's plan and two calls held bit-identical (the split depth's
+    partials are summed in a fixed order). Without ``timed``, the check
+    alone."""
     m, c, f = key
     g = torch.Generator(device="cuda").manual_seed(m + c)
     r = lambda shape, s: (torch.randn(shape, device="cuda", generator=g) * s).to(dtype)
@@ -908,10 +919,21 @@ def check_geglu(key, dtype, tag, timed=True):
         return F.linear(h * F.gelu(gate), w2, b2)
 
     item = torch.finfo(dtype).bits // 8
-    return kernel_row("geglu_ff", key, dtype, kernel(), plain(), kernel, plain, library,
-                      (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10, timed=timed,
-                      route=(gg.route(dtype, c, f),
-                             lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="fma")))
+    out = kernel()
+    row = kernel_row("geglu_ff", key, dtype, out, plain(), kernel, plain, library,
+                     (6 * m * c * f, (2 * m * c + 3 * c * f) * item), tag, reps=10, timed=timed,
+                     route=(gg.route(dtype, c, f),
+                            lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="fma")))
+    if not torch.equal(out, kernel()):
+        raise AssertionError(f"geglu_ff {list(key)} {dtype}: two calls differ")
+    if timed and dtype == torch.bfloat16:
+        row["plan"] = gg.wgmma_plan(m, c, f, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+        tensor_core_designs(row, 6 * m * c * f, kernel,
+                            lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="mma"), library)
+        print(f"    wgmma plan (rows1, rows2, bn2, split) {row['plan']}; two calls "
+              f"bit-identical")
+    return row
 
 
 def reps_for(shape) -> int:
@@ -3216,6 +3238,14 @@ def main() -> None:
             for d in (160, 256):
                 for entry, lines in ptxas_lines(built[name][1], f"Li{d}E").items():
                     print(f"ptxas, {name} D = {d}, {entry}: " + "; ".join(lines))
+    geglu_ptxas = {}
+    if "geglu_ff" in built:  # the wgmma route's kernels, by <consumers, B rows, launch>
+        for entry, lines in ptxas_lines(built["geglu_ff"][1], "geglu_wgmma_kernel").items():
+            nc, bn, gate = re.search(r"geglu_wgmma_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                                     entry).groups()
+            kind = f"launch {1 if gate == '1' else 2}, {nc} consumer warpgroup(s), {bn} B rows"
+            geglu_ptxas[kind] = lines
+            print(f"ptxas, geglu_ff wgmma {kind}: " + "; ".join(lines))
     if "qkv_attention" in built:  # the wgmma route's kernels, by <D, consumers, K/V tile>
         for entry, lines in ptxas_lines(built["qkv_attention"][1],
                                         "attention_wgmma_kernel").items():
@@ -3244,6 +3274,9 @@ def main() -> None:
                                                training_line["d256"])
     sd_searches, sd_lines, sd_checked, sd_kept = timed("6-7 SD", sd_phases, tag)
     encoder = timed("6d SD encoder", sd_encoder_phase, tag, sd_checked)
+    for line in sd_lines:
+        if line["name"] == "geglu_ff":  # ptxas's registers and spills of its wgmma kernels
+            line["ptxas"] = geglu_ptxas
     for line in sd_lines:  # each kernel's launches in one 512x512 encode, as counted there
         line["encode_launches"] = encoder["launches"][line["name"]]
         line["max_abs_err"] = max(line["max_abs_err"],

@@ -1,4 +1,4 @@
-// GEGLU feed-forward for Hopper (sm_90a), plain C interface, two routes.
+// GEGLU feed-forward for Hopper (sm_90a), plain C interface, three routes.
 //
 // Replaces the TPU kernels _geglu_kernel / _geglu_stream_kernel behind
 // diffusion_tts_tpu/ops/pallas/geglu_ff.py::geglu_ff. Same function, with
@@ -13,9 +13,10 @@
 //
 // What bounds it on this card: operations. At the SD shapes the FF does
 // 6 * M * C * F FLOPs on (M * C + 3 * C * F + M * C) elements, hundreds of
-// FLOPs per byte, far above the H100's 295 FLOP/byte bf16 balance point.
+// FLOPs per byte, far above the H100's 295 FLOP/byte bf16 balance point
+// (but at M = 128, the 8x8 latent's rows, the weights' bytes).
 //
-// Two launches on either route. Launch 1 is a tiled GEMM whose blocks
+// Two launches on every route. Launch 1 is a tiled GEMM whose blocks
 // compute matching column tiles of h and of gate from one shared x tile, so
 // the epilogue has both and applies bias, rounding and the gelu gate there.
 // Launch 2 is the same tiled GEMM for g . w2^T + b2. The [M, F] g tensor goes
@@ -26,12 +27,59 @@
 //
 // Routes. The caller picks one (ops/kernels/geglu_ff.py::route) and this file
 // obeys:
+//   * wgmma (route 2): bf16, C and F multiples of 64 (every SD-1.5 width),
+//     every operand 16-byte aligned; Hopper's asynchronous warpgroup
+//     products fed by TMA, below.
 //   * mma (route 1): bf16, C and F multiples of 8, every operand 16-byte
 //     aligned; the products run on the tensor cores (mma.sync m16n8k16, bf16
-//     operands, fp32 accumulators: exactly the arithmetic above).
+//     operands, fp32 accumulators: exactly the arithmetic above). It serves
+//     the test widths; forced (route="mma") at a wgmma width it times the
+//     first tensor-core design beside the new one.
 //   * fma (route 0): fp32 (and bf16 when asked, which times the first
 //     design); the products run on the CUDA cores in fp32 FMA, so that fp32
 //     holds 1e-4 against an fp32 reference with TF32 off.
+//
+// The wgmma route (geglu_wgmma_kernel, one template for both launches):
+//   * Every operand is K-major (x [M, C], w0 [2F, C], g [M, F], w2 [C, F]),
+//     which wgmma reads natively for both bf16 operands. Each is read through
+//     a 2-D tensor map in boxes of 64 columns (128-byte rows, 128-byte
+//     swizzle), encoded on the host for each call (hopper.cuh's
+//     encode_tiled, no -lcuda). Rows past M arrive zero-filled and are
+//     masked at the store.
+//   * Warp roles: one producer warp (one lane issues every TMA load) keeps a
+//     ring of K = 64 stages in flight with full and empty mbarriers; one to
+//     three consumer warpgroups take 64 rows each of a tile and run
+//     m64nBNk16 products from shared memory into fp32 accumulators,
+//     freeing a stage once the next stage's products are issued.
+//   * Persistent: min(units, slots) blocks walk the units blockIdx.x,
+//     + gridDim.x, ...; the producer fills the next unit's stages while the
+//     consumers run the last one's epilogue. The caller's plan
+//     (ops/kernels/geglu_ff.py::wgmma_plan) sets each launch's tile rows:
+//     128 or 192 (two or three consumers, 4 stages, one block an SM), or
+//     64 (one consumer, 3-4 stages, two blocks an SM, so one block's
+//     epilogue runs beside the other's products) where larger tiles would
+//     leave SMs idle. The units walk the smaller operand's tiles fastest,
+//     so the larger streams from device memory once and the smaller is read
+//     again from L2.
+//   * Launch 1: a tile is 64 g columns, its B tile two 64-row boxes of w0's
+//     one map (rows n0 and F + n0), so each thread's accumulator holds h and
+//     the gate of the same columns; the epilogue adds the bias, rounds,
+//     applies the erff gelu and rounds again, as above. It is bound by what
+//     it reads from L2 (about 6 TB/s of stages at the SD widths): a 192-row
+//     tile reads 17% less a row than a 128-row one.
+//   * Launch 2: 128 or 160 output columns a tile (C = 320, 640, 1280 are
+//     whole numbers of 160, so the SD calls fill the SMs in fewer waves).
+//     Where the tiles fill under a quarter of the card (the C = 1280 call at
+//     M = 128) the depth F is split into `split` shares: each unit writes
+//     its fp32 partial, and the tile's last arrival (an integer atomic
+//     counter, zeroed by launch 1) sums the partials in a fixed order, adds
+//     the bias once and rounds once: two calls give the same bits, and no
+//     fp32 atomics are used.
+//   * Registers: at most 168 a thread at 288 threads (three warps an SM
+//     sub-partition), 152 at 416; the accumulators take 64 (BN = 128) or 80
+//     (160), and ptxas reports no spill.
+//   * Nothing gives way: a refused encode, launch or misaligned operand is
+//     an error (the wrapper raises), never a fall back to the mma route.
 //
 // The mma route:
 //   * Every operand is K-contiguous: x [M, C], w0 [2F, C], g [M, F],
@@ -54,11 +102,13 @@
 // (rows ty + 16 i, columns tx + 16 j) of each product over 64 x 64 block
 // tiles; the K loop stages [16, 64] slices of both operands, transposed, into
 // shared-memory rows padded to 65 floats. Ragged M, N and K are masked.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -367,18 +417,391 @@ cudaError_t launch_mma(const void* x, const void* w0, const void* b0, const void
   return cudaGetLastError();
 }
 
+// -------------------------------------------------------------- wgmma route
+
+using dtts::EncodeTiled;
+using dtts::encode_tiled;
+using dtts::fence_regs;
+using dtts::kEncodeFailed;
+using dtts::mbar_arrive;
+using dtts::mbar_expect_tx;
+using dtts::mbar_init;
+using dtts::mbar_wait;
+using dtts::sm_count;
+using dtts::tma_load_2d;
+using dtts::wgmma_commit;
+using dtts::wgmma_desc;
+using dtts::wgmma_fence;
+using dtts::wgmma_ss;
+using dtts::wgmma_wait;
+
+constexpr int kWgDepth = 64;     // K per stage: one 128-byte swizzled row of bf16
+constexpr int kWgRowBytes = 128;
+
+// Shapes of one GEMM of the wgmma route: NC (1-3) consumer warpgroups of 64
+// rows (a tile of 64 NC rows), BN B rows per tile (launch 1: 64 h and the
+// same 64 gate rows of w0; launch 2: BN output columns), a ring of S stages.
+template <int NC, int BN>
+struct WgGemm {
+  static constexpr int kBM = 64 * NC;
+  static constexpr int kStages = NC == 1 && BN == 160 ? 3 : 4;
+  static constexpr int kABytes = kBM * kWgRowBytes;
+  static constexpr int kBBytes = BN * kWgRowBytes;
+  static constexpr int kStageBytes = kABytes + kBBytes;  // a multiple of 1024
+  static constexpr int kThreads = 128 * NC + 32;
+  // NC = 1 runs two blocks an SM (one's epilogue beside the other's products)
+  static constexpr int kBlocksPerSM = NC == 1 ? 2 : 1;
+  static constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 16 * kStages;
+};
+
+// One GEMM of the wgmma route, persistent: D[M, n] = A[M, depth] . B^T, A
+// and B K-major bf16 read through 2-D tensor maps in 64-column boxes with
+// the 128-byte swizzle, which is the K-major layout wgmma reads.
+//   GATE (launch 1): A = x [M, C], B = w0 [2F, C] (boxes of BN / 2 rows at
+//     n0 and F + n0: the accumulator holds the h columns in its first BN / 16
+//     n8 blocks and the same columns' gate in the others, in the same
+//     thread), n = F,
+//     out = g [M, F], bias = b0. Zeroes launch 2's `counters` first.
+//   else (launch 2): A = g [M, F], B = w2 [C, F], n = C, out [M, C], bias =
+//     b2. With split > 1 each unit is (tile, s), s the fastest: the depth's
+//     s-th share, its fp32 partial written to ws [split, M, C]; the unit
+//     that counts the tile's last arrival (an integer atomic on counters)
+//     sums the partials in the order s = 0, 1, ..., adds the bias once and
+//     rounds once, so that two calls give the same bits.
+// Units are walked blockIdx.x, + gridDim.x, ...; m_fast puts the m tile
+// fastest (the A operand is the smaller one and is read again from L2, B
+// streams once), else the n tile. One producer warp (one lane issues the
+// TMA loads, running ahead into the next unit while the consumers finish
+// the last), NC consumer warpgroups of 64 rows each.
+template <int NC, int BN, bool GATE>
+__global__ void __launch_bounds__(WgGemm<NC, BN>::kThreads, WgGemm<NC, BN>::kBlocksPerSM)
+geglu_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap bmap, const bf16* __restrict__ bias,
+                   bf16* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                   int n_counters, int m, int n, int depth, int split, int m_fast) {
+  using C = WgGemm<NC, BN>;
+  constexpr int S = C::kStages;
+  constexpr int NT = GATE ? BN / 2 : BN;  // output columns of a tile
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  __shared__ int last_unit;
+  const uint32_t base = (dtts::smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t bar = base + S * C::kStageBytes;  // full[S], then empty[S]
+  auto full = [&](int s) { return bar + 8u * s; };
+  auto empty = [&](int s) { return bar + 8u * (S + s); };
+
+  if (GATE) {
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_counters;
+         i += gridDim.x * blockDim.x)
+      counters[i] = 0;
+  }
+  const int mt = (m + C::kBM - 1) / C::kBM, nt = (n + NT - 1) / NT;
+  const int units = mt * nt * split;
+  const int nk = depth / kWgDepth;
+  // unit u: tile u / split and its depth share u % split
+  auto decode = [&](int u, int& m0, int& n0, int& k0, int& k1, int& tile) {
+    tile = u / split;
+    const int s = u % split;
+    const int mi = m_fast ? tile % mt : tile / nt, ni = m_fast ? tile / mt : tile % nt;
+    m0 = mi * C::kBM;
+    n0 = ni * NT;
+    k0 = s * nk / split;
+    k1 = (s + 1) * nk / split;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NC);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int w = threadIdx.x / 128;  // consumer warpgroup; NC is the producer warp
+  if (w == NC) {
+    if (threadIdx.x == 128 * NC) {
+      int it = 0;  // stages filled so far, over all units: the ring's position
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int m0, n0, k0, k1, tile;
+        decode(u, m0, n0, k0, k1, tile);
+        for (int kk = k0; kk < k1; ++kk, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty(s), ((it / S) - 1) & 1);
+          mbar_expect_tx(full(s), C::kStageBytes);
+          const uint32_t a_s = base + s * C::kStageBytes, b_s = a_s + C::kABytes;
+          tma_load_2d(a_s, &amap, full(s), kk * kWgDepth, m0);
+          if (GATE) {
+            tma_load_2d(b_s, &bmap, full(s), kk * kWgDepth, n0);
+            tma_load_2d(b_s + NT * kWgRowBytes, &bmap, full(s), kk * kWgDepth, n + n0);
+          } else {
+            tma_load_2d(b_s, &bmap, full(s), kk * kWgDepth, n0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  // K-major, 128-byte swizzle: 8-row groups 1024 bytes apart; a k16 step
+  // moves the start address 32 bytes along the swizzled row.
+  const uint64_t a_desc = wgmma_desc(base + w * 64 * kWgRowBytes, 16, 8 * kWgRowBytes, 1);
+  const uint64_t b_desc = wgmma_desc(base + C::kABytes, 16, 8 * kWgRowBytes, 1);
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(empty(s));
+  };
+  auto consumers_sync = [&]() { asm volatile("bar.sync 1, %0;\n" ::"n"(128 * NC) : "memory"); };
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int m0, n0, k0, k1, tile;
+    decode(u, m0, n0, k0, k1, tile);
+    for (int kk = k0; kk < k1; ++kk, ++it) {
+      const int s = it % S;
+      mbar_wait(full(s), (it / S) & 1);
+      const uint64_t step = (uint64_t)(s * C::kStageBytes) >> 4;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < kWgDepth / 16; ++k16)
+        wgmma_ss<BN>(acc, a_desc + step + (k16 * 32 >> 4), b_desc + step + (k16 * 32 >> 4),
+                     kk > k0 || k16 > 0);
+      wgmma_commit();
+      if (kk > k0) {  // the previous stage's products are done: free it
+        wgmma_wait<1>();
+        fence_regs(acc);
+        release((it - 1) % S);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release((it - 1) % S);
+
+    // acc[4 j + 2 r + c]: row 16 warp + g + 8 r of the warpgroup's 64,
+    // column 8 j + 2 tq + c of the tile's B rows.
+    const int row0 = m0 + 64 * w + 16 * warp + g;
+    if (GATE) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= m) continue;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * tq;
+          const __nv_bfloat162 bh = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+          const __nv_bfloat162 bg = *reinterpret_cast<const __nv_bfloat162*>(bias + n + col);
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float h = round_bf16(acc[4 * j + 2 * r + e] +
+                                       __bfloat162float(e ? bh.y : bh.x));
+            const float gate = round_bf16(acc[4 * (j + NT / 8) + 2 * r + e] +
+                                          __bfloat162float(e ? bg.y : bg.x));
+            v[e] = h * (0.5f * gate * (1.f + erff(gate * 0.70710678118654752f)));
+          }
+          *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * n + col) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        }
+      }
+      continue;
+    }
+    if (split == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= m) continue;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * tq;
+          if (col >= n) continue;  // n % 64 == 0: col + 1 < n as well
+          const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+          *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * n + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] + __bfloat162float(b.x),
+                                    acc[4 * j + 2 * r + 1] + __bfloat162float(b.y));
+        }
+      }
+      continue;
+    }
+    // Split depth: this unit's partial, then the tile's last arrival sums all.
+    const int s_idx = u % split;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tq;
+        if (col < n)
+          *reinterpret_cast<float2*>(ws + ((int64_t)s_idx * m + row) * n + col) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+    __threadfence();  // the partial is visible device-wide before the count
+    consumers_sync();
+    if (threadIdx.x == 0) last_unit = atomicAdd(counters + tile, 1) == split - 1;
+    consumers_sync();
+    const bool last = *static_cast<volatile int*>(&last_unit);
+    consumers_sync();  // every consumer has read the flag before the next unit sets it
+    if (!last) continue;
+    __threadfence();
+    // acc = p_0 + p_1 + ..., in that order. Each share is read in batches of
+    // kBatch pairs, all loaded before any is added, so that a batch's loads
+    // are in flight together rather than one load's latency at a time (5 at
+    // BN = 160 keeps those kernels inside 168 registers).
+    constexpr int kBatch = BN == 160 ? 5 : 8;
+    static_assert(NT / 8 % kBatch == 0, "whole batches");
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int q = 0; q < split; ++q) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const float* src = ws + ((int64_t)q * m + row) * n + n0 + 2 * tq;
+#pragma unroll
+        for (int b = 0; b < NT / 8 / kBatch; ++b) {
+          float2 v[kBatch];
+#pragma unroll
+          for (int jj = 0; jj < kBatch; ++jj) {
+            const int c8 = 8 * (b * kBatch + jj);
+            v[jj] = row < m && n0 + c8 < n ? __ldcg(reinterpret_cast<const float2*>(src + c8))
+                                           : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int jj = 0; jj < kBatch; ++jj) {
+            const int j = b * kBatch + jj;
+            acc[4 * j + 2 * r] += v[jj].x;
+            acc[4 * j + 2 * r + 1] += v[jj].y;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tq;
+        if (col >= n) continue;
+        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+        *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * n + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] + __bfloat162float(b.x),
+                                  acc[4 * j + 2 * r + 1] + __bfloat162float(b.y));
+      }
+    }
+  }
+}
+
+// The 2-D map of a K-major bf16 matrix [rows, inner] read in boxes of 64
+// columns (128 bytes, swizzled at 128 bytes) by box_rows rows; rows past
+// `rows` read as zero.
+int encode_kmajor(CUtensorMap* map, const void* ptr, int inner, int rows, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgDepth, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)res;
+}
+
+template <int NC, int BN, bool GATE>
+cudaError_t launch_wgmma_gemm(const CUtensorMap& am, const CUtensorMap& bm, const void* bias,
+                              void* out, float* ws, int* counters, int n_counters, int m, int n,
+                              int depth, int split, cudaStream_t stream) {
+  using C = WgGemm<NC, BN>;
+  cudaError_t err = cudaFuncSetAttribute(geglu_wgmma_kernel<NC, BN, GATE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  constexpr int nt_cols = GATE ? BN / 2 : BN;
+  const int64_t units = (int64_t)((m + C::kBM - 1) / C::kBM) * ((n + nt_cols - 1) / nt_cols) *
+                        split;
+  const int slots = sm_count() * C::kBlocksPerSM;
+  const int blocks = units < slots ? (int)units : slots;
+  // The A operand is the smaller: it is read again from L2, B streams once.
+  const int m_fast = (int64_t)m < (GATE ? 2 * (int64_t)n : (int64_t)n);
+  geglu_wgmma_kernel<NC, BN, GATE><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
+      am, bm, static_cast<const bf16*>(bias), static_cast<bf16*>(out), ws, counters, n_counters,
+      m, n, depth, split, m_fast);
+  return cudaGetLastError();
+}
+
+// The wgmma route's two launches. rows1, rows2: tile rows of each launch
+// (64, 128, or 192 in launch 1: one to three consumer warpgroups); bn2:
+// launch 2's tile columns (128 or 160); split: launch 2's depth shares (1:
+// none; else ws holds [split, M, C] fp32 and counters one int per launch-2
+// tile).
+int launch_wgmma(const void* x, const void* w0, const void* b0, const void* w2, const void* b2,
+                 void* g, void* out, float* ws, int* counters, int m, int c, int f, int rows1,
+                 int rows2, int bn2, int split, cudaStream_t stream) {
+  constexpr int kGateBN = 128;  // launch 1's B rows: 64 h and the same 64 gate columns
+  CUtensorMap xm, w0m, gm, w2m;
+  int err = encode_kmajor(&xm, x, c, m, rows1);
+  if (err == 0) err = encode_kmajor(&w0m, w0, c, 2 * f, kGateBN / 2);
+  if (err == 0) err = encode_kmajor(&gm, g, f, m, rows2);
+  if (err == 0) err = encode_kmajor(&w2m, w2, f, c, bn2);
+  if (err != 0) return err;
+  const int tiles2 = split > 1 ? (m + rows2 - 1) / rows2 * ((c + bn2 - 1) / bn2) : 0;
+  cudaError_t e;
+  if (rows1 == 192)
+    e = launch_wgmma_gemm<3, kGateBN, true>(xm, w0m, b0, g, nullptr, counters, tiles2, m, f, c,
+                                            1, stream);
+  else if (rows1 == 128)
+    e = launch_wgmma_gemm<2, kGateBN, true>(xm, w0m, b0, g, nullptr, counters, tiles2, m, f, c,
+                                            1, stream);
+  else
+    e = launch_wgmma_gemm<1, kGateBN, true>(xm, w0m, b0, g, nullptr, counters, tiles2, m, f, c,
+                                            1, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+#define DTTS_GEGLU_OUT(NC, BN)                                                                 \
+  if (rows2 == 64 * NC && bn2 == BN)                                                           \
+    return static_cast<int>(launch_wgmma_gemm<NC, BN, false>(gm, w2m, b2, out, ws, counters,   \
+                                                             0, m, c, f, split, stream));
+  DTTS_GEGLU_OUT(2, 128)
+  DTTS_GEGLU_OUT(2, 160)
+  DTTS_GEGLU_OUT(1, 128)
+  DTTS_GEGLU_OUT(1, 160)
+#undef DTTS_GEGLU_OUT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor. x [M, C], w0 [2F, C],
 // b0 [2F], w2 [C, F], b2 [C], g (scratch) [M, F], out [M, C], all
 // contiguous. route: 0 = fma (either dtype), 1 = mma (bfloat16, C and F
-// multiples of 8, every pointer 16-byte aligned). Two launches. Returns the
-// first failing launch's cudaError_t (0 on success); the caller raises on
-// anything else.
+// multiples of 8, every pointer 16-byte aligned), 2 = wgmma (bfloat16, C and
+// F multiples of 64, every pointer 16-byte aligned). The wgmma route's plan
+// (rows1: 64, 128 or 192; rows2: 64 or 128; bn2: 128 or 160; split;
+// ops/kernels/geglu_ff.py::wgmma_plan) and its
+// split-depth scratch (ws: fp32 [split, M, C], counters: int32, one per
+// launch-2 tile; null when split is 1); the other routes ignore them. Two
+// launches. Returns the first failing launch's cudaError_t (0 on success),
+// or kEncodeFailed + the CUresult of a refused tensor map; the caller raises
+// on anything else.
 extern "C" int dtts_geglu_ff(const void* x, const void* w0, const void* b0, const void* w2,
                              const void* b2, void* g, void* out, int dtype, int m, int c,
-                             int f, int route, void* stream) {
+                             int f, int route, void* ws, void* counters, int rows1, int rows2,
+                             int bn2, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    const bool rows_ok = (rows1 == 64 || rows1 == 128 || rows1 == 192) &&
+                         (rows2 == 64 || rows2 == 128);
+    if (dtype != 1 || c % 64 || f % 64 || !rows_ok || (bn2 != 128 && bn2 != 160) ||
+        split < 1 || split > f / 64 || (split > 1 && (ws == nullptr || counters == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(x, w0, b0, w2, b2, g, out, static_cast<float*>(ws),
+                        static_cast<int*>(counters), m, c, f, rows1, rows2, bn2, split, s);
+  }
   if (route == 1) {
     if (dtype != 1 || c % 8 || f % 8) return static_cast<int>(cudaErrorInvalidValue);
     return launch_mma(x, w0, b0, w2, b2, g, out, m, c, f, s);

@@ -4,8 +4,8 @@
 every ``csrc`` header the source includes, so an edited header is rebuilt and
 a stale library is never loaded. The wrappers of the attention (forward and
 backward) and GEGLU kernels pick a route in Python (``forward_route``,
-``backward_route``, ``route``; the forward's three: "wgmma", "mma",
-"fma") and refuse, before any launch, what the tensor-core routes cannot
+``backward_route``, ``route``; the forward's and GEGLU's three: "wgmma",
+"mma", "fma") and refuse, before any launch, what the tensor-core routes cannot
 take; so do the conv kernels (``conv_route``:
 "ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
@@ -54,8 +54,12 @@ def test_library_path_follows_the_source_and_its_headers(csrc, name):
 
 
 def test_the_tensor_core_kernels_include_the_shared_header():
+    """mma_bf16.cuh (the mma.sync helpers) in all four tensor-core sources;
+    hopper.cuh (mbarriers, TMA, wgmma, the tensor-map encoder) in the two
+    with a wgmma route."""
     for name in ("qkv_attention", "attention_bwd", "geglu_ff", "conv3x3"):
-        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "mma_bf16.cuh"]
+        hopper = ["hopper.cuh"] if name in ("qkv_attention", "geglu_ff") else []
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", *hopper, "mma_bf16.cuh"]
 
 
 def test_library_path_follows_a_header_included_by_a_header(csrc):
@@ -64,8 +68,8 @@ def test_library_path_follows_a_header_included_by_a_header(csrc):
     before = build.library_path("geglu_ff")
     _append(csrc / "extra.cuh")
     assert build.library_path("geglu_ff") != before
-    assert [p.name for p in build.sources("geglu_ff")] == ["geglu_ff.cu", "mma_bf16.cuh",
-                                                           "extra.cuh"]
+    assert [p.name for p in build.sources("geglu_ff")] == ["geglu_ff.cu", "hopper.cuh",
+                                                           "mma_bf16.cuh", "extra.cuh"]
 
 
 def test_library_path_ignores_headers_not_included(csrc):
@@ -104,14 +108,14 @@ def test_attention_route_is_the_one_the_source_states(dtype, d):
 
 
 def test_attention_route_codes_follow_the_source():
-    """The forward's route codes are the C entry's (0 fma, 1 mma, 2 wgmma);
-    the backward and GEGLU keep the two shared ones."""
-    assert qk.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
-    assert set(qk.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
-    assert set(qk.BWD_ROUTE_LAUNCHES) == set(gg.ROUTE_LAUNCHES) == set(_launch.ROUTES) == \
-        {"fma", "mma"}
-    src = (build.CSRC / "qkv_attention.cu").read_text()
-    assert "if (route == 2) {" in src and "if (route == 1) {" in src
+    """The forward's and GEGLU's route codes are their C entries' (0 fma,
+    1 mma, 2 wgmma); the backward keeps the two shared ones."""
+    assert qk.ROUTE_CODES == gg.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
+    assert set(qk.ROUTE_LAUNCHES) == set(gg.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
+    assert set(qk.BWD_ROUTE_LAUNCHES) == set(_launch.ROUTES) == {"fma", "mma"}
+    for name in ("qkv_attention", "geglu_ff"):
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert "if (route == 2) {" in src and "if (route == 1) {" in src
 
 
 @pytest.mark.parametrize("d", qk.BWD_HEAD_DIMS)
@@ -127,12 +131,94 @@ def test_backward_route_is_the_one_the_source_states(dtype, d):
     assert qk.backward_route(dtype, d) == want
 
 
-@pytest.mark.parametrize("c", SD_FF_WIDTHS + (32, 64))
+@pytest.mark.parametrize("c", SD_FF_WIDTHS + (32, 64, 40, 96))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_geglu_route_at_the_sd_and_test_widths(dtype, c):
-    """The SD-1.5 UNet's (C, 4C) and the tiny test pipeline's widths: bf16 on
-    the tensor cores, fp32 on the CUDA cores (csrc/geglu_ff.cu's header)."""
-    assert gg.route(dtype, c, 4 * c) == ("mma" if dtype == torch.bfloat16 else "fma")
+    """The SD-1.5 UNet's (C, 4C) and the test nets' widths: bf16 on "wgmma"
+    where C and F are multiples of 64 (every SD width), on "mma" at the
+    other multiples of 8, fp32 on the CUDA cores (csrc/geglu_ff.cu's
+    header)."""
+    want = "fma"
+    if dtype == torch.bfloat16:
+        want = "wgmma" if c % 64 == 0 else "mma"
+    assert gg.route(dtype, c, 4 * c) == want
+    if dtype == torch.bfloat16 and c in SD_FF_WIDTHS:
+        assert want == "wgmma"
+
+
+def test_geglu_wgmma_widths_are_the_ones_the_source_states():
+    """csrc/geglu_ff.cu states the wgmma route's widths and checks them in its
+    C entry; the wrapper's predicate agrees."""
+    src = (build.CSRC / "geglu_ff.cu").read_text()
+    stated = re.search(r"wgmma \(route 2\): bf16, C and F multiples of (\d+)", src).group(1)
+    assert int(stated) == gg.WGMMA_MULTIPLE == 64
+    assert f"c % {stated} || f % {stated}" in src
+    assert re.search(r"kWgDepth = (\d+);", src).group(1) == stated
+
+
+# (M, C, F) of the SD-1.5 UNet's GEGLU calls of one SD search, and the
+# wgmma plan (rows1, rows2, bn2, split) each takes on a 132-SM card: the
+# plans the card's sweep found fastest, or within 3% of it
+# (tools/torch_geglu_probe.py --sweep)
+SD_FF_PLANS = {(32768, 320, 1280): (192, 128, 160, 1), (8192, 320, 1280): (192, 128, 160, 1),
+               (8192, 640, 2560): (192, 128, 160, 1), (2048, 640, 2560): (128, 64, 160, 1),
+               (2048, 1280, 5120): (192, 128, 160, 1), (512, 1280, 5120): (192, 64, 128, 1),
+               (128, 1280, 5120): (64, 64, 128, 3)}
+
+
+@pytest.mark.parametrize("m,c,f", list(SD_FF_PLANS) + [(1, 320, 1280), (100, 640, 2560),
+                                                       (300, 1280, 5120), (64, 64, 256)])
+def test_geglu_wgmma_plan(m, c, f):
+    """The wgmma route's plan on a 132-SM card: launch 1's 64-row tiles
+    where 128-row ones would not give every SM one, else 128 or 192 rows,
+    whichever loads fewer rows into the busiest SM; launch 2's tile (64 or
+    128 rows, 128 or 160 columns) with the least work on the busiest SM; a
+    depth split only
+    where launch 2's tiles fill under a quarter of the block slots, in at
+    most 4 shares of at least 4 depth steps. Of the SD calls only the
+    C = 1280 one at M = 128 splits."""
+    sms = 132
+    plan = gg.wgmma_plan(m, c, f, sms)
+    rows1, rows2, bn2, split = plan
+    waves = lambda rows: -(-(-(-m // rows) * (f // 64)) // sms)
+    if -(-m // 128) * (f // 64) >= sms:
+        assert rows1 == min((128, 192), key=lambda r: waves(r) * (r + 128))
+    else:
+        assert rows1 == 64
+    work = lambda rows, bn: -(-(-(-m // rows) * -(-c // bn)) // sms) * rows * bn
+    assert rows2 in (64, 128) and bn2 in (128, 160)
+    assert work(rows2, bn2) == min(work(r, b) for r in (64, 128) for b in (128, 160))
+    tiles = -(-m // rows2) * -(-c // bn2)
+    slots = sms * (1 if rows2 == 128 else 2)
+    assert 1 <= split <= 4 and (split == 1 or f // 64 // split >= 4)
+    assert (split > 1) == (8 * tiles <= slots and f // 64 >= 8)
+    if (m, c, f) in SD_FF_PLANS:
+        assert plan == SD_FF_PLANS[m, c, f]
+
+
+@pytest.mark.parametrize("case", ["width", "fp32", "pointer", "bias", "unknown"])
+def test_geglu_refuses_what_the_wgmma_route_cannot_take(no_launch, monkeypatch, case):
+    """A "wgmma" forced at a width it cannot take (C = 96, not a multiple of
+    64) or in fp32, or an operand or bias not 16-byte aligned on the route
+    the predicate gave it, or an unknown route: refused before any launch.
+    Nothing falls back to the mma route."""
+    monkeypatch.setattr(_launch, "check", lambda x, name: None)  # CPU tensors stand in
+    c = 96 if case == "width" else 64
+    f = 4 * c
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    x = torch.zeros(4 * c + 1, dtype=dtype)
+    x = (x[1:] if case == "pointer" else x[:-1]).view(4, c)
+    w0, w2 = torch.zeros((2 * f, c), dtype=dtype), torch.zeros((c, f), dtype=dtype)
+    b0 = torch.zeros(2 * f + 1, dtype=dtype)
+    b0 = b0[1:] if case == "bias" else b0[:-1]
+    b2 = torch.zeros(c, dtype=dtype)
+    forced = {"width": "wgmma", "fp32": "wgmma", "unknown": "tensor"}.get(case)
+    match = {"pointer": "16-byte", "bias": "16-byte", "unknown": "route must be one of"}.get(
+        case, "wgmma route takes bfloat16")
+    before = (gg.LAUNCHES, dict(gg.ROUTE_LAUNCHES))
+    with pytest.raises(ValueError, match=match):
+        gg._geglu_ff_kernel(x, w0, b0, w2, b2, forced=forced)
+    assert (gg.LAUNCHES, gg.ROUTE_LAUNCHES) == before
 
 
 @pytest.fixture

@@ -676,7 +676,7 @@ def test_forward_only_kernels_take_the_twins_gradient(card, dtype):
                  (x, w, b, pre), dtype)
     _grads_match(lambda x: gn.group_norm_stats(x, groups=8),
                  lambda x: gn.group_norm_stats_plain(x, groups=8), (x,), dtype)
-    m, c, f = 48, 32, 64
+    m, c, f = 48, 64, 128  # bf16 on the wgmma route
     ff = (_randn((m, c), dtype, card, 5), _randn((2 * f, c), dtype, card, 6, c ** -0.5),
           _randn((2 * f,), dtype, card, 7, 0.1), _randn((c, f), dtype, card, 8, f ** -0.5),
           _randn((c,), dtype, card, 9, 0.1))
@@ -823,22 +823,57 @@ def test_attention_wgmma_refuses_a_misaligned_input(card, case):
     assert _routes(qk) == before
 
 
+def _ff(m, c, f, card, dtype=torch.bfloat16):
+    return (_randn((m, c), dtype, card, 5), _randn((2 * f, c), dtype, card, 6, scale=c ** -0.5),
+            _randn((2 * f,), dtype, card, 7, scale=0.1), _randn((c, f), dtype, card, 8,
+                                                                 scale=f ** -0.5),
+            _randn((c,), dtype, card, 9, scale=0.1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 100, 300, 4096])
 def test_geglu_mma_route_matches_plain(card, m):
-    """C = 320 (no multiple of the 128-wide tile), F = 1280, ragged M."""
-    c, f = 320, 1280
-    x = _randn((m, c), torch.bfloat16, card, 5)
-    w0 = _randn((2 * f, c), torch.bfloat16, card, 6, scale=c ** -0.5)
-    b0 = _randn((2 * f,), torch.bfloat16, card, 7, scale=0.1)
-    w2 = _randn((c, f), torch.bfloat16, card, 8, scale=f ** -0.5)
-    b2 = _randn((c,), torch.bfloat16, card, 9, scale=0.1)
+    """The first tensor-core design, forced at an SD width (the route takes
+    it there only when asked): C = 320 (no multiple of the 128-wide tile),
+    F = 1280, ragged M."""
+    ff = _ff(m, 320, 1280, card)
     before = _routes(gg)
-    out = gg.geglu_ff(x, w0, b0, w2, b2)
+    out = gg.geglu_ff(*ff, route="mma")
     torch.cuda.synchronize()
     assert _routes(gg) == {**before, "mma": before["mma"] + gg.LAUNCHES_PER_CALL}
-    torch.testing.assert_close(out.float(), gg.geglu_ff_plain(x, w0, b0, w2, b2).float(),
+    torch.testing.assert_close(out.float(), gg.geglu_ff_plain(*ff).float(),
                                atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 100, 128, 300, 512, 2048])
+@pytest.mark.parametrize("c", [320, 640, 1280])
+def test_geglu_wgmma_route_matches_plain(card, c, m):
+    """The SD-1.5 widths (F = 4C) on their route, "wgmma": 64- and 128-row
+    tiles, ragged M, launch 2's 160-wide tiles at C = 320 and its split depth
+    at C = 1280 and small M; within 2e-2 of the largest output, and two
+    calls give the same bits."""
+    ff = _ff(m, c, 4 * c, card)
+    before = _routes(gg)
+    out = gg.geglu_ff(*ff)
+    again = gg.geglu_ff(*ff)
+    torch.cuda.synchronize()
+    assert _routes(gg) == {**before, "wgmma": before["wgmma"] + 2 * gg.LAUNCHES_PER_CALL}
+    assert out.shape == (m, c) and torch.equal(out, again)
+    want = gg.geglu_ff_plain(*ff).float()
+    err = (out.float() - want).abs().max() / want.abs().max()
+    assert err <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_geglu_wgmma_split_depth_is_bit_identical(card):
+    """A shape whose launch 2 splits the depth (C = 1280 at M = 128): the
+    partials are summed in a fixed order, so ten calls give one result."""
+    m, c, f = 128, 1280, 5120
+    assert gg.wgmma_plan(m, c, f, torch.cuda.get_device_properties(0).multi_processor_count)[3] > 1
+    ff = _ff(m, c, f, card)
+    outs = [gg.geglu_ff(*ff) for _ in range(10)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.cuda

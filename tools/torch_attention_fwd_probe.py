@@ -67,7 +67,9 @@ V_LOAD = "for (int bx = 0; bx < C::kBoxes; ++bx)\n            tma_load_4d(v_s"
 GRID_LINE = "const int blocks = work < sm_count() ? work : sm_count();"
 S_LINE = ("wgmma_ss<BK>(sc, da + ((bx * 64 * RB + off) >> 4), db + ((bx * BK * RB + off) >> 4),\n"
           "                     kk > 0);")
-RS_ANCHOR = "template <>\n__device__ __forceinline__ void wgmma_rs<48>"
+# wgmma_ss / wgmma_rs specializations the source does not instantiate go in
+# namespace dtts (csrc/hopper.cuh) right after the includes.
+RS_ANCHOR = '#include "mma_bf16.cuh"\n'
 STRIPPED = ("no_exp", "no_pv", "no_loads", "no_s")
 NC_LINE = "return t > 64 && (int64_t)b * h * ((t + 127) / 128) >= sm_count() ? 2 : 1;"
 
@@ -101,6 +103,12 @@ def wgmma_rs(n: int) -> str:
             f'"r"(1));\n}}\n\n')
 
 
+def specializations(text: str) -> str:
+    """RS_ANCHOR followed by ``text`` in namespace dtts, where the primary
+    templates live."""
+    return f"{RS_ANCHOR}namespace dtts {{\n{text}}}  // namespace dtts\n"
+
+
 def edit(src: str, flavour: str) -> str:
     """The source with the flavour's edit; raises if the edited line moved."""
     def sub(old: str, new: str, count: int = 1) -> str:
@@ -122,8 +130,7 @@ def edit(src: str, flavour: str) -> str:
         n = int(flavour[2:])
         src = sub(BK_LINE, f"template <int D, int BK = (D > 128 ? 64 : {n})>")
         if n not in (64, 128):
-            anchor = "template <>\n__device__ __forceinline__ void wgmma_rs<48>"
-            src = sub(anchor, wgmma_ss(n) + anchor)
+            src = sub(RS_ANCHOR, specializations(wgmma_ss(n)))
         return src
     if flavour == "no_loads":
         src = sub("mbar_expect_tx(k_full(s), C::kTileBytes);",
@@ -139,7 +146,7 @@ def edit(src: str, flavour: str) -> str:
         src = sub(BW_LINE, "static constexpr int kBW = D == 64 ? 64 : "
                            f"{flavour[2:]};")
         extra = {"bw32": (96,), "bw64": (128, 192)}[flavour]
-        return sub(RS_ANCHOR, "".join(wgmma_rs(n) for n in extra) + RS_ANCHOR)
+        return sub(RS_ANCHOR, specializations("".join(wgmma_rs(n) for n in extra)))
     if flavour == "onetile":
         return sub(GRID_LINE, "const int blocks = work;")
     if flavour.startswith("stages"):
