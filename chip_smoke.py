@@ -8,7 +8,7 @@ Phases, each of which raises on failure (nothing is caught):
      fails without a card;
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
      process per source, all at once), and ptxas's register and spill lines
-     for the conv kernels' ring route, for the attention kernels at
+     for the conv kernels' wgmma and ring routes, for the attention kernels at
      d = 160 and 256 (the backward's wide mma form among them), for the
      forward's wgmma kernels (each width, one and two consumer warpgroups)
      and for GEGLU's (each launch, tile rows and tile columns; the kernel
@@ -100,7 +100,7 @@ Phases, each of which raises on failure (nothing is caught):
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
      on "wgmma" but the VAE decoder's d = 512 head on "mma": 288 and 13 of
-     an eps-greedy search's 301; GEGLU all on "wgmma", conv3x3_same and
+     an eps-greedy search's 301; GEGLU and conv3x3_same all on "wgmma",
      conv3x3_up2 all on "ring",
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
      call's shape recorded;
@@ -134,8 +134,14 @@ Phases, each of which raises on failure (nothing is caught):
      also name the wgmma plan and hold two calls bit-identical, the split
      depth of the C = 1280 call at M = 128 among them);
      conv rows with their
-     route, ``v1_ms`` (bf16: the first design, timed in turns with the ring:
-     ring, v1, v1, ring, the lesser of each pair) and TFLOP/s; GroupNorm rows
+     route and TFLOP/s; conv3x3_same's bf16 rows on "wgmma" with ``ring_ms``
+     (PR 8's ring, timed in turns: wgmma, ring, ring, wgmma, the lesser of
+     each pair) and the device times of wgmma, the ring and cuDNN's bare
+     conv by CUDA-graph replay (``device_ms``, ``ring_device_ms``,
+     ``library_device_ms``; the line sums each over the search), two calls
+     held bit-identical; conv3x3_up2's bf16 rows on "ring" with ``v1_ms``
+     (the first design, timed in turns with the ring: ring, v1, v1, ring);
+     the fp32 rows on "v1"; GroupNorm rows
      with their route, ``v1_ms`` (slab and v1 in turns, as the conv's), TB/s,
      and the device time of the slab, v1 and the library call
      (``device_ms``, ``v1_device_ms``, ``library_device_ms``: 20 calls
@@ -386,7 +392,7 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
 # a path at those widths names (check_routes's ``routes``), and an SD search
 # splits its launches between the two (sd_attention_routes).
 FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "wgmma",
-              "conv3x3_same": "ring", "conv3x3_up2": "ring", "group_norm_silu": "slab"}
+              "conv3x3_same": "wgmma", "conv3x3_up2": "ring", "group_norm_silu": "slab"}
 
 
 def reset_launches() -> None:
@@ -510,14 +516,18 @@ def graph_ms(fns, calls: int = 20, replays: int = 3) -> list[float]:
     return [min(t) for t in times]
 
 
-def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int = 20) -> None:
+def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int = 20,
+                  first_name: str | None = None) -> None:
     """The row's route, the first design's time and the TFLOP/s of the
     kernel time. Attention and GEGLU: ``fma_ms``, the CUDA-core route timed
     alone unless the row is on it. The conv kernels and GroupNorm: ``v1_ms``,
     timed in turns with the ring or the slab (which sets the row's ``ms``
-    anew) unless the row is on v1."""
+    anew) unless the row is on v1. ``first_name`` "ring_ms" (conv3x3_same on
+    wgmma): ``first`` is the ring, timed in turns with the row's route."""
     row["route"] = route
-    if route in ("wgmma", "mma", "fma"):
+    if first_name == "ring_ms":
+        row["ms"], row["ring_ms"] = time_in_turns(kernel, first, reps)
+    elif route in ("wgmma", "mma", "fma"):
         row["fma_ms"] = time_ms(first) if route != "fma" else row["ms"]
     elif route in ("ring", "slab"):
         row["ms"], row["v1_ms"] = time_in_turns(kernel, first, reps)
@@ -812,8 +822,9 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
                tag: str, reps: int = 20, route=None, timed: bool = True) -> dict:
     """One kernel's check and times at one shape. ``route``: (the route the
     predicate gave, a call of the same kernel on its first design, "fma" or
-    "v1") for the kernels with two routes. Without ``timed``, the check
-    alone."""
+    "v1") for the kernels with two routes, or (route, a call on the design
+    it replaced, that design's column name: "ring_ms"). Without ``timed``,
+    the check alone."""
     torch.cuda.synchronize()
     max_abs, max_rel = rel_err(out, ref)
     finite = all(torch.isfinite(o).all() for o in ((out,) if isinstance(out, torch.Tensor) else out))
@@ -829,8 +840,8 @@ def kernel_row(name: str, shape, dtype, out, ref, kernel, plain, library, flops_
     row["bound_ms"], row["bound_by"] = bound(*flops_bytes, dtype)
     routed = ""
     if route is not None:
-        route_columns(row, route[0], flops_bytes[0], route[1], kernel, reps)
-        first = "fma_ms" if "fma_ms" in row else "v1_ms"
+        route_columns(row, route[0], flops_bytes[0], route[1], kernel, reps, *route[2:])
+        first = next(k for k in ("fma_ms", "ring_ms", "v1_ms") if k in row)
         if flops_bytes[0]:
             rate = f"{row['tflops']:.1f} TFLOP/s"
         else:  # a memory-bound kernel: its bytes over its time
@@ -955,7 +966,9 @@ def check_group_norm_stats(key, dtype, tag, timed=True):
 def check_conv_same(key, dtype, tag, timed=True):
     """Library: F.conv2d in the working dtype on an input taken as already
     normalized, with the bias and no skip: it leaves the prologue and the
-    rest of the epilogue out."""
+    rest of the epilogue out. A bf16 row on "wgmma" also times the ring in
+    turns (``ring_ms``), holds two calls bit-identical and gives the device
+    times of wgmma, the ring and the library call by CUDA-graph replay."""
     shape, k, has_gn, has_bias, tail, cres = key
     b, c, h, w = shape
     g = torch.Generator(device="cuda").manual_seed(c + k + h)
@@ -976,11 +989,24 @@ def check_conv_same(key, dtype, tag, timed=True):
     moved = (x.numel() + weight.numel() + b * k * h * w * (2 if tail == "residual" else 1)
              + (b * cres * h * w + k * cres)) * item
     name = f"conv3x3_same[{'gn+' if has_gn else ''}{'bias+' if has_bias else ''}{tail}]"
-    row = kernel_row(name, (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain, library,
+    route = cv.same_route(dtype, c, k, w, cres)
+    ring = lambda: cv.conv3x3_same(x, weight, route="ring", **kw)
+    first = (ring, "ring_ms") if route == "wgmma" else (
+        lambda: cv.conv3x3_same(x, weight, route="v1", **kw),)
+    out = kernel()
+    row = kernel_row(name, (b, c, h, w, k), dtype, out, plain(), kernel, plain, library,
                      (2 * b * h * w * (9 * c + cres) * k, moved), tag, reps=reps_for(shape),
-                     timed=timed, route=(cv.conv_route(dtype, c, k, w, cres),
-                            lambda: cv.conv3x3_same(x, weight, route="v1", **kw)))
+                     timed=timed, route=(route, *first))
     row["variant"] = dict(prologue=has_gn, bias=has_bias, epilogue=tail, cres=cres)
+    if timed and route == "wgmma":
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"{name} {list(shape)} on wgmma: two calls differ")
+        with torch.no_grad():  # 10 calls a graph: each is about a millisecond
+            row["device_ms"], row["ring_device_ms"], row["library_device_ms"] = graph_ms(
+                [kernel, ring, library], calls=10)
+        print(f"    device ms by graph replay: wgmma {row['device_ms']:.4f}, ring "
+              f"{row['ring_device_ms']:.4f}, library {row['library_device_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f}; two calls bit-identical")
     return row
 
 
@@ -1787,10 +1813,18 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
                 "bound_by"],
             "library_ms": total("library_ms"), "shapes": rows,
         })
-        for first in ("fma_ms", "v1_ms", "mma_ms", "device_ms", "v1_device_ms",
-                      "mma_device_ms", "library_device_ms"):
+        for first in ("fma_ms", "v1_ms", "ring_ms", "mma_ms", "device_ms", "v1_device_ms",
+                      "ring_device_ms", "mma_device_ms", "library_device_ms"):
             if first in rows[0]:
                 lines[-1][first] = total(first)
+        if name == "conv3x3_same":
+            line = lines[-1]
+            print(f"conv3x3_same per SD search "
+                  f"({sum(r.get('calls_per_search', 0) for r in rows)} calls): event wgmma "
+                  f"{line['ms']:.2f} ms, ring {line['ring_ms']:.2f}, library "
+                  f"{line['library_ms']:.2f}; device wgmma {line['device_ms']:.2f}, ring "
+                  f"{line['ring_device_ms']:.2f}, library {line['library_device_ms']:.2f}; "
+                  f"bound {line['bound_ms']:.2f} [{tag}]")
         if name in ROUTE_COUNTERS:  # launches of the search per design
             lines[-1]["routes"] = routes[name]
         lines[-1]["method_launches"] = {r["method"]: r["launches"][name] for r in searches}
@@ -3225,6 +3259,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built) or 'nothing (cached)'}")
     for name, (secs, log) in built.items():
         print(f"  {name}: nvcc {secs:.2f} s\n" + "\n".join("    " + ln for ln in log.splitlines()))
+    conv_ptxas = {}
     if "conv3x3" in built:  # the ring's kernels, by template <bool UP2, bool GN, bool SC>
         for entry, lines in ptxas_lines(built["conv3x3"][1], "conv3_ring_kernel").items():
             up2, prologue, shortcut = (f == "1" for f in re.search(
@@ -3233,6 +3268,14 @@ def main() -> None:
                 f"conv3x3_same[{'gn' if prologue else 'no gn'}, "
                 f"{'shortcut' if shortcut else 'no shortcut'}]")
             print(f"ptxas, {kind} ring kernel: " + "; ".join(lines))
+        # the wgmma route's, by template <bool GN, bool SC>
+        for entry, lines in ptxas_lines(built["conv3x3"][1], "conv3_wgmma_kernel").items():
+            prologue, shortcut = (f == "1" for f in re.search(
+                r"conv3_wgmma_kernelILb([01])ELb([01])E", entry).groups())
+            kind = (f"conv3x3_same[{'gn' if prologue else 'no gn'}, "
+                    f"{'shortcut' if shortcut else 'no shortcut'}]")
+            conv_ptxas[kind] = lines
+            print(f"ptxas, {kind} wgmma kernel: " + "; ".join(lines))
     for name in ("qkv_attention", "attention_bwd"):  # the kernels at d = 160 and 256
         if name in built:
             for d in (160, 256):
@@ -3277,6 +3320,8 @@ def main() -> None:
     for line in sd_lines:
         if line["name"] == "geglu_ff":  # ptxas's registers and spills of its wgmma kernels
             line["ptxas"] = geglu_ptxas
+        if line["name"] == "conv3x3_same":
+            line["ptxas"] = conv_ptxas
     for line in sd_lines:  # each kernel's launches in one 512x512 encode, as counted there
         line["encode_launches"] = encoder["launches"][line["name"]]
         line["max_abs_err"] = max(line["max_abs_err"],

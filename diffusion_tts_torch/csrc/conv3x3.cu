@@ -29,17 +29,87 @@
 // (9C+Cres)*K weights, thousands of FLOPs per byte at the VAE decoder's
 // shapes, far above the H100's 295 FLOP/byte bf16 balance point.
 //
-// Routes. The caller picks one (ops/kernels/conv3x3.py::conv_route) and this
-// file obeys:
+// Routes. The caller picks one (ops/kernels/conv3x3.py::same_route for
+// conv3x3_same, ::conv_route for conv3x3_up2) and this file obeys:
+//   * wgmma (route 2): bf16 with C a multiple of 16, Cres of 32 and W of 8,
+//     conv3x3_same only: every shape of the SD decoder and encoder. Hopper's
+//     warpgroup products fed by TMA, below. K and H are any.
 //   * ring (route 1): bf16 with C and Cres multiples of 16 and W a multiple of 8,
 //     every shape of the SD decoder (C, K 128-512, W 64-512). K and H are any.
+//     conv3x3_up2's route; forced on conv3x3_same it times PR 8's design.
 //   * v1 (route 0): fp32 (FMA on the CUDA cores, so that it holds 1e-4
 //     against an fp32 reference with TF32 off; a TF32 product would not), and
 //     bf16 at ragged C, Cres or W, which no path of the port has. Its bf16
 //     body is also kept for chip_smoke.py's v1_ms, the first design timed
 //     beside the ring on the same inputs.
 //
-// Both routes are implicit GEMMs: a block computes a tile of output channels
+// The wgmma route (conv3_wgmma_kernel) is an implicit GEMM with M = output
+// channels, N = output pixels, depth 9 C (+ Cres):
+//   * A tile is 64 channels x 3 output rows x 128 columns of one image.
+//     Persistent blocks (one an SM) walk the tiles, the channel block
+//     fastest, so the blocks in flight read the same input rows from L2.
+//   * Roles: one producer warp (one lane issues every TMA load) and three
+//     consumer warpgroups (one output row each, m64n128k16 products, 64 fp32
+//     accumulators a thread). Each consumer warp issues a stage's products,
+//     frees the stage before, then transforms its twelfth of the next
+//     stage's operand patch while the tensor pipe runs the products. (A
+//     dedicated transform warpgroup, one warp a sub-partition, could not
+//     keep up: it held a [4,512,128,128,512] call on an H100 at 1.05-1.20
+//     ms, 2.5x the products alone; issuing the taps in three groups with a
+//     third of the transform between them was 13% slower than one group.)
+//   * Rings of 4 weight slots, 2 raw slots and 2 operand patches, each with
+//     full and empty mbarriers, let the producer run up to 3 stages ahead,
+//     across tiles too: the next tile's loads and first patch are under way
+//     during a tile's epilogue. No split of the depth, no atomics: two calls
+//     give the same bits. Every waiter waits on every phase of a barrier in
+//     order (a parity wait two phases ahead would see the phase before it as
+//     complete).
+//   * A conv stage is 16 input channels under all 9 taps. Weights: a 3-D
+//     tensor map over the packed [9, K, C] weights, one box of 16 channels x
+//     64 rows x 9 taps, 32-byte swizzled (the K-major layout wgmma reads), 18
+//     KB. Raw input: a 4-D map over NCHW x, one box of 152 columns (x0 - 8 ..
+//     x0 + 143: the box's innermost start must be 16-byte aligned) x 5 rows x
+//     16 channels, 24 KB; the copy zero-fills out-of-image coordinates.
+//   * The consumer warps turn the raw rows into the B operand: per row
+//     and 16-pixel group, ldmatrix.x4 reads 16 channels x 16 pixels, the
+//     prologue runs in fp32 with one rounding (0 outside the image, by
+//     position, as on the ring), and stmatrix.x4.trans writes 16 pixels of
+//     16 bytes (8 channels) each. The patch is [8-channel chunk][5 x 144
+//     pixels][8 channels] (pixel i is column x0 - 8 + i) with no swizzle: 8
+//     consecutive pixels are one core matrix (SBO 128 bytes), the chunks LBO
+//     = 11520 bytes apart, and pixel p + 1 lies 16 bytes after pixel p, so
+//     tap (dy, dx) of output row r is the descriptor of pixel (r + dy) * 144
+//     + 7 + dx: no copy per tap. The raw slot's channels are 1520 bytes (95
+//     16-byte units, odd) apart, so each ldmatrix is free of bank conflicts,
+//     and the stores are whole 128-byte rows.
+//   * A shortcut stage is 32 channels of sc_x at the output pixels: sc_w by a
+//     2-D map (boxes of 32 channels x 64 rows, 64-byte swizzle) and, per
+//     output row, two boxes of 64 pixels x 32 channels of sc_x (128-byte
+//     swizzle), which wgmma reads as they land as an MN-major B operand
+//     (transpose flag; LBO 4096 between the two 64-pixel halves, SBO 1024
+//     between 8-channel groups). No transform.
+//   * The epilogue goes through a staging tile per consumer warpgroup (its
+//     row's 64 channels x 128 columns, bf16, two 128-byte-swizzled TMA
+//     boxes): one lane TMA-loads the residual rows there at the tile's
+//     second stage, the warps read them by ldmatrix, add bias and residual
+//     to the accumulators in fp32, round once and write the tile back by
+//     stmatrix, and one lane stores it by TMA (16-byte accesses and clipping
+//     by the copy, where the accumulators' own layout would store 4 bytes a
+//     lane and read the residual 4 bytes at a time with its whole latency
+//     exposed).
+//   * Shared memory: 1024 bytes of alignment slack, 4 x 18,432 (weights), 2 x
+//     24,576 (raw rows, the prologue's scales and shifts, or the shortcut's
+//     boxes), 3 x 16,384 (staging tiles), 2 x 23,040 (patches) and the
+//     mbarriers: 219,288 bytes of the 232,448 a block may have; one block
+//     (416 threads) an SM. (4 weight slots took 2-9% less time than 3 with 3
+//     raw slots but at the shortcut's calls, 6% more there; 2 weight slots
+//     took 1.6x as long.)
+//   * ptxas's registers and spills of the four variants (prologue or not,
+//     shortcut or not) are printed by chip_smoke.py after the build.
+//   * Nothing gives way: a refused encode, launch or misaligned operand is an
+//     error (the wrapper raises), never a fall back to the ring.
+//
+// The ring and v1 are implicit GEMMs: a block computes a tile of output channels
 // x output pixels of one image (up2: of one phase, the phase from the grid)
 // with 256 threads (eight warps), looping over stages of 16 input channels
 // (the shortcut's: 64); each tap of a stage is one shifted read of a patch of
@@ -122,11 +192,13 @@
 // rows 15,872, scale/shift 128; a shortcut stage's 50,176 fits in a slot) +
 // 2 patches of 16,320 = 191,232; up2: 3 x 32,256 (16,384 + 15,872) + 2 x
 // 16,320 = 129,408; of the 232,448 a block may have.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -960,9 +1032,558 @@ cudaError_t launch_ring(const ConvArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------- route 2: wgmma (bf16)
+
+using dtts::encode_tiled;
+using dtts::EncodeTiled;
+using dtts::bulk_commit;
+using dtts::bulk_load;
+using dtts::bulk_wait;
+using dtts::bulk_wait_read;
+using dtts::fence_proxy_async;
+using dtts::fence_regs;
+using dtts::kEncodeFailed;
+using dtts::mbar_arrive;
+using dtts::mbar_expect_tx;
+using dtts::mbar_init;
+using dtts::mbar_wait;
+using dtts::sm_count;
+using dtts::tma_load_2d;
+using dtts::tma_load_3d;
+using dtts::tma_load_4d;
+using dtts::tma_store_4d;
+using dtts::wgmma_commit;
+using dtts::wgmma_desc;
+using dtts::wgmma_fence;
+using dtts::wgmma_ss;
+using dtts::wgmma_ss_bmn128;
+using dtts::wgmma_wait;
+
+// The wgmma route's conditions (beside bf16 and 16-byte aligned operands): C
+// a multiple of kWgChannels, Cres of kWgScChannels, W of kWgWidth.
+constexpr int kWgChannels = 16, kWgScChannels = 32, kWgWidth = 8;
+
+// A tile: kWgM output channels x kWgNC output rows x kWgCols columns; consumer
+// warpgroup r computes row r (m64n128 products, 64 fp32 accumulators a
+// thread).
+constexpr int kWgM = 64;
+constexpr int kWgNC = 3;                  // consumer warpgroups = output rows of a tile
+constexpr int kWgCols = 128;              // N of every product
+constexpr int kWgPR = kWgNC + 2;          // input rows of a tile, with the halo
+// A raw row: columns x0 - 8 .. x0 + 143. The box's innermost start must be a
+// whole 16 bytes (a start at x0 - 1 is an illegal instruction; negative
+// coordinates are fine and read as zero).
+constexpr int kWgRawCols = kWgCols + 24;
+constexpr int kWgPW = kWgCols + 16;       // a patch row: columns x0 - 8 .. x0 + 135
+constexpr int kWgOctets = kWgPW / 8;      // 8-pixel groups of a patch row
+constexpr int kWgSw = 4, kWgSx = 2, kWgP = 2;  // weight slots, raw slots, patches
+constexpr int kWgThreads = kWgNC * 128 + 32;   // the consumer warpgroups, the producer
+// One conv stage: kWgChannels input channels under all 9 taps (one k16 step a
+// tap). Weights [tap][64 rows][16 channels], 32-byte swizzled rows; raw input
+// [16 channels][5 rows][152 columns] as it lands (a channel every 1520 bytes:
+// 95 16-byte units, odd, so the 8 channel rows of an ldmatrix fall in 8
+// distinct bank groups).
+constexpr int kWgTapBytes = kWgM * kWgChannels * 2;                 // 2048
+constexpr int kWgWSlot = 9 * kWgTapBytes;                           // 18432
+constexpr int kWgRawChannel = kWgPR * kWgRawCols * 2;               // 1520
+constexpr int kWgRawBytes = kWgChannels * kWgRawChannel;            // 24320
+// With the prologue the stage's 16 scales and 16 shifts (fp32) follow the raw
+// rows in the slot, by one bulk copy each.
+constexpr int kWgScaleShift = 2 * kWgChannels * 4;                  // 128
+// One shortcut stage: sc_w [64 rows][32 channels] (64-byte swizzle), sc_x per
+// output row two boxes [32 channels][64 pixels] (128-byte swizzle).
+constexpr int kWgScWBytes = kWgM * kWgScChannels * 2;               // 4096
+constexpr int kWgScBox = kWgScChannels * 64 * 2;                    // 4096
+constexpr int kWgScBytes = kWgNC * 2 * kWgScBox;                    // 24576
+constexpr int kWgXSlot = kWgRawBytes + kWgScaleShift > kWgScBytes
+                             ? kWgRawBytes + kWgScaleShift : kWgScBytes;
+// The operand patch: [8-channel chunk][5 x 144 pixels][8 channels], no swizzle:
+// 8 pixels x 16 bytes form a core matrix and a pixel is 16 bytes after the
+// previous one, so tap (dy, dx) of output row r starts at pixel
+// (r + dy) * 144 + 7 + dx (column x0 - 1 + dx): a descriptor offset.
+constexpr int kWgChunk = kWgPR * kWgPW * 16;                        // 11520 (LBO)
+constexpr int kWgPatch = 2 * kWgChunk;                              // 23040
+// The epilogue's staging tile of a consumer warpgroup: its row's 64 channels
+// x 128 columns in bf16 as two TMA boxes of [64 channels][64 columns], rows
+// of 128 bytes with the 128-byte swizzle (the residual lands there, the
+// output leaves from there).
+constexpr int kWgOutBox = kWgM * 64 * 2;                            // 8192
+constexpr int kWgOut = 2 * kWgOutBox;                               // 16384
+constexpr int kWgSmemBytes = 1024 + kWgSw * kWgWSlot + kWgSx * kWgXSlot + kWgNC * kWgOut +
+                             kWgP * kWgPatch + 16 * (kWgSw + kWgSx + kWgP) + 8 * kWgNC;
+static_assert(kWgWSlot % 1024 == 0 && kWgXSlot % 1024 == 0 && kWgOut % 1024 == 0 &&
+              kWgPatch % 16 == 0, "aligned slots");
+static_assert(kWgRawChannel / 16 % 2 == 1, "an odd number of 16-byte units a raw channel");
+static_assert(kWgSmemBytes <= 232448, "a block's shared memory");
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// A tile of the persistent walk: the channel block fastest, so that the
+// blocks in flight share their input rows in L2.
+struct WgTile {
+  int b, y0, x0, k0;
+};
+
+__device__ __forceinline__ WgTile wg_tile(const ConvArgs& a, int u) {
+  const int kb = (a.k + kWgM - 1) / kWgM, xt = (a.w_ + kWgCols - 1) / kWgCols;
+  const int bands = (a.h + kWgNC - 1) / kWgNC;
+  WgTile t;
+  t.k0 = (u % kb) * kWgM;
+  u /= kb;
+  t.x0 = (u % xt) * kWgCols;
+  u /= xt;
+  t.y0 = (u % bands) * kWgNC;
+  t.b = u / bands;
+  return t;
+}
+
+__host__ __device__ __forceinline__ int wg_tiles(const ConvArgs& a) {
+  return a.b * ((a.h + kWgNC - 1) / kWgNC) * ((a.w_ + kWgCols - 1) / kWgCols) *
+         ((a.k + kWgM - 1) / kWgM);
+}
+
+constexpr int kWgPairs = kWgOctets / 2;      // 16-pixel groups of a patch row: 9
+constexpr int kWgUnits = kWgPR * kWgPairs;   // transform units a stage: 45
+constexpr int kWgBatch = 2;                  // units a warp has in flight
+
+// The prologue of a bf16 pair (lo, hi halves of `v`) with h = z / 2 folded
+// into the halved scale and shift (a power of two: the same two roundings,
+// halved exactly): silu(z) = h + h tanh(h), as the ring computes it.
+__device__ __forceinline__ void silu_pair(uint32_t v, float half_scale, float half_shift,
+                                          float& y0, float& y1) {
+  const float h0 = __fadd_rn(__fmul_rn(lo_f32(v), half_scale), half_shift);
+  const float h1 = __fadd_rn(__fmul_rn(hi_f32(v), half_scale), half_shift);
+  y0 = fmaf(h0, tanh_approx(h0), h0);
+  y1 = fmaf(h1, tanh_approx(h1), h1);
+}
+
+// The raw rows of a landed conv stage -> the operand patch. A unit is one
+// raw row r and one 16-pixel group q of all 16 channels: ldmatrix.x4 reads its
+// four 8-channel x 8-pixel blocks (lane 4 g + t: channel g of block m's
+// channel half m % 2, pixels 2t, 2t + 1 of its pixel half m / 2), the
+// prologue runs on them in fp32 with one rounding (0 outside the image,
+// decided by position: the copy's zero fill would contribute silu(shift);
+// only a unit at the image's edge tests it), and stmatrix.x4.trans writes
+// them back transposed, 8 pixels of 16 bytes (8 channels) a block. 45 units a
+// stage (the raw row's last 8 columns are not needed) over the 12 consumer
+// warps (warp tw takes units tw, tw + 12, ...), kWgBatch at a time, loads
+// first. A unit of 8 values a thread keeps the address and position
+// arithmetic to a fraction of the prologue's own: the transform shares each
+// sub-partition's issue slot with the products' issue.
+template <bool GN>
+__device__ __forceinline__ void wg_transform(uint32_t raw, const unsigned char* smem_ptr,
+                                             uint32_t patch, const ConvArgs& a, const WgTile& t,
+                                             int tw, int lane) {
+  float sc[2] = {0.f, 0.f}, sh[2] = {0.f, 0.f};
+  if (GN) {  // the slot's scales, then shifts, after the raw rows
+    const float* ss = reinterpret_cast<const float*>(smem_ptr) + kWgRawBytes / 4;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      sc[m] = 0.5f * ss[8 * m + (lane >> 2)];
+      sh[m] = 0.5f * ss[kWgChannels + 8 * m + (lane >> 2)];
+    }
+  }
+  // lane L addresses row L % 8 of block L / 8: channel (L % 16), pixel half L / 16
+  const uint32_t src = raw + (lane & 15) * kWgRawChannel + (lane >> 4) * 16;
+  const uint32_t dst = patch + ((lane >> 3) & 1) * kWgChunk + ((lane >> 4) * 8 + (lane & 7)) * 16;
+  constexpr int kWarps = 4 * kWgNC;  // every consumer warp transforms
+  for (int e0 = tw; e0 < kWgUnits; e0 += kWarps * kWgBatch) {
+    uint32_t v[kWgBatch][4];
+#pragma unroll
+    for (int i = 0; i < kWgBatch; ++i) {
+      const int e = e0 + kWarps * i, r = e / kWgPairs, q = e - r * kWgPairs;
+      if (e < kWgUnits) ldmatrix_x4(v[i], src + r * (kWgRawCols * 2) + q * 32);
+    }
+#pragma unroll
+    for (int i = 0; i < kWgBatch; ++i) {
+      const int e = e0 + kWarps * i, r = e / kWgPairs, q = e - r * kWgPairs;
+      if (e >= kWgUnits) break;
+      if (GN) {
+        const int gy = t.y0 - 1 + r, gx0 = t.x0 - 8 + 16 * q;
+        const bool row = gy >= 0 && gy < a.h;
+        if (row && gx0 >= 0 && gx0 + 16 <= a.w_) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            float y0, y1;
+            silu_pair(v[i][m], sc[m & 1], sh[m & 1], y0, y1);
+            v[i][m] = dtts::pack_bf16x2(y0, y1);
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int gx = gx0 + 8 * (m >> 1) + 2 * (lane & 3);
+            const bool in0 = row && gx >= 0 && gx < a.w_;
+            const bool in1 = row && gx >= -1 && gx + 1 < a.w_;
+            float y0, y1;
+            silu_pair(v[i][m], sc[m & 1], sh[m & 1], y0, y1);
+            v[i][m] = dtts::pack_bf16x2(in0 ? y0 : 0.f, in1 ? y1 : 0.f);
+          }
+        }
+      }
+      stmatrix_x4_trans(dst + (r * kWgPW + 16 * q) * 16, v[i]);
+    }
+  }
+}
+
+// grid: min(tiles, SMs) persistent blocks of kWgThreads threads. Warpgroups
+// 0 .. kWgNC - 1 consume (one output row each) and transform, the last warp
+// produces (one lane issues every TMA load). GN: the
+// prologue; SC: the 1x1 shortcut (after the conv's stages, Cres / 32 stages
+// whose sc_x boxes are the B operand as they land: MN-major, 128-byte
+// swizzle, no transform).
+template <bool GN, bool SC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+conv3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const __grid_constant__ CUtensorMap scxmap,
+                   const __grid_constant__ CUtensorMap scwmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __grid_constant__ CUtensorMap rmap, const ConvArgs a) {
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t smem_base = dtts::smem_addr(wg_smem);
+  const uint32_t base = (smem_base + 1023u) & ~1023u;
+  const uint32_t xbase = base + kWgSw * kWgWSlot;
+  const uint32_t obase = xbase + kWgSx * kWgXSlot;
+  const uint32_t pbase = obase + kWgNC * kWgOut;
+  const uint32_t bar = pbase + kWgP * kWgPatch;
+  auto wslot = [&](int s) { return base + s * kWgWSlot; };
+  auto xslot = [&](int s) { return xbase + s * kWgXSlot; };
+  auto pslot = [&](int s) { return pbase + s * kWgPatch; };
+  auto wfull = [&](int s) { return bar + 8u * s; };
+  auto wempty = [&](int s) { return bar + 8u * (kWgSw + s); };
+  auto xfull = [&](int s) { return bar + 8u * (2 * kWgSw + s); };
+  auto xempty = [&](int s) { return bar + 8u * (2 * kWgSw + kWgSx + s); };
+  auto pfull = [&](int s) { return bar + 8u * (2 * kWgSw + 2 * kWgSx + s); };
+  auto pempty = [&](int s) { return bar + 8u * (2 * kWgSw + 2 * kWgSx + kWgP + s); };
+  // the residual's arrival in consumer warpgroup w's staging tile
+  auto rfull = [&](int w) { return bar + 8u * (2 * kWgSw + 2 * kWgSx + 2 * kWgP + w); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgSw; ++s) {
+      mbar_init(wfull(s), 1);
+      mbar_init(wempty(s), 4 * kWgNC);  // lane 0 of every consumer warp
+    }
+    for (int s = 0; s < kWgSx; ++s) {
+      mbar_init(xfull(s), 1);
+      // each consumer warp once: after its transform reads (a conv stage) or
+      // its products (a shortcut stage)
+      mbar_init(xempty(s), 4 * kWgNC);
+    }
+    for (int s = 0; s < kWgP; ++s) {
+      mbar_init(pfull(s), 4 * kWgNC);  // each consumer warp's share, after its proxy fence
+      mbar_init(pempty(s), 4 * kWgNC);
+    }
+    for (int w = 0; w < kWgNC; ++w) mbar_init(rfull(w), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = wg_tiles(a);
+  const int n0 = a.c / kWgChannels, n = n0 + (SC ? a.cres / kWgScChannels : 0);
+  // warps 0 .. 4 kWgNC - 1 consume and transform (warpgroup `role`, warp
+  // `warp` of it), the last produces
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int role = warp_id / 4, warp = warp_id % 4;
+
+  if (warp_id == 4 * kWgNC) {  // the producer warp
+    if (lane != 0) return;
+    int it = 0;
+    for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+      const WgTile t = wg_tile(a, u);
+      for (int s = 0; s < n; ++s, ++it) {
+        const int ws = it % kWgSw, xs = it % kWgSx;
+        if (it >= kWgSw) mbar_wait(wempty(ws), ((it / kWgSw) - 1) & 1);
+        if (it >= kWgSx) mbar_wait(xempty(xs), ((it / kWgSx) - 1) & 1);
+        if (s < n0) {
+          mbar_expect_tx(wfull(ws), kWgWSlot);
+          tma_load_3d(wslot(ws), &wmap, wfull(ws), s * kWgChannels, t.k0, 0);
+          mbar_expect_tx(xfull(xs), kWgRawBytes + (GN ? kWgScaleShift : 0));
+          tma_load_4d(xslot(xs), &xmap, xfull(xs), t.x0 - 8, t.y0 - 1, s * kWgChannels, t.b);
+          if (GN) {
+            const int64_t plane = (int64_t)t.b * a.c + s * kWgChannels;
+            bulk_load(xslot(xs) + kWgRawBytes, a.gn_scale + plane, kWgScaleShift / 2, xfull(xs));
+            bulk_load(xslot(xs) + kWgRawBytes + kWgScaleShift / 2, a.gn_shift + plane,
+                      kWgScaleShift / 2, xfull(xs));
+          }
+        } else if (SC) {
+          const int c0 = (s - n0) * kWgScChannels;
+          mbar_expect_tx(wfull(ws), kWgScWBytes);
+          tma_load_2d(wslot(ws), &scwmap, wfull(ws), c0, t.k0);
+          mbar_expect_tx(xfull(xs), kWgScBytes);
+          for (int q = 0; q < 2 * kWgNC; ++q)
+            tma_load_4d(xslot(xs) + q * kWgScBox, &scxmap, xfull(xs), t.x0 + 64 * (q & 1),
+                        t.y0 + (q >> 1), c0, t.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups: role = the tile's output row. Each warp also
+  // transforms its share of the next conv stage's patch right after issuing
+  // this stage's products, while the tensor cores run them.
+  const int g = lane >> 2, tq = lane & 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // The raw slot of global stage `it` (a conv stage, conv stage `ip`) of
+  // tile t -> patch ip % kWgP: this warp's units, then its arrivals.
+  auto transform = [&](int it, int ip, const WgTile& t) {
+    const int xs = it % kWgSx, ps = ip % kWgP;
+    mbar_wait(xfull(xs), (it / kWgSx) & 1);
+    if (ip >= kWgP) mbar_wait(pempty(ps), ((ip / kWgP) - 1) & 1);
+    wg_transform<GN>(xslot(xs), wg_smem + (xslot(xs) - smem_base), pslot(ps), a, t, warp_id,
+                     lane);
+    fence_proxy_async();  // the patch is read by wgmma (the async proxy)
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(pfull(ps));
+      mbar_arrive(xempty(xs));
+    }
+  };
+  // The stage whose products were issued last is freed once the next
+  // stage's products are issued and it has completed.
+  bool pend = false;
+  int pend_it = 0, pend_ip = 0;
+  bool pend_conv = false;
+  auto release = [&]() {
+    if (lane == 0) {
+      mbar_arrive(wempty(pend_it % kWgSw));
+      if (pend_conv) mbar_arrive(pempty(pend_ip % kWgP));
+      else mbar_arrive(xempty(pend_it % kWgSx));
+    }
+    pend = false;
+  };
+  const uint32_t out_tile = obase + role * kWgOut;
+  const bool elected = warp == 0 && lane == 0, residual = a.residual != nullptr;
+  int it = 0, ip = 0, tc = 0;  // tc: this block's tiles so far
+  if (blockIdx.x < tiles) transform(0, 0, wg_tile(a, blockIdx.x));
+  for (int u = blockIdx.x; u < tiles; u += gridDim.x, ++tc) {
+    const WgTile t = wg_tile(a, u);
+    for (int s = 0; s < n; ++s, ++it) {
+      // The residual rows of this tile into the staging tile, once the last
+      // tile's output has left it (its store issued a stage or more ago).
+      if (residual && elected && s == (n > 1 ? 1 : 0)) {
+        bulk_wait_read<0>();
+        mbar_expect_tx(rfull(role), kWgOut);
+        tma_load_4d(out_tile, &rmap, rfull(role), t.x0, t.y0 + role, t.k0, t.b);
+        tma_load_4d(out_tile + kWgOutBox, &rmap, rfull(role), t.x0 + 64, t.y0 + role, t.k0, t.b);
+      }
+      const int ws = it % kWgSw;
+      mbar_wait(wfull(ws), (it / kWgSw) & 1);
+      const bool conv = s < n0;
+      // the next stage, if it is a conv stage: this tile's, or the next
+      // tile's first; it is transformed during this stage's products
+      const bool next = s + 1 < n0 || (s + 1 == n && u + (int)gridDim.x < tiles);
+      const WgTile tn = s + 1 < n0 ? t : wg_tile(a, u + gridDim.x);
+      const int ipn = conv ? ip + 1 : ip;
+      if (conv) {
+        const int ps = ip % kWgP;
+        mbar_wait(pfull(ps), (ip / kWgP) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int dy = tap / 3, dx = tap % 3;
+          const uint64_t da = wgmma_desc(wslot(ws) + tap * kWgTapBytes, 16, 256, 3);
+          const uint64_t db =
+              wgmma_desc(pslot(ps) + ((role + dy) * kWgPW + 7 + dx) * 16, kWgChunk, 128, 0);
+          wgmma_ss<128>(acc, da, db, s > 0 || tap > 0);
+        }
+        wgmma_commit();
+      } else if (SC) {
+        const int xs = it % kWgSx;
+        mbar_wait(xfull(xs), (it / kWgSx) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k16 = 0; k16 < kWgScChannels / 16; ++k16) {
+          const uint64_t da = wgmma_desc(wslot(ws) + 32 * k16, 16, 512, 2);
+          const uint64_t db =
+              wgmma_desc(xslot(xs) + role * 2 * kWgScBox + k16 * 2048, kWgScBox, 1024, 1);
+          wgmma_ss_bmn128(acc, da, db, 1);
+        }
+        wgmma_commit();
+      }
+      if (pend) {
+        wgmma_wait<1>();
+        fence_regs(acc);
+        release();
+      }
+      if (next) transform(it + 1, ipn, tn);
+      pend = true;
+      pend_it = it;
+      pend_ip = ip;
+      pend_conv = conv;
+      ip = ipn;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release();
+
+    // The epilogue through the staging tile: acc[4 j + 2 r + c] is channel
+    // k0 + 16 warp + g + 8 r, column x0 + 8 j + 2 tq + c, the layout of an
+    // ldmatrix / stmatrix fragment of the 8 x 8 block (channels 16 warp + 8 r
+    // .., columns 8 j ..). Per two column groups one ldmatrix.x4 reads the
+    // residual's blocks (swizzled rows: no bank conflicts), the bias and the
+    // residual join in fp32, one rounding, one stmatrix.x4 writes them back;
+    // then one lane stores the tile by TMA, which clips rows, channels and
+    // columns outside the output.
+    if (residual) {
+      mbar_wait(rfull(role), tc & 1);
+    } else if (elected) {
+      bulk_wait_read<0>();  // the last tile's output has left the staging tile
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + role) : "memory");
+    const bf16* bias = static_cast<const bf16*>(a.bias);
+    float bv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ch = t.k0 + 16 * warp + g + 8 * r;
+      bv[r] = bias != nullptr && ch < a.k ? __bfloat162float(bias[ch]) : 0.f;
+    }
+    // lane L addresses row L % 8 of block L / 8: (r, j) = (b % 2, j0 + b / 2)
+    const int row = 16 * warp + 8 * ((lane >> 3) & 1) + (lane & 7);
+#pragma unroll
+    for (int j0 = 0; j0 < kWgCols / 8; j0 += 2) {
+      const int j = j0 + (lane >> 4);
+      const uint32_t addr =
+          out_tile + (j / 8) * kWgOutBox + row * 128 + (((j % 8) ^ (row & 7)) * 16);
+      uint32_t res[4] = {0u, 0u, 0u, 0u}, o[4];
+      if (residual) ldmatrix_x4(res, addr);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int r = b & 1, jj = j0 + (b >> 1);
+        float v0 = acc[4 * jj + 2 * r] + bv[r], v1 = acc[4 * jj + 2 * r + 1] + bv[r];
+        if (residual) {
+          v0 += lo_f32(res[b]);
+          v1 += hi_f32(res[b]);
+        }
+        o[b] = dtts::pack_bf16x2(v0, v1);
+      }
+      stmatrix_x4(addr, o);
+    }
+    fence_proxy_async();  // the staging tile is read by the TMA store (the async proxy)
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + role) : "memory");
+    if (elected) {
+      tma_store_4d(&omap, out_tile, t.x0, t.y0 + role, t.k0, t.b);
+      tma_store_4d(&omap, out_tile + kWgOutBox, t.x0 + 64, t.y0 + role, t.k0, t.b);
+      bulk_commit();
+    }
+  }
+  if (elected) bulk_wait<0>();  // the shared memory stays until the last store has read it
+}
+
+// A tensor map of bf16 with the given dims (innermost first), byte strides of
+// dims 1.. and box; the box's out-of-range elements read as zero.
+int encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)res;
+}
+
+template <bool GN, bool SC>
+cudaError_t launch_wgmma_kernel(const CUtensorMap& xm, const CUtensorMap& wm,
+                                const CUtensorMap& sxm, const CUtensorMap& swm,
+                                const CUtensorMap& om, const CUtensorMap& rm, const ConvArgs& a,
+                                cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv3_wgmma_kernel<GN, SC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = wg_tiles(a), blocks = tiles < sm_count() ? tiles : sm_count();
+  conv3_wgmma_kernel<GN, SC><<<blocks, kWgThreads, kWgSmemBytes, stream>>>(xm, wm, sxm, swm, om,
+                                                                            rm, a);
+  return cudaGetLastError();
+}
+
+// The wgmma route: x as 4-D (W, H, C, B) in boxes of 152 x 5 x 16; the
+// packed weights as 3-D (C, K, 9) in boxes of 16 x 64 x 9 (32-byte swizzle);
+// with the shortcut, sc_x (W, H, Cres, B) in boxes of 64 x 1 x 32 (128-byte
+// swizzle) and sc_w (Cres, K) in boxes of 32 x 64 (64-byte swizzle).
+int launch_wgmma(const ConvArgs& a, cudaStream_t stream) {
+  const cuuint64_t hw = (cuuint64_t)a.h * a.w_;
+  CUtensorMap xm, wm, sxm, swm;
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)a.w_, (cuuint64_t)a.h, (cuuint64_t)a.c,
+                                (cuuint64_t)a.b};
+    const cuuint64_t strides[3] = {(cuuint64_t)a.w_ * 2, hw * 2, hw * a.c * 2};
+    const cuuint32_t box[4] = {kWgRawCols, kWgPR, kWgChannels, 1};
+    const int e = encode_map(&xm, a.x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e != 0) return e;
+  }
+  {
+    const cuuint64_t dims[3] = {(cuuint64_t)a.c, (cuuint64_t)a.k, 9};
+    const cuuint64_t strides[2] = {(cuuint64_t)a.c * 2, (cuuint64_t)a.k * a.c * 2};
+    const cuuint32_t box[3] = {kWgChannels, kWgM, 9};
+    const int e = encode_map(&wm, a.w, 3, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_32B);
+    if (e != 0) return e;
+  }
+  sxm = xm;
+  swm = wm;
+  if (a.sc_x != nullptr) {
+    const cuuint64_t dims[4] = {(cuuint64_t)a.w_, (cuuint64_t)a.h, (cuuint64_t)a.cres,
+                                (cuuint64_t)a.b};
+    const cuuint64_t strides[3] = {(cuuint64_t)a.w_ * 2, hw * 2, hw * a.cres * 2};
+    const cuuint32_t box[4] = {64, 1, kWgScChannels, 1};
+    int e = encode_map(&sxm, a.sc_x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != 0) return e;
+    const cuuint64_t wdims[2] = {(cuuint64_t)a.cres, (cuuint64_t)a.k};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)a.cres * 2};
+    const cuuint32_t wbox[2] = {kWgScChannels, kWgM};
+    e = encode_map(&swm, a.sc_w, 2, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (e != 0) return e;
+  }
+  CUtensorMap om, rm;
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)a.w_, (cuuint64_t)a.h, (cuuint64_t)a.k,
+                                (cuuint64_t)a.b};
+    const cuuint64_t strides[3] = {(cuuint64_t)a.w_ * 2, hw * 2, hw * a.k * 2};
+    const cuuint32_t box[4] = {64, 1, kWgM, 1};
+    int e = encode_map(&om, a.out, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != 0) return e;
+    rm = om;
+    if (a.residual != nullptr) {
+      e = encode_map(&rm, a.residual, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+      if (e != 0) return e;
+    }
+  }
+  const bool gn = a.gn_scale != nullptr, sc = a.sc_x != nullptr;
+  cudaError_t err;
+  if (gn)
+    err = sc ? launch_wgmma_kernel<true, true>(xm, wm, sxm, swm, om, rm, a, stream)
+             : launch_wgmma_kernel<true, false>(xm, wm, sxm, swm, om, rm, a, stream);
+  else
+    err = sc ? launch_wgmma_kernel<false, true>(xm, wm, sxm, swm, om, rm, a, stream)
+             : launch_wgmma_kernel<false, false>(xm, wm, sxm, swm, om, rm, a, stream);
+  return static_cast<int>(err);
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// route: 0 = v1, 1 = ring.
+// route: 0 = v1, 1 = ring, 2 = wgmma (conv3x3_same only).
 int run(const ConvArgs& a, int dtype, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.b <= 0 || a.c <= 0 || a.k <= 0 || a.h <= 0 || a.w_ <= 0 ||
@@ -971,8 +1592,15 @@ int run(const ConvArgs& a, int dtype, int route, void* stream) {
       ((a.gn_scale == nullptr) != (a.gn_shift == nullptr)) ||
       ((a.sc_x == nullptr) != (a.sc_w == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[] = {a.x, a.w, a.residual, a.gn_scale, a.gn_shift, a.sc_x, a.sc_w, a.out};
+  if (route == 2) {
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
+    if (dtype != 1 || a.up2 || a.c % kWgChannels || a.cres % kWgScChannels || a.w_ % kWgWidth)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma(a, s);
+  }
   if (route == 1) {
-    const void* ptrs[] = {a.x, a.w, a.residual, a.gn_scale, a.gn_shift, a.sc_x, a.sc_w, a.out};
     for (const void* p : ptrs)
       if (!aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
     if (dtype != 1 || a.c % kRingChannels || a.cres % kRingChannels || a.w_ % kRingWidth)
@@ -997,8 +1625,10 @@ int run(const ConvArgs& a, int dtype, int route, void* stream) {
 // dx); bias [K]; residual [B, K, H, W]; gn_scale, gn_shift [B, C]; sc_x
 // [B, Cres, H, W]; sc_w [K, Cres]; out [B, K, H, W]; all contiguous, each
 // optional one null. route: 0 = v1, 1 = ring (bf16, C and Cres multiples of
-// 16, W a multiple of 8, every pointer 16-byte aligned). One launch. Returns
-// the launch's cudaError_t (0 on success); the caller raises on anything else.
+// 16, W a multiple of 8, every pointer 16-byte aligned), 2 = wgmma (bf16, C a
+// multiple of 16, Cres of 32, W of 8, every pointer 16-byte aligned). One
+// launch. Returns the launch's cudaError_t (0 on success), or kEncodeFailed +
+// the CUresult of a refused tensor map; the caller raises on anything else.
 extern "C" int dtts_conv3x3_same(const void* x, const void* w, const void* bias,
                                  const void* residual, const float* gn_scale,
                                  const float* gn_shift, const void* sc_x, const void* sc_w,
@@ -1011,7 +1641,7 @@ extern "C" int dtts_conv3x3_same(const void* x, const void* w, const void* bias,
 
 // x [B, C, H, W]; w [4, 4, K, C]: phase 2 a + e, tap 2 r + s, the folded 2x2
 // phase weights in the activation dtype; bias [K] or null; out [B, K, 2H, 2W];
-// route as above. One launch.
+// route 0 or 1 as above (2 is refused). One launch.
 extern "C" int dtts_conv3x3_up2(const void* x, const void* w, const void* bias, void* out,
                                 int dtype, int b, int c, int k, int h, int wd, int route,
                                 void* stream) {

@@ -43,8 +43,8 @@ def check(x: torch.Tensor, name: str) -> None:
 def check_aligned(kernel: str, ptrs, strides=(), item: int = 1) -> None:
     """Raise unless every pointer, and every stride of ``item``-byte
     elements, is a multiple of 16 bytes: the tensor-core routes (attention
-    and GEGLU "mma", conv "ring") and GroupNorm's "slab" copy rows in 16-byte
-    pieces."""
+    and GEGLU "mma", conv "ring" and "wgmma") and GroupNorm's "slab" copy
+    rows in 16-byte pieces."""
     bad = [p for p in ptrs if p % 16] + [s for s in strides if s * item % 16]
     if bad:
         raise ValueError(f"{kernel}: this route copies 16-byte pieces and needs 16-byte aligned "

@@ -34,18 +34,27 @@ forward-only, as the Pallas ones are; the gradient is autograd's through the
 plain twin (``_launch.with_twin_backward``), the counterpart of the JAX
 package's ``custom_vjp`` over the jnp reference.
 
-Two designs, picked by ``conv_route(dtype, c, k, w, cres)`` before the
-launch and passed to the C entry as an int: ``"ring"`` (bf16 with C and Cres
-multiples of 16 and W a multiple of 8: every shape of the SD decoder; a ring
-of ``cp.async`` stages, ``ldmatrix`` fragments, an epilogue through shared
-memory) and ``"v1"`` (the first design: fp32 on the CUDA cores, and bf16 at
-ragged C, Cres or W). The ring copies rows in 16-byte pieces and refuses,
-before any launch, a pointer that is not 16-byte aligned.
-``SAME_ROUTE_LAUNCHES`` and ``UP2_ROUTE_LAUNCHES`` count launches per route.
-``route=`` on ``conv3x3_same`` and ``conv3x3_up2`` forces one: "v1" at any
-shape (chip_smoke.py times it beside the ring), "ring" only where its
-conditions hold (else ``ValueError`` before any launch). On the CPU the
-route is accepted and the plain twin runs.
+Three designs, picked before the launch and passed to the C entry as an
+int. ``conv3x3_same`` takes ``same_route(dtype, c, k, w, cres)``:
+``"wgmma"`` (bf16 with C a multiple of 16, Cres of 32 and W of 8: every
+shape of the SD decoder and encoder; Hopper's warpgroup products fed by TMA,
+the prologue applied by the consumer warps between their products,
+persistent blocks, a TMA-stored epilogue), else what
+``conv_route`` gives. ``conv3x3_up2`` takes ``conv_route(dtype, c, k, w)``:
+``"ring"`` (bf16 with C and Cres multiples of 16 and W a multiple of 8; a
+ring of ``cp.async`` stages, ``ldmatrix`` fragments, an epilogue through
+shared memory) or ``"v1"`` (the first design: fp32 on the CUDA cores, and
+bf16 at ragged C, Cres or W). The wgmma and ring routes read rows in
+16-byte pieces and refuse, before any launch, a pointer that is not
+16-byte aligned. ``SAME_ROUTE_LAUNCHES`` and ``UP2_ROUTE_LAUNCHES`` count
+launches per route. ``route=`` forces one: "v1" at any shape
+(chip_smoke.py times it beside the up-conv's ring), "ring" only where
+``conv_route`` gives it (on ``conv3x3_same`` it times PR 8's design beside
+wgmma), "wgmma" only on ``conv3x3_same`` where ``same_route`` gives it
+(else ``ValueError`` before any launch). Nothing falls back from one route
+to another. On the CPU the route is accepted and the plain twin runs.
+``wgmma_plan`` gives the wgmma route's tiles, persistent blocks and shared
+memory for a call.
 
 Routing to the kernels (counterparts of ``pallas_conv3_shape_eligible``,
 ``pallas_conv3_eligible``, ``pallas_shortcut_eligible`` and
@@ -81,10 +90,21 @@ _NO_CONV_KERNELS = os.environ.get("DTTS_NO_CONV_KERNELS", "") not in ("", "0")
 _SAME_ARGTYPES = (_launch.PTR,) * 9 + (_launch.INT,) * 8 + (_launch.PTR,)
 _UP2_ARGTYPES = (_launch.PTR,) * 4 + (_launch.INT,) * 7 + (_launch.PTR,)
 
-# The kernels' two designs, by their route code in csrc/conv3x3.cu.
-ROUTES = ("v1", "ring")
+# The kernels' designs, by their route code in csrc/conv3x3.cu.
+ROUTES = ("v1", "ring", "wgmma")
 RING_CHANNEL_MULTIPLE = 16  # C and Cres
 RING_WIDTH_MULTIPLE = 8  # W: whole 16-byte chunks of a bf16 row
+# The wgmma route's conditions (beside bf16): C a multiple of its conv stage's
+# 16 channels, Cres of its shortcut stage's 32, W of 8 (16-byte rows for TMA).
+WGMMA_CHANNEL_MULTIPLE = 16
+WGMMA_SHORTCUT_MULTIPLE = 32
+WGMMA_WIDTH_MULTIPLE = 8
+# Its tile (output channels, rows, columns) and rings (weight slots, raw
+# slots, operand patches), as the source defines them (kWgM, kWgNC, kWgCols;
+# kWgSw, kWgSx, kWgP).
+WGMMA_TILE = (64, 3, 128)
+WGMMA_RINGS = (4, 2, 2)
+SMEM_PER_BLOCK = 232448  # bytes a block may have on an H100
 
 SAME_LAUNCHES = 0
 UP2_LAUNCHES = 0
@@ -136,19 +156,60 @@ def conv_route(dtype: torch.dtype, c: int, k: int, w: int, cres: int = 0) -> str
     return "v1"
 
 
+def same_route(dtype: torch.dtype, c: int, k: int, w: int, cres: int = 0) -> str:
+    """``conv3x3_same``'s design for a call of C -> K channels at width W
+    with a shortcut of Cres channels (0: none): "wgmma" for bf16 with C a
+    multiple of 16, Cres of 32 and W of 8, else ``conv_route``'s. K and H do
+    not enter: the tiles mask a ragged last block of channels or rows."""
+    if (dtype == torch.bfloat16 and c % WGMMA_CHANNEL_MULTIPLE == 0
+            and cres % WGMMA_SHORTCUT_MULTIPLE == 0 and w % WGMMA_WIDTH_MULTIPLE == 0):
+        return "wgmma"
+    return conv_route(dtype, c, k, w, cres)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgmma_plan(b: int, k: int, h: int, w: int, sms: int) -> dict:
+    """The wgmma route's launch for a call: its tiles (64 channels x 3 rows
+    x 128 columns of one image), the persistent blocks (one an SM, at most
+    one a tile) and the dynamic shared memory a block takes (1024 bytes of
+    alignment slack, the rings, the epilogue's staging tiles and the
+    mbarriers), as csrc/conv3x3.cu computes them."""
+    m, rows, cols = WGMMA_TILE
+    sw, sx, sp = WGMMA_RINGS
+    tiles = b * _cdiv(h, rows) * _cdiv(w, cols) * _cdiv(k, m)
+    weights = 9 * m * WGMMA_CHANNEL_MULTIPLE * 2
+    raw = max(WGMMA_CHANNEL_MULTIPLE * (rows + 2) * (cols + 24) * 2,
+              rows * 2 * WGMMA_SHORTCUT_MULTIPLE * 64 * 2)
+    patch = 2 * (rows + 2) * (cols + 16) * 16
+    staging = rows * m * cols * 2  # the epilogue's, one output row of bf16 a consumer
+    smem = 1024 + sw * weights + sx * raw + staging + sp * patch + 16 * (sw + sx + sp) + 8 * rows
+    return {"tiles": tiles, "blocks": min(tiles, sms), "smem_bytes": smem}
+
+
 def _pick_route(name: str, route: str | None, dtype: torch.dtype, c: int, k: int, w: int,
                 cres: int = 0) -> str:
-    """``route`` if given (None takes ``conv_route``'s): "v1" at any shape,
-    "ring" only where ``conv_route`` gives it."""
-    want = conv_route(dtype, c, k, w, cres)
+    """``route`` if given (None takes the predicate's: ``same_route`` for
+    conv3x3_same, ``conv_route`` for conv3x3_up2): "v1" at any shape, "ring"
+    only where ``conv_route`` gives it, "wgmma" only on conv3x3_same where
+    ``same_route`` gives it."""
+    same = name == "conv3x3_same"
+    want = same_route(dtype, c, k, w, cres) if same else conv_route(dtype, c, k, w, cres)
     if route is None:
         return want
     if route not in ROUTES:
         raise ValueError(f"{name}: route must be one of {ROUTES}, got {route!r}")
-    if route == "ring" and want != "ring":
+    if route == "ring" and conv_route(dtype, c, k, w, cres) != "ring":
         raise ValueError(f"{name}: the ring route takes bfloat16 with C and Cres multiples of "
                          f"{RING_CHANNEL_MULTIPLE} and W a multiple of {RING_WIDTH_MULTIPLE}, "
                          f"got {dtype}, C={c}, Cres={cres}, W={w}")
+    if route == "wgmma" and (not same or want != "wgmma"):
+        raise ValueError(f"{name}: the wgmma route takes conv3x3_same in bfloat16 with C a "
+                         f"multiple of {WGMMA_CHANNEL_MULTIPLE}, Cres of "
+                         f"{WGMMA_SHORTCUT_MULTIPLE} and W of {WGMMA_WIDTH_MULTIPLE}, got "
+                         f"{name}, {dtype}, C={c}, Cres={cres}, W={w}")
     return route
 
 
@@ -249,7 +310,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
     memory. Optional epilogue: + bias [K], then + residual [B, K, H, W] or
     + the 1x1 projection of ``shortcut = (sc_x [B, Cres, H, W], sc_w
     [K, Cres])`` (its own bias folded into ``bias`` by the caller).
-    ``route``: None takes ``conv_route``'s; "v1" or "ring" forces one."""
+    ``route``: None takes ``same_route``'s; "v1", "ring" or "wgmma" forces
+    one."""
     if (gn_scale is None) != (gn_shift is None):
         raise ValueError("gn_scale and gn_shift must be given together")
     if shortcut is not None and residual is not None:
@@ -290,7 +352,7 @@ def _same_kernel(x, weight, bias, residual, gn_scale, gn_shift, sc_x, sc_w,
     route = _pick_route("conv3x3_same", route, x.dtype, c, k, w, cres)
     packed = weight.permute(2, 3, 0, 1).contiguous()  # [3, 3, K, C]: tap-major rows of C
     out = torch.empty((b, k, h, w), dtype=x.dtype, device=x.device)
-    if route == "ring":
+    if route in ("ring", "wgmma"):
         _launch.check_aligned("conv3x3_same", [t.data_ptr() for t in (
             x, packed, residual, gn_scale, gn_shift, sc_x, sc_w, out) if t is not None])
     fn = _launch.bind("conv3x3", "dtts_conv3x3_same", _SAME_ARGTYPES)
@@ -309,7 +371,7 @@ def conv3x3_up2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
     """conv3x3_pad1(nearest_upsample_2x(x)) for x [B, C, H, W] and weight
     [K, C, 3, 3], as the four 2x2 phase convs on the un-upsampled input with
     fp32 accumulation, written straight to [B, K, 2H, 2W] in x.dtype.
-    ``route`` as for ``conv3x3_same``."""
+    ``route``: None takes ``conv_route``'s; "v1" or "ring" forces one."""
     _check_conv(x, weight, bias, "conv3x3_up2")
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias)
@@ -338,5 +400,6 @@ def _up2_kernel(x, weight, bias, route: str | None = None):
 
 __all__ = ["conv3x3_same", "conv3x3_up2", "conv3x3_same_plain", "conv3x3_up2_plain",
            "conv3_shape_eligible", "conv3_eligible", "shortcut_eligible", "up2_eligible",
-           "conv_route", "ROUTES", "MIN_SPATIAL", "UP2_MIN_SPATIAL", "SAME_LAUNCHES",
-           "UP2_LAUNCHES", "SAME_ROUTE_LAUNCHES", "UP2_ROUTE_LAUNCHES"]
+           "conv_route", "same_route", "wgmma_plan", "ROUTES", "MIN_SPATIAL",
+           "UP2_MIN_SPATIAL", "SAME_LAUNCHES", "UP2_LAUNCHES", "SAME_ROUTE_LAUNCHES",
+           "UP2_ROUTE_LAUNCHES"]

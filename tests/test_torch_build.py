@@ -6,8 +6,8 @@ a stale library is never loaded. The wrappers of the attention (forward and
 backward) and GEGLU kernels pick a route in Python (``forward_route``,
 ``backward_route``, ``route``; the forward's and GEGLU's three: "wgmma",
 "mma", "fma") and refuse, before any launch, what the tensor-core routes cannot
-take; so do the conv kernels (``conv_route``:
-"ring" or "v1"). The kernels themselves
+take; so do the conv kernels (``same_route``: "wgmma", "ring" or "v1";
+``conv_route``, the up-conv's: "ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_kernels_cuda.py.
 """
@@ -55,10 +55,10 @@ def test_library_path_follows_the_source_and_its_headers(csrc, name):
 
 def test_the_tensor_core_kernels_include_the_shared_header():
     """mma_bf16.cuh (the mma.sync helpers) in all four tensor-core sources;
-    hopper.cuh (mbarriers, TMA, wgmma, the tensor-map encoder) in the two
+    hopper.cuh (mbarriers, TMA, wgmma, the tensor-map encoder) in the three
     with a wgmma route."""
     for name in ("qkv_attention", "attention_bwd", "geglu_ff", "conv3x3"):
-        hopper = ["hopper.cuh"] if name in ("qkv_attention", "geglu_ff") else []
+        hopper = ["hopper.cuh"] if name in ("qkv_attention", "geglu_ff", "conv3x3") else []
         assert [p.name for p in build.sources(name)] == [f"{name}.cu", *hopper, "mma_bf16.cuh"]
 
 
@@ -356,7 +356,19 @@ def test_the_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version():
 SD_DECODER_CONVS = [(512, 512, 128, 0), (512, 256, 256, 0), (256, 256, 256, 512),
                     (256, 256, 256, 0), (256, 128, 512, 0), (128, 128, 512, 256),
                     (128, 128, 512, 0), (512, 512, 64, 0), (256, 256, 256, 0)]
+# The up-convs' sources alone (conv3x3_up2 keeps the ring), and the 3x3 convs
+# a 512x512 encode adds: the two conv1s that change the width and the two
+# shortcuts of Cres 128 and 256.
+SD_DECODER_UP2 = [(512, 512, 64, 0), (512, 512, 128, 0), (256, 256, 256, 0)]
+SD_ENCODER_CONVS = [(128, 256, 256, 0), (256, 512, 128, 0), (256, 256, 256, 128),
+                    (512, 512, 128, 256)]
 RAGGED_CONVS = [(40, 128, 64, 0), (128, 128, 35, 0), (128, 128, 64, 24), (48, 72, 40, 32)]
+# (B, C, K, H, W, Cres) of every conv3x3_same call shape of one SD search
+# (batch-4 and batch-1 decodes) and of a batch-4 512x512 encode
+SD_SAME_CALLS = [(b, c, k, h, h, cres) for b in (1, 4) for c, k, h, cres in (
+    (512, 512, 128, 0), (512, 256, 256, 0), (256, 256, 256, 512), (256, 256, 256, 0),
+    (256, 128, 512, 0), (128, 128, 512, 256), (128, 128, 512, 0))] + [
+    (4, c, k, h, h, cres) for c, k, h, cres in SD_ENCODER_CONVS]
 
 
 def _ring_conditions_in_source():
@@ -369,13 +381,35 @@ def _ring_conditions_in_source():
     return tuple(map(int, stated)), tuple(map(int, defined))
 
 
-@pytest.mark.parametrize("c,k,w,cres", SD_DECODER_CONVS + RAGGED_CONVS)
+def _wgmma_conditions_in_source():
+    """The wgmma route's conditions as csrc/conv3x3.cu states them on one
+    line of its header and as its code defines them (kWgChannels,
+    kWgScChannels, kWgWidth)."""
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    stated = re.search(r"wgmma \(route 2\): bf16 with C a multiple of (\d+), Cres of (\d+) "
+                       r"and W of (\d+),", src).groups()
+    defined = re.search(r"kWgChannels = (\d+), kWgScChannels = (\d+), kWgWidth = (\d+);",
+                        src).groups()
+    return tuple(map(int, stated)), tuple(map(int, defined))
+
+
+@pytest.mark.parametrize("c,k,w,cres", SD_DECODER_CONVS + SD_ENCODER_CONVS + RAGGED_CONVS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_route_at_the_sd_decoder_and_ragged_shapes(dtype, c, k, w, cres):
-    """bf16 takes the ring at every routed conv of the SD decoder, and v1 at
-    C = 40, W = 35 or Cres = 24; fp32 always takes v1."""
-    ring = dtype == torch.bfloat16 and (c, k, w, cres) not in RAGGED_CONVS[:3]
-    assert cv.conv_route(dtype, c, k, w, cres) == ("ring" if ring else "v1")
+    """conv3x3_same in bf16 takes wgmma at every routed conv of the SD
+    decoder and encoder and at C = 48, Cres = 32; v1 at C = 40, W = 35 or
+    Cres = 24; fp32 always takes v1. The up-conv's predicate still gives the
+    ring in bf16 at the decoder's widths."""
+    ragged = (c, k, w, cres) in RAGGED_CONVS[:3]
+    wgmma = dtype == torch.bfloat16 and not ragged
+    assert cv.same_route(dtype, c, k, w, cres) == ("wgmma" if wgmma else "v1")
+    assert cv.conv_route(dtype, c, k, w, cres) == ("ring" if wgmma else "v1")
+
+
+@pytest.mark.parametrize("c,k,w,cres", SD_DECODER_UP2)
+def test_up2_route_stays_on_the_ring(c, k, w, cres):
+    assert cv.conv_route(torch.bfloat16, c, k, w) == "ring"
+    assert cv.conv_route(torch.float32, c, k, w) == "v1"
 
 
 @pytest.mark.parametrize("c,w,cres", [(c, w, cres) for c in (16, 40, 128) for w in (8, 35, 64)
@@ -383,15 +417,64 @@ def test_conv_route_at_the_sd_decoder_and_ragged_shapes(dtype, c, k, w, cres):
 def test_conv_route_is_the_one_the_source_states(c, w, cres):
     stated, defined = _ring_conditions_in_source()
     assert stated == defined == (cv.RING_CHANNEL_MULTIPLE, cv.RING_WIDTH_MULTIPLE)
+    wg_stated, wg_defined = _wgmma_conditions_in_source()
+    assert wg_stated == wg_defined == (cv.WGMMA_CHANNEL_MULTIPLE, cv.WGMMA_SHORTCUT_MULTIPLE,
+                                       cv.WGMMA_WIDTH_MULTIPLE)
     chan, width = stated
     ring = c % chan == 0 and cres % chan == 0 and w % width == 0
+    wg_chan, wg_sc, wg_width = wg_stated
+    wgmma = c % wg_chan == 0 and cres % wg_sc == 0 and w % wg_width == 0
     assert cv.conv_route(torch.bfloat16, c, 128, w, cres) == ("ring" if ring else "v1")
+    assert cv.same_route(torch.bfloat16, c, 128, w, cres) == (
+        "wgmma" if wgmma else "ring" if ring else "v1")
     assert cv.conv_route(torch.float32, c, 128, w, cres) == "v1"
+    assert cv.same_route(torch.float32, c, 128, w, cres) == "v1"
+
+
+def test_conv_route_codes_follow_the_source():
+    """The route codes are the C entry's: 0 v1, 1 ring, 2 wgmma (which only
+    conv3x3_same takes); both counters count all three."""
+    assert cv.ROUTES == ("v1", "ring", "wgmma")
+    assert set(cv.SAME_ROUTE_LAUNCHES) == set(cv.UP2_ROUTE_LAUNCHES) == set(cv.ROUTES)
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    assert "if (route == 2) {" in src and "if (route == 1) {" in src
+    assert "if (route != 0) return" in src
+    assert re.search(r"route == 2[^\n]*\n(.*\n){0,4}.*a\.up2", src)  # up2 is refused on route 2
 
 
 def test_the_conv_kernels_include_the_shared_header():
     assert "mma_bf16.cuh" in [p.name for p in build.sources("conv3x3")]
+    assert "hopper.cuh" in [p.name for p in build.sources("conv3x3")]
     assert re.search(r"conv3_ring_kernel", (build.CSRC / "conv3x3.cu").read_text())
+    assert re.search(r"conv3_wgmma_kernel", (build.CSRC / "conv3x3.cu").read_text())
+
+
+def _wgmma_constants_in_source():
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    get = lambda name: int(re.search(rf"\b{name} = (\d+)", src).group(1))
+    return ((get("kWgM"), get("kWgNC"), get("kWgCols")),
+            (get("kWgSw"), get("kWgSx"), get("kWgP")))
+
+
+@pytest.mark.parametrize("b,c,k,h,w,cres", SD_SAME_CALLS)
+def test_wgmma_plan_at_the_sd_shapes(b, c, k, h, w, cres):
+    """The wgmma route's tile and rings are the source's; at every
+    conv3x3_same shape of an SD search and encode its plan fills the card's
+    132 SMs with persistent blocks (tiles of 64 channels x 3 rows x 128
+    columns, at least one each) within a block's 232,448 bytes of shared
+    memory; the route takes every one of those shapes."""
+    assert _wgmma_constants_in_source() == (cv.WGMMA_TILE, cv.WGMMA_RINGS)
+    plan = cv.wgmma_plan(b, k, h, w, 132)
+    assert plan["tiles"] == b * -(-h // 3) * -(-w // 128) * (k // 64)
+    assert plan["blocks"] == 132 <= plan["tiles"]
+    assert plan["smem_bytes"] <= cv.SMEM_PER_BLOCK == 232448
+    assert cv.same_route(torch.bfloat16, c, k, w, cres) == "wgmma"
+
+
+def test_wgmma_plan_of_a_small_call():
+    """Fewer tiles than SMs: one block a tile."""
+    plan = cv.wgmma_plan(1, 72, 7, 40, 132)
+    assert plan["tiles"] == 1 * 3 * 1 * 2 == plan["blocks"]
 
 
 def _conv_call(kernel, case):
@@ -429,7 +512,44 @@ def test_conv_refuses_an_unknown_route(no_launch):
         cv._up2_kernel(x, weight, None, route="mma")
 
 
-@pytest.mark.parametrize("route", [None, "v1", "ring"])
+def _wgmma_call(case):
+    """conv3x3_same's kernel function (or conv3x3_up2's, "up2") on CPU
+    tensors with "wgmma" forced for ``case``: "fp32", "c40" (C = 40),
+    "cres48" (a shortcut of 48 channels), "w12" (W = 12), "up2" (the up-conv,
+    which has no wgmma route), "pointer" (x 2 bytes off) or "residual" (the
+    residual 2 bytes off)."""
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    c = 40 if case == "c40" else 128
+    w = 12 if case == "w12" else 16
+    x = torch.zeros(c * 8 * w + 1, dtype=dtype)
+    x = (x[1:] if case == "pointer" else x[:-1]).view(1, c, 8, w)
+    weight = torch.zeros((128, c, 3, 3), dtype=dtype)
+    residual, sc_x, sc_w = None, None, None
+    if case == "residual":
+        residual = torch.zeros(128 * 8 * w + 1, dtype=dtype)[1:].view(1, 128, 8, w)
+    if case == "cres48":
+        sc_x, sc_w = torch.zeros((1, 48, 8, w), dtype=dtype), torch.zeros((128, 48), dtype=dtype)
+    if case == "up2":
+        return lambda: cv._up2_kernel(x, weight, None, route="wgmma")
+    return lambda: cv._same_kernel(x, weight, None, residual, None, None, sc_x, sc_w,
+                                   route="wgmma")
+
+
+@pytest.mark.parametrize("case", ["fp32", "c40", "cres48", "w12", "up2", "pointer", "residual"])
+def test_conv_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
+    """A forced "wgmma" where its conditions fail, on the up-conv, or on an
+    operand that is not 16-byte aligned: refused before any launch, with
+    nothing counted and no fall back to the ring."""
+    before = (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, dict(cv.SAME_ROUTE_LAUNCHES),
+              dict(cv.UP2_ROUTE_LAUNCHES))
+    match = "16-byte" if case in ("pointer", "residual") else "wgmma route takes conv3x3_same"
+    with pytest.raises(ValueError, match=match):
+        _wgmma_call(case)()
+    assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, cv.SAME_ROUTE_LAUNCHES,
+            cv.UP2_ROUTE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("route", [None, "v1", "ring", "wgmma"])
 def test_the_conv_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version(route):
     g = torch.Generator().manual_seed(3)
     r = lambda *shape: torch.randn(shape, generator=g).bfloat16()

@@ -282,7 +282,7 @@ def _same_checked(x, weight, kw, route=None):
     counted on that route, and the output's shape and dtype."""
     b, c, h, w = x.shape
     k = weight.shape[0]
-    want = route or cv.conv_route(x.dtype, c, k, w, kw["shortcut"][0].shape[1]
+    want = route or cv.same_route(x.dtype, c, k, w, kw["shortcut"][0].shape[1]
                                   if "shortcut" in kw else 0)
     before, routes = cv.SAME_LAUNCHES, dict(cv.SAME_ROUTE_LAUNCHES)
     out = cv.conv3x3_same(x, weight, route=route, **kw)
@@ -316,12 +316,12 @@ CONV_CASES = ["plain", "bias_residual", "prologue_bias", "prologue_bias_residual
 def test_conv3x3_same_matches_plain(card, b, c, k, h, w, cres, case, dtype):
     """Whole tiles, a ragged tile in W, and ragged everything (C, K and Cres
     not multiples of 16 or 128, odd H and W). Each call takes the route its
-    predicate gives: bf16 on the ring but at the ragged shape, fp32 on v1."""
+    predicate gives: bf16 on wgmma but at the ragged shape, fp32 on v1."""
     x = _randn((b, c, h, w), dtype, card, 20)
     weight = _randn((k, c, 3, 3), dtype, card, 21, scale=0.05)
     kw = _conv_case(case, b, c, k, h, w, cres, dtype, card, 22)
     out, route = _same_checked(x, weight, kw)
-    assert route == ("ring" if dtype == torch.bfloat16 and c % 16 == 0 else "v1")
+    assert route == ("wgmma" if dtype == torch.bfloat16 and c % 16 == 0 else "v1")
     assert _rel_err(out, cv.conv3x3_same_plain(x, weight, **kw)) <= TOL[dtype]
 
 
@@ -329,8 +329,8 @@ def test_conv3x3_same_matches_plain(card, b, c, k, h, w, cres, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv3x3_same_pads_after_the_prologue(card, dtype):
     """With a large shift silu(shift) is far from 0; the border pixels still
-    agree with the twin, which normalizes first and pads second (bf16 on the
-    ring, fp32 on v1)."""
+    agree with the twin, which normalizes first and pads second (bf16 on
+    wgmma, fp32 on v1)."""
     b, c, k, h, w = 1, 128, 128, 8, 40
     x = _randn((b, c, h, w), dtype, card, 30)
     weight = _randn((k, c, 3, 3), dtype, card, 31, scale=0.05)
@@ -338,7 +338,7 @@ def test_conv3x3_same_pads_after_the_prologue(card, dtype):
     shift = torch.full((b, c), 6.0, device=card)
     kw = dict(gn_scale=scale, gn_shift=shift)
     out, route = _same_checked(x, weight, kw)
-    assert route == ("ring" if dtype == torch.bfloat16 else "v1")
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "v1")
     want = cv.conv3x3_same_plain(x, weight, **kw)
     border = torch.ones((h, w), dtype=torch.bool, device=card)
     border[1:-1, 1:-1] = False
@@ -362,6 +362,7 @@ def test_conv3x3_up2_matches_plain(card, b, c, k, h, w, with_bias, dtype):
 
 
 # ------------------------------------------------- the conv's ring route
+# (conv3x3_same's calls force it: its predicate gives wgmma at these shapes)
 
 RING_SHAPES = [(2, 128, 128, 8, 64, 128),   # whole tiles in every dimension
                (1, 48, 72, 9, 40, 32),      # ragged H and K; W a multiple of 8, not of 32
@@ -375,7 +376,7 @@ def test_conv3x3_same_ring_matches_plain(card, b, c, k, h, w, cres, case):
     x = _randn((b, c, h, w), torch.bfloat16, card, 50)
     weight = _randn((k, c, 3, 3), torch.bfloat16, card, 51, scale=0.05)
     kw = _conv_case(case, b, c, k, h, w, cres, torch.bfloat16, card, 52)
-    out, route = _same_checked(x, weight, kw)
+    out, route = _same_checked(x, weight, kw, "ring")
     assert route == "ring"
     assert _rel_err(out, cv.conv3x3_same_plain(x, weight, **kw)) <= TOL[torch.bfloat16]
 
@@ -391,7 +392,7 @@ def test_conv3x3_same_ring_pads_after_the_prologue(card, b, c, k, h, w, cres):
               gn_shift=torch.full((b, c), 6.0, device=card),
               shortcut=(_randn((b, cres, h, w), torch.bfloat16, card, 56),
                         _randn((k, cres), torch.bfloat16, card, 57, scale=0.05)))
-    out, route = _same_checked(x, weight, kw)
+    out, route = _same_checked(x, weight, kw, "ring")
     assert route == "ring"
     want = cv.conv3x3_same_plain(x, weight, **kw)
     border = torch.ones((h, w), dtype=torch.bool, device=card)
@@ -450,6 +451,107 @@ def test_conv_ring_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="ring route takes bfloat16"):
         cv.conv3x3_up2(torch.zeros((1, 40, 8, 8), dtype=bf, device=card),
                        torch.zeros((128, 40, 3, 3), dtype=bf, device=card), route="ring")
+    assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes()) == before
+
+
+# ------------------------------------------------ the conv's wgmma route
+
+WGMMA_SHAPES = [(2, 128, 128, 6, 128, 64),   # whole tiles: 2 row bands, 1 column tile, 2 K blocks
+                (1, 48, 72, 7, 40, 32),      # H not a multiple of 3; K = 72; W below one tile
+                (1, 64, 200, 5, 264, 96),    # W = 264: a last tile of 8 columns; K = 200;
+                                             # 3 shortcut stages
+                (2, 32, 256, 4, 136, 128)]   # 4 shortcut stages; a last tile of 8 columns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.parametrize("b,c,k,h,w,cres", WGMMA_SHAPES)
+def test_conv3x3_same_wgmma_matches_plain(card, b, c, k, h, w, cres, case):
+    """conv3x3_same on the route its predicate gives (wgmma) against the
+    twin at every prologue / epilogue variant, within 2e-2 of the largest
+    output."""
+    x = _randn((b, c, h, w), torch.bfloat16, card, 80)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 81, scale=0.05)
+    kw = _conv_case(case, b, c, k, h, w, cres, torch.bfloat16, card, 82)
+    out, route = _same_checked(x, weight, kw)
+    assert route == "wgmma"
+    assert _rel_err(out, cv.conv3x3_same_plain(x, weight, **kw)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,k,h,w,cres", WGMMA_SHAPES)
+def test_conv3x3_same_wgmma_pads_after_the_prologue(card, b, c, k, h, w, cres):
+    """The transform zeroes out-of-image pixels by position after the
+    prologue: with shift 6 the copy's zero fill alone would contribute
+    silu(6)."""
+    x = _randn((b, c, h, w), torch.bfloat16, card, 83)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 84, scale=0.05)
+    kw = dict(gn_scale=1 + _randn((b, c), torch.float32, card, 85, scale=0.5),
+              gn_shift=torch.full((b, c), 6.0, device=card),
+              shortcut=(_randn((b, cres, h, w), torch.bfloat16, card, 86),
+                        _randn((k, cres), torch.bfloat16, card, 87, scale=0.05)))
+    out, route = _same_checked(x, weight, kw, "wgmma")
+    want = cv.conv3x3_same_plain(x, weight, **kw)
+    border = torch.ones((h, w), dtype=torch.bool, device=card)
+    border[1:-1, 1:-1] = False
+    err = (out.float() - want.float()).abs() / want.float().abs().max()
+    assert err[..., border].max().item() <= TOL[torch.bfloat16]
+    assert err[..., ~border].max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["prologue_bias_residual", "prologue_bias_shortcut"])
+def test_conv_wgmma_agrees_with_the_ring_and_repeats_bit_for_bit(card, case):
+    """wgmma against the forced ring on the same inputs within 2e-2 of the
+    largest output, and two wgmma calls bit-identical (no split depth, no
+    atomics)."""
+    b, c, k, h, w, cres = 2, 128, 256, 12, 48, 256
+    x = _randn((b, c, h, w), torch.bfloat16, card, 90)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 91, scale=0.05)
+    kw = _conv_case(case, b, c, k, h, w, cres, torch.bfloat16, card, 92)
+    wg, again = _same_checked(x, weight, kw)[0], _same_checked(x, weight, kw, "wgmma")[0]
+    ring = _same_checked(x, weight, kw, "ring")[0]
+    assert torch.equal(wg, again)
+    assert _rel_err(wg, ring) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_conv_wgmma_takes_the_twins_gradient(card):
+    """The gradient of a wgmma call (bf16, C 16, Cres 32) is the twin's."""
+    dtype = torch.bfloat16
+    x, w, b = (_randn((2, 16, 6, 16), dtype, card, 93), _randn((72, 16, 3, 3), dtype, card, 94,
+                                                                 1 / 12),
+               _randn((72,), dtype, card, 95))
+    gs = (1 + 0.3 * _randn((2, 16), torch.float32, card, 96),
+          0.1 * _randn((2, 16), torch.float32, card, 97))
+    sc = (_randn((2, 32, 6, 16), dtype, card, 98), _randn((72, 32), dtype, card, 99, 0.2))
+    assert cv.same_route(dtype, 16, 72, 16, 32) == "wgmma"
+    before = cv.SAME_ROUTE_LAUNCHES["wgmma"]
+    _grads_match(
+        lambda x, w, b, s, t, sx, sw: cv.conv3x3_same(x, w, b, gn_scale=s, gn_shift=t,
+                                                      shortcut=(sx, sw)),
+        lambda x, w, b, s, t, sx, sw: cv.conv3x3_same_plain(x, w, b, gn_scale=s, gn_shift=t,
+                                                            shortcut=(sx, sw)),
+        (x, w, b, *gs, *sc), dtype)
+    assert cv.SAME_ROUTE_LAUNCHES["wgmma"] > before
+
+
+@pytest.mark.cuda
+def test_conv_wgmma_refuses_what_it_cannot_take(card):
+    """Forced where its conditions fail, on the up-conv, or on a misaligned
+    operand: ValueError before any launch, nothing counted."""
+    bf = torch.bfloat16
+    before = (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes())
+    w = torch.zeros((128, 128, 3, 3), dtype=bf, device=card)
+    res = torch.zeros(128 * 64 + 1, dtype=bf, device=card)[1:].view(1, 128, 8, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3x3_same(torch.zeros((1, 128, 8, 8), dtype=bf, device=card), w, residual=res)
+    with pytest.raises(ValueError, match="wgmma route takes"):
+        cv.conv3x3_same(torch.zeros((1, 128, 8, 12), dtype=bf, device=card), w, route="wgmma")
+    with pytest.raises(ValueError, match="wgmma route takes"):
+        cv.conv3x3_same(torch.zeros((1, 128, 8, 8), device=card), w.float(), route="wgmma")
+    with pytest.raises(ValueError, match="wgmma route takes"):
+        cv.conv3x3_up2(torch.zeros((1, 128, 8, 8), dtype=bf, device=card), w, route="wgmma")
     assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes()) == before
 
 
