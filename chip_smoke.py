@@ -8,7 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
      fails without a card;
   2. build: every CUDA kernel of the main paths, from csrc/, with nvcc (one
      process per source, all at once), and ptxas's register and spill lines
-     for the conv kernels' wgmma and ring routes, for the attention kernels at
+     for the conv kernels' wgmma and ring routes (the up-conv's wgmma kernels,
+     one per tile height, must not spill), for the attention kernels at
      d = 160 and 256 (the backward's wide mma form among them), for the
      forward's wgmma kernels (each width, one and two consumer warpgroups)
      and for GEGLU's (each launch, tile rows and tile columns; the kernel
@@ -100,8 +101,9 @@ Phases, each of which raises on failure (nothing is caught):
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
      on "wgmma" but the VAE decoder's d = 512 head on "mma": 288 and 13 of
-     an eps-greedy search's 301; GEGLU and conv3x3_same all on "wgmma",
-     conv3x3_up2 all on "ring",
+     an eps-greedy search's 301; GEGLU, conv3x3_same and conv3x3_up2 all
+     on "wgmma" (the up-conv's 39 an eps-greedy search, 6 / 24 / 21 in
+     6b's rejection / beam / MCTS, 60 in 13b, 363 a scorer in 13c),
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
      call's shape recorded;
  6d. the SD-1.5 VAE encoder on phase 6's VAE (random weights from numpy
@@ -139,9 +141,11 @@ Phases, each of which raises on failure (nothing is caught):
      each pair) and the device times of wgmma, the ring and cuDNN's bare
      conv by CUDA-graph replay (``device_ms``, ``ring_device_ms``,
      ``library_device_ms``; the line sums each over the search), two calls
-     held bit-identical; conv3x3_up2's bf16 rows on "ring" with ``v1_ms``
-     (the first design, timed in turns with the ring: ring, v1, v1, ring);
-     the fp32 rows on "v1"; GroupNorm rows
+     held bit-identical; conv3x3_up2's bf16 rows on "wgmma" alike, with
+     ``ring_ms`` in turns (wgmma, ring, ring, wgmma), the device times of
+     wgmma, the ring and ``interpolate`` + ``conv2d`` by CUDA-graph replay
+     and two calls bit-identical (the line sums them over the search); the
+     fp32 rows on "v1"; GroupNorm rows
      with their route, ``v1_ms`` (slab and v1 in turns, as the conv's), TB/s,
      and the device time of the slab, v1 and the library call
      (``device_ms``, ``v1_device_ms``, ``library_device_ms``: 20 calls
@@ -392,7 +396,7 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
 # a path at those widths names (check_routes's ``routes``), and an SD search
 # splits its launches between the two (sd_attention_routes).
 FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "wgmma",
-              "conv3x3_same": "wgmma", "conv3x3_up2": "ring", "group_norm_silu": "slab"}
+              "conv3x3_same": "wgmma", "conv3x3_up2": "wgmma", "group_norm_silu": "slab"}
 
 
 def reset_launches() -> None:
@@ -522,8 +526,9 @@ def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int 
     kernel time. Attention and GEGLU: ``fma_ms``, the CUDA-core route timed
     alone unless the row is on it. The conv kernels and GroupNorm: ``v1_ms``,
     timed in turns with the ring or the slab (which sets the row's ``ms``
-    anew) unless the row is on v1. ``first_name`` "ring_ms" (conv3x3_same on
-    wgmma): ``first`` is the ring, timed in turns with the row's route."""
+    anew) unless the row is on v1. ``first_name`` "ring_ms" (either conv
+    kernel on wgmma): ``first`` is the ring, timed in turns with the row's
+    route."""
     row["route"] = route
     if first_name == "ring_ms":
         row["ms"], row["ring_ms"] = time_in_turns(kernel, first, reps)
@@ -1011,6 +1016,11 @@ def check_conv_same(key, dtype, tag, timed=True):
 
 
 def check_conv_up2(key, dtype, tag, timed=True):
+    """Library: nearest-2x ``interpolate`` then ``F.conv2d`` with the bias. A
+    bf16 row on "wgmma" also times the ring in turns (``ring_ms``: wgmma,
+    ring, ring, wgmma), holds two calls bit-identical and gives the device
+    times of wgmma, the ring and the library calls by CUDA-graph replay; the
+    fp32 row is on "v1"."""
     shape, k, has_bias = key
     b, c, h, w = shape
     g = torch.Generator(device="cuda").manual_seed(c + k + h)
@@ -1021,10 +1031,24 @@ def check_conv_up2(key, dtype, tag, timed=True):
     library = lambda: F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), weight, bias,
                                padding=1)
     moved = (x.numel() + weight.numel() + 4 * b * k * h * w) * x.element_size()
-    return kernel_row("conv3x3_up2", (b, c, h, w, k), dtype, kernel(), plain(), kernel, plain,
-                      library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)),
-                      timed=timed, route=(cv.conv_route(dtype, c, k, w),
-                             lambda: cv.conv3x3_up2(x, weight, bias, route="v1")))
+    route = cv.up2_route(dtype, c, k, w)
+    ring = lambda: cv.conv3x3_up2(x, weight, bias, route="ring")
+    first = (ring, "ring_ms") if route == "wgmma" else (
+        lambda: cv.conv3x3_up2(x, weight, bias, route="v1"),)
+    out = kernel()
+    row = kernel_row("conv3x3_up2", (b, c, h, w, k), dtype, out, plain(), kernel, plain,
+                     library, (32 * b * h * w * c * k, moved), tag, reps=reps_for((2 * w,)),
+                     timed=timed, route=(route, *first))
+    if timed and route == "wgmma":
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"conv3x3_up2 {list(shape)} on wgmma: two calls differ")
+        with torch.no_grad():  # 10 calls a graph: each is up to a few milliseconds
+            row["device_ms"], row["ring_device_ms"], row["library_device_ms"] = graph_ms(
+                [kernel, ring, library], calls=10)
+        print(f"    device ms by graph replay: wgmma {row['device_ms']:.4f}, ring "
+              f"{row['ring_device_ms']:.4f}, library {row['library_device_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f}; two calls bit-identical")
+    return row
 
 
 # ----------------------------------------------------------------- training
@@ -1817,9 +1841,9 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
                       "ring_device_ms", "mma_device_ms", "library_device_ms"):
             if first in rows[0]:
                 lines[-1][first] = total(first)
-        if name == "conv3x3_same":
+        if name in ("conv3x3_same", "conv3x3_up2"):
             line = lines[-1]
-            print(f"conv3x3_same per SD search "
+            print(f"{name} per SD search "
                   f"({sum(r.get('calls_per_search', 0) for r in rows)} calls): event wgmma "
                   f"{line['ms']:.2f} ms, ring {line['ring_ms']:.2f}, library "
                   f"{line['library_ms']:.2f}; device wgmma {line['device_ms']:.2f}, ring "
@@ -3259,7 +3283,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s for {sorted(built) or 'nothing (cached)'}")
     for name, (secs, log) in built.items():
         print(f"  {name}: nvcc {secs:.2f} s\n" + "\n".join("    " + ln for ln in log.splitlines()))
-    conv_ptxas = {}
+    conv_ptxas, up2_ptxas = {}, {}
     if "conv3x3" in built:  # the ring's kernels, by template <bool UP2, bool GN, bool SC>
         for entry, lines in ptxas_lines(built["conv3x3"][1], "conv3_ring_kernel").items():
             up2, prologue, shortcut = (f == "1" for f in re.search(
@@ -3276,6 +3300,14 @@ def main() -> None:
                     f"{'shortcut' if shortcut else 'no shortcut'}]")
             conv_ptxas[kind] = lines
             print(f"ptxas, {kind} wgmma kernel: " + "; ".join(lines))
+        # the up-conv's wgmma kernels, by template <int SR> (source rows a tile)
+        for entry, lines in ptxas_lines(built["conv3x3"][1], "conv3_up2_wgmma_kernel").items():
+            sr = re.search(r"conv3_up2_wgmma_kernelILi(\d+)E", entry).group(1)
+            kind = f"{sr}-row tiles"
+            up2_ptxas[kind] = lines
+            print(f"ptxas, conv3x3_up2 wgmma kernel, {kind}: " + "; ".join(lines))
+            if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines):
+                raise AssertionError(f"conv3x3_up2's wgmma kernel ({kind}) spills: {lines}")
     for name in ("qkv_attention", "attention_bwd"):  # the kernels at d = 160 and 256
         if name in built:
             for d in (160, 256):
@@ -3322,6 +3354,8 @@ def main() -> None:
             line["ptxas"] = geglu_ptxas
         if line["name"] == "conv3x3_same":
             line["ptxas"] = conv_ptxas
+        if line["name"] == "conv3x3_up2":
+            line["ptxas"] = up2_ptxas
     for line in sd_lines:  # each kernel's launches in one 512x512 encode, as counted there
         line["encode_launches"] = encoder["launches"][line["name"]]
         line["max_abs_err"] = max(line["max_abs_err"],

@@ -30,13 +30,16 @@
 // shapes, far above the H100's 295 FLOP/byte bf16 balance point.
 //
 // Routes. The caller picks one (ops/kernels/conv3x3.py::same_route for
-// conv3x3_same, ::conv_route for conv3x3_up2) and this file obeys:
+// conv3x3_same, ::up2_route for conv3x3_up2) and this file obeys:
 //   * wgmma (route 2): bf16 with C a multiple of 16, Cres of 32 and W of 8,
-//     conv3x3_same only: every shape of the SD decoder and encoder. Hopper's
+//     on conv3x3_same: every shape of the SD decoder and encoder. Hopper's
 //     warpgroup products fed by TMA, below. K and H are any.
+//   * up2 wgmma (route 2 of conv3x3_up2): bf16 with C a multiple of 16 and W of 8,
+//     every up-conv of the SD decoder (conv3_up2_wgmma_kernel, after
+//     conv3x3_same's). K and H are any.
 //   * ring (route 1): bf16 with C and Cres multiples of 16 and W a multiple of 8,
 //     every shape of the SD decoder (C, K 128-512, W 64-512). K and H are any.
-//     conv3x3_up2's route; forced on conv3x3_same it times PR 8's design.
+//     Forced, chip_smoke.py times it beside wgmma on either function.
 //   * v1 (route 0): fp32 (FMA on the CUDA cores, so that it holds 1e-4
 //     against an fp32 reference with TF32 off; a TF32 product would not), and
 //     bf16 at ragged C, Cres or W, which no path of the port has. Its bf16
@@ -1581,9 +1584,418 @@ int launch_wgmma(const ConvArgs& a, cudaStream_t stream) {
   return static_cast<int>(err);
 }
 
+// ------------------------------------ route 2 of conv3x3_up2: wgmma (bf16)
+//
+// The up-conv as an implicit GEMM per row phase a: M = output channels, N =
+// source pixels (i, j), and for each column phase e an accumulator set of its
+// own, depth 4 C (the phase's 2x2 taps):
+//   out[b, k, 2i + a, 2j + e] = sum_{c, r, s} wp[2a + e][2r + s][k, c]
+//                                           * x[b, c, i + a - 1 + r, j + e - 1 + s]
+//   * A tile is 64 channels x SR source rows x 128 / SR source columns of one
+//     image (2 SR output rows x 256 / SR output columns): SR = 1 where W >
+//     kUpNarrow, else SR = 2 (a 64-wide source would leave half of a
+//     128-column tile empty). Persistent blocks, one an SM, walk the tiles
+//     with the channel block fastest.
+//   * Roles: a producer warpgroup (one lane issues every load; setmaxnreg
+//     leaves its threads 40 registers and gives the consumers 232: a 9-warp
+//     block gets 168 from ptxas, which spilled and ran 4-5% slower on an
+//     H100) and two consumer warpgroups, one per row phase a. A stage is 16 input channels:
+//     each warpgroup issues 2 column phases x 4 taps of m64n128k16 products
+//     (SR = 2: 2 x 4 x 2 rows of m64n64k16), into 2 x 64 fp32 accumulators a
+//     thread, then transforms its share of the next stage's patch.
+//   * Weights: the caller packs the phase weights in the operand's own
+//     layout, [K / 64][C / 16][16 (phase 2a + e, tap 2r + s)][2 channel
+//     halves][64 rows][8 channels] (K-major core matrices, no swizzle, rows
+//     past K zero), so that a stage's 32 KB are one contiguous bulk copy; a
+//     (phase, tap) is a descriptor offset of 2048 bytes. (A 3-D tensor map
+//     with 32-byte boxes, as conv3x3_same's, makes 1024 rows a stage, three
+//     times #6's rows per product: it held [4,512,128,128,512] at 1.70 ms
+//     on an H100 against 1.06 with no loads at all.)
+//     Raw input: a 4-D map over NCHW x, boxes of kRawCols columns (from x0 -
+//     8: a box's innermost start must be 16-byte aligned) x kRawRows rows x 16
+//     channels; TMA's zero fill of out-of-image coordinates is SAME padding
+//     itself (no prologue: the transform has no test of position). The box's
+//     rows and columns give each channel an odd number of 16-byte units (57
+//     at SR = 1, 55 at SR = 2, which loads one row more than it uses), so that
+//     each ldmatrix is free of bank conflicts.
+//   * The transform is conv3x3_same's without the prologue: ldmatrix.x4 of 16
+//     channels x 16 pixels, stmatrix.x4.trans into the K-major patch
+//     [8-channel chunk][kPR rows x kPW pixels][8 channels] (pixel p is column
+//     x0 - 8 + p): tap (r, s) of phase (a, e) at source row i0 + sr is the
+//     descriptor of pixel (sr + a + r) * kPW + 7 + e + s, so the three column
+//     shifts -1, 0, +1 all read one patch.
+//   * The epilogue interleaves the column phases in registers: at one
+//     fragment position a thread's two accumulator sets are output columns 2j
+//     and 2j + 1, so it holds 4 consecutive output columns of one channel
+//     (+ bias in fp32, one rounding) and writes them as one 8-byte store into
+//     its warpgroup's staging tile (its output rows, 64 channels x 256
+//     columns as four 128-byte-swizzled TMA boxes; the lanes of odd rows
+//     take the column groups in another order, so that a half-warp's 16
+//     stores fall in 32 distinct banks); then one lane stores the boxes by
+//     TMA, which clips rows, channels and columns outside the output.
+//   * Rings of 3 weight slots, 2 raw slots and 2 patches with full and empty
+//     mbarriers; shared memory: 1024 bytes of alignment slack, 3 x 32,768
+//     (weights), 2 x 15,360 (raw rows), 2 x 32,768 (staging tiles), 2 x
+//     13,824 (patches) and the mbarriers: 223,344 bytes of the 232,448 a
+//     block may have (a fourth weight slot does not fit beside the staging).
+//   * No split of the depth, no atomics: two calls give the same bits.
+//     Nothing gives way: a refused encode, launch or misaligned operand is an
+//     error (the wrapper raises), never a fall back to the ring.
+
+// The up-conv's wgmma route's conditions (beside bf16 and 16-byte aligned
+// operands): C a multiple of kUpChannels, W of kUpWidth.
+constexpr int kUpChannels = 16, kUpWidth = 8;
+constexpr int kUpNarrow = 64;              // SR = 2 up to this source width
+constexpr int kUpNC = 2;                   // consumer warpgroups: the row phases
+constexpr int kUpThreads = kUpNC * 128 + 128;  // the consumers, the producer warpgroup
+// Registers a thread after setmaxnreg: the launch gives 168 to each of the 384
+// threads (65,536 / 384, rounded down to 8), which this shares out again.
+constexpr int kUpProducerRegs = 40, kUpConsumerRegs = 232;
+static_assert(kUpNC * 128 * kUpConsumerRegs + 128 * kUpProducerRegs <= kUpThreads * 168,
+              "setmaxnreg shares out no more than the launch gave");
+constexpr int kUpSw = 3, kUpSx = 2, kUpP = 2;  // weight slots, raw slots, patches
+constexpr int kUpWSlot = 16 * kWgTapBytes;     // 32768: one bulk copy
+constexpr int kUpXSlot = 15 * 1024;            // the larger raw box, rounded up
+constexpr int kUpOut = 4 * kWgOutBox;          // a warpgroup's staging tile: 32768
+static_assert(kUpChannels == kWgChannels, "one 16-channel stage, one k16 step a tap");
+
+template <int SR>
+struct Up2Tile {
+  static constexpr int kCols = kWgCols / SR;         // source columns of a tile: N of a product
+  static constexpr int kPR = SR + 2;                 // patch rows: i0 - 1 .. i0 + SR
+  static constexpr int kRawRows = SR == 1 ? 3 : 5;   // box rows (SR = 2: one unused)
+  static constexpr int kRawCols = kCols + 24;        // x0 - 8 .. x0 + kCols + 15
+  static constexpr int kPW = kCols + 16;             // patch row: x0 - 8 .. x0 + kCols + 7
+  static constexpr int kPairs = kPW / 16;            // 16-pixel units of a patch row
+  static constexpr int kUnits = kPR * kPairs;        // transform units a stage: 27 / 20
+  static constexpr int kPerWarp = (kUnits + 4 * kUpNC - 1) / (4 * kUpNC);
+  static constexpr int kRawChannel = kRawRows * kRawCols * 2;  // 912 / 880 bytes
+  static constexpr int kRawBytes = kUpChannels * kRawChannel;  // 14592 / 14080
+  static constexpr int kChunk = kPR * kPW * 16;                // LBO: 6912 / 5120
+  static constexpr int kPatch = 2 * kChunk;                    // 13824 / 10240
+  static_assert(kRawChannel / 16 % 2 == 1, "an odd number of 16-byte units a raw channel");
+  static_assert(kRawBytes <= kUpXSlot, "the raw slot fits");
+};
+constexpr int kUpPatch = Up2Tile<1>::kPatch;
+static_assert(Up2Tile<2>::kPatch <= kUpPatch, "the patch slot fits either tile");
+constexpr int kUpSmemBytes = 1024 + kUpSw * kUpWSlot + kUpSx * kUpXSlot + kUpNC * kUpOut +
+                             kUpP * kUpPatch + 16 * (kUpSw + kUpSx + kUpP);
+static_assert(kUpWSlot % 1024 == 0 && kUpXSlot % 1024 == 0 && kUpOut % 1024 == 0 &&
+              kUpPatch % 16 == 0, "aligned slots");
+static_assert(kUpSmemBytes <= 232448, "a block's shared memory");
+
+template <int SR>
+__host__ __device__ __forceinline__ int up2_tiles(const ConvArgs& a) {
+  return a.b * ((a.h + SR - 1) / SR) * ((a.w_ + Up2Tile<SR>::kCols - 1) / Up2Tile<SR>::kCols) *
+         ((a.k + kWgM - 1) / kWgM);
+}
+
+// Tile u of the walk (channel block fastest): y0 is its first source row.
+template <int SR>
+__device__ __forceinline__ WgTile up2_tile(const ConvArgs& a, int u) {
+  const int kb = (a.k + kWgM - 1) / kWgM;
+  const int xt = (a.w_ + Up2Tile<SR>::kCols - 1) / Up2Tile<SR>::kCols;
+  const int bands = (a.h + SR - 1) / SR;
+  WgTile t;
+  t.k0 = (u % kb) * kWgM;
+  u /= kb;
+  t.x0 = (u % xt) * Up2Tile<SR>::kCols;
+  u /= xt;
+  t.y0 = (u % bands) * SR;
+  t.b = u / bands;
+  return t;
+}
+
+// The raw rows of a landed stage -> the operand patch: a unit is one raw row
+// and one 16-pixel group of all 16 channels, one ldmatrix.x4 (lane 4 g + t:
+// channel g of block m's channel half m % 2, pixels 2t, 2t + 1 of its pixel
+// half m / 2) and one stmatrix.x4.trans (8 pixels of 16 bytes a block). Warp
+// tw of the 8 consumer warps takes units tw, tw + 8, ..., two at a time:
+// their loads, then their stores (the transform runs while the products hold
+// 128 accumulators a thread).
+template <int SR>
+__device__ __forceinline__ void up2_transform(uint32_t raw, uint32_t patch, int tw, int lane) {
+  using U = Up2Tile<SR>;
+  constexpr int kWarps = 4 * kUpNC, kBatch = 2;
+  const uint32_t src = raw + (lane & 15) * U::kRawChannel + (lane >> 4) * 16;
+  const uint32_t dst = patch + ((lane >> 3) & 1) * U::kChunk + ((lane >> 4) * 8 + (lane & 7)) * 16;
+#pragma unroll
+  for (int i0 = 0; i0 < U::kPerWarp; i0 += kBatch) {
+    uint32_t v[kBatch][4];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = tw + kWarps * (i0 + i), r = e / U::kPairs, q = e - r * U::kPairs;
+      if (i0 + i < U::kPerWarp && e < U::kUnits)
+        ldmatrix_x4(v[i], src + r * (U::kRawCols * 2) + q * 32);
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = tw + kWarps * (i0 + i), r = e / U::kPairs, q = e - r * U::kPairs;
+      if (i0 + i < U::kPerWarp && e < U::kUnits)
+        stmatrix_x4_trans(dst + (r * U::kPW + 16 * q) * 16, v[i]);
+    }
+  }
+}
+
+// One stage's products of the warpgroup of row phase `pa`: for each column
+// phase e and tap (r, s), wp[2 pa + e][2r + s] (64 x 16) times the patch
+// shifted by (pa + r, e + s - 1), over each of the tile's SR source rows.
+template <int SR>
+__device__ __forceinline__ void up2_products(float (&acc)[2][SR][64 / SR], uint32_t wslot,
+                                             uint32_t pslot, int pa, bool first) {
+  using U = Up2Tile<SR>;
+  // each product's descriptors are these plus its constant offset (16-byte
+  // units in the address field, which no offset here carries out of)
+  const uint64_t da0 = wgmma_desc(wslot + 8 * pa * kWgTapBytes, 1024, 128, 0);
+  const uint64_t db0 = wgmma_desc(pslot + (pa * U::kPW + 7) * 16, U::kChunk, 128, 0);
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int tap = 0; tap < 4; ++tap) {
+      const int r = tap >> 1, s = tap & 1;
+      const uint64_t da = da0 + (e * 4 + tap) * (kWgTapBytes / 16);
+      const int scale = first && tap == 0 ? 0 : 1;
+#pragma unroll
+      for (int sr = 0; sr < SR; ++sr) {
+        const uint64_t db = db0 + (sr + r) * U::kPW + e + s;
+        wgmma_ss<U::kCols>(acc[e][sr], da, db, scale);
+      }
+    }
+}
+
+template <int SR>
+__device__ __forceinline__ void fence_acc(float (&acc)[2][SR][64 / SR]) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int sr = 0; sr < SR; ++sr) fence_regs(acc[e][sr]);
+}
+
+// grid: min(tiles, SMs) persistent blocks of kUpThreads threads. Warpgroups 0
+// and 1 consume (row phase a = the warpgroup) and transform, the last
+// warpgroup produces (one lane issues every load).
+template <int SR>
+__global__ void __launch_bounds__(kUpThreads, 1)
+conv3_up2_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap omap, const ConvArgs a) {
+  using U = Up2Tile<SR>;
+  extern __shared__ __align__(1024) unsigned char up_smem[];
+  const uint32_t base = (dtts::smem_addr(up_smem) + 1023u) & ~1023u;
+  const uint32_t xbase = base + kUpSw * kUpWSlot;
+  const uint32_t obase = xbase + kUpSx * kUpXSlot;
+  const uint32_t pbase = obase + kUpNC * kUpOut;
+  const uint32_t bar = pbase + kUpP * kUpPatch;
+  auto wslot = [&](int s) { return base + s * kUpWSlot; };
+  auto xslot = [&](int s) { return xbase + s * kUpXSlot; };
+  auto pslot = [&](int s) { return pbase + s * kUpPatch; };
+  auto wfull = [&](int s) { return bar + 8u * s; };
+  auto wempty = [&](int s) { return bar + 8u * (kUpSw + s); };
+  auto xfull = [&](int s) { return bar + 8u * (2 * kUpSw + s); };
+  auto xempty = [&](int s) { return bar + 8u * (2 * kUpSw + kUpSx + s); };
+  auto pfull = [&](int s) { return bar + 8u * (2 * kUpSw + 2 * kUpSx + s); };
+  auto pempty = [&](int s) { return bar + 8u * (2 * kUpSw + 2 * kUpSx + kUpP + s); };
+  constexpr int kWarps = 4 * kUpNC;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kUpSw; ++s) {
+      mbar_init(wfull(s), 1);
+      mbar_init(wempty(s), kWarps);  // lane 0 of every consumer warp
+    }
+    for (int s = 0; s < kUpSx; ++s) {
+      mbar_init(xfull(s), 1);
+      mbar_init(xempty(s), kWarps);  // each consumer warp, after its transform's reads
+    }
+    for (int s = 0; s < kUpP; ++s) {
+      mbar_init(pfull(s), kWarps);   // each consumer warp's share, after its proxy fence
+      mbar_init(pempty(s), kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = up2_tiles<SR>(a), n = a.c / kUpChannels;
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int role = warp_id / 4, warp = warp_id % 4;
+
+  if (warp_id >= kWarps) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kUpProducerRegs));
+    if (warp_id != kWarps || lane != 0) return;
+    const bf16* wsrc = static_cast<const bf16*>(a.w);
+    int it = 0;
+    for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+      const WgTile t = up2_tile<SR>(a, u);
+      for (int s = 0; s < n; ++s, ++it) {
+        const int ws = it % kUpSw, xs = it % kUpSx;
+        if (it >= kUpSw) mbar_wait(wempty(ws), ((it / kUpSw) - 1) & 1);
+        if (it >= kUpSx) mbar_wait(xempty(xs), ((it / kUpSx) - 1) & 1);
+        mbar_expect_tx(wfull(ws), kUpWSlot);
+        bulk_load(wslot(ws), wsrc + ((int64_t)(t.k0 / kWgM) * n + s) * (kUpWSlot / 2), kUpWSlot,
+                  wfull(ws));
+        mbar_expect_tx(xfull(xs), U::kRawBytes);
+        tma_load_4d(xslot(xs), &xmap, xfull(xs), t.x0 - 8, t.y0 - 1, s * kUpChannels, t.b);
+      }
+    }
+    return;
+  }
+
+  // The consumer warpgroups: role = the row phase. Each warp transforms its
+  // share of the next stage's patch right after issuing this stage's
+  // products, while the tensor cores run them.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kUpConsumerRegs));
+  const int g = lane >> 2, tq = lane & 3;
+  // acc[e][sr]: column phase e, the tile's source row sr (SR = 1: all 64)
+  float acc[2][SR][64 / SR];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[e][i / (64 / SR)][i % (64 / SR)] = 0.f;
+  // stage `it` (global over this block's tiles): raw slot -> patch, then arrivals
+  auto transform = [&](int it) {
+    const int xs = it % kUpSx, ps = it % kUpP;
+    mbar_wait(xfull(xs), (it / kUpSx) & 1);
+    if (it >= kUpP) mbar_wait(pempty(ps), ((it / kUpP) - 1) & 1);
+    up2_transform<SR>(xslot(xs), pslot(ps), warp_id, lane);
+    fence_proxy_async();  // the wgmma products read the patch (the async proxy)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(pfull(ps)), mbar_arrive(xempty(xs));
+  };
+  // the stage whose products were issued last is freed once the next
+  // stage's products are issued and it has completed
+  auto release = [&](int it) {
+    if (lane == 0) {
+      mbar_arrive(wempty(it % kUpSw));
+      mbar_arrive(pempty(it % kUpP));
+    }
+  };
+  const uint32_t out_tile = obase + role * kUpOut;
+  const bool elected = warp == 0 && lane == 0;
+  const bf16* bias = static_cast<const bf16*>(a.bias);
+  int it = 0;
+  if (blockIdx.x < tiles) transform(0);
+  for (int u = blockIdx.x; u < tiles; u += gridDim.x) {
+    const WgTile t = up2_tile<SR>(a, u);
+    for (int s = 0; s < n; ++s, ++it) {
+      const int ws = it % kUpSw, ps = it % kUpP;
+      mbar_wait(wfull(ws), (it / kUpSw) & 1);
+      mbar_wait(pfull(ps), (it / kUpP) & 1);
+      fence_acc<SR>(acc);
+      wgmma_fence();
+      up2_products<SR>(acc, wslot(ws), pslot(ps), role, s == 0);
+      wgmma_commit();
+      if (s > 0) {  // the previous stage of this tile
+        wgmma_wait<1>();
+        fence_acc<SR>(acc);
+        release(it - 1);
+      }
+      // the next stage (this tile's, or the next tile's first) is transformed
+      // during this stage's products
+      if (s + 1 < n || u + (int)gridDim.x < tiles) transform(it + 1);
+    }
+    wgmma_wait<0>();
+    fence_acc<SR>(acc);
+    release(it - 1);
+
+    // The epilogue: accumulator f = 4 j + 2 r + c of column phase e (acc[e],
+    // flattened over its SR rows) is channel k0 + 16 warp + g + 8 r,
+    // source pixel n = 8 j + 2 tq + c of the tile's SR x kCols (output
+    // column 2 n + e of the flattened rows), so a thread holds output columns
+    // 16 j + 4 tq .. + 3, which lie in staging box j / 4 at bytes 32 (j % 4) +
+    // 8 tq of the channel's 128-byte row (16-byte unit 2 (j % 4) + tq / 2,
+    // swizzled by the row's g). Lanes of odd g take the box's column groups
+    // m and m + 2 the other way round: the 16 stores of a half-warp then
+    // hit 16 distinct (unit, half) places.
+    if (elected) bulk_wait_read<0>();  // the last tile's output has left the staging tile
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + role) : "memory");
+    float bv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int ch = t.k0 + 16 * warp + g + 8 * r;
+      bv[r] = bias != nullptr && ch < a.k ? __bfloat162float(bias[ch]) : 0.f;
+    }
+    const bool odd = g & 1;
+    // the 8 bytes of output columns 16 j + 4 tq .. + 3 (flat column group j)
+    auto packed = [&](int j, int r, uint32_t& lo, uint32_t& hi) {
+      const int f = 4 * j + 2 * r, sr = f / (64 / SR), i = f % (64 / SR);
+      lo = dtts::pack_bf16x2(acc[0][sr][i] + bv[r], acc[1][sr][i] + bv[r]);
+      hi = dtts::pack_bf16x2(acc[0][sr][i + 1] + bv[r], acc[1][sr][i + 1] + bv[r]);
+    };
+    auto store = [&](uint32_t row, int j, uint32_t lo, uint32_t hi) {
+      const uint32_t addr = row + (j / 4) * kWgOutBox + (((2 * (j % 4) + (tq >> 1)) ^ g) * 16) +
+                            8 * (tq & 1);
+      asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(lo), "r"(hi)
+                   : "memory");
+    };
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t row = out_tile + (16 * warp + g + 8 * r) * 128;
+#pragma unroll
+      for (int j0 = 0; j0 < 16; j0 += 4)
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          const int ja = j0 + m, jb = j0 + m + 2;
+          uint32_t a0, a1, b0, b1;
+          packed(ja, r, a0, a1);
+          packed(jb, r, b0, b1);
+          store(row, odd ? jb : ja, odd ? b0 : a0, odd ? b1 : a1);
+          store(row, odd ? ja : jb, odd ? a0 : b0, odd ? a1 : b1);
+        }
+    }
+    fence_proxy_async();  // the staging tile is read by the TMA store (the async proxy)
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + role) : "memory");
+    if (elected) {
+      constexpr int kBoxesPerRow = 4 / SR;  // 64-column boxes of one output row
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        tma_store_4d(&omap, out_tile + q * kWgOutBox, 2 * t.x0 + 64 * (q % kBoxesPerRow),
+                     2 * (t.y0 + q / kBoxesPerRow) + role, t.k0, t.b);
+      bulk_commit();
+    }
+  }
+  // the shared memory stays until the last store has read it
+  if (elected) bulk_wait<0>();
+}
+
+template <int SR>
+int launch_up2_wgmma_kernel(const ConvArgs& a, cudaStream_t stream) {
+  using U = Up2Tile<SR>;
+  CUtensorMap xm, om;
+  const cuuint64_t hw = (cuuint64_t)a.h * a.w_;
+  {
+    const cuuint64_t dims[4] = {(cuuint64_t)a.w_, (cuuint64_t)a.h, (cuuint64_t)a.c,
+                                (cuuint64_t)a.b};
+    const cuuint64_t strides[3] = {(cuuint64_t)a.w_ * 2, hw * 2, hw * a.c * 2};
+    const cuuint32_t box[4] = {U::kRawCols, U::kRawRows, kUpChannels, 1};
+    const int e = encode_map(&xm, a.x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e != 0) return e;
+  }
+  {
+    const cuuint64_t dims[4] = {2 * (cuuint64_t)a.w_, 2 * (cuuint64_t)a.h, (cuuint64_t)a.k,
+                                (cuuint64_t)a.b};
+    const cuuint64_t strides[3] = {4 * (cuuint64_t)a.w_, 8 * hw, 8 * hw * a.k};
+    const cuuint32_t box[4] = {64, 1, kWgM, 1};
+    const int e = encode_map(&om, a.out, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != 0) return e;
+  }
+  cudaError_t err = cudaFuncSetAttribute(conv3_up2_wgmma_kernel<SR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kUpSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = up2_tiles<SR>(a), blocks = tiles < sm_count() ? tiles : sm_count();
+  conv3_up2_wgmma_kernel<SR><<<blocks, kUpThreads, kUpSmemBytes, stream>>>(xm, om, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The up-conv's wgmma route: x as 4-D (W, H, C, B) in boxes of kRawCols x
+// kRawRows x 16; the output as 4-D (2W, 2H, K, B) in boxes of 64 x 1 x 64
+// (128-byte swizzle); the weights by bulk copies of the caller's blocks.
+int launch_up2_wgmma(const ConvArgs& a, cudaStream_t stream) {
+  return a.w_ <= kUpNarrow ? launch_up2_wgmma_kernel<2>(a, stream)
+                           : launch_up2_wgmma_kernel<1>(a, stream);
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// route: 0 = v1, 1 = ring, 2 = wgmma (conv3x3_same only).
+// route: 0 = v1, 1 = ring, 2 = wgmma.
 int run(const ConvArgs& a, int dtype, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.b <= 0 || a.c <= 0 || a.k <= 0 || a.h <= 0 || a.w_ <= 0 ||
@@ -1596,7 +2008,12 @@ int run(const ConvArgs& a, int dtype, int route, void* stream) {
   if (route == 2) {
     for (const void* p : ptrs)
       if (!aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
-    if (dtype != 1 || a.up2 || a.c % kWgChannels || a.cres % kWgScChannels || a.w_ % kWgWidth)
+    if (a.up2) {
+      if (dtype != 1 || a.c % kUpChannels || a.w_ % kUpWidth)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_up2_wgmma(a, s);
+    }
+    if (dtype != 1 || a.c % kWgChannels || a.cres % kWgScChannels || a.w_ % kWgWidth)
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_wgmma(a, s);
   }
@@ -1639,9 +2056,11 @@ extern "C" int dtts_conv3x3_same(const void* x, const void* w, const void* bias,
   return run(a, dtype, route, stream);
 }
 
-// x [B, C, H, W]; w [4, 4, K, C]: phase 2 a + e, tap 2 r + s, the folded 2x2
-// phase weights in the activation dtype; bias [K] or null; out [B, K, 2H, 2W];
-// route 0 or 1 as above (2 is refused). One launch.
+// x [B, C, H, W]; w the folded 2x2 phase weights in the activation dtype,
+// on routes 0 and 1 [4, 4, K, C] (phase 2 a + e, tap 2 r + s), on route 2 =
+// wgmma (bf16, C a multiple of 16, W of 8, every pointer 16-byte aligned) in
+// the operand layout [ceil(K / 64)][C / 16][16][2][64][8] (rows past K zero);
+// bias [K] or null; out [B, K, 2H, 2W]. One launch.
 extern "C" int dtts_conv3x3_up2(const void* x, const void* w, const void* bias, void* out,
                                 int dtype, int b, int c, int k, int h, int wd, int route,
                                 void* stream) {

@@ -40,21 +40,24 @@ int. ``conv3x3_same`` takes ``same_route(dtype, c, k, w, cres)``:
 shape of the SD decoder and encoder; Hopper's warpgroup products fed by TMA,
 the prologue applied by the consumer warps between their products,
 persistent blocks, a TMA-stored epilogue), else what
-``conv_route`` gives. ``conv3x3_up2`` takes ``conv_route(dtype, c, k, w)``:
-``"ring"`` (bf16 with C and Cres multiples of 16 and W a multiple of 8; a
-ring of ``cp.async`` stages, ``ldmatrix`` fragments, an epilogue through
-shared memory) or ``"v1"`` (the first design: fp32 on the CUDA cores, and
-bf16 at ragged C, Cres or W). The wgmma and ring routes read rows in
-16-byte pieces and refuse, before any launch, a pointer that is not
-16-byte aligned. ``SAME_ROUTE_LAUNCHES`` and ``UP2_ROUTE_LAUNCHES`` count
-launches per route. ``route=`` forces one: "v1" at any shape
-(chip_smoke.py times it beside the up-conv's ring), "ring" only where
-``conv_route`` gives it (on ``conv3x3_same`` it times PR 8's design beside
-wgmma), "wgmma" only on ``conv3x3_same`` where ``same_route`` gives it
-(else ``ValueError`` before any launch). Nothing falls back from one route
-to another. On the CPU the route is accepted and the plain twin runs.
-``wgmma_plan`` gives the wgmma route's tiles, persistent blocks and shared
-memory for a call.
+``conv_route`` gives. ``conv3x3_up2`` takes ``up2_route(dtype, c, k, w)``:
+``"wgmma"`` (bf16 with C a multiple of 16 and W of 8: every up-conv of the
+SD decoder; the same machinery with one consumer warpgroup per row phase,
+both column phases' accumulators in its registers and the columns
+interleaved in the epilogue), else what ``conv_route`` gives.
+``conv_route`` gives ``"ring"`` (bf16 with C and Cres multiples of 16 and W
+a multiple of 8; a ring of ``cp.async`` stages, ``ldmatrix`` fragments, an
+epilogue through shared memory) or ``"v1"`` (the first design: fp32 on the
+CUDA cores, and bf16 at ragged C, Cres or W). The wgmma and ring routes
+read rows in 16-byte pieces and refuse, before any launch, a pointer that
+is not 16-byte aligned. ``SAME_ROUTE_LAUNCHES`` and ``UP2_ROUTE_LAUNCHES``
+count launches per route. ``route=`` forces one: "v1" at any shape, "ring"
+only where ``conv_route`` gives it (chip_smoke.py times the ring beside
+wgmma on both functions), "wgmma" only where ``same_route`` /
+``up2_route`` gives it (else ``ValueError`` before any launch). Nothing
+falls back from one route to another. On the CPU the route is accepted and
+the plain twin runs. ``wgmma_plan`` and ``up2_wgmma_plan`` give the wgmma
+routes' tiles, persistent blocks and shared memory for a call.
 
 Routing to the kernels (counterparts of ``pallas_conv3_shape_eligible``,
 ``pallas_conv3_eligible``, ``pallas_shortcut_eligible`` and
@@ -105,6 +108,15 @@ WGMMA_WIDTH_MULTIPLE = 8
 WGMMA_TILE = (64, 3, 128)
 WGMMA_RINGS = (4, 2, 2)
 SMEM_PER_BLOCK = 232448  # bytes a block may have on an H100
+# The up-conv's wgmma route (kUpChannels, kUpWidth): bf16, C a multiple of 16,
+# W of 8. Its tile is 64 channels x SR source rows x 128 / SR columns, SR = 2
+# up to a source width of UP2_NARROW_WIDTH (kUpNarrow), else 1; its rings
+# (kUpSw, kUpSx, kUpP) and consumer warpgroups (kUpNC, one per row phase).
+UP2_WGMMA_CHANNEL_MULTIPLE = 16
+UP2_WGMMA_WIDTH_MULTIPLE = 8
+UP2_NARROW_WIDTH = 64
+UP2_WGMMA_RINGS = (3, 2, 2)
+UP2_WGMMA_CONSUMERS = 2
 
 SAME_LAUNCHES = 0
 UP2_LAUNCHES = 0
@@ -167,6 +179,17 @@ def same_route(dtype: torch.dtype, c: int, k: int, w: int, cres: int = 0) -> str
     return conv_route(dtype, c, k, w, cres)
 
 
+def up2_route(dtype: torch.dtype, c: int, k: int, w: int) -> str:
+    """``conv3x3_up2``'s design for a call of C -> K channels at source width
+    W: "wgmma" for bf16 with C a multiple of 16 and W of 8, else
+    ``conv_route``'s. K and H do not enter: TMA clips a ragged last block of
+    channels or rows."""
+    if (dtype == torch.bfloat16 and c % UP2_WGMMA_CHANNEL_MULTIPLE == 0
+            and w % UP2_WGMMA_WIDTH_MULTIPLE == 0):
+        return "wgmma"
+    return conv_route(dtype, c, k, w)
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -189,14 +212,35 @@ def wgmma_plan(b: int, k: int, h: int, w: int, sms: int) -> dict:
     return {"tiles": tiles, "blocks": min(tiles, sms), "smem_bytes": smem}
 
 
+def up2_wgmma_plan(b: int, k: int, h: int, w: int, sms: int) -> dict:
+    """The up-conv's wgmma route for a call at source size H x W: its source
+    rows and columns a tile (SR, 128 / SR with SR = 2 up to W = 64, else 1),
+    its tiles (64 channels x SR x 128 / SR of one image), the persistent
+    blocks (one an SM, at most one a tile) and the dynamic shared memory a
+    block takes (1024 bytes of alignment slack, the rings sized for SR = 1,
+    the two warpgroups' staging tiles of 64 channels x 256 output columns and
+    the mbarriers), as csrc/conv3x3.cu computes them."""
+    m, sw, sx, sp = WGMMA_TILE[0], *UP2_WGMMA_RINGS
+    rows = 2 if w <= UP2_NARROW_WIDTH else 1
+    cols = WGMMA_TILE[2] // rows
+    tiles = b * _cdiv(h, rows) * _cdiv(w, cols) * _cdiv(k, m)
+    weights = 16 * m * UP2_WGMMA_CHANNEL_MULTIPLE * 2  # 4 phases x 4 taps
+    raw = 15 * 1024  # the larger of the two raw boxes (3 x 152 x 16, 5 x 88 x 16), rounded up
+    patch = 2 * 3 * (WGMMA_TILE[2] + 16) * 16
+    staging = UP2_WGMMA_CONSUMERS * m * 256 * 2
+    smem = 1024 + sw * weights + sx * raw + staging + sp * patch + 16 * (sw + sx + sp)
+    return {"rows": rows, "cols": cols, "tiles": tiles, "blocks": min(tiles, sms),
+            "smem_bytes": smem}
+
+
 def _pick_route(name: str, route: str | None, dtype: torch.dtype, c: int, k: int, w: int,
                 cres: int = 0) -> str:
     """``route`` if given (None takes the predicate's: ``same_route`` for
-    conv3x3_same, ``conv_route`` for conv3x3_up2): "v1" at any shape, "ring"
-    only where ``conv_route`` gives it, "wgmma" only on conv3x3_same where
-    ``same_route`` gives it."""
+    conv3x3_same, ``up2_route`` for conv3x3_up2): "v1" at any shape, "ring"
+    only where ``conv_route`` gives it, "wgmma" only where the function's
+    predicate gives it."""
     same = name == "conv3x3_same"
-    want = same_route(dtype, c, k, w, cres) if same else conv_route(dtype, c, k, w, cres)
+    want = same_route(dtype, c, k, w, cres) if same else up2_route(dtype, c, k, w)
     if route is None:
         return want
     if route not in ROUTES:
@@ -205,11 +249,15 @@ def _pick_route(name: str, route: str | None, dtype: torch.dtype, c: int, k: int
         raise ValueError(f"{name}: the ring route takes bfloat16 with C and Cres multiples of "
                          f"{RING_CHANNEL_MULTIPLE} and W a multiple of {RING_WIDTH_MULTIPLE}, "
                          f"got {dtype}, C={c}, Cres={cres}, W={w}")
-    if route == "wgmma" and (not same or want != "wgmma"):
-        raise ValueError(f"{name}: the wgmma route takes conv3x3_same in bfloat16 with C a "
-                         f"multiple of {WGMMA_CHANNEL_MULTIPLE}, Cres of "
-                         f"{WGMMA_SHORTCUT_MULTIPLE} and W of {WGMMA_WIDTH_MULTIPLE}, got "
-                         f"{name}, {dtype}, C={c}, Cres={cres}, W={w}")
+    if route == "wgmma" and want != "wgmma":
+        if same:
+            raise ValueError(f"{name}: the wgmma route takes conv3x3_same in bfloat16 with C a "
+                             f"multiple of {WGMMA_CHANNEL_MULTIPLE}, Cres of "
+                             f"{WGMMA_SHORTCUT_MULTIPLE} and W of {WGMMA_WIDTH_MULTIPLE}, got "
+                             f"{name}, {dtype}, C={c}, Cres={cres}, W={w}")
+        raise ValueError(f"{name}: the wgmma route takes bfloat16 with C a multiple of "
+                         f"{UP2_WGMMA_CHANNEL_MULTIPLE} and W of {UP2_WGMMA_WIDTH_MULTIPLE}, "
+                         f"got {dtype}, C={c}, W={w}")
     return route
 
 
@@ -371,7 +419,8 @@ def conv3x3_up2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
     """conv3x3_pad1(nearest_upsample_2x(x)) for x [B, C, H, W] and weight
     [K, C, 3, 3], as the four 2x2 phase convs on the un-upsampled input with
     fp32 accumulation, written straight to [B, K, 2H, 2W] in x.dtype.
-    ``route``: None takes ``conv_route``'s; "v1" or "ring" forces one."""
+    ``route``: None takes ``up2_route``'s; "v1", "ring" or "wgmma" forces
+    one."""
     _check_conv(x, weight, bias, "conv3x3_up2")
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias)
@@ -379,15 +428,35 @@ def conv3x3_up2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None
     return _launch.with_twin_backward(kernel, conv3x3_up2_plain, x, weight, bias)
 
 
+def _up2_operand_blocks(phased: torch.Tensor, k: int, c: int) -> torch.Tensor:
+    """The wgmma route's weights: the phase kernels [4K, C, 2, 2] (phase-major
+    rows) -> [ceil(K / 64)][C / 16][16 (phase, tap)][2 channel halves][64
+    rows][8 channels], rows past K zero: each (64-channel block, 16-channel
+    stage) one contiguous 32 KB block in wgmma's K-major core-matrix layout,
+    which the kernel copies to shared memory as it stands. One copy where K
+    is a multiple of 64 (every SD up-conv)."""
+    m = WGMMA_TILE[0]
+    kb = _cdiv(k, m)
+    wp = phased.view(4, k, c, 2, 2)
+    if k % m:
+        wp = F.pad(wp, (0, 0, 0, 0, 0, 0, 0, kb * m - k))
+    # (phase, kb, row, stage, half, channel, r, s) -> (kb, stage, phase, r, s, half, row, channel)
+    blocks = wp.view(4, kb, m, c // 16, 2, 8, 2, 2).permute(1, 3, 0, 6, 7, 4, 2, 5)
+    return blocks.contiguous().view(kb, c // 16, 16, 2, m, 8)
+
+
 def _up2_kernel(x, weight, bias, route: str | None = None):
     global UP2_LAUNCHES
     b, c, h, w = x.shape
     k = weight.shape[0]
     route = _pick_route("conv3x3_up2", route, x.dtype, c, k, w)
-    # [4K, C, 2, 2] (phase-major) -> [phase, r, s, K, C]
-    packed = phase_kernels(weight).view(4, k, c, 2, 2).permute(0, 3, 4, 1, 2).contiguous()
+    phased = phase_kernels(weight)  # [4K, C, 2, 2], phase-major
+    if route == "wgmma":
+        packed = _up2_operand_blocks(phased, k, c)
+    else:  # [phase, r, s, K, C]
+        packed = phased.view(4, k, c, 2, 2).permute(0, 3, 4, 1, 2).contiguous()
     out = torch.empty((b, k, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
-    if route == "ring":
+    if route in ("ring", "wgmma"):
         _launch.check_aligned("conv3x3_up2", (x.data_ptr(), packed.data_ptr(), out.data_ptr()))
     fn = _launch.bind("conv3x3", "dtts_conv3x3_up2", _UP2_ARGTYPES)
     err = fn(x.data_ptr(), packed.data_ptr(), _ptr(bias), out.data_ptr(),
@@ -400,6 +469,6 @@ def _up2_kernel(x, weight, bias, route: str | None = None):
 
 __all__ = ["conv3x3_same", "conv3x3_up2", "conv3x3_same_plain", "conv3x3_up2_plain",
            "conv3_shape_eligible", "conv3_eligible", "shortcut_eligible", "up2_eligible",
-           "conv_route", "same_route", "wgmma_plan", "ROUTES", "MIN_SPATIAL",
-           "UP2_MIN_SPATIAL", "SAME_LAUNCHES", "UP2_LAUNCHES", "SAME_ROUTE_LAUNCHES",
-           "UP2_ROUTE_LAUNCHES"]
+           "conv_route", "same_route", "up2_route", "wgmma_plan", "up2_wgmma_plan", "ROUTES",
+           "MIN_SPATIAL", "UP2_MIN_SPATIAL", "SAME_LAUNCHES", "UP2_LAUNCHES",
+           "SAME_ROUTE_LAUNCHES", "UP2_ROUTE_LAUNCHES"]

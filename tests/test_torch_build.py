@@ -7,7 +7,7 @@ backward) and GEGLU kernels pick a route in Python (``forward_route``,
 ``backward_route``, ``route``; the forward's and GEGLU's three: "wgmma",
 "mma", "fma") and refuse, before any launch, what the tensor-core routes cannot
 take; so do the conv kernels (``same_route``: "wgmma", "ring" or "v1";
-``conv_route``, the up-conv's: "ring" or "v1"). The kernels themselves
+``up2_route``, the up-conv's: "wgmma", "ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_kernels_cuda.py.
 """
@@ -356,7 +356,7 @@ def test_the_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version():
 SD_DECODER_CONVS = [(512, 512, 128, 0), (512, 256, 256, 0), (256, 256, 256, 512),
                     (256, 256, 256, 0), (256, 128, 512, 0), (128, 128, 512, 256),
                     (128, 128, 512, 0), (512, 512, 64, 0), (256, 256, 256, 0)]
-# The up-convs' sources alone (conv3x3_up2 keeps the ring), and the 3x3 convs
+# The up-convs' sources alone (C, K, W, Cres: conv3x3_up2 takes wgmma), and the 3x3 convs
 # a 512x512 encode adds: the two conv1s that change the width and the two
 # shortcuts of Cres 128 and 256.
 SD_DECODER_UP2 = [(512, 512, 64, 0), (512, 512, 128, 0), (256, 256, 256, 0)]
@@ -398,8 +398,9 @@ def _wgmma_conditions_in_source():
 def test_conv_route_at_the_sd_decoder_and_ragged_shapes(dtype, c, k, w, cres):
     """conv3x3_same in bf16 takes wgmma at every routed conv of the SD
     decoder and encoder and at C = 48, Cres = 32; v1 at C = 40, W = 35 or
-    Cres = 24; fp32 always takes v1. The up-conv's predicate still gives the
-    ring in bf16 at the decoder's widths."""
+    Cres = 24; fp32 always takes v1. The ring's predicate (``conv_route``,
+    which a forced "ring" checks) still gives the ring in bf16 at the
+    decoder's widths."""
     ragged = (c, k, w, cres) in RAGGED_CONVS[:3]
     wgmma = dtype == torch.bfloat16 and not ragged
     assert cv.same_route(dtype, c, k, w, cres) == ("wgmma" if wgmma else "v1")
@@ -408,8 +409,11 @@ def test_conv_route_at_the_sd_decoder_and_ragged_shapes(dtype, c, k, w, cres):
 
 @pytest.mark.parametrize("c,k,w,cres", SD_DECODER_UP2)
 def test_up2_route_stays_on_the_ring(c, k, w, cres):
+    """conv3x3_up2's predicate at the SD decoder's up-convs: "wgmma" in bf16,
+    "v1" in fp32; the ring stays forceable there (``conv_route`` gives it)."""
+    assert cv.up2_route(torch.bfloat16, c, k, w) == "wgmma"
+    assert cv.up2_route(torch.float32, c, k, w) == "v1"
     assert cv.conv_route(torch.bfloat16, c, k, w) == "ring"
-    assert cv.conv_route(torch.float32, c, k, w) == "v1"
 
 
 @pytest.mark.parametrize("c,w,cres", [(c, w, cres) for c in (16, 40, 128) for w in (8, 35, 64)
@@ -432,14 +436,42 @@ def test_conv_route_is_the_one_the_source_states(c, w, cres):
 
 
 def test_conv_route_codes_follow_the_source():
-    """The route codes are the C entry's: 0 v1, 1 ring, 2 wgmma (which only
-    conv3x3_same takes); both counters count all three."""
+    """The route codes are the C entry's: 0 v1, 1 ring, 2 wgmma (which both
+    functions take: the up-conv's own kernel); both counters count all
+    three."""
     assert cv.ROUTES == ("v1", "ring", "wgmma")
     assert set(cv.SAME_ROUTE_LAUNCHES) == set(cv.UP2_ROUTE_LAUNCHES) == set(cv.ROUTES)
     src = (build.CSRC / "conv3x3.cu").read_text()
     assert "if (route == 2) {" in src and "if (route == 1) {" in src
     assert "if (route != 0) return" in src
-    assert re.search(r"route == 2[^\n]*\n(.*\n){0,4}.*a\.up2", src)  # up2 is refused on route 2
+    # route 2 takes up2 to its own kernel, under its own conditions
+    assert re.search(r"route == 2\) \{\n(.*\n){0,2}    if \(a\.up2\) \{\n.*kUpChannels.*kUpWidth"
+                     r"\)\n.*\n      return launch_up2_wgmma\(a, s\);", src)
+
+
+def _up2_wgmma_conditions_in_source():
+    """The up-conv's wgmma route's conditions as csrc/conv3x3.cu states them
+    on one line of its header and as its code defines them (kUpChannels,
+    kUpWidth)."""
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    stated = re.search(r"up2 wgmma \(route 2 of conv3x3_up2\): bf16 with C a multiple of (\d+) "
+                       r"and W of (\d+),", src).groups()
+    defined = re.search(r"kUpChannels = (\d+), kUpWidth = (\d+);", src).groups()
+    return tuple(map(int, stated)), tuple(map(int, defined))
+
+
+@pytest.mark.parametrize("c,w", [(c, w) for c in (16, 40, 48, 128, 512) for w in (8, 12, 24, 35, 64)])
+def test_up2_route_is_the_one_the_source_states(c, w):
+    """up2_route gives "wgmma" exactly where the header's stated conditions
+    (equal to the constants the code defines and to the module's) hold in
+    bf16, else conv_route's answer."""
+    stated, defined = _up2_wgmma_conditions_in_source()
+    assert stated == defined == (cv.UP2_WGMMA_CHANNEL_MULTIPLE, cv.UP2_WGMMA_WIDTH_MULTIPLE)
+    chan, width = stated
+    wgmma = c % chan == 0 and w % width == 0
+    assert cv.up2_route(torch.bfloat16, c, 72, w) == (
+        "wgmma" if wgmma else cv.conv_route(torch.bfloat16, c, 72, w))
+    assert cv.up2_route(torch.float32, c, 72, w) == "v1"
 
 
 def test_the_conv_kernels_include_the_shared_header():
@@ -475,6 +507,66 @@ def test_wgmma_plan_of_a_small_call():
     """Fewer tiles than SMs: one block a tile."""
     plan = cv.wgmma_plan(1, 72, 7, 40, 132)
     assert plan["tiles"] == 1 * 3 * 1 * 2 == plan["blocks"]
+
+
+# (B, C, K, H, W) of every conv3x3_up2 call shape of the searches: the SD
+# decoder's three up-convs at decode batches 1, 2, 4 and 8
+SD_UP2_CALLS = [(b, c, k, h, h) for b in (1, 2, 4, 8)
+                for c, k, h, _ in SD_DECODER_UP2]
+
+
+def _up2_constants_in_source():
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    get = lambda name: int(re.search(rf"\b{name} = (\d+)", src).group(1))
+    return (get("kUpNarrow"), get("kUpNC"), (get("kUpSw"), get("kUpSx"), get("kUpP")))
+
+
+@pytest.mark.parametrize("b,c,k,h,w", SD_UP2_CALLS)
+def test_up2_wgmma_plan_at_the_sd_shapes(b, c, k, h, w):
+    """The up-conv's wgmma route at every conv3x3_up2 shape of the searches:
+    its narrow-width switch, consumers and rings are the source's; tiles of
+    64 channels x 2 rows x 64 columns at a 64-wide source, else 1 row x 128
+    columns, which fill the card's 132 SMs with persistent blocks within a
+    block's 232,448 bytes of shared memory; the route takes every one of
+    those shapes."""
+    assert _up2_constants_in_source() == (cv.UP2_NARROW_WIDTH, cv.UP2_WGMMA_CONSUMERS,
+                                          cv.UP2_WGMMA_RINGS)
+    plan = cv.up2_wgmma_plan(b, k, h, w, 132)
+    rows = 2 if w <= 64 else 1
+    assert (plan["rows"], plan["cols"]) == (rows, 128 // rows)
+    assert plan["tiles"] == b * (h // rows) * -(-w // (128 // rows)) * (k // 64)
+    assert plan["blocks"] == 132 <= plan["tiles"]
+    assert plan["smem_bytes"] <= cv.SMEM_PER_BLOCK == 232448
+    assert cv.up2_route(torch.bfloat16, c, k, w) == "wgmma"
+
+
+def test_up2_wgmma_plan_of_a_small_call():
+    """A ragged call: an odd H in 2-row tiles, K = 40 in one channel block,
+    W = 24 in one tile; fewer tiles than SMs: one block a tile."""
+    plan = cv.up2_wgmma_plan(1, 40, 7, 24, 132)
+    assert plan["tiles"] == 1 * 4 * 1 * 1 == plan["blocks"]
+    assert (plan["rows"], plan["cols"]) == (2, 64)
+
+
+@pytest.mark.parametrize("k,c", [(512, 512), (72, 48), (40, 16)])
+def test_up2_operand_blocks_follow_the_source(k, c):
+    """The up-conv's wgmma route reads its weights as the source states:
+    [ceil(K / 64)][C / 16][16 (phase, tap)][2 channel halves][64 rows][8
+    channels], rows past K zero, so that block (kb, s) is the 32 KB the
+    kernel copies at stage s of a tile at k0 = 64 kb."""
+    src = (build.CSRC / "conv3x3.cu").read_text()
+    assert "the operand layout [ceil(K / 64)][C / 16][16][2][64][8]" in src
+    assert "wsrc + ((int64_t)(t.k0 / kWgM) * n + s) * (kUpWSlot / 2), kUpWSlot" in src
+    g = torch.Generator().manual_seed(k + c)
+    phased = torch.randn((4 * k, c, 2, 2), generator=g)  # phase_kernels' [4K, C, 2, 2]
+    blocks = cv._up2_operand_blocks(phased, k, c)
+    kb = -(-k // 64)
+    assert blocks.shape == (kb, c // 16, 16, 2, 64, 8) and blocks.is_contiguous()
+    assert blocks[0, 0].numel() * 2 == 32768  # bf16 bytes of one stage
+    want = torch.zeros((16, kb * 64, c))  # [phase 2a + e, tap 2r + s, K, C], the ring's packing
+    want[:, :k] = phased.view(4, k, c, 2, 2).permute(0, 3, 4, 1, 2).reshape(16, k, c)
+    got = blocks.permute(2, 0, 4, 1, 3, 5).reshape(16, kb * 64, c)
+    assert torch.equal(got, want)
 
 
 def _conv_call(kernel, case):
@@ -513,11 +605,13 @@ def test_conv_refuses_an_unknown_route(no_launch):
 
 
 def _wgmma_call(case):
-    """conv3x3_same's kernel function (or conv3x3_up2's, "up2") on CPU
+    """conv3x3_same's kernel function (or conv3x3_up2's, "up2_...") on CPU
     tensors with "wgmma" forced for ``case``: "fp32", "c40" (C = 40),
-    "cres48" (a shortcut of 48 channels), "w12" (W = 12), "up2" (the up-conv,
-    which has no wgmma route), "pointer" (x 2 bytes off) or "residual" (the
-    residual 2 bytes off)."""
+    "cres48" (a shortcut of 48 channels), "w12" (W = 12), "pointer" (x 2
+    bytes off) or "residual" (the residual 2 bytes off); the up-conv at
+    "up2_fp32", "up2_c40", "up2_w12" or "up2_pointer"."""
+    up2 = case.startswith("up2_")
+    case = case[4:] if up2 else case
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
     c = 40 if case == "c40" else 128
     w = 12 if case == "w12" else 16
@@ -529,20 +623,24 @@ def _wgmma_call(case):
         residual = torch.zeros(128 * 8 * w + 1, dtype=dtype)[1:].view(1, 128, 8, w)
     if case == "cres48":
         sc_x, sc_w = torch.zeros((1, 48, 8, w), dtype=dtype), torch.zeros((128, 48), dtype=dtype)
-    if case == "up2":
+    if up2:
         return lambda: cv._up2_kernel(x, weight, None, route="wgmma")
     return lambda: cv._same_kernel(x, weight, None, residual, None, None, sc_x, sc_w,
                                    route="wgmma")
 
 
-@pytest.mark.parametrize("case", ["fp32", "c40", "cres48", "w12", "up2", "pointer", "residual"])
+@pytest.mark.parametrize("case", ["fp32", "c40", "cres48", "w12", "pointer", "residual",
+                                  "up2_fp32", "up2_c40", "up2_w12", "up2_pointer"])
 def test_conv_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
-    """A forced "wgmma" where its conditions fail, on the up-conv, or on an
-    operand that is not 16-byte aligned: refused before any launch, with
-    nothing counted and no fall back to the ring."""
+    """A forced "wgmma" where its conditions fail (conv3x3_same's, or the
+    up-conv's: bf16, C a multiple of 16, W of 8), or on an operand that is
+    not 16-byte aligned: refused before any launch, with nothing counted and
+    no fall back to the ring."""
     before = (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, dict(cv.SAME_ROUTE_LAUNCHES),
               dict(cv.UP2_ROUTE_LAUNCHES))
-    match = "16-byte" if case in ("pointer", "residual") else "wgmma route takes conv3x3_same"
+    match = ("16-byte" if case.endswith(("pointer", "residual"))
+             else "wgmma route takes bfloat16" if case.startswith("up2_")
+             else "wgmma route takes conv3x3_same")
     with pytest.raises(ValueError, match=match):
         _wgmma_call(case)()
     assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, cv.SAME_ROUTE_LAUNCHES,

@@ -133,7 +133,12 @@ def test_conv3x3_same_refuses_residual_with_shortcut():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 8, 16, 256, 128)],
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128, 128), (1, 8, 16, 256, 128),
+                                   # the shapes the wgmma route masks: K = 40 in one
+                                   # 64-channel block, an odd H in 2-row tiles, W = 24 in a
+                                   # 64-column tile, C = 48; K = 136 over three blocks at
+                                   # H = 9 and W = 72 in one 128-column tile
+                                   (1, 7, 24, 48, 40), (1, 9, 72, 32, 136)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_conv3x3_up2_twin_matches_pallas(shape, with_bias, dtype):
     b, h, w, c, k = shape

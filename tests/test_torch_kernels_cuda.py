@@ -295,7 +295,7 @@ def _same_checked(x, weight, kw, route=None):
 def _up2_checked(x, weight, bias, route=None):
     b, c, h, w = x.shape
     k = weight.shape[0]
-    want = route or cv.conv_route(x.dtype, c, k, w)
+    want = route or cv.up2_route(x.dtype, c, k, w)
     before, routes = cv.UP2_LAUNCHES, dict(cv.UP2_ROUTE_LAUNCHES)
     out = cv.conv3x3_up2(x, weight, bias, route=route)
     torch.cuda.synchronize()
@@ -357,7 +357,7 @@ def test_conv3x3_up2_matches_plain(card, b, c, k, h, w, with_bias, dtype):
     weight = _randn((k, c, 3, 3), dtype, card, 41, scale=0.05)
     bias = _randn((k,), dtype, card, 42) if with_bias else None
     out, route = _up2_checked(x, weight, bias)
-    assert route == ("ring" if dtype == torch.bfloat16 and c % 16 == 0 else "v1")
+    assert route == ("wgmma" if dtype == torch.bfloat16 and c % 16 == 0 and w % 8 == 0 else "v1")
     assert _rel_err(out, cv.conv3x3_up2_plain(x, weight, bias)) <= TOL[dtype]
 
 
@@ -408,11 +408,12 @@ def test_conv3x3_same_ring_pads_after_the_prologue(card, b, c, k, h, w, cres):
                                        (1, 16, 136, 3, 8)])
 def test_conv3x3_up2_ring_matches_plain(card, b, c, k, h, w, with_bias):
     """Whole tiles, ragged K and H at a W that is no multiple of 32, and C
-    below one 32-channel stage (the copy zero-fills its second half)."""
+    below one 32-channel stage (the copy zero-fills its second half); the
+    ring forced (the predicate gives wgmma at these shapes)."""
     x = _randn((b, c, h, w), torch.bfloat16, card, 60)
     weight = _randn((k, c, 3, 3), torch.bfloat16, card, 61, scale=0.05)
     bias = _randn((k,), torch.bfloat16, card, 62) if with_bias else None
-    out, route = _up2_checked(x, weight, bias)
+    out, route = _up2_checked(x, weight, bias, "ring")
     assert route == "ring"
     assert _rel_err(out, cv.conv3x3_up2_plain(x, weight, bias)) <= TOL[torch.bfloat16]
 
@@ -515,6 +516,65 @@ def test_conv_wgmma_agrees_with_the_ring_and_repeats_bit_for_bit(card, case):
     assert _rel_err(wg, ring) <= TOL[torch.bfloat16]
 
 
+# ------------------------------------------ the up-conv's wgmma route
+
+UP2_WGMMA_SHAPES = [(1, 512, 512, 64, 64),    # the SD up-convs at batch 1: 2-row tiles
+                    (1, 512, 512, 128, 128),  # 1-row tiles of 128 columns
+                    (1, 256, 256, 256, 256),  # two column tiles a row
+                    (1, 48, 40, 7, 24),       # K = 40, an odd H in 2-row tiles, W = 24, C = 48
+                    (2, 32, 136, 9, 72),      # K over three blocks, W = 72 in one 128-column tile
+                    (1, 16, 72, 3, 8),        # one stage, W = 8
+                    (1, 64, 200, 5, 264)]     # W = 264: a last tile of 8 columns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("b,c,k,h,w", UP2_WGMMA_SHAPES)
+def test_conv3x3_up2_wgmma_matches_plain(card, b, c, k, h, w, with_bias):
+    """conv3x3_up2 on the route its predicate gives (wgmma) against the twin
+    within 2e-2 of the largest output, and two calls bit-identical (no split
+    depth, no atomics)."""
+    x = _randn((b, c, h, w), torch.bfloat16, card, 100)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 101, scale=(9 * c) ** -0.5)
+    bias = _randn((k,), torch.bfloat16, card, 102, scale=0.1) if with_bias else None
+    out, route = _up2_checked(x, weight, bias)
+    again, _ = _up2_checked(x, weight, bias, "wgmma")
+    assert route == "wgmma"
+    assert torch.equal(out, again)
+    assert _rel_err(out, cv.conv3x3_up2_plain(x, weight, bias)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_conv3x3_up2_wgmma_agrees_with_the_ring(card):
+    """wgmma against the forced ring on the same inputs, within 2e-2 of the
+    largest output."""
+    b, c, k, h, w = 2, 128, 256, 12, 48
+    x = _randn((b, c, h, w), torch.bfloat16, card, 103)
+    weight = _randn((k, c, 3, 3), torch.bfloat16, card, 104, scale=0.05)
+    bias = _randn((k,), torch.bfloat16, card, 105)
+    wg, ring = _up2_checked(x, weight, bias)[0], _up2_checked(x, weight, bias, "ring")[0]
+    assert _rel_err(wg, ring) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_conv3x3_up2_wgmma_refuses_what_it_cannot_take(card):
+    """A forced "wgmma" at fp32, C = 40 or W = 12, or on a misaligned x:
+    refused before any launch, nothing counted, no fall back."""
+    bf = torch.bfloat16
+    before = (cv.UP2_LAUNCHES, _conv_routes())
+    cases = [(torch.zeros((1, 128, 8, 16), device=card), torch.float32, 128),
+             (torch.zeros((1, 40, 8, 16), dtype=bf, device=card), bf, 40),
+             (torch.zeros((1, 128, 8, 12), dtype=bf, device=card), bf, 128)]
+    for x, dtype, c in cases:
+        with pytest.raises(ValueError, match="wgmma route takes bfloat16"):
+            cv.conv3x3_up2(x, torch.zeros((128, c, 3, 3), dtype=dtype, device=card),
+                           route="wgmma")
+    x = torch.zeros(128 * 8 * 16 + 1, dtype=bf, device=card)[1:].view(1, 128, 8, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3x3_up2(x, torch.zeros((128, 128, 3, 3), dtype=bf, device=card), route="wgmma")
+    assert (cv.UP2_LAUNCHES, _conv_routes()) == before
+
+
 @pytest.mark.cuda
 def test_conv_wgmma_takes_the_twins_gradient(card):
     """The gradient of a wgmma call (bf16, C 16, Cres 32) is the twin's."""
@@ -538,8 +598,9 @@ def test_conv_wgmma_takes_the_twins_gradient(card):
 
 @pytest.mark.cuda
 def test_conv_wgmma_refuses_what_it_cannot_take(card):
-    """Forced where its conditions fail, on the up-conv, or on a misaligned
-    operand: ValueError before any launch, nothing counted."""
+    """Forced where its conditions fail (conv3x3_same's, or the up-conv's at
+    W = 12), or on a misaligned operand: ValueError before any launch,
+    nothing counted."""
     bf = torch.bfloat16
     before = (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes())
     w = torch.zeros((128, 128, 3, 3), dtype=bf, device=card)
@@ -551,7 +612,7 @@ def test_conv_wgmma_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="wgmma route takes"):
         cv.conv3x3_same(torch.zeros((1, 128, 8, 8), device=card), w.float(), route="wgmma")
     with pytest.raises(ValueError, match="wgmma route takes"):
-        cv.conv3x3_up2(torch.zeros((1, 128, 8, 8), dtype=bf, device=card), w, route="wgmma")
+        cv.conv3x3_up2(torch.zeros((1, 128, 8, 12), dtype=bf, device=card), w, route="wgmma")
     assert (cv.SAME_LAUNCHES, cv.UP2_LAUNCHES, _conv_routes()) == before
 
 

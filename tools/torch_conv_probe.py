@@ -1,7 +1,9 @@
-"""Where conv3x3_same's time goes on the card, for the wgmma route and the ring (PyTorch port).
+"""Where conv3x3_same's and conv3x3_up2's time goes on the card, for the wgmma routes and the
+ring (PyTorch port).
 
     python3 tools/torch_conv_probe.py [--shapes 4x512x512x128x128,4x128x128x512x512]
         [--flavours products_only,...] [--ring-flavours ring_products_only,...]
+        [--up2-shapes 4x512x512x64x64,...] [--up2-flavours up2_products_only,...]
         [--calls 10] [--json PATH]
 
 Builds ``diffusion_tts_torch/csrc/conv3x3.cu`` (``build.build``), prints
@@ -45,6 +47,30 @@ GroupNorm+SiLU prologue and a bias as the SD decoder makes them:
   * at the first shape, the ring's own flavours (``ring_no_epilogue``,
     ``ring_no_transform``, ``ring_products_only``: the same cuts of PR 8's
     design, timed with ``route="ring"``), which split the ring's time.
+Then, at each B x C x K x H x W up-conv shape (default: the SD-1.5
+decoder's three conv3x3_up2 calls at batch 4, H x W the source), with a bias:
+  * holds the up-conv's wgmma route against ``conv3x3_up2_plain`` within
+    2e-2 of the largest output (on the first image) and two calls bit for
+    bit;
+  * times by CUDA-graph replay the wgmma route, the ring (``route="ring"``)
+    and ``interpolate`` + ``F.conv2d``;
+  * times edited copies of the up-conv's kernel, each its own build:
+      - ``up2_products_only``: no loads (boxes of zero bytes), no transform
+        and no TMA stores: the products and the barrier protocol (the
+        staging tile's stores keep the accumulators, and so the products,
+        live);
+      - ``up2_products_transform``: no loads and no TMA stores: the products
+        and the transform;
+      - ``up2_no_transform``: the consumer warps skip their share of the
+        transform and only arrive (loads, products and epilogue kept);
+      - ``up2_no_epilogue``: no TMA stores (the staging tile's stores kept);
+      - ``up2_w2``: 2 weight slots instead of 3;
+      - ``up2_centre_mn``: at 1-row tiles, the two column phases' centre
+        taps (column shift 0) read their B operand MN-major from 128-byte-
+        swizzled TMA boxes of x ([16 channels][64 pixels], three rows x two
+        halves, 12 KB a stage, riding in the weight slot: 2 slots, so
+        ``up2_w2`` is its control) instead of the transformed patch (a right
+        result: the side shifts still read the patch, which is built whole).
 Prints the card's name and power limit, one line per (shape, epilogue,
 design) and one JSON object last. Needs an NVIDIA card; imports nothing of
 JAX.
@@ -70,6 +96,7 @@ from diffusion_tts_torch.ops.kernels import conv3x3 as cv  # noqa: E402
 OUT_DIR = build.BUILD_DIR.parent / "probe_conv"
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 SHAPES = ((4, 512, 512, 128, 128), (4, 128, 128, 512, 512))
+UP2_SHAPES = ((4, 512, 512, 64, 64), (4, 512, 512, 128, 128), (4, 256, 256, 256, 256))
 
 RINGS = "constexpr int kWgSw = 4, kWgSx = 2, kWgP = 2;  // weight slots, raw slots, patches"
 STORES = ("      tma_store_4d(&omap, out_tile, t.x0, t.y0 + role, t.k0, t.b);\n"
@@ -168,8 +195,74 @@ EDITS = {
                            (RING_ISSUE, "  if (false) {\n    unsigned char* slot"),
                            (RING_STORE, RING_STORE.replace("if (kk >= a.k ||", "if (kk >= 0 ||"))],
 }
-WGMMA_FLAVOURS = [f for f in EDITS if not f.startswith("ring_")]
+
+# The up-conv's kernel (conv3_up2_wgmma_kernel).
+UP2_WLOAD = ("        mbar_expect_tx(wfull(ws), kUpWSlot);\n"
+             "        bulk_load(wslot(ws), wsrc + ((int64_t)(t.k0 / kWgM) * n + s) * (kUpWSlot / 2), "
+             "kUpWSlot,\n                  wfull(ws));\n")
+UP2_LOADS = (UP2_WLOAD + "        mbar_expect_tx(xfull(xs), U::kRawBytes);\n"
+             "        tma_load_4d(xslot(xs), &xmap, xfull(xs), t.x0 - 8, t.y0 - 1, s * kUpChannels, "
+             "t.b);\n")
+UP2_TRANSFORM = "    up2_transform<SR>(xslot(xs), pslot(ps), warp_id, lane);\n"
+UP2_STORES = ("#pragma unroll\n      for (int q = 0; q < 4; ++q)\n"
+              "        tma_store_4d(&omap, out_tile + q * kWgOutBox, 2 * t.x0 + 64 * (q % "
+              "kBoxesPerRow),\n                     2 * (t.y0 + q / kBoxesPerRow) + role, t.k0, "
+              "t.b);\n")
+UP2_RINGS = "constexpr int kUpSw = 3, kUpSx = 2, kUpP = 2;"
+UP2_NO_LOADS = [(UP2_LOADS, "        mbar_expect_tx(wfull(ws), 0);\n"
+                            "        mbar_expect_tx(xfull(xs), 0);\n")]
+# The centre taps' B from TMA boxes of x in the weight slot (after its 32 KB):
+# box q = 2 row + half, [16 channels][64 pixels] of 128-byte rows, swizzled;
+# MN-major descriptors with the halves 2048 bytes apart (LBO) and 8-channel
+# groups 1024 apart (SBO).
+UP2_CENTRE = [
+    (UP2_RINGS, "constexpr int kUpSw = 2, kUpSx = 2, kUpP = 2;"),
+    ("constexpr int kUpWSlot = 16 * kWgTapBytes;     // 32768: one bulk copy",
+     "constexpr int kUpWSlot = 16 * kWgTapBytes + 6 * 2048;"),
+    ("                       const __grid_constant__ CUtensorMap omap, const ConvArgs a) {",
+     "                       const __grid_constant__ CUtensorMap omap, const ConvArgs a,\n"
+     "                       const __grid_constant__ CUtensorMap cmap) {"),
+    (UP2_WLOAD,
+     "        mbar_expect_tx(wfull(ws), 16 * kWgTapBytes + (SR == 1 ? 6 * 2048 : 0));\n"
+     "        bulk_load(wslot(ws), wsrc + ((int64_t)(t.k0 / kWgM) * n + s) * (16 * kWgTapBytes / 2),"
+     "\n                  16 * kWgTapBytes, wfull(ws));\n"
+     "        if (SR == 1)\n"
+     "          for (int q = 0; q < 6; ++q)\n"
+     "            tma_load_4d(wslot(ws) + 16 * kWgTapBytes + q * 2048, &cmap, wfull(ws),\n"
+     "                        t.x0 + 64 * (q & 1), t.y0 - 1 + (q >> 1), s * kUpChannels, t.b);\n"),
+    ("                                             uint32_t pslot, int pa, bool first) {\n",
+     "                                             uint32_t pslot, int pa, bool first) {\n"
+     "  const uint32_t cbox = wslot + 16 * kWgTapBytes;\n"),
+    ("        wgmma_ss<U::kCols>(acc[e][sr], da, db, scale);",
+     "        if (SR == 1 && e + s == 1)\n"
+     "          wgmma_ss_bmn128(*reinterpret_cast<float(*)[64]>(&acc[e][sr][0]), da,\n"
+     "                          wgmma_desc(cbox + (pa + r) * 4096, 2048, 1024, 1), scale);\n"
+     "        else\n"
+     "          wgmma_ss<U::kCols>(acc[e][sr], da, db, scale);"),
+    ("    const int e = encode_map(&om, a.out, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);\n"
+     "    if (e != 0) return e;\n  }\n  cudaError_t err = cudaFuncSetAttribute(conv3_up2_wgmma_kernel<SR>,",
+     "    const int e = encode_map(&om, a.out, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);\n"
+     "    if (e != 0) return e;\n  }\n  CUtensorMap cm;\n  {\n"
+     "    const cuuint64_t dims[4] = {(cuuint64_t)a.w_, (cuuint64_t)a.h, (cuuint64_t)a.c,\n"
+     "                                (cuuint64_t)a.b};\n"
+     "    const cuuint64_t strides[3] = {(cuuint64_t)a.w_ * 2, hw * 2, hw * a.c * 2};\n"
+     "    const cuuint32_t box[4] = {64, 1, kUpChannels, 1};\n"
+     "    const int e = encode_map(&cm, a.x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);\n"
+     "    if (e != 0) return e;\n  }\n"
+     "  cudaError_t err = cudaFuncSetAttribute(conv3_up2_wgmma_kernel<SR>,"),
+    ("stream>>>(xm, om, a);", "stream>>>(xm, om, a, cm);"),
+]
+EDITS.update({
+    "up2_products_only": UP2_NO_LOADS + [(UP2_TRANSFORM, ""), (UP2_STORES, "")],
+    "up2_products_transform": UP2_NO_LOADS + [(UP2_STORES, "")],
+    "up2_no_transform": [(UP2_TRANSFORM, "")],
+    "up2_no_epilogue": [(UP2_STORES, "")],
+    "up2_w2": [(UP2_RINGS, UP2_RINGS.replace("kUpSw = 3", "kUpSw = 2"))],
+    "up2_centre_mn": UP2_CENTRE,
+})
+WGMMA_FLAVOURS = [f for f in EDITS if not f.startswith(("ring_", "up2_"))]
 RING_FLAVOURS = [f for f in EDITS if f.startswith("ring_")]
+UP2_FLAVOURS = [f for f in EDITS if f.startswith("up2_")]
 
 
 def edit(src: str, flavour: str) -> str:
@@ -181,8 +274,8 @@ def edit(src: str, flavour: str) -> str:
 
 
 def build_flavours(flavours) -> dict:
-    """{flavour: the conv3x3_same C entry of its library}, all nvcc
-    processes at once."""
+    """{flavour: the C entry of its library (conv3x3_up2's for the up2_
+    flavours, else conv3x3_same's)}, all nvcc processes at once."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     text = (build.CSRC / "conv3x3.cu").read_text()
     procs = {}
@@ -200,8 +293,12 @@ def build_flavours(flavours) -> dict:
             raise RuntimeError(f"nvcc failed for {fl}:\n{log}")
         print(f"ptxas, flavour {fl}: " + "; ".join(ptxas_of(log)))
         dll = ctypes.CDLL(str(lib))
-        fn = dll.dtts_conv3x3_same
-        fn.restype, fn.argtypes = ctypes.c_int, list(cv._SAME_ARGTYPES)
+        if fl.startswith("up2_"):
+            fn = dll.dtts_conv3x3_up2
+            fn.restype, fn.argtypes = ctypes.c_int, list(cv._UP2_ARGTYPES)
+        else:
+            fn = dll.dtts_conv3x3_same
+            fn.restype, fn.argtypes = ctypes.c_int, list(cv._SAME_ARGTYPES)
         fn.dll = dll
         out[fl] = fn
     return out
@@ -212,7 +309,8 @@ def ptxas_of(log: str) -> list[str]:
     found, cur = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            cur = line.split("'")[1] if "conv3_wgmma_kernel" in line else None
+            cur = line.split("'")[1] if ("conv3_wgmma_kernel" in line
+                                         or "conv3_up2_wgmma_kernel" in line) else None
         elif cur and ("Used" in line or "spill" in line):
             found.append(f"{cur[-40:]}: {line.strip()}")
     return found
@@ -292,11 +390,59 @@ def inputs(b, c, k, h, w, epilogue, seed=0):
     return x, weight, kw
 
 
+def up2_row(spec: str, flavours, libs, calls: int) -> dict:
+    """One up-conv shape: the wgmma route checked against the twin and
+    itself, its device time beside the ring's and the library's, then each
+    edited copy's."""
+    b, c, k, h, w = (int(v) for v in spec.split("x"))
+    g = torch.Generator(device="cuda").manual_seed(c + k + h)
+    x = torch.randn((b, c, h, w), device="cuda", generator=g).bfloat16()
+    weight = (torch.randn((k, c, 3, 3), device="cuda", generator=g) * (9 * c) ** -0.5).bfloat16()
+    bias = (torch.randn((k,), device="cuda", generator=g) * 0.1).bfloat16()
+    out, again = cv.conv3x3_up2(x, weight, bias), cv.conv3x3_up2(x, weight, bias)
+    ref = cv.conv3x3_up2_plain(x[:1], weight, bias)
+    err = ((out[:1].float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    if cv.up2_route(x.dtype, c, k, w) != "wgmma" or not (err <= 2e-2 and torch.equal(out, again)):
+        raise AssertionError(f"up2 {spec}: rel err {err:.3e}, two calls equal "
+                             f"{torch.equal(out, again)}")
+    wg = lambda: cv.conv3x3_up2(x, weight, bias)
+    ring = lambda: cv.conv3x3_up2(x, weight, bias, route="ring")
+    lib = lambda: F.conv2d(F.interpolate(x, scale_factor=2, mode="nearest"), weight, bias,
+                           padding=1)
+    with torch.no_grad():
+        dev, ring_dev, lib_dev = graph_ms([wg, ring, lib], calls)
+    flops = 32 * b * h * w * c * k
+    moved = (x.numel() + weight.numel() + 4 * b * k * h * w) * 2
+    bound = max(flops / PEAK_FLOPS, moved / PEAK_BYTES) * 1e3
+    row = dict(shape=[b, c, k, h, w], epilogue="up2", max_rel_err=err, device_ms=dev,
+               ring_device_ms=ring_dev, library_device_ms=lib_dev, bound_ms=bound,
+               tflops=flops / dev / 1e9, plan=cv.up2_wgmma_plan(b, k, h, w, 132), flavours={})
+    print(f"up2 {spec}: wgmma {dev:.4f} ms ({row['tflops']:.1f} TFLOP/s), ring {ring_dev:.4f} "
+          f"({flops / ring_dev / 1e9:.1f}), interpolate+conv2d {lib_dev:.4f}, bound {bound:.4f}; "
+          f"rel err {err:.3e}, two calls bit-identical")
+    for fl in flavours:
+        with Library(libs[fl]), torch.no_grad():
+            ms = graph_ms([wg], calls)[0]
+        row["flavours"][fl] = ms
+        print(f"    {fl}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+        if fl == "up2_centre_mn":  # a right result: held against the route
+            with Library(libs[fl]), torch.no_grad():
+                mn = wg()
+            row["centre_mn_rel_err"] = ((mn[:1].float() - ref.float()).abs().max()
+                                        / ref.float().abs().max()).item()
+            print(f"      centre_mn rel err {row['centre_mn_rel_err']:.3e}")
+    del x, weight, out, again, ref
+    torch.cuda.empty_cache()
+    return row
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default=",".join("x".join(map(str, s)) for s in SHAPES))
     ap.add_argument("--flavours", default=",".join(WGMMA_FLAVOURS))
     ap.add_argument("--ring-flavours", default=",".join(RING_FLAVOURS))
+    ap.add_argument("--up2-shapes", default=",".join("x".join(map(str, s)) for s in UP2_SHAPES))
+    ap.add_argument("--up2-flavours", default=",".join(UP2_FLAVOURS))
     ap.add_argument("--calls", type=int, default=10)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
@@ -311,13 +457,14 @@ def main(argv=None) -> None:
     print("\n".join(ptxas) or "conv3x3 was built already: no ptxas lines")
     wg_flavours = [f for f in args.flavours.split(",") if f]
     ring_flavours = [f for f in args.ring_flavours.split(",") if f]
-    libs = build_flavours(wg_flavours + ring_flavours)
+    up2_flavours = [f for f in args.up2_flavours.split(",") if f]
+    libs = build_flavours(wg_flavours + ring_flavours + up2_flavours)
 
     rows = []
-    specs = args.shapes.split(",")
+    specs = [spec for spec in args.shapes.split(",") if spec]
     # every shape without and with a residual, then the first with a shortcut
     cases = [(n, spec, epi) for n, spec in enumerate(specs) for epi in ("none", "residual")]
-    for n, spec, epilogue in cases + [(0, specs[0], "shortcut")]:
+    for n, spec, epilogue in cases + ([(0, specs[0], "shortcut")] if specs else []):
         b, c, k, h, w = (int(v) for v in spec.split("x"))
         x, weight, kw = inputs(b, c, k, h, w, epilogue)
         cres = c if epilogue == "shortcut" else 0
@@ -362,6 +509,8 @@ def main(argv=None) -> None:
         rows.append(row)
         del x, weight, kw, out, again
         torch.cuda.empty_cache()
+    for spec in [spec for spec in args.up2_shapes.split(",") if spec]:
+        rows.append(up2_row(spec, up2_flavours, libs, args.calls))
     result = dict(gpu=gpu, ptxas=ptxas, rows=rows)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

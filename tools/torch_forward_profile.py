@@ -46,7 +46,8 @@ CLASSES = (  # (class, substrings of the kernel name), first match wins
                            "gn_stats_finalize_kernel")),
     ("geglu_kernel", ("geglu_gate_kernel", "geglu_out_kernel", "geglu_mma_kernel",
                       "geglu_wgmma_kernel")),
-    ("conv3x3_kernel", ("conv3_kernel", "conv3_ring_kernel", "conv3_wgmma_kernel")),
+    ("conv3x3_kernel", ("conv3_kernel", "conv3_ring_kernel", "conv3_wgmma_kernel",
+                        "conv3_up2_wgmma_kernel")),
     ("optimizer_foreach", ("multi_tensor_apply",)),
     ("conv", ("conv", "xmma", "implicit", "cudnn", "sm90", "nhwc", "nchw")),
     ("group_norm", ("group_norm", "GroupNorm", "welford", "Welford")),
