@@ -11,9 +11,10 @@ Phases, each of which raises on failure (nothing is caught):
      for the conv kernels' wgmma and ring routes (the up-conv's wgmma kernels,
      one per tile height, must not spill), for the attention kernels at
      d = 160 and 256 (the backward's wide mma form among them), for the
-     forward's wgmma kernels (each width, one and two consumer warpgroups)
-     and for GEGLU's (each launch, tile rows and tile columns; the kernel
-     line carries them as ``ptxas``);
+     forward's wgmma kernels (each width, one and two consumer warpgroups,
+     d = 256 at each key split, which must not spill) and for GEGLU's (each
+     launch, tile rows and tile columns; the kernel line carries them as
+     ``ptxas``);
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
@@ -46,15 +47,25 @@ Phases, each of which raises on failure (nothing is caught):
      width, 128 channels, mult (2, 2, 2), 4 blocks, one attention head of
      256 at 16x16 and the decoder's 8x8_in0; bf16, random weights from numpy
      seed 0): the qkv attention kernel at d = 256 against its plain version
-     at [8, 256, 768] and [8, 64, 768] (bf16 on "mma", fp32 with TF32 off on
-     "fma"; kernel, plain, SDPA, bound and ``fma_ms`` times); full-width
+     at [8, 256, 768] and [8, 64, 768] (bf16 on "wgmma" at the plan
+     ``wgmma_plan`` picks: key split, consumer warpgroups; fp32 with TF32
+     off on "fma"; kernel, plain, SDPA,
+     bound and ``fma_ms`` times) and in bf16 at the training shapes
+     [32, 256, 768] and [128, 256, 768]; each bf16 row with the wgmma device
+     time by CUDA-graph replay, the mma.sync design in turns (``mma_ms``) and
+     by replay (``mma_device_ms``), SDPA's device time, the bound, TFLOP/s,
+     the split factor, ptxas's registers and spills of the kernel it
+     launched, and two calls held bit-identical; full-width
      forwards in fp32 and bf16 on the card against fp32 on the CPU (1e-3 /
      5e-2 of the largest magnitude) of the CIFAR-10 net, of NCSN++ (the
      ncsnpp preset under VEPrecond) and of the ImageNet-64 ADM under
      iDDPMPrecond; eps-greedy (18 steps, 2 samples, N=4, K=2, brightness)
      through generate_image_grid(arch="cifar10"): 432 attention launches,
-     all on "mma" (d = 256 stays there); then rejection, beam and MCTS as in 4b (6 launches per
-     denoiser call);
+     all on "wgmma"; then rejection, beam and MCTS as in 4b (6 launches per
+     denoiser call); every bf16 d = 256 shape these searches call (recorded
+     by ``AttentionShapes``: batches 4, 8 and 16 at T = 256 and 64) held
+     against plain and two calls bit for bit, and every (key split,
+     consumer warpgroups) plan they took among the plans so held;
  5. training (the EDM backend's): the attention backward kernels against
      their plain version at the flagship's [16, T, 3C] training shapes (bf16,
      each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
@@ -81,8 +92,8 @@ Phases, each of which raises on failure (nothing is caught):
      card against the CPU as in 5; the CLI's dry run; training_loop at full
      width on an in-memory random 32x32 dataset, batch 64 as 2 rounds of 32,
      dropout 0.10, 1 warm and 4 timed steps: 6 forward and 12 backward
-     attention launches a micro-batch (60 / 120), forward and backward on
-     "mma";
+     attention launches a micro-batch (60 / 120), the forward on "wgmma"
+     (its row statistic read by the backward), the backward on "mma";
  5c. augmented DDPM++ / VP training at the training CLI's defaults
      (--augment 0.12): the EDM augment pipe on the card against the CPU at
      [32, 32, 32, 3] and [16, 64, 64, 3] under injected draws, fp32 with TF32
@@ -90,7 +101,7 @@ Phases, each of which raises on failure (nothing is caught):
      ms per call with the card's own draws, the CLI's dry run (augment_dim 9),
      then training_loop as in 5b with the pipe and a map_augment of 9 inputs:
      step ms and img/s beside 5b's from the same call, the pipe's share of a
-     step, the same 60 / 120 attention launches on "mma";
+     step, the same 60 / 120 attention launches ("wgmma" / "mma");
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
@@ -131,7 +142,9 @@ Phases, each of which raises on failure (nothing is caught):
      the largest rstd), with kernel, plain, library and bound times (5
      repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
      rows as in phase 3 (route: "wgmma" at d = 40, 80, 160, "mma" at the
-     VAE's 512; GEGLU "wgmma" at every bf16 shape, "fma" in fp32;
+     VAE's 512, whose head is also summed on its own at decode batches 4
+     and 1: mma device time, SDPA device time, bound; GEGLU "wgmma" at
+     every bf16 shape, "fma" in fp32;
      ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s; GEGLU's rows
      also name the wgmma plan and hold two calls bit-identical, the split
      depth of the C = 1280 call at M = 128 among them);
@@ -164,8 +177,8 @@ Phases, each of which raises on failure (nothing is caught):
      sigma range: 2 steps in fp32 at batch 2 on the card against the same
      run on the CPU (1e-3 of the largest output), then 18 steps in bf16 at
      batch 8 timed (wall s, NFE/s, peak GiB), its attention launches held
-     against the architecture (6 / 6 / 22 sites x 18 forwards, on "mma" at
-     d = 256 and "wgmma" at the ADM's 64); then eps-greedy (2 samples, N=4, K=2, 6 steps) through
+     against the architecture (6 / 6 / 22 sites x 18 forwards, on "wgmma"
+     at d = 256 and at the ADM's 64); then eps-greedy (2 samples, N=4, K=2, 6 steps) through
      EDMSearchBackend with the iDDPM sampler (22 x 12 launches);
 10. the bench twins, each through its main(argv) on the card, each run's
      launches of every kernel held against the searches it makes: ``bench``
@@ -368,6 +381,12 @@ TRAIN_BATCH, TRAIN_ROUNDS, TRAIN_STEPS = 32, 2, 5
 # per forward), one head of 256: the four 16x16 encoder blocks and the
 # decoder's 16x16_block4 at T = 256, the decoder's 8x8_in0 at T = 64.
 CIFAR_SITES, CIFAR_D = ((256, 1, 5), (64, 1, 1)), 256
+# Phase 4d's d = 256 rows beside the search's: the training micro-batch and
+# train_bench --arch cifar10 --batch 128 at the 16x16 sites.
+CIFAR_TRAIN_SHAPES = ((32, 256), (128, 256))
+# ptxas's register and spill lines of the d = 256 wgmma kernels, by
+# (consumer warpgroups, key split) (phase 2 fills it from the build's log).
+D256_PTXAS: dict[tuple[int, int], list[str]] = {}
 # NCSN++ (the training CLI's ncsnpp preset) at CIFAR-10's size and labels
 NCSNPP_CIFAR = dict(edm_entry.CIFAR10_DDPMPP, model_kwargs=dict(
     train_cli.ARCH_PRESETS["ncsnpp"]["model_kwargs"], dropout=0.0))
@@ -391,10 +410,9 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
                   "conv3x3_up2": cv.UP2_ROUTE_LAUNCHES, "group_norm_silu": gn.ROUTE_LAUNCHES}
 # Each kernel's redesigned route, which every launch of a main path must take.
 # The attention forward's follows the head width (qk.forward_route at bf16):
-# "wgmma" at the ADM's 64 and the SD UNet's 40, 80 and 160, the widths of
-# FAST_ROUTE's entry; "mma" at the DDPM++ net's 256 and the VAE's 512, which
-# a path at those widths names (check_routes's ``routes``), and an SD search
-# splits its launches between the two (sd_attention_routes).
+# "wgmma" at the ADM's 64, the SD UNet's 40, 80 and 160 and the DDPM++ net's
+# 256, the widths of FAST_ROUTE's entry; "mma" at the VAE's 512, so that an
+# SD search splits its launches between the two (sd_attention_routes).
 FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "wgmma",
               "conv3x3_same": "wgmma", "conv3x3_up2": "wgmma", "group_norm_silu": "slab"}
 
@@ -596,17 +614,25 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
     max_rel = max_abs / ref.float().abs().max().item()  # relative to the largest output
     tol = TOL[dtype]
     ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
+    plan = None
+    if d == CIFAR_D and qk.forward_route(dtype, d) == "wgmma":
+        # the DDPM++ head's plan (key split, consumer warpgroups), as the
+        # launch takes it: two calls bit for bit the same
+        plan = qk.wgmma_plan(d, b, heads, t, *qk.card_limits(qkv.device))
+        if not torch.equal(out, qk.qkv_self_attention(qkv, heads)):
+            raise AssertionError(f"qkv_attention [{b}, {t}] at d = {d}: two calls differ")
     if not timed:
         print(f"  qkv_attention {[b, t, 3 * heads * d]} {str(dtype).split('.')[-1]:>8} "
-              f"heads={heads:2d}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) "
-              f"[{tag}]")
+              f"heads={heads:2d}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol})"
+              f"{'' if plan is None else f', plan {plan}, two calls bit-identical'} [{tag}]")
         if not ok:
             raise AssertionError(f"qkv_attention [{b}, {t}] disagrees with its plain version")
-        return dict(shape=[b, t, 3 * heads * d], max_abs_err=max_abs, max_rel_err=max_rel)
+        return dict(shape=[b, t, 3 * heads * d], dtype=str(dtype).split(".")[-1],
+                    max_abs_err=max_abs, max_rel_err=max_rel, plan=plan)
     q, k, v = (x.reshape(b, t, heads, d).transpose(1, 2).contiguous()
                for x in qkv.chunk(3, dim=-1))
     row = dict(shape=[b, t, 3 * heads * d], heads=heads, dtype=str(dtype).split(".")[-1],
-               max_abs_err=max_abs, max_rel_err=max_rel,
+               max_abs_err=max_abs, max_rel_err=max_rel, plan=plan,
                ms=time_ms(lambda: qk.qkv_self_attention(qkv, heads)),
                plain_ms=time_ms(lambda: qk.qkv_self_attention_plain(qkv, heads), reps=5),
                library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
@@ -618,6 +644,13 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
                             lambda: qk.qkv_self_attention(qkv, heads),
                             lambda: qk.qkv_self_attention(qkv, heads, route="mma"),
                             lambda: F.scaled_dot_product_attention(q, k, v))
+        if plan is not None:  # the key split and its kernel's registers
+            row["split"], row["consumers"] = plan
+            row["ptxas"] = D256_PTXAS.get((row["consumers"], row["split"]))
+            row["device_tflops"] = 4 * b * heads * t * t * d / row["device_ms"] / 1e9
+            print(f"    d = {d}: key split {row['split']}, {row['consumers']} consumer "
+                  f"warpgroup(s), device {row['device_tflops']:.1f} TFLOP/s, ptxas "
+                  f"{row['ptxas']}")
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) fma_ms={row['fma_ms']:.4f} "
@@ -701,7 +734,8 @@ def edm_phases(tag: str) -> tuple[list[dict], dict]:
             and result.images.shape == (SAMPLES, 64, 64, 3)
             and 0 <= result.images.min() <= result.images.max() <= 1):
         raise AssertionError("EDM main path output is not finite images in [0, 1]")
-    searches = edm_methods_phase(net, tag)
+    searches, batches = edm_methods_phase(net, tag)
+    check_method_batches("EDM", batches, tag)
     rewards = edm_rewards_phase(net, tag)
     del net
     torch.cuda.empty_cache()
@@ -1443,6 +1477,14 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
     rows = [check_attention(N * SAMPLES, t, heads, dtype, tag, d=CIFAR_D)
             for dtype in (torch.bfloat16, torch.float32) for t, heads, _ in CIFAR_SITES]
     main_rows = rows[:len(CIFAR_SITES)]
+    train_rows = [check_attention(b, t, 1, torch.bfloat16, tag, d=CIFAR_D)
+                  for b, t in CIFAR_TRAIN_SHAPES]
+    print("d = 256 forward by device time (CUDA-graph replay), ms a call:")
+    for r in main_rows + train_rows:
+        print(f"  {r['shape']}: {r['route']} {r['device_ms']:.4f} (split {r['split']}, "
+              f"{r['device_tflops']:.1f} TFLOP/s), mma {r['mma_device_ms']:.4f}, SDPA "
+              f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+              f"in turns: {r['route']} {r['ms']:.4f}, mma {r['mma_ms']:.4f} [{tag}]")
 
     g = torch.Generator().manual_seed(6)
     sigma = torch.tensor([80.0, 0.5])
@@ -1464,6 +1506,7 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
     search = lambda: generate_image_grid(
         arch="cifar10", scorer=BrightnessScorer(), method="eps_greedy", params=params, seed=0,
         gridw=SAMPLES, num_steps=STEPS, dtype=torch.bfloat16, device="cuda", net=net)
+    shapes = AttentionShapes()  # every search's attention calls, by shape
     reset_launches()
     result, first_s = timed_run(search)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1487,7 +1530,11 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
             and result.images.shape == (SAMPLES, 32, 32, 3)
             and 0 <= result.images.min() <= result.images.max() <= 1):
         raise AssertionError("CIFAR-10 path output is not finite images in [0, 1]")
-    searches = edm_methods_phase(net, tag, arch="cifar10", sites_of=CIFAR_SITES, d=CIFAR_D)
+    searches, batches = edm_methods_phase(net, tag, arch="cifar10",
+                                          sites_of=CIFAR_SITES, d=CIFAR_D)
+    shapes.remove()
+    method_rows = check_method_batches("EDM cifar10", batches, tag, CIFAR_SITES, CIFAR_D)
+    plans = check_search_plans(shapes.counts, rows + train_rows + method_rows, tag)
     del net
     torch.cuda.empty_cache()
     per_forward = lambda key: sum(r[key] * n for r, (_, _, n) in zip(main_rows, CIFAR_SITES))
@@ -1500,12 +1547,41 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
         # batch (N * samples), summed
         "ms": per_forward("ms"), "plain_ms": per_forward("plain_ms"),
         "bound_ms": per_forward("bound_ms"), "library_ms": per_forward("library_ms"),
-        "fma_ms": per_forward("fma_ms"), "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "fma_ms": per_forward("fma_ms"),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + train_rows + method_rows),
         "mma_ms": per_forward("mma_ms"), "device_ms": per_forward("device_ms"),
+        "mma_device_ms": per_forward("mma_device_ms"),
         "library_device_ms": per_forward("library_device_ms"),
         "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
-        "nfe_per_s": nfe / again_s, "shapes": rows,
+        "nfe_per_s": nfe / again_s, "shapes": rows + train_rows, "search_plans": plans,
     }
+
+
+def check_search_plans(counts: collections.Counter, rows: list[dict], tag: str) -> dict:
+    """Every bf16 d = 256 shape the CIFAR-10 searches called (``counts``,
+    from AttentionShapes) must have a row of ``rows`` that held it against
+    plain and ran it twice bit for bit, and every (key split, consumer
+    warpgroups) plan those calls took (``qk.wgmma_plan``, the launch's own
+    choice) must be among the rows' plans. Returns {plan: [[B, T], ...]}."""
+    limits = qk.card_limits(torch.device("cuda"))
+    searched = {(b, t): qk.wgmma_plan(d, b, heads, t, *limits)
+                for b, t, heads, d, dtype in counts if d == CIFAR_D and dtype == torch.bfloat16}
+    held = {tuple(r["shape"][:2]): tuple(r["plan"]) for r in rows
+            if r.get("plan") is not None and r["dtype"] == "bfloat16"}
+    plans = collections.defaultdict(list)
+    for (b, t), plan in sorted(searched.items()):
+        plans[plan].append([b, t])
+    print(f"CIFAR-10 searches' d = 256 plans (key split, consumer warpgroups): "
+          f"{dict(plans)}; held: {sorted(set(held.values()))} [{tag}]")
+    if not searched:
+        raise AssertionError("the CIFAR-10 searches made no bf16 d = 256 attention call")
+    if set(searched) - set(held):
+        raise AssertionError(f"CIFAR-10 search shapes not held against plain: "
+                             f"{sorted(set(searched) - set(held))}")
+    if set(searched.values()) - set(held.values()):
+        raise AssertionError(f"CIFAR-10 search plans not held against plain: "
+                             f"{sorted(set(searched.values()) - set(held.values()))}")
+    return {str(plan): shapes for plan, shapes in plans.items()}
 
 
 def cifar_training_phase(tag: str) -> dict:
@@ -1852,6 +1928,8 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
         if name in ROUTE_COUNTERS:  # launches of the search per design
             lines[-1]["routes"] = routes[name]
         lines[-1]["method_launches"] = {r["method"]: r["launches"][name] for r in searches}
+        if name == "attention":
+            lines[-1]["d512"] = vae_head_rows(rows, tag)
     gn_line = next(line for line in lines if line["name"] == "group_norm_silu")
     gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
     if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
@@ -1861,6 +1939,27 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
             "checked": {name: checked[name] | other_shapes[name] for name in checked}}
     move_kept(kept, "cpu")
     return searches + rewards, lines, checked, kept
+
+
+def vae_head_rows(rows: list[dict], tag: str) -> list[dict]:
+    """The VAE mid-block's d = 512 head on its own, at decode batches 4 (the
+    search's candidates) and 1 (its final decode) of 64x64 latents: the mma
+    route's device time, SDPA's and the bound, a call each (the search's
+    rows where it gave the shape, else a check of its own)."""
+    out = []
+    for b in (4, 1):
+        key = (b, SD15_UNET["sample_size"] ** 2, 1, 512)
+        row = next((r for r in rows if tuple(r["shape"]) == key and r["dtype"] == "bfloat16"),
+                   None) or check_sd_attention(key, torch.bfloat16, tag)
+        out.append(dict(batch=b, calls_per_search=row.get("calls_per_search", 0),
+                        route=row["route"], device_ms=row["device_ms"],
+                        library_device_ms=row["library_device_ms"], bound_ms=row["bound_ms"],
+                        bound_by=row["bound_by"], ms=row["ms"], plain_ms=row["plain_ms"],
+                        library_ms=row["library_ms"]))
+        print(f"VAE head d = 512 at {list(key)}: {row['route']} device {row['device_ms']:.4f} "
+              f"ms, SDPA device {row['library_device_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+              f"ms ({row['bound_by']}), {out[-1]['calls_per_search']} calls a search [{tag}]")
+    return out
 
 
 def move_kept(kept: dict, device: str) -> float:
@@ -2089,9 +2188,8 @@ def edm_methods_phase(net: torch.nn.Module, tag: str, arch: str = "imagenet64",
                       sites_of: tuple = SITES, d: int = 64) -> list[dict]:
     """Phases 4b and 4d: rejection, beam and MCTS through generate_image_grid
     on the ``arch`` net (attention sites ``sites_of``, heads of width ``d``),
-    each run's launches held against its structure, then the qkv attention
-    kernel against its plain version at the batches these searches give it
-    and eps-greedy's does not."""
+    each run's launches held against its structure. Returns (the searches'
+    lines, the batches they gave the net)."""
     sites = sum(n for _, _, n in sites_of)
     res = edm_entry.NET_CONFIGS[arch]["img_resolution"]
     path = "EDM" if arch == "imagenet64" else f"EDM {arch}"
@@ -2132,11 +2230,17 @@ def edm_methods_phase(net: torch.nn.Module, tag: str, arch: str = "imagenet64",
                     raise AssertionError(f"two {path} MCTS runs from one seed differ")
     finally:
         capture.remove()
+    return lines, batches
+
+
+def check_method_batches(path: str, batches: set, tag: str, sites_of: tuple = SITES,
+                         d: int = 64) -> list[dict]:
+    """The qkv attention kernel against its plain version (untimed) at the
+    batches edm_methods_phase's searches gave the net and eps-greedy's
+    does not."""
     print(f"{path} kernels vs plain at the other searches' batches (untimed):")
-    for b in sorted(batches - {N * SAMPLES}):
-        for t, heads, _ in sites_of:
-            check_attention(b, t, heads, torch.bfloat16, tag, timed=False, d=d)
-    return lines
+    return [check_attention(b, t, heads, torch.bfloat16, tag, timed=False, d=d)
+            for b in sorted(batches - {N * SAMPLES}) for t, heads, _ in sites_of]
 
 
 @torch.no_grad()
@@ -3321,13 +3425,18 @@ def main() -> None:
             kind = f"launch {1 if gate == '1' else 2}, {nc} consumer warpgroup(s), {bn} B rows"
             geglu_ptxas[kind] = lines
             print(f"ptxas, geglu_ff wgmma {kind}: " + "; ".join(lines))
-    if "qkv_attention" in built:  # the wgmma route's kernels, by <D, consumers, K/V tile>
+    if "qkv_attention" in built:  # the wgmma route's kernels, by <D, consumers, K/V tile, split>
         for entry, lines in ptxas_lines(built["qkv_attention"][1],
                                         "attention_wgmma_kernel").items():
-            d, nc, bk = re.search(r"attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
-                                  entry).groups()
+            d, nc, bk, split = re.search(
+                r"attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry).groups()
+            if d == str(CIFAR_D):
+                D256_PTXAS[(int(nc), int(split))] = lines
+                if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines):
+                    raise AssertionError(f"the d = 256 wgmma kernel ({nc} consumer warpgroup(s), "
+                                         f"key split {split}) spills: {lines}")
             print(f"ptxas, qkv_attention wgmma D = {d}, {nc} consumer warpgroup(s), {bk}-key "
-                  f"tiles: " + "; ".join(lines))
+                  f"tiles, key split {split}: " + "; ".join(lines))
 
     phase_s = {"build": time.perf_counter() - t0}
 

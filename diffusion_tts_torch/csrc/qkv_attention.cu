@@ -24,18 +24,17 @@
 //
 // Routes. The caller picks one (ops/kernels/qkv_attention.py::forward_route)
 // and this file obeys:
-//   * wgmma (route 2): bf16 at d = 40, 64, 80, 160, the ADM's and the SD
-//     UNet's widths. Hopper's asynchronous warpgroup products (wgmma) fed by
-//     TMA, below.
+//   * wgmma (route 2): bf16 at d = 40, 64, 80, 160, 256, the ADM's, the SD
+//     UNet's and the CIFAR-10 DDPM++ net's widths. Hopper's asynchronous
+//     warpgroup products (wgmma) fed by TMA, below.
 //   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, 512, the
 //     first tensor-core design: the products run through the warp-level mma.sync
 //     m16n8k16 (bf16 operands, fp32 accumulators: exactly the arithmetic of
-//     the function above). The route takes d = 16 and 32 (test nets), 256
-//     (the CIFAR-10 DDPM++ net's one head) and 512 (the SD VAE's one head);
-//     forced (route="mma") it also takes the wgmma widths, which times this
-//     design beside the new one. d = 256 stays here: its grids are 32-64
-//     blocks of 64 rows for 132 SMs and its calls are bound by the host
-//     (PERF.md). d = 512 stays here: it beats SDPA at the VAE's batch 4.
+//     the function above). The route takes d = 16 and 32 (test nets) and 512
+//     (the SD VAE's one head); forced (route="mma") it also takes the wgmma
+//     widths, 256 among them, which times this design beside the new one.
+//     d = 512 stays here: a warpgroup's 64 x 512 fp32 O would be 256
+//     registers a thread, more than a thread may hold.
 //   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
 //     8. The products run on the CUDA cores in fp32 FMA, so that fp32 holds
 //     1e-4 against an fp32 reference with TF32 off (a TF32 product would
@@ -45,8 +44,10 @@
 //   * Work tiles of (batch, head, 64 NC q rows): NC consumer warpgroups of
 //     64 rows each and one producer warp. NC = 2 (128-row tiles) unless
 //     T <= 64 or 128-row tiles would give the grid fewer tiles than the
-//     card has SMs (the SD UNet's [2, 256, 8, 160]: 32 tiles); then NC = 1
-//     (the C entry picks it from the SM count).
+//     card has SMs (the SD UNet's [2, 256, 8, 160]: 32 tiles); then NC = 1,
+//     at d = 256 too, where a key split (below) takes NC = 1. The caller
+//     picks NC with the split (ops/kernels/qkv_attention.py::wgmma_plan)
+//     and the C entry takes both as they are.
 //   * Persistent: min(tiles, SMs) blocks, each walking the tiles blockIdx.x,
 //     + gridDim.x, ... (q tile fastest, so the tiles in flight share K and V
 //     in L2). The producer loads the next tile's Q and first K/V tiles while
@@ -87,8 +88,32 @@
 //     rescale by the previous tile's factor runs while S_j does. The two
 //     warpgroups take turns to issue (named barriers 1 and 2), so one's
 //     exponentials run while the other's products do.
-//   * Nothing gives way: a refused encode, launch or misaligned input is an
-//     error (the wrapper raises), never a fall back to the mma route.
+//   * d = 256, the DDPM++ net's single head: a consumer warpgroup's 64 x 256
+//     fp32 O is 128 registers a thread, S 32 and P 16 (ptxas: 210). One
+//     consumer warpgroup and the producer warp, 160 threads, so that a
+//     thread may hold 255 registers (two warps a sub-partition), a 3-stage
+//     ring, 230,512 bytes of shared memory; or, where 128-row tiles fill
+//     the card (the training batches), the up-conv's layout (csrc/
+//     conv3x3.cu): two consumer warpgroups taking turns and a producer
+//     warpgroup, setmaxnreg 40 / 232, a 2-stage ring (197,736 bytes): two
+//     warpgroups share each K/V tile, which halves what the products read
+//     from L2. 64-key K/V tiles, d as four 64-column boxes swizzled at 128
+//     bytes, P.V at m64n256k16; S is computed once for all of O's columns
+//     (the mma route's two warp groups compute it twice).
+//   * d = 256's key split: where the q tiles leave the card short of SMs
+//     (the serving path's [8, 256, 768]: 32 tiles of 64 rows for 132 SMs),
+//     each tile's keys are split over a thread-block cluster of 2 or 4
+//     CTAs, whose partial (O, m, l) are merged through distributed shared
+//     memory (attention_wgmma_kernel's comment). The caller picks the factor
+//     (ops/kernels/qkv_attention.py::wgmma_split) from the SM count and from
+//     how many such clusters the card holds at once
+//     (dtts_attention_split_clusters: a cluster needs free SMs of one GPC):
+//     on an H100 a second wave of clusters costs more than the split saves.
+//     The training batches (128 and 512 tiles) run unsplit on the
+//     persistent grid.
+//   * Nothing gives way: a refused encode, launch (a cluster launch among
+//     them) or misaligned input is an error (the wrapper raises), never a
+//     fall back to the mma route.
 //
 // The mma route, FlashAttention-2 style:
 //   * One block per (batch, head, 64-row q tile); four warps each own 16 q
@@ -117,14 +142,12 @@
 //     with S recomputed per 128-column block, costs 2.5x). Q stays in shared
 //     memory there and its fragments are loaded per step; K/V tiles are 32
 //     keys; 199,680 bytes of shared memory, one block per SM.
-//   * d = 256, the DDPM++ net's single head: one warp's 16 x 256 fp32 O
-//     accumulator would be 128 registers a thread before S (32), the row
-//     state and the addresses, close to the 255 a thread may have. The
-//     d = 512 split serves here too: two warp groups of 4, 128 O columns
-//     (64 registers) each, 64-key K/V tiles, Q in shared memory; 168,960
-//     bytes of shared memory, one block per SM. Its 8 warps also give the
-//     SM twice the warps of the one-group form, which counts at the DDPM++
-//     net's grids: [8, 256, 768] is 32 blocks of 64 rows for 132 SMs.
+//   * d = 256 (served when forced; its own route is wgmma): one warp's
+//     16 x 256 fp32 O accumulator would be 128 registers a thread before S
+//     (32), the row state and the addresses, close to the 255 a thread may
+//     have. The d = 512 split serves here too: two warp groups of 4, 128 O
+//     columns (64 registers) each, 64-key K/V tiles, Q in shared memory;
+//     168,960 bytes of shared memory, one block per SM.
 //
 // The fma route:
 //   * One block is one (batch, head, BQ-row q tile) of 256 threads as
@@ -608,26 +631,39 @@ __device__ __forceinline__ float ex2(float x) {
 
 
 // Tile shapes of the wgmma route for head width D and K/V tiles of BK keys
-// (128; 64 at d = 160, and at T <= 64, where a 128-key tile is half masked).
+// (128; 64 at d = 160 and 256, and at T <= 64, where a 128-key tile is half
+// masked).
 template <int D, int BK = (D > 128 ? 64 : 128)>
 struct WgTiles {
   static constexpr int kDS = (D + 15) / 16 * 16;  // S's depth: D padded to k16 (40 -> 48)
   // Columns a TMA box carries: 16, 32 or 64 bf16 (32-, 64- or 128-byte rows,
   // swizzled at that width).
-  static constexpr int kBW = D == 64 ? 64 : D == 160 ? 32 : 16;
+  static constexpr int kBW = D == 64 || D == 256 ? 64 : D == 160 ? 32 : 16;
   static constexpr int kDP = (D + kBW - 1) / kBW * kBW;  // columns the boxes cover; P.V's N
   static constexpr int kRowBytes = 2 * kBW;
   static constexpr int kBoxes = kDP / kBW;
   static constexpr uint32_t kMode = kBW == 64 ? 1 : kBW == 32 ? 2 : 3;  // descriptor swizzle
   static constexpr int kBK = BK;                  // keys per K/V tile
   // K/V ring depth: 2 at d = 40 and 80, 3 at 64 and 160, the faster of 2,
-  // 3 and 4 at each width (tools/torch_attention_fwd_probe.py).
+  // 3 and 4 at each width (tools/torch_attention_fwd_probe.py); 3 at 256
+  // (2 with two consumer warpgroups: stages()).
   static constexpr int kStages = D == 40 || D == 80 ? 2 : 3;
   static constexpr int kQBytes = 64 * kDP * 2;    // one consumer warpgroup's 64 q rows
   static constexpr int kTileBytes = kBK * kDP * 2;  // one K or V tile
-  static constexpr int smem_bytes(int nc) {
-    return 1024 + nc * kQBytes + 2 * kStages * kTileBytes + 8 * (2 + 4 * kStages);
+  // d = 256 with two consumer warpgroups: two 32 KB Q tiles leave room for
+  // 2 stages.
+  __host__ __device__ static constexpr int stages(int nc) {
+    return D == 256 && nc == 2 ? 2 : kStages;
   }
+  static constexpr int smem_bytes(int nc) {
+    return 1024 + nc * kQBytes + 2 * stages(nc) * kTileBytes + 8 * (2 + 4 * stages(nc));
+  }
+  // A key split's partial (one consumer warpgroup), written over the ring
+  // once its last tile is read: O unnormalized, 64 rows kXPitch floats apart
+  // (8 floats of padding: a half-warp's float2 stores hit 32 banks), then
+  // each row's (m, l).
+  static constexpr int kXPitch = kDP + 8;
+  static constexpr int kXBytes = 64 * kXPitch * 4 + 64 * 8;
   static_assert(kDP % 16 == 0 && kDP <= 256, "P.V runs at N = kDP");
 };
 
@@ -637,20 +673,46 @@ struct WgTiles {
 // order, q tile fastest, so the tiles in flight share their K and V in L2;
 // the producer loads the next tile's Q and first K/V tiles while the
 // consumers finish the current one. The producer is a lone warp: with
-// three warps on each SM sub-partition a thread may hold 168 registers, all
-// the consumers need at BK = 128.
-template <int NC>
-constexpr int wgmma_threads() { return 128 * NC + 32; }
+// three warps on each SM sub-partition (NC = 2) a thread may hold 168
+// registers, all the consumers need at BK = 128; with two (NC = 1) it may
+// hold 255, which d = 256's 64 x 256 fp32 O (128 a thread) needs.
+//
+// SPLIT > 1 (d = 256, NC = 1): clusters of SPLIT CTAs, one work tile a
+// cluster (the grid is work * SPLIT blocks). CTA `rank` of the cluster takes
+// the tile's K/V tiles [rank n / SPLIT, (rank + 1) n / SPLIT) of n, runs the
+// online softmax over them and leaves its unnormalized O and its rows' (m, l)
+// in its shared memory. After a cluster barrier each CTA reads every CTA's
+// (m, l) through distributed shared memory, takes M = max m_i and L =
+// sum l_i exp2(m_i - M) in rank order, and writes O's columns [rank kDP /
+// SPLIT, (rank + 1) kDP / SPLIT) as sum_i O_i exp2(m_i - M) / L, also in rank
+// order: every CTA merges the same way, so two runs are bit-identical. CTA 0
+// writes lse = M + log2 L. A second cluster barrier keeps each CTA's shared
+// memory until the others have read it.
+//
+// d = 256 with two consumer warpgroups (128-row tiles, where they fill the
+// card: the training batches): the producer is a whole warpgroup, so that
+// setmaxnreg can move registers to the consumers (kWgProducerRegs /
+// kWgConsumerRegs): ptxas gives the 384-thread block 168 a thread, and a
+// consumer needs about 210.
+template <int D, int NC>
+constexpr bool kProducerWarpgroup = D == 256 && NC == 2;
+template <int D, int NC>
+constexpr int wgmma_threads() { return 128 * NC + (kProducerWarpgroup<D, NC> ? 128 : 32); }
+constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
+static_assert(2 * 128 * kWgConsumerRegs + 128 * kWgProducerRegs <= 384 * 168,
+              "setmaxnreg shares out no more than the launch gave");
 
-template <int D, int NC, int BKV>
-__global__ void __launch_bounds__(wgmma_threads<NC>(), 1)
+template <int D, int NC, int BKV, int SPLIT>
+__global__ void __launch_bounds__(wgmma_threads<D, NC>(), 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int h,
                        int t, int work, int64_t out_sb, int64_t out_st, int64_t out_sh,
                        float scale_log2e, float* __restrict__ lse) {
   using C = WgTiles<D, BKV>;
-  constexpr int BK = C::kBK, S = C::kStages, RB = C::kRowBytes;
+  constexpr int BK = C::kBK, S = C::stages(NC), RB = C::kRowBytes;
+  static_assert(SPLIT == 1 || (NC == 1 && C::kXBytes <= 2 * S * C::kTileBytes),
+                "a key split takes one consumer warpgroup and a partial the ring can hold");
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   // Swizzled tiles need their swizzle's alignment; 1024 bytes serves all three.
   const uint32_t base = (dtts::smem_addr(wg_smem) + 1023u) & ~1023u;
@@ -664,10 +726,18 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto v_full = [&](int s) { return bar + 8u * (2 + S + s); };
   auto k_empty = [&](int s) { return bar + 8u * (2 + 2 * S + s); };
   auto v_empty = [&](int s) { return bar + 8u * (2 + 3 * S + s); };
+  // A shared address as a generic pointer.
+  auto smem_ptr = [&](uint32_t addr) { return wg_smem + (addr - dtts::smem_addr(wg_smem)); };
 
-  const int w = threadIdx.x / 128;  // the consumer warpgroup; NC is the producer warp
+  const int w = threadIdx.x / 128;  // the consumer warpgroup; NC is the producer
   const int qtiles = (t + 64 * NC - 1) / (64 * NC);
-  const int ntiles = (t + BK - 1) / BK;  // K/V tiles per work tile
+  // The K/V tiles [j0, j0 + ntiles) of each work tile: all of them, or this
+  // CTA's share of a key split (none where SPLIT exceeds the tiles).
+  const int rank = SPLIT == 1 ? 0 : (int)dtts::cluster_ctarank();
+  const int kv_tiles = (t + BK - 1) / BK;
+  const int j0 = rank * kv_tiles / SPLIT;
+  const int ntiles = (rank + 1) * kv_tiles / SPLIT - j0;
+  const int first = blockIdx.x / SPLIT, stride = gridDim.x / SPLIT;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -683,9 +753,11 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   if (w == NC) {
-    if (threadIdx.x == 128 * NC) {
+    if constexpr (kProducerWarpgroup<D, NC>)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgProducerRegs));
+    if (threadIdx.x == 128 * NC && ntiles > 0) {
       int it = 0;  // K/V tiles loaded so far, over all work tiles: the ring's position
-      for (int tile = blockIdx.x, n = 0; tile < work; tile += gridDim.x, ++n) {
+      for (int tile = first, n = 0; tile < work; tile += stride, ++n) {
         const int q0 = tile % qtiles * 64 * NC, head = tile / qtiles % h;
         const int batch = tile / qtiles / h;
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // the previous tile's S is done
@@ -700,16 +772,18 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           mbar_expect_tx(k_full(s), C::kTileBytes);
           for (int bx = 0; bx < C::kBoxes; ++bx)
             tma_load_4d(k_s + s * C::kTileBytes + bx * BK * RB, &kmap, k_full(s), bx * C::kBW,
-                        head, j * BK, batch);
+                        head, (j0 + j) * BK, batch);
           if (it >= S) mbar_wait(v_empty(s), parity);
           mbar_expect_tx(v_full(s), C::kTileBytes);
           for (int bx = 0; bx < C::kBoxes; ++bx)
             tma_load_4d(v_s + s * C::kTileBytes + bx * BK * RB, &vmap, v_full(s), bx * C::kBW,
-                        head, j * BK, batch);
+                        head, (j0 + j) * BK, batch);
         }
       }
     }
   } else {
+    if constexpr (kProducerWarpgroup<D, NC>)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
     // Consumer warpgroup w: q rows q0 + 64 w ... q0 + 64 w + 63 of each work tile.
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, tq = lane & 3;
@@ -825,7 +899,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     if (w == 1) pass_turn();  // warpgroup 0 goes first
     int it = 0;  // K/V tiles consumed so far, over all work tiles
-    for (int tile = blockIdx.x, n = 0; tile < work; tile += gridDim.x, ++n, it += ntiles) {
+    for (int tile = first, n = 0; tile < work; tile += stride, ++n, it += ntiles) {
       const int q0 = tile % qtiles * 64 * NC, head = tile / qtiles % h;
       const int batch = tile / qtiles / h;
 #pragma unroll
@@ -834,63 +908,83 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       l[0] = l[1] = 0.f;
       float alpha[2];
 
-      mbar_wait(q_full, n & 1);
-      mbar_wait(k_full(it % S), (it / S) & 1);
-      take_turn();
-      wgmma_fence();
-      issue_s(sc, it % S);
-      wgmma_commit();
-      pass_turn();
-      wgmma_wait<0>();
-      fence_regs(sc);
-      release(k_empty(it % S));
-      if (ntiles == 1) release(q_empty);  // Q is read: the next tile's may come
-      softmax(0, alpha);
-      pack();
-
-      for (int j = 1; j < ntiles; ++j) {
-        const int s = (it + j) % S, sp = (it + j - 1) % S;
-        // S_j on the tensor cores, then P_{j-1}.V_{j-1} behind it; the
-        // softmax of S_j runs while P.V is in flight. O's rescale by the
-        // previous tile's alpha runs while S_j does.
-        mbar_wait(k_full(s), ((it + j) / S) & 1);
+      if (ntiles > 0) {
+        mbar_wait(q_full, n & 1);
+        mbar_wait(k_full(it % S), (it / S) & 1);
         take_turn();
-        fence_regs(acc);
         wgmma_fence();
-        issue_s(sc, s);
-        wgmma_commit();
-        rescale(alpha);
-        mbar_wait(v_full(sp), ((it + j - 1) / S) & 1);
-        fence_regs(acc);
-        wgmma_fence();
-        issue_pv(acc, p, sp);
+        issue_s(sc, it % S);
         wgmma_commit();
         pass_turn();
-        wgmma_wait<1>();
+        wgmma_wait<0>();
         fence_regs(sc);
-        release(k_empty(s));
-        if (j == ntiles - 1) release(q_empty);
-        softmax(j, alpha);
+        release(k_empty(it % S));
+        if (ntiles == 1) release(q_empty);  // Q is read: the next tile's may come
+        softmax(j0, alpha);
+        pack();
+
+        for (int j = 1; j < ntiles; ++j) {
+          const int s = (it + j) % S, sp = (it + j - 1) % S;
+          // S_j on the tensor cores, then P_{j-1}.V_{j-1} behind it; the
+          // softmax of S_j runs while P.V is in flight. O's rescale by the
+          // previous tile's alpha runs while S_j does.
+          mbar_wait(k_full(s), ((it + j) / S) & 1);
+          take_turn();
+          fence_regs(acc);
+          wgmma_fence();
+          issue_s(sc, s);
+          wgmma_commit();
+          rescale(alpha);
+          mbar_wait(v_full(sp), ((it + j - 1) / S) & 1);
+          fence_regs(acc);
+          wgmma_fence();
+          issue_pv(acc, p, sp);
+          wgmma_commit();
+          pass_turn();
+          wgmma_wait<1>();
+          fence_regs(sc);
+          release(k_empty(s));
+          if (j == ntiles - 1) release(q_empty);
+          softmax(j0 + j, alpha);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          release(v_empty(sp));
+          pack();
+        }
+        const int sl = (it + ntiles - 1) % S;
+        mbar_wait(v_full(sl), ((it + ntiles - 1) / S) & 1);
+        take_turn();
+        rescale(alpha);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_pv(acc, p, sl);
+        wgmma_commit();
+        // Warpgroup 1 was handed one turn before the first: it hands back all
+        // but its last.
+        if (w == 0 || tile + stride < work) pass_turn();
         wgmma_wait<0>();
         fence_regs(acc);
-        release(v_empty(sp));
-        pack();
+        release(v_empty(sl));
       }
-      const int sl = (it + ntiles - 1) % S;
-      mbar_wait(v_full(sl), ((it + ntiles - 1) / S) & 1);
-      take_turn();
-      rescale(alpha);
-      fence_regs(acc);
-      wgmma_fence();
-      issue_pv(acc, p, sl);
-      wgmma_commit();
-      // Warpgroup 1 was handed one turn before the first: it hands back all
-      // but its last.
-      if (w == 0 || tile + gridDim.x < work) pass_turn();
-      wgmma_wait<0>();
-      fence_regs(acc);
-      release(v_empty(sl));
 
+      if constexpr (SPLIT > 1) {
+        // This CTA's partial, over the ring (its last tile is read and no
+        // load is in flight: a cluster takes one work tile).
+        float* xo = reinterpret_cast<float*>(smem_ptr(k_s));
+        float2* xml = reinterpret_cast<float2*>(xo + 64 * C::kXPitch);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+          const int row = 16 * warp + g + 8 * r;
+          if (tq == 0) xml[row] = make_float2(m[r], l[r]);
+#pragma unroll
+          for (int j = 0; j < C::kDP / 8; ++j)
+            *reinterpret_cast<float2*>(xo + row * C::kXPitch + 8 * j + 2 * tq) =
+                make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+        continue;
+      }
       bf16* ob = o + batch * out_sb + head * out_sh;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -911,6 +1005,66 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
     }
+  }
+
+  if constexpr (SPLIT > 1) {
+    dtts::cluster_sync();  // every CTA's partial is written
+    const int q0 = first % qtiles * 64, head = first / qtiles % h, batch = first / qtiles / h;
+    const uint32_t xo = k_s, xml = k_s + 64 * C::kXPitch * 4;
+    // Each row's weight of each partial, exp2(m_i - M) / L, in Q's slot
+    // (no one reads Q now).
+    float* coef = reinterpret_cast<float*>(smem_ptr(q_s));  // [64][SPLIT]
+    const int tid = threadIdx.x;
+    if (tid < 64) {
+      float mi[SPLIT], li[SPLIT], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < SPLIT; ++i) {
+        const float2 v = dtts::ld_dsmem_f32x2(dtts::dsmem_addr(xml + 8 * tid, i));
+        mi[i] = v.x, li[i] = v.y;
+        mx = fmaxf(mx, v.x);
+      }
+#pragma unroll
+      for (int i = 0; i < SPLIT; ++i) {
+        mi[i] = exp2f(mi[i] - mx);  // 0 for a CTA without keys (m = -inf)
+        sum = fmaf(li[i], mi[i], sum);
+      }
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int i = 0; i < SPLIT; ++i) coef[tid * SPLIT + i] = mi[i] * inv;
+      if (lse != nullptr && rank == 0 && q0 + tid < t)
+        lse[((int64_t)batch * h + head) * t + q0 + tid] = mx + log2f(sum);
+    }
+    __syncthreads();
+    if (tid < 128) {
+      // The consumer warpgroup's threads merge this CTA's columns of O, 4
+      // floats an item: every item's loads are issued before the first is
+      // used, so that the round trips to the other SMs overlap.
+      constexpr int kCols = C::kDP / SPLIT, kVecs = kCols / 4, kItems = 64 * kVecs / 128;
+      float4 x[kItems][SPLIT];
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int e = tid + 128 * k, row = e / kVecs, col = rank * kCols + 4 * (e % kVecs);
+#pragma unroll
+        for (int i = 0; i < SPLIT; ++i)
+          x[k][i] = dtts::ld_dsmem_f32x4(dtts::dsmem_addr(xo + 4u * (row * C::kXPitch + col), i));
+      }
+      bf16* ob = o + batch * out_sb + head * out_sh;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int e = tid + 128 * k, row = e / kVecs, col = rank * kCols + 4 * (e % kVecs);
+        if (q0 + row >= t) continue;
+        float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < SPLIT; ++i) {
+          const float c = coef[row * SPLIT + i];
+          y.x = fmaf(c, x[k][i].x, y.x), y.y = fmaf(c, x[k][i].y, y.y);
+          y.z = fmaf(c, x[k][i].z, y.z), y.w = fmaf(c, x[k][i].w, y.w);
+        }
+        *reinterpret_cast<uint2*>(ob + (int64_t)(q0 + row) * out_st + col) =
+            make_uint2(dtts::pack_bf16x2(y.x, y.y), dtts::pack_bf16x2(y.z, y.w));
+      }
+    }
+    dtts::cluster_sync();  // the others have read this CTA's partial
   }
 }
 
@@ -944,27 +1098,54 @@ cudaError_t launch_wgmma_nc(const CUtensorMap& qm, const CUtensorMap& km, const 
                             void* o, int b, int h, int t, int64_t out_sb, int64_t out_st,
                             int64_t out_sh, float scale_log2e, float* lse, cudaStream_t stream) {
   const int smem = WgTiles<D, BK>::smem_bytes(NC);
-  cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel<D, NC, BK>,
+  cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel<D, NC, BK, 1>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int work = (t + 64 * NC - 1) / (64 * NC) * h * b;  // work tiles
   const int blocks = work < sm_count() ? work : sm_count();
-  constexpr int threads = wgmma_threads<NC>();
-  attention_wgmma_kernel<D, NC, BK><<<blocks, threads, smem, stream>>>(
+  constexpr int threads = wgmma_threads<D, NC>();
+  attention_wgmma_kernel<D, NC, BK, 1><<<blocks, threads, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), h, t, work, out_sb, out_st, out_sh, scale_log2e, lse);
   return cudaGetLastError();
 }
 
-// Two consumer warpgroups (128-row q tiles) unless t <= 64 or 128-row tiles
-// would give the grid fewer blocks than the card has SMs; then one (64 rows).
-int wgmma_consumers(int b, int h, int t) {
-  return t > 64 && (int64_t)b * h * ((t + 127) / 128) >= sm_count() ? 2 : 1;
+// A key split of SPLIT CTAs a work tile (d = 256): clusters of SPLIT, one
+// work tile each, launched with the cluster dimension; a refused launch
+// returns its error.
+template <int D, int BK, int SPLIT>
+cudaError_t launch_wgmma_split(const CUtensorMap& qm, const CUtensorMap& km,
+                               const CUtensorMap& vm, void* o, int b, int h, int t,
+                               int64_t out_sb, int64_t out_st, int64_t out_sh, float scale_log2e,
+                               float* lse, cudaStream_t stream) {
+  const int smem = WgTiles<D, BK>::smem_bytes(1);
+  cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel<D, 1, BK, SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int work = (t + 63) / 64 * h * b;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(work * SPLIT, 1, 1);
+  cfg.blockDim = dim3(wgmma_threads<D, 1>(), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = SPLIT;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attention_wgmma_kernel<D, 1, BK, SPLIT>, qm, km, vm,
+                           static_cast<bf16*>(o), h, t, work, out_sb, out_st, out_sh, scale_log2e,
+                           lse);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
 }
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, int h, int t,
                  int64_t in_sb, int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
-                 int64_t out_sh, float scale_log2e, float* lse, cudaStream_t stream) {
+                 int64_t out_sh, float scale_log2e, float* lse, int split, int nc,
+                 cudaStream_t stream) {
   constexpr int kBK = WgTiles<D>::kBK, kShortBK = 64;  // K/V tile keys; at t <= 64
   const int bk = t <= 64 ? kShortBK : kBK;
   CUtensorMap qm, km, vm;
@@ -972,17 +1153,76 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
   if (err == 0) err = encode_map<D>(&km, k, b, h, t, in_sb, in_st, in_sh, bk);
   if (err == 0) err = encode_map<D>(&vm, v, b, h, t, in_sb, in_st, in_sh, bk);
   if (err != 0) return err;
-  if (t <= 64)
-    return launch_wgmma_nc<D, 1, kShortBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+  // The caller's plan (ops/kernels/qkv_attention.py::wgmma_plan): a key
+  // split (d = 256) takes one consumer warpgroup; two take t > 64.
+  if ((nc != 1 && nc != 2) || (nc == 2 && (split != 1 || t <= 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (D == 256) {
+    // 64-key tiles; the key split the caller chose, else one or two
+    // consumer warpgroups as at the other widths.
+    static_assert(kBK == kShortBK, "d = 256 takes 64-key tiles at every T");
+    if (split == 1 && nc == 2)
+      return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                        scale_log2e, lse, stream);
+    if (split == 1)
+      return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                        scale_log2e, lse, stream);
+    if (split == 2)
+      return launch_wgmma_split<D, kBK, 2>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
                                            scale_log2e, lse, stream);
-  if (wgmma_consumers(b, h, t) == 2)
-    return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+    if (split == 4)
+      return launch_wgmma_split<D, kBK, 4>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                           scale_log2e, lse, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (t <= 64)
+      return launch_wgmma_nc<D, 1, kShortBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                             scale_log2e, lse, stream);
+    if (nc == 2)
+      return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                        scale_log2e, lse, stream);
+    return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
                                       scale_log2e, lse, stream);
-  return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh, scale_log2e,
-                                    lse, stream);
+  }
+}
+
+// How many clusters of SPLIT CTAs of the d = 256 kernel the card holds at
+// once (one CTA an SM: a cluster needs SPLIT free SMs of one GPC).
+template <int SPLIT>
+cudaError_t split_clusters(int* clusters) {
+  using C = WgTiles<256>;
+  const int smem = C::smem_bytes(1);
+  cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel<256, 1, C::kBK, SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(SPLIT, 1, 1);
+    cfg.blockDim = dim3(wgmma_threads<256, 1>(), 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = SPLIT;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(clusters, attention_wgmma_kernel<256, 1, C::kBK, SPLIT>,
+                                         &cfg);
+  }
+  cudaGetLastError();  // the error is returned; leave none behind for a later check
+  return err;
 }
 
 }  // namespace
+
+// The number of clusters of `split` (2 or 4) CTAs of the d = 256 wgmma
+// kernel that the card can run at once, into *clusters (0: none fits).
+extern "C" int dtts_attention_split_clusters(int split, int* clusters) {
+  if (split == 2) return static_cast<int>(split_clusters<2>(clusters));
+  if (split == 4) return static_cast<int>(split_clusters<4>(clusters));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16,
 // 32, 40, 64, 80, 160, 256, 512. Strides are in elements, the head width's stride being 1.
@@ -990,31 +1230,36 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
 // each row's log2-sum-exp2 of the scaled scores for the backward kernels
 // (csrc/attention_bwd.cu). route: 0 = fma (any dtype and width), 1 = mma
 // (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every pointer and stride
-// 16-byte aligned), 2 = wgmma (bfloat16 at d = 40, 64, 80, 160, aligned the
-// same way). Returns the launch's cudaError_t (0 on success), or
-// kEncodeFailed + the CUresult of a refused tensor map; the caller raises on
-// anything but 0.
+// 16-byte aligned), 2 = wgmma (bfloat16 at d = 40, 64, 80, 160, 256, aligned
+// the same way). split: CTAs sharing each work tile's keys, 1, or 2 or 4 on
+// the wgmma route at d = 256 (a thread-block cluster a tile). consumers:
+// consumer warpgroups a block, 1, or 2 on the wgmma route without a split at
+// t > 64 (ops/kernels/qkv_attention.py::wgmma_plan picks both). Returns the
+// launch's cudaError_t (0 on success), or kEncodeFailed + the CUresult of a
+// refused tensor map; the caller raises on anything but 0.
 extern "C" int dtts_attention(const void* q, const void* k, const void* v, void* o,
                               int dtype, int d, int b, int h, int t, int64_t in_sb,
                               int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
                               int64_t out_sh, float scale_log2e, float* lse, int route,
-                              void* stream) {
+                              int split, int consumers, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DTTS_ATTN_WGMMA(D)                                                                  \
   case D:                                                                                   \
     return launch_wgmma<D>(q, k, v, o, b, h, t, in_sb, in_st, in_sh, out_sb, out_st, out_sh, \
-                           scale_log2e, lse, s);
+                           scale_log2e, lse, split, consumers, s);
     switch (d) {
       DTTS_ATTN_WGMMA(40)
       DTTS_ATTN_WGMMA(64)
       DTTS_ATTN_WGMMA(80)
       DTTS_ATTN_WGMMA(160)
+      DTTS_ATTN_WGMMA(256)
     }
 #undef DTTS_ATTN_WGMMA
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (split != 1 || consumers != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DTTS_ATTN_MMA(D)                                                                    \

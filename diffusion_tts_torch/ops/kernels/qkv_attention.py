@@ -25,10 +25,17 @@ The forward kernel has three routes, picked before the launch: "wgmma"
 (Hopper's asynchronous warpgroup products fed by TMA), "mma" (the
 warp-level mma.sync products of the first tensor-core design) and "fma"
 (fp32 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "wgmma" for
-bf16 at ``WGMMA_HEAD_DIMS`` (the ADM's 64, the SD UNet's 40, 80 and 160),
-"mma" for bf16 at the other widths of ``MMA_HEAD_DIMS`` (16 and 32 of the
-test nets, the DDPM++ net's 256 and the VAE's 512, which stay there: see
-``csrc/qkv_attention.cu``'s header) and "fma" otherwise. The backward
+bf16 at ``WGMMA_HEAD_DIMS`` (the ADM's 64, the SD UNet's 40, 80 and 160, the
+DDPM++ net's 256), "mma" for bf16 at the other widths of ``MMA_HEAD_DIMS``
+(16 and 32 of the test nets and the VAE's 512, which stays there: see
+``csrc/qkv_attention.cu``'s header) and "fma" otherwise. A wgmma launch
+takes ``wgmma_plan(d, b, h, t, *card_limits(device))``: (key split,
+consumer warpgroups). At d = 256 it splits each 64-row q tile's keys over a
+thread-block cluster of ``wgmma_split`` CTAs where the tiles alone would
+leave the card short of SMs; an unsplit launch takes ``wgmma_consumers``'
+one or two consumer warpgroups. Tests and probes may force a factor through
+``split=`` of ``_qkv_forward`` / ``_bthd_forward``; the public wrappers
+take none. The backward
 kernels have two: ``backward_route(dtype, d)`` gives "mma" for bf16 at
 ``BWD_MMA_HEAD_DIMS`` (the ADM training path's d = 64 and the DDPM++
 training path's d = 256 among them), "fma" otherwise. The tensor-core
@@ -48,6 +55,7 @@ forward is the bare kernel launch.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -57,7 +65,9 @@ from diffusion_tts_torch.ops.kernels import _launch
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 256, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
-WGMMA_HEAD_DIMS = (40, 64, 80, 160)
+WGMMA_HEAD_DIMS = (40, 64, 80, 160, 256)
+# d = 256's key split on the wgmma route: CTAs a work tile (a cluster of them).
+WGMMA_SPLITS = (1, 2, 4)
 # The forward's routes, in the order of their codes in csrc/qkv_attention.cu;
 # the backward keeps _launch.ROUTES.
 ROUTES = _launch.ROUTES + ("wgmma",)
@@ -67,7 +77,8 @@ BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80, 160, 256)
 BWD_LAUNCHES_PER_CALL = 2
 _ENCODE_FAILED = 1000  # csrc/qkv_attention.cu's kEncodeFailed: a tensor map was refused
 _ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
-             + (_launch.F32, _launch.PTR, _launch.INT, _launch.PTR))
+             + (_launch.F32, _launch.PTR) + (_launch.INT,) * 3 + (_launch.PTR,))
+_CLUSTERS_ARGTYPES = (_launch.INT, ctypes.POINTER(ctypes.c_int))
 _BWD_ARGTYPES = ((_launch.PTR,) * 9 + (_launch.INT,) * 5 + (_launch.I64,) * 9
                  + (_launch.F32, _launch.F32, _launch.INT, _launch.PTR))
 
@@ -84,6 +95,60 @@ def forward_route(dtype: torch.dtype, d: int) -> str:
     if dtype != torch.bfloat16:
         return "fma"
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma" if d in MMA_HEAD_DIMS else "fma"
+
+
+def wgmma_consumers(b: int, h: int, t: int, sms: int) -> int:
+    """Consumer warpgroups of an unsplit wgmma launch: two (128-row q
+    tiles) where t > 64 and 128-row tiles still give the card's ``sms`` at
+    least one tile each, else one (64-row tiles). At d = 256 two take the
+    producer-warpgroup layout (csrc/qkv_attention.cu's header)."""
+    return 2 if t > 64 and b * h * -(-t // 128) >= sms else 1
+
+
+def wgmma_plan(d: int, b: int, h: int, t: int, sms: int, clusters: dict[int, int],
+               split: int | None = None) -> tuple[int, int]:
+    """(key split, consumer warpgroups) of a wgmma launch, which the C
+    entry takes as it is: ``wgmma_split``'s factor at d = 256 (``split``
+    forces one), 1 at the other widths; one consumer warpgroup where the
+    keys are split, else ``wgmma_consumers``'."""
+    if split is None:
+        split = wgmma_split(b, h, t, sms, clusters) if d == 256 else 1
+    return split, 1 if split > 1 else wgmma_consumers(b, h, t, sms)
+
+
+def wgmma_split(b: int, h: int, t: int, sms: int, clusters: dict[int, int]) -> int:
+    """CTAs sharing each 64-row q tile's keys on the wgmma route at d = 256:
+    the larger of 4 and 2 that keeps the grid (b * h * ceil(t / 64) tiles
+    times the factor) within the card's ``sms``, whose clusters of that
+    many CTAs the card holds at once (``clusters[factor]``, from
+    ``card_limits``: one CTA an SM, a cluster on one GPC) and that gives every
+    CTA at least one 64-key tile, else 1. The training batches
+    ([32, 256, 768]: 128 tiles) and the CIFAR-10 search's [8, 64, 768] (one
+    key tile) take 1."""
+    tiles, key_tiles = b * h * -(-t // 64), -(-t // 64)
+    for split in (4, 2):
+        if tiles * split <= sms and tiles <= clusters[split] and split <= key_tiles:
+            return split
+    return 1
+
+
+_CARDS: dict[int, tuple[int, dict[int, int]]] = {}
+
+
+def card_limits(device: torch.device) -> tuple[int, dict[int, int]]:
+    """(SM count, {split: clusters of the d = 256 kernel the card holds at
+    once}) of the card, asked once."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _CARDS:
+        fn = _launch.bind("qkv_attention", "dtts_attention_split_clusters", _CLUSTERS_ARGTYPES)
+        clusters = {}
+        for split in WGMMA_SPLITS[1:]:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(index):
+                _launch.raise_on(fn(split, ctypes.byref(n)), "attention (cluster occupancy)")
+            clusters[split] = n.value
+        _CARDS[index] = (torch.cuda.get_device_properties(index).multi_processor_count, clusters)
+    return _CARDS[index]
 
 
 def backward_route(dtype: torch.dtype, d: int) -> str:
@@ -165,23 +230,43 @@ def _check_width(d: int) -> None:
         raise ValueError(f"the kernel takes head widths {HEAD_DIMS}, got {d}")
 
 
+def _pick_plan(split: int | None, route: str, d: int, b: int, h: int, t: int,
+               device: torch.device) -> tuple[int, int]:
+    """(key split, consumer warpgroups) of one launch: ``wgmma_plan``'s on
+    the wgmma route, with ``split`` forced at d = 256 (a factor of
+    WGMMA_SPLITS); (1, 1) on the other routes, where no other split is
+    taken."""
+    if split is not None and split not in (WGMMA_SPLITS if route == "wgmma" and d == 256
+                                           else (1,)):
+        raise ValueError(f"the key split takes {WGMMA_SPLITS} on the wgmma route at d = 256 "
+                         f"and 1 elsewhere, got {split} on the {route} route at {d}")
+    if route != "wgmma":
+        return 1, 1
+    return wgmma_plan(d, b, h, t, *card_limits(device), split=split)
+
+
 def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int, b: int,
                    h: int, t: int, in_strides: tuple[int, int, int],
                    out_strides: tuple[int, int, int],
-                   lse: torch.Tensor | None = None, route: str | None = None) -> None:
+                   lse: torch.Tensor | None = None, route: str | None = None,
+                   split: int | None = None) -> None:
     """One launch over (batch, head, q tile); strides in elements for
     (batch, token, head), the head width's stride being 1. ``lse``, fp32
     [B, H, T], takes the row statistic the backward needs. ``route``: None
-    takes ``forward_route``'s; "fma" may be asked for at any shape."""
+    takes ``forward_route``'s; "fma" may be asked for at any shape.
+    ``split``: None takes ``wgmma_plan``'s; a factor forces that key split
+    on the wgmma route at d = 256 (tests and probes)."""
     global LAUNCHES
     route = _pick_route(forward_route(out.dtype, d), route, out.dtype, d, MMA_HEAD_DIMS)
     if route != "fma":
         _launch.check_aligned("attention", (q_ptr, k_ptr, v_ptr, out.data_ptr()),
                               in_strides + out_strides, out.element_size())
+    split, consumers = _pick_plan(split, route, d, b, h, t, out.device)
     fn = _launch.bind("qkv_attention", "dtts_attention", _ARGTYPES)
     err = fn(q_ptr, k_ptr, v_ptr, out.data_ptr(), _launch.DTYPE_CODES[out.dtype], d, b, h, t,
              *in_strides, *out_strides, _LOG2E / math.sqrt(d),
-             None if lse is None else lse.data_ptr(), ROUTE_CODES[route], _launch.stream(out))
+             None if lse is None else lse.data_ptr(), ROUTE_CODES[route], split,
+             consumers, _launch.stream(out))
     if err >= _ENCODE_FAILED:
         raise RuntimeError(f"attention: cuTensorMapEncodeTiled failed with CUresult "
                            f"{err - _ENCODE_FAILED} (or the driver has no entry point for it)")
@@ -228,22 +313,23 @@ def _thirds(x: torch.Tensor, c: int) -> tuple[int, int, int]:
 
 
 def _qkv_forward(qkv: torch.Tensor, heads: int, lse: torch.Tensor | None,
-                 route: str | None = None) -> torch.Tensor:
+                 route: str | None = None, split: int | None = None) -> torch.Tensor:
     b, t, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     _launch_kernel(*_thirds(qkv, c), out, d, b, heads, t, (t * c3, c3, d), (t * c, c, d), lse,
-                   route)
+                   route, split)
     return out
 
 
-def _bthd_forward(q, k, v, lse: torch.Tensor | None, route: str | None = None) -> torch.Tensor:
+def _bthd_forward(q, k, v, lse: torch.Tensor | None, route: str | None = None,
+                  split: int | None = None) -> torch.Tensor:
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     strides = (t * h * d, h * d, d)
     _launch_kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, d, b, h, t, strides, strides,
-                   lse, route)
+                   lse, route, split)
     return out
 
 
@@ -402,6 +488,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention", "attention_plain",
            "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "forward_route",
-           "backward_route", "LAUNCHES", "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTE_LAUNCHES",
-           "BWD_LAUNCHES_PER_CALL", "HEAD_DIMS", "MMA_HEAD_DIMS", "WGMMA_HEAD_DIMS", "ROUTES",
-           "BWD_HEAD_DIMS", "BWD_MMA_HEAD_DIMS"]
+           "backward_route", "wgmma_plan", "wgmma_split", "wgmma_consumers",
+           "card_limits", "WGMMA_SPLITS", "LAUNCHES",
+           "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTE_LAUNCHES", "BWD_LAUNCHES_PER_CALL",
+           "HEAD_DIMS", "MMA_HEAD_DIMS", "WGMMA_HEAD_DIMS", "ROUTES", "BWD_HEAD_DIMS",
+           "BWD_MMA_HEAD_DIMS"]

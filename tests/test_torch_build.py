@@ -93,14 +93,15 @@ def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA", route="mm
 def test_attention_route_is_the_one_the_source_states(dtype, d):
     """Three routes: bf16 on "wgmma" at the widths csrc/qkv_attention.cu
     states and dispatches for route 2 (the ADM's 64, the SD UNet's 40, 80,
-    160), on "mma" at the other mma widths (which the mma kernel still
-    takes at every one of its widths, for ``route="mma"``), fp32 on "fma"."""
+    160, the DDPM++ net's 256), on "mma" at the other mma widths (the VAE's
+    512; the mma kernel still takes every one of its widths, for
+    ``route="mma"``), fp32 on "fma"."""
     stated, dispatched = _mma_widths_in_source()
     assert stated == dispatched == qk.MMA_HEAD_DIMS
     wg_stated, wg_dispatched = _mma_widths_in_source(macro="DTTS_ATTN_WGMMA", route="wgmma",
                                                      code=2)
     assert wg_stated == wg_dispatched == qk.WGMMA_HEAD_DIMS
-    assert set(wg_stated) <= set(stated) and 256 not in wg_stated and 512 not in wg_stated
+    assert set(wg_stated) <= set(stated) and 256 in wg_stated and 512 not in wg_stated
     want = "fma"
     if dtype == torch.bfloat16:
         want = "wgmma" if d in wg_stated else "mma" if d in stated else "fma"
@@ -257,13 +258,13 @@ def test_geglu_refuses_a_misaligned_operand_before_any_launch(no_launch, monkeyp
 
 
 @pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "mma_pointer",
-                                  "wgmma_fp32", "wgmma_at_256", "wgmma_at_512"])
+                                  "wgmma_fp32", "wgmma_at_32", "wgmma_at_512"])
 def test_attention_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
     """A wgmma width (40) with a misaligned pointer or stride, on its own
     route or forced onto "mma", is refused before any launch (TMA and the
     mma copies both read 16-byte pieces); so is "wgmma" asked for in fp32 or
     at a width that is not its own. Nothing falls back to another route."""
-    d = {"wgmma_at_256": 256, "wgmma_at_512": 512}.get(case, 40)
+    d = {"wgmma_at_32": 32, "wgmma_at_512": 512}.get(case, 40)
     b, t, h = 1, 4, 2
     dtype = torch.float32 if case == "wgmma_fp32" else torch.bfloat16
     out = torch.empty((b, t, h, d), dtype=dtype)
@@ -275,7 +276,7 @@ def test_attention_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
         strides[1] = h * d + 4
     if case == "head_stride":
         strides[2] = d + 4
-    route = {"mma_pointer": "mma", "wgmma_fp32": "wgmma", "wgmma_at_256": "wgmma",
+    route = {"mma_pointer": "mma", "wgmma_fp32": "wgmma", "wgmma_at_32": "wgmma",
              "wgmma_at_512": "wgmma"}.get(case)
     before = (qk.LAUNCHES, dict(qk.ROUTE_LAUNCHES))
     match = "wgmma route takes bfloat16" if route == "wgmma" else "16-byte"
@@ -283,6 +284,132 @@ def test_attention_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
         qk._launch_kernel(*ptrs, out, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
                           route=route)
     assert (qk.LAUNCHES, qk.ROUTE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("b,t,want", [
+    (8, 256, 4), (8, 64, 1),      # the CIFAR-10 search: 32 q tiles, 4 key tiles; one key tile
+    (16, 256, 2), (4, 256, 4),    # a rejection batch; a beam batch
+    (32, 256, 1), (32, 64, 1),    # the DDPM++ training micro-batch: 128 tiles
+    (128, 256, 1), (128, 64, 1),  # train_bench --arch cifar10 --batch 128: 512 tiles
+    (1, 77, 2), (1, 1, 1), (1, 1000, 4), (33, 256, 1)])
+def test_wgmma_split_at_the_ddpmpp_shapes(b, t, want):
+    """d = 256's key split on a 132-SM card: 4 CTAs a q tile where that
+    still fits the card (the serving path's [8, 256, 768]), 2 where only
+    that does, 1 where the q tiles alone fill it or where a tile has fewer
+    64-key tiles than the factor; the grid never exceeds the SMs."""
+    got = qk.wgmma_split(b, 1, t, 132, {2: 66, 4: 33})
+    assert got == want and got in qk.WGMMA_SPLITS
+    tiles = b * -(-t // 64)
+    assert got == 1 or (tiles * got <= 132 and got <= -(-t // 64))
+
+
+@pytest.mark.parametrize("clusters,want", [({2: 66, 4: 33}, 4), ({2: 66, 4: 30}, 2),
+                                           ({2: 31, 4: 30}, 1), ({2: 0, 4: 0}, 1)])
+def test_wgmma_split_takes_only_clusters_the_card_holds_at_once(clusters, want):
+    """At [8, 256, 768] (32 q tiles) a factor is taken only where the card
+    holds all 32 of its clusters at once: a second wave of clusters would
+    cost more than the split saves."""
+    assert qk.wgmma_split(8, 1, 256, 132, clusters) == want
+
+
+@pytest.fixture
+def recorded_launch(monkeypatch):
+    """Bind a recorder in place of the C entry (CPU tensors stand in for
+    the card's, a 132-SM card): the launches' (route code, split,
+    consumer warpgroups), and the counters restored afterwards."""
+    calls = []
+
+    def fn(*args):
+        calls.append(tuple(args[-4:-1]))  # route, split, consumers
+        return 0
+
+    monkeypatch.setattr(_launch, "bind", lambda *args: fn)
+    monkeypatch.setattr(_launch, "stream", lambda t: 0)
+    monkeypatch.setattr(qk, "card_limits", lambda device: (132, {2: 66, 4: 33}))
+    monkeypatch.setattr(qk, "LAUNCHES", qk.LAUNCHES)
+    monkeypatch.setattr(qk, "ROUTE_LAUNCHES", dict.fromkeys(qk.ROUTES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("b,t,route,want", [
+    (8, 256, None, ("wgmma", 4, 1)), (8, 64, None, ("wgmma", 1, 1)),
+    (32, 256, None, ("wgmma", 1, 1)), (128, 256, None, ("wgmma", 1, 2)),
+    (8, 256, "mma", ("mma", 1, 1)), (32, 64, "mma", ("mma", 1, 1)),
+    (8, 256, "fma", ("fma", 1, 1))])
+def test_attention_at_256_takes_wgmma_and_still_serves_mma(recorded_launch, b, t, route, want):
+    """bf16 at d = 256 (the DDPM++ net's head, [B, T, 768]) launches the
+    wgmma route with wgmma_plan's split and consumer warpgroups; route="mma"
+    still launches the mma.sync design there (and "fma" the first one),
+    unsplit, one block layout."""
+    d = 256
+    assert qk.forward_route(torch.bfloat16, d) == "wgmma"
+    assert qk.forward_route(torch.bfloat16, 512) == "mma"
+    assert qk.forward_route(torch.float32, d) == "fma"
+    out = torch.empty((b, t, d), dtype=torch.bfloat16)
+    ptr = out.data_ptr()
+    qk._launch_kernel(ptr, ptr, ptr, out, d, b, 1, t, (t * 3 * d, 3 * d, d), (t * d, d, d),
+                      route=route)
+    assert recorded_launch == [(qk.ROUTE_CODES[want[0]], *want[1:])]
+    assert qk.ROUTE_LAUNCHES[want[0]] == 1 and sum(qk.ROUTE_LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("d,route,split", [(256, None, 3), (256, None, 8), (256, "mma", 2),
+                                           (256, "fma", 4), (64, None, 2), (160, None, 4),
+                                           (512, None, 2)])
+def test_attention_refuses_a_split_it_cannot_take(no_launch, d, route, split):
+    """A forced key split is d = 256's on the wgmma route, of WGMMA_SPLITS;
+    anything else is refused before any launch (split=1 is the unsplit
+    kernel everywhere)."""
+    b, t, h = 2, 128, 1
+    out = torch.empty((b, t, h, d), dtype=torch.bfloat16)
+    ptr = out.data_ptr()
+    strides = (t * h * d, h * d, d)
+    before = (qk.LAUNCHES, dict(qk.ROUTE_LAUNCHES))
+    with pytest.raises(ValueError, match="key split takes"):
+        qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, strides, strides, route=route,
+                          split=split)
+    assert (qk.LAUNCHES, qk.ROUTE_LAUNCHES) == before
+
+
+def test_attention_forced_split_reaches_the_launch(recorded_launch):
+    """split= of _launch_kernel (the tests' and probes' handle, through
+    _qkv_forward and _bthd_forward) reaches the C entry at d = 256 on the
+    wgmma route, with one consumer warpgroup; 1 is taken anywhere."""
+    for split in qk.WGMMA_SPLITS:
+        out = torch.empty((8, 256, 1, 256), dtype=torch.bfloat16)
+        ptr, s = out.data_ptr(), (256 * 256, 256, 256)
+        qk._launch_kernel(ptr, ptr, ptr, out, 256, 8, 1, 256, s, s, split=split)
+    out = torch.empty((2, 64, 2, 64), dtype=torch.bfloat16)
+    ptr, s = out.data_ptr(), (64 * 128, 128, 64)
+    qk._launch_kernel(ptr, ptr, ptr, out, 64, 2, 2, 64, s, s, split=1)
+    assert recorded_launch == [(2, 1, 1), (2, 2, 1), (2, 4, 1), (2, 1, 1)]
+
+
+@pytest.mark.parametrize("d,b,h,t,want", [
+    (256, 8, 1, 256, (4, 1)), (256, 8, 1, 64, (1, 1)),     # the CIFAR-10 search
+    (256, 4, 1, 256, (4, 1)), (256, 16, 1, 256, (2, 1)),   # MCTS; rejection and beam
+    (256, 32, 1, 256, (1, 1)),                             # the DDPM++ training micro-batch
+    (256, 128, 1, 256, (1, 2)), (256, 128, 1, 300, (1, 2)),  # train_bench --batch 128
+    (256, 128, 1, 64, (1, 1)), (256, 66, 1, 256, (1, 2)), (256, 65, 1, 256, (1, 1)),
+    (64, 8, 6, 1024, (1, 2)), (160, 2, 8, 256, (1, 1)), (40, 2, 8, 4096, (1, 2))])
+def test_wgmma_plan_at_the_ddpmpp_and_other_shapes(d, b, h, t, want):
+    """(key split, consumer warpgroups) on a 132-SM card: a split only at
+    d = 256, with one consumer warpgroup; unsplit, two where t > 64 and
+    128-row tiles still give every SM one (b * h * ceil(t / 128) >= 132),
+    else one. The C entry takes the pair as it is."""
+    plan = qk.wgmma_plan(d, b, h, t, 132, {2: 66, 4: 33})
+    assert plan == want
+    split, consumers = plan
+    assert consumers == qk.wgmma_consumers(b, h, t, 132) or split > 1
+    assert (consumers == 2) == (split == 1 and t > 64 and b * h * -(-t // 128) >= 132)
+
+
+@pytest.mark.parametrize("split", qk.WGMMA_SPLITS)
+def test_wgmma_plan_takes_a_forced_split_with_one_consumer(split):
+    """A forced factor at train_bench's shape, where 128-row tiles fill the
+    card: a split takes one consumer warpgroup, split 1 the unsplit plan."""
+    assert qk.wgmma_plan(256, 128, 1, 256, 132, {2: 66, 4: 33}, split=split) == (
+        split, 2 if split == 1 else 1)
 
 
 @pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "fp32_forced"])

@@ -778,21 +778,22 @@ def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
     """The CIFAR-10 DDPM++ net's attention, one head of 256 on [B, T, 768]
     (its 16x16 and 8x8 sites at the search's batch 8 and the training
     micro-batch 32): the forward and the qkv form's backward on their routes
-    (bf16: "mma", fp32: "fma"), the backward's thirds against the twin and
-    two runs bit-identical."""
+    (bf16: "wgmma" forward, with the key split where wgmma_split picks one,
+    and "mma" backward, which reads the forward's statistic; fp32: "fma"),
+    the backward's thirds against the twin and two runs bit-identical."""
     heads, d = 1, 256
     g = torch.Generator(device=card).manual_seed(b + t)
     qkv = torch.randn((b, t, 3 * d), generator=g, device=card).to(dtype)
     cot = _randn((b, t, d), dtype, card, 17)
     route = qk.forward_route(dtype, d)
-    assert route == ("mma" if dtype == torch.bfloat16 else "fma")
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "fma")
     before = _routes(qk)
     lse = torch.empty((b, heads, t), device=card)
     out = qk._qkv_forward(qkv, heads, lse)
     assert _routes(qk) == {**before, route: before[route] + 1}
     torch.testing.assert_close(out.float(), qk.qkv_self_attention_plain(qkv, heads).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
-    assert qk.backward_route(dtype, d) == route
+    assert qk.backward_route(dtype, d) == ("mma" if dtype == torch.bfloat16 else "fma")
     got = qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse)
     assert torch.equal(got, qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse))
     split = lambda x: x.reshape(b, t, heads, d)
@@ -895,7 +896,8 @@ def test_attention_mma_route_at_full_sd_shapes(card, shape):
 
 LSE_CASES = ([(route, t, d) for route in ("fma", "mma")
               for t, d in [(77, 40), (300, 64), (200, 512), (200, 256)]]
-             + [("wgmma", t, d) for t, d in [(77, 40), (300, 64), (200, 80), (100, 160)]])
+             + [("wgmma", t, d) for t, d in [(77, 40), (300, 64), (200, 80), (100, 160),
+                                             (200, 256), (64, 256)]])
 
 
 @pytest.mark.cuda
@@ -944,7 +946,8 @@ def test_attention_wgmma_route_matches_plain(card, d, t, layout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,t", [(40, 77), (64, 1024), (80, 256), (160, 64), (160, 300)])
+@pytest.mark.parametrize("d,t", [(40, 77), (64, 1024), (80, 256), (160, 64), (160, 300),
+                                 (256, 77), (256, 256), (256, 1000)])
 def test_attention_wgmma_lse_and_repeat(card, d, t):
     """The training statistic (log2-sum-exp2, fp32 [B, H, T]) within 1e-3 of
     the mma route's on the same qkv, and two runs of the wgmma route bit for
@@ -983,6 +986,118 @@ def test_attention_wgmma_refuses_a_misaligned_input(card, case):
         with pytest.raises(ValueError, match="16-byte"):
             qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, (t * 42, 42, d),
                               (t * h * d, h * d, d))
+    assert _routes(qk) == before
+
+
+# ------------------------------------------- the wgmma route at d = 256
+
+D256_CASES = [(b, t) for b in (1, 8, 32, 128) for t in (1, 64, 77, 256, 300, 1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [None, *qk.WGMMA_SPLITS])
+@pytest.mark.parametrize("layout", ["bthd", "qkv"])
+@pytest.mark.parametrize("b,t", D256_CASES)
+def test_attention_wgmma_256_matches_plain(card, b, t, layout, split):
+    """d = 256 on its route, "wgmma", at T = 1 ... 1000 and batches 1 ... 128
+    in both layouts, through the public wrappers with the plan wgmma_plan
+    picks (None) and with each factor forced through the layouts' forwards
+    (a factor above the key tiles leaves CTAs without keys): within 2e-2 of
+    the largest output, and a second call bit for bit the same."""
+    d, h = 256, 1
+    before = _routes(qk)
+    if layout == "bthd":
+        q, k, v = (_randn((b, t, h, d), torch.bfloat16, card, s) for s in range(3))
+        run = ((lambda: qk.attention(q, k, v)) if split is None
+               else lambda: qk._bthd_forward(q, k, v, None, split=split))
+        want = qk.attention_plain(q, k, v)
+    else:
+        qkv = _randn((b, t, 3 * h * d), torch.bfloat16, card, 3)
+        run = ((lambda: qk.qkv_self_attention(qkv, h)) if split is None
+               else lambda: qk._qkv_forward(qkv, h, None, split=split))
+        want = qk.qkv_self_attention_plain(qkv, h)
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    assert _routes(qk) == {**before, "wgmma": before["wgmma"] + 2}
+    assert out.shape == want.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    assert _rel_err(out, want) <= TOL[torch.bfloat16]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", qk.WGMMA_SPLITS)
+@pytest.mark.parametrize("t", [1, 77, 256, 300])
+def test_attention_wgmma_256_lse_every_split(card, t, split):
+    """The training statistic at d = 256 with each key split forced: the
+    log2-sum-exp2 of the scaled fp32 scores (1e-4 absolute, as on every
+    route), the one CTA 0 of a cluster writes after the merge, bit for bit
+    the same on a second run."""
+    b, h, d = 4, 1, 256
+    q, k, v = (_randn((b, t, h, d), torch.bfloat16, card, s) for s in range(3))
+    lse, lse2 = (torch.full((b, h, t), float("nan"), device=card) for _ in range(2))
+    out = qk._bthd_forward(q, k, v, lse, split=split)
+    again = qk._bthd_forward(q, k, v, lse2, split=split)
+    torch.cuda.synchronize()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(lse, lse2) and torch.equal(out, again)
+    assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [256, 300])
+def test_attention_wgmma_256_lse_two_consumers(card, t):
+    """The training statistic at d = 256 in the two-consumer layout (a
+    producer warpgroup, setmaxnreg 40 / 232, a 2-stage ring), the plan of
+    train_bench's batch 128, whose backward reads it: at b = 128 the
+    128-row tiles fill the card, so wgmma_plan takes (1, 2). lse within
+    1e-4 of the fp32 log2-sum-exp2 of the scores, O within 2e-2, both bit
+    for bit the same on a second run."""
+    b, h, d = 128, 1, 256
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert b * h * -(-t // 128) >= sms
+    assert qk.wgmma_plan(d, b, h, t, *qk.card_limits(torch.device(card))) == (1, 2)
+    q, k, v = (_randn((b, t, h, d), torch.bfloat16, card, s) for s in range(3))
+    lse, lse2 = (torch.full((b, h, t), float("nan"), device=card) for _ in range(2))
+    out = qk._bthd_forward(q, k, v, lse)
+    again = qk._bthd_forward(q, k, v, lse2)
+    torch.cuda.synchronize()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(lse, lse2) and torch.equal(out, again)
+    assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "split"])
+def test_attention_wgmma_256_refuses_what_it_cannot_take(card, case):
+    """At d = 256: a q|k|v that starts 2 bytes off, a token stride of 772
+    elements (1544 bytes) or a split of 3 is refused before any launch, on
+    the route's own call and on a forced mma call; nothing falls back to
+    another route."""
+    b, t, h, d = 8, 256, 1, 256
+    before = _routes(qk)
+    if case == "pointer":
+        flat = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16, device=card)
+        q = flat[1:].view(b, t, h, d)
+        for route in (None, "mma"):
+            with pytest.raises(ValueError, match="16-byte"):
+                qk.attention(q, q, q, route=route)
+    elif case == "token_stride":
+        out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=card)
+        ptr = out.data_ptr()
+        with pytest.raises(ValueError, match="16-byte"):
+            qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, (t * 772, 772, d),
+                              (t * h * d, h * d, d))
+    else:
+        qkv = _randn((b, t, 3 * d), torch.bfloat16, card, 3)
+        with pytest.raises(ValueError, match="key split takes"):
+            qk._qkv_forward(qkv, 1, None, split=3)
+        with pytest.raises(ValueError, match="key split takes"):
+            qk._qkv_forward(qkv, 1, None, route="mma", split=2)
     assert _routes(qk) == before
 
 

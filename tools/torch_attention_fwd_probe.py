@@ -3,18 +3,30 @@
     python3 tools/torch_attention_fwd_probe.py [--shapes 8x4096x8x40,8x1024x8x80,8x1024x6x64]
         [--flavours kernel,no_exp,no_pv,no_pingpong,nc1,bk64,stages2] [--reps 50]
         [--json PATH]
+    python3 tools/torch_attention_fwd_probe.py --shapes 8x256x1x256,8x64x1x256,128x256x1x256 \
+        --flavours kernel,split1,split2,split4,products,no_exp
 
 Builds ``diffusion_tts_torch/csrc/qkv_attention.cu`` with nvcc into
 ``build/probe_fwd/`` once per flavour, each a copy of the source with one
 edit, and times the C entry's wgmma route (route code 2) on raw launches
 with CUDA events at each ``[B, T, H, D]`` shape (the [B, T, H, D] layout of
-``attention``). Flavours:
-  kernel       the source as it is (checked bit for bit against the wrapper);
+``attention``), and by CUDA-graph replay (20 launches captured once: the
+device time, without the host's launch rate). Flavours:
+  kernel       the source as it is (checked bit for bit against the wrapper),
+               at the plan the wrapper picks (``qk.wgmma_plan``: key split,
+               consumer warpgroups);
+  split1, split2, split4  the source as it is with the key split forced
+               (d = 256 only; split1 is the kernel without the cluster merge);
+  products     the softmax skipped: P is S rounded, O is never rescaled; the
+               loads, both products and (split) the merge stay;
+  no_dsmem     (split) the merge reads no other CTA's partial: its cluster
+               barriers and its weights stay;
   no_exp       the softmax's exp2 replaced by its argument: no MUFU work;
   no_pv        no P.V product (the softmax and its row sums stay);
   no_pingpong  the consumer warpgroups issue their products without taking
                turns;
-  nc1          one consumer warpgroup (64-row q tiles) at every shape;
+  nc1          the source as it is with one consumer warpgroup (64-row q
+               tiles) at every shape;
   onetile      one block per work tile instead of one persistent block per
                SM;
   bk64, bk192  K/V tiles of 64 or 192 keys instead of the route's (past
@@ -27,7 +39,8 @@ with CUDA events at each ``[B, T, H, D]`` shape (the [B, T, H, D] layout of
   bw32, bw64   TMA boxes 32 or 64 columns wide (64- or 128-byte rows) at
                every width, the columns past d zero-filled and multiplied
                in P.V.
-The stripped flavours (no_exp, no_pv, no_loads, no_s) give wrong outputs by design; the
+The stripped flavours (no_exp, no_pv, no_loads, no_s, products, no_dsmem) give wrong
+outputs by design; the
 others are held against ``attention_plain`` within 2e-2 of the largest
 output. Each row also has the time of the mma route and of
 ``scaled_dot_product_attention`` on the same inputs, from the same run.
@@ -61,7 +74,11 @@ STAGES_LINE = "static constexpr int kStages = D == 40 || D == 80 ? 2 : 3;"
 EXP_LINE = "sc[i] = ex2(fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]));"
 PV_LINE = "wgmma_rs<C::kDP>(acc, p[kk], dv + (kk * 16 * RB >> 4));"
 TURN = "if constexpr (NC == 2) asm volatile(\"bar."
-BW_LINE = "static constexpr int kBW = D == 64 ? 64 : D == 160 ? 32 : 16;"
+BW_LINE = "static constexpr int kBW = D == 64 || D == 256 ? 64 : D == 160 ? 32 : 16;"
+SOFTMAX_LINE = "auto softmax = [&](int j, float (&alpha)[2]) {"
+SPLITS = {"split1": 1, "split2": 2, "split4": 4}
+DSMEM_LINE = ("x[k][i] = dtts::ld_dsmem_f32x4(dtts::dsmem_addr(xo + 4u * (row * C::kXPitch + col),"
+              " i));")
 K_LOAD = "for (int bx = 0; bx < C::kBoxes; ++bx)\n            tma_load_4d(k_s"
 V_LOAD = "for (int bx = 0; bx < C::kBoxes; ++bx)\n            tma_load_4d(v_s"
 GRID_LINE = "const int blocks = work < sm_count() ? work : sm_count();"
@@ -70,8 +87,7 @@ S_LINE = ("wgmma_ss<BK>(sc, da + ((bx * 64 * RB + off) >> 4), db + ((bx * BK * R
 # wgmma_ss / wgmma_rs specializations the source does not instantiate go in
 # namespace dtts (csrc/hopper.cuh) right after the includes.
 RS_ANCHOR = '#include "mma_bf16.cuh"\n'
-STRIPPED = ("no_exp", "no_pv", "no_loads", "no_s")
-NC_LINE = "return t > 64 && (int64_t)b * h * ((t + 127) / 128) >= sm_count() ? 2 : 1;"
+STRIPPED = ("no_exp", "no_pv", "no_loads", "no_s", "products", "no_dsmem")
 
 
 def wgmma_ss(n: int) -> str:
@@ -116,16 +132,19 @@ def edit(src: str, flavour: str) -> str:
             raise RuntimeError(f"{flavour}: expected {count} of {old!r} in {SOURCE.name}")
         return src.replace(old, new)
 
-    if flavour == "kernel":
+    if flavour in ("kernel", "nc1") or flavour in SPLITS:
         return src
+    if flavour == "no_dsmem":
+        return sub(DSMEM_LINE, "x[k][i] = make_float4(1.f, 1.f, 1.f, 1.f);")
+    if flavour == "products":
+        return sub(SOFTMAX_LINE,
+                   SOFTMAX_LINE + "\n      alpha[0] = alpha[1] = 1.f;\n      return;")
     if flavour == "no_exp":
         return sub(EXP_LINE, "sc[i] = fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]);")
     if flavour == "no_pv":
         return sub(PV_LINE, "(void)dv;")
     if flavour == "no_pingpong":
         return sub(TURN, "if constexpr (false) asm volatile(\"bar.", count=2)
-    if flavour == "nc1":
-        return sub(NC_LINE, "return 1;")
     if flavour.startswith("bk"):
         n = int(flavour[2:])
         src = sub(BK_LINE, f"template <int D, int BK = (D > 128 ? 64 : {n})>")
@@ -143,7 +162,7 @@ def edit(src: str, flavour: str) -> str:
         return sub(S_LINE, "if (kk == 0) {\n#pragma unroll\n for (int i = 0; i < BK / 2; ++i) "
                            "sc[i] = (float)(i & 7);\n}")
     if flavour in ("bw32", "bw64"):
-        src = sub(BW_LINE, "static constexpr int kBW = D == 64 ? 64 : "
+        src = sub(BW_LINE, "static constexpr int kBW = D == 64 || D == 256 ? 64 : "
                            f"{flavour[2:]};")
         extra = {"bw32": (96,), "bw64": (128, 192)}[flavour]
         return sub(RS_ANCHOR, specializations("".join(wgmma_rs(n) for n in extra)))
@@ -177,19 +196,21 @@ def build_flavours(flavours, source=SOURCE) -> dict:
         lines, cur = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
-                cur = re.search(r"attention_wgmma_kernelILi(\d+)ELi(\d)ELi(\d+)", line)
+                cur = re.search(r"attention_wgmma_kernelILi(\d+)ELi(\d)ELi(\d+)ELi(\d)", line)
             elif cur and ("Used" in line or "spill" in line):
-                lines.append(f"D={cur.group(1)} NC={cur.group(2)} BK={cur.group(3)}: "
-                             f"{line.strip()}")
+                lines.append(f"D={cur.group(1)} NC={cur.group(2)} BK={cur.group(3)} "
+                             f"split={cur.group(4)}: {line.strip()}")
         out[fl] = (fn, lines)
     return out
 
 
-def launch(fn, q, k, v, o) -> None:
+def launch(fn, q, k, v, o, plan: tuple[int, int]) -> None:
+    """One raw launch of the wgmma route at ``plan`` (key split, consumer
+    warpgroups)."""
     b, t, h, d = q.shape
     s = (t * h * d, h * d, d)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, d, b, h, t, *s, *s,
-             qk._LOG2E / d ** 0.5, None, 2, _launch.stream(o))
+             qk._LOG2E / d ** 0.5, None, 2, *plan, _launch.stream(o))
     if err:
         raise RuntimeError(f"launch failed: {err}")
 
@@ -207,6 +228,26 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device ms of one call of ``fn``: ``calls`` calls captured once in a
+    CUDA graph, timed by replay."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default="8x4096x8x40,8x1024x8x80,8x1024x6x64")
@@ -221,6 +262,8 @@ def main(argv=None) -> None:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(gpu, flush=True)
+    print(f"SMs and clusters of the d = 256 kernel the card holds at once, by key split: "
+          f"{qk.card_limits(torch.device('cuda'))}", flush=True)
     flavours = args.flavours.split(",")
     built = build_flavours(flavours, args.source)
     for fl in flavours:
@@ -235,24 +278,37 @@ def main(argv=None) -> None:
         ref = qk.attention_plain(q, k, v).float()
         want = qk.attention(q, k, v)
         flops = 4 * b * h * t * t * d
-        mma_ms = time_ms(lambda: qk.attention(q, k, v, route="mma"), args.reps)
-        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), args.reps)
+        mma = lambda: qk.attention(q, k, v, route="mma")
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+        mma_ms, sdpa_ms = time_ms(mma, args.reps), time_ms(sdpa, args.reps)
+        mma_dev, sdpa_dev = graph_ms(mma), graph_ms(sdpa)
+        limits = qk.card_limits(q.device)
         for fl in flavours:
-            fn = built[fl][0]
+            if fl in SPLITS and d != 256:
+                continue
+            fn, plan = built[fl][0], qk.wgmma_plan(d, b, h, t, *limits, split=SPLITS.get(fl))
+            if fl == "nc1":
+                plan = (plan[0], 1)
             o = torch.empty_like(q)
-            launch(fn, q, k, v, o)
+            launch(fn, q, k, v, o, plan)
             torch.cuda.synchronize()
             err = (o.float() - ref).abs().max().item() / ref.abs().max().item()
             if fl == "kernel" and args.source == str(SOURCE) and not torch.equal(o, want):
                 raise AssertionError("the probe's kernel build differs from the wrapper's")
             if fl not in STRIPPED and err > 2e-2:
                 raise AssertionError(f"{fl} {shape} disagrees with the plain version: {err}")
-            ms = time_ms(lambda: launch(fn, q, k, v, o), args.reps)
-            row = dict(flavour=fl, shape=[b, t, h, d], ms=ms, tflops=flops / ms / 1e9,
-                       mma_ms=mma_ms, sdpa_ms=sdpa_ms, rel_err=err)
+            ms = time_ms(lambda: launch(fn, q, k, v, o, plan), args.reps)
+            dev = graph_ms(lambda: launch(fn, q, k, v, o, plan))
+            row = dict(flavour=fl, shape=[b, t, h, d], split=plan[0], consumers=plan[1], ms=ms,
+                       device_ms=dev,
+                       tflops=flops / ms / 1e9, device_tflops=flops / dev / 1e9, mma_ms=mma_ms,
+                       sdpa_ms=sdpa_ms, mma_device_ms=mma_dev, sdpa_device_ms=sdpa_dev,
+                       rel_err=err)
             rows.append(row)
-            print(f"  {fl:12s} [{b},{t},{h},{d}] {ms:.4f} ms {row['tflops']:.0f} TFLOP/s "
-                  f"(mma {mma_ms:.4f}, sdpa {sdpa_ms:.4f}) rel_err {err:.2e}", flush=True)
+            print(f"  {fl:12s} [{b},{t},{h},{d}] plan {plan}: {ms:.4f} ms, device "
+                  f"{dev:.4f} ms {row['device_tflops']:.0f} TFLOP/s (mma {mma_ms:.4f} / device "
+                  f"{mma_dev:.4f}, sdpa {sdpa_ms:.4f} / device {sdpa_dev:.4f}) rel_err {err:.2e}",
+                  flush=True)
     result = dict(gpu=gpu, rows=rows, ptxas={fl: built[fl][1] for fl in flavours})
     if args.json:
         with open(args.json, "w") as f:
