@@ -71,8 +71,11 @@ Phases, each of which raises on failure (nothing is caught):
      each of dq, dk, dv within 2e-2 of its largest magnitude; one shape in
      fp32 within 1e-4; one [2, 4096, 8, 40] call through ``attention``), with
      kernel, plain, library (autograd of scaled_dot_product_attention, timed
-     only) and bound times, each row's route (bf16: "mma", fp32: "fma"), the
-     "fma" route's time at bf16 (``fma_ms``, the first design) and the
+     only) and bound times, each row's route (bf16: "wgmma", with its plan;
+     fp32: "fma"), the "mma" route's time at bf16 in turns with it
+     (``mma_ms``, the mma.sync design, also held against plain), the device
+     times of both and of the library's backward by torch.profiler
+     (``device_ms``, ``mma_device_ms``, ``library_device_ms``) and the
      TFLOP/s on the 14*B*H*T^2*d operations the kernels run; the gradient
      of every forward-only kernel's wrapper against its twin's at one small
      shape each; one full-width training forward + backward (batch 2, draws
@@ -81,19 +84,20 @@ Phases, each of which raises on failure (nothing is caught):
      then ``training_loop`` at full width in bf16 on an in-memory dataset:
      batch 32 as 2 rounds of 16, dropout 0.10, 1 warm step and 4 timed steps,
      the forward and backward launches counted (forward on "wgmma", with
-     the row statistic; backward on "mma"), a
+     the row statistic; backward on "wgmma"), a
      snapshot and a state dump written, read back and held equal;
  5b. DDPM++ / VP training (the training CLI's --arch ddpmpp --precond vp
      --cond 1 --bf16 1 --augment 0): the backward kernels at d = 256 against
      their plain version at [32, 256, 768] and [32, 64, 768] in bf16 (on
-     "mma", the wide form; ``fma_ms`` times the first design in turns with
-     it) and one shape in fp32 (on "fma"), with kernel, plain, library and
-     bound times; one full-width VPLoss forward + backward at batch 2 on the
+     "wgmma"; ``mma_ms`` times the mma wide form in turns with it), at
+     train_bench's [128, 256, 768] likewise, and one shape in fp32 (on
+     "fma"), with kernel, plain, library, device and bound times; one
+     full-width VPLoss forward + backward at batch 2 on the
      card against the CPU as in 5; the CLI's dry run; training_loop at full
      width on an in-memory random 32x32 dataset, batch 64 as 2 rounds of 32,
      dropout 0.10, 1 warm and 4 timed steps: 6 forward and 12 backward
      attention launches a micro-batch (60 / 120), the forward on "wgmma"
-     (its row statistic read by the backward), the backward on "mma";
+     (its row statistic read by the backward), the backward on "wgmma";
  5c. augmented DDPM++ / VP training at the training CLI's defaults
      (--augment 0.12): the EDM augment pipe on the card against the CPU at
      [32, 32, 32, 3] and [16, 64, 64, 3] under injected draws, fp32 with TF32
@@ -101,7 +105,7 @@ Phases, each of which raises on failure (nothing is caught):
      ms per call with the card's own draws, the CLI's dry run (augment_dim 9),
      then training_loop as in 5b with the pipe and a map_augment of 9 inputs:
      step ms and img/s beside 5b's from the same call, the pipe's share of a
-     step, the same 60 / 120 attention launches ("wgmma" / "mma");
+     step, the same 60 / 120 attention launches (both on "wgmma");
   6. SD main path: the full-width SD-1.5 UNet and VAE decoder (random
      weights from a numpy seed) at the default routing (the VAE decoder's
      convs from 128x128 up through the conv kernels, their GroupNorms folded
@@ -387,6 +391,8 @@ CIFAR_TRAIN_SHAPES = ((32, 256), (128, 256))
 # ptxas's register and spill lines of the d = 256 wgmma kernels, by
 # (consumer warpgroups, key split) (phase 2 fills it from the build's log).
 D256_PTXAS: dict[tuple[int, int], list[str]] = {}
+# ... and of the backward's wgmma kernels, by "dq|dkv d=D".
+BWD_PTXAS: dict[str, list[str]] = {}
 # NCSN++ (the training CLI's ncsnpp preset) at CIFAR-10's size and labels
 NCSNPP_CIFAR = dict(edm_entry.CIFAR10_DDPMPP, model_kwargs=dict(
     train_cli.ARCH_PRESETS["ncsnpp"]["model_kwargs"], dropout=0.0))
@@ -413,7 +419,7 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
 # "wgmma" at the ADM's 64, the SD UNet's 40, 80 and 160 and the DDPM++ net's
 # 256, the widths of FAST_ROUTE's entry; "mma" at the VAE's 512, so that an
 # SD search splits its launches between the two (sd_attention_routes).
-FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "mma", "geglu_ff": "wgmma",
+FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "wgmma", "geglu_ff": "wgmma",
               "conv3x3_same": "wgmma", "conv3x3_up2": "wgmma", "group_norm_silu": "slab"}
 
 
@@ -1096,14 +1102,15 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     wrapper's backward function called directly (the row term delta and the
     two launches), ``autograd_ms`` the same through ``torch.autograd.grad``,
     as the library's backward is timed: at the small sites both are the
-    autograd engine's dispatch, not the device. ``fma_ms`` times the same
-    call on the "fma" route (the first design) where the row is on "mma",
-    in turns with ``ms``; such a row also has the device time of one call on
-    each route and of the library's backward (``device_ms``,
-    ``fma_device_ms``, ``library_device_ms``: the kernels' durations over 20
-    calls under torch.profiler, device_ms(), divided by 20), which the
-    host's call rate does not reach. ``tflops`` counts the 14*B*H*T^2*d operations
-    the two kernels run (S and dP in each). ``d`` is the head width."""
+    autograd engine's dispatch, not the device. A bf16 row (route "wgmma",
+    with its ``plan``) also runs the "mma" route forced on the same inputs,
+    held against plain as well (``mma_max_rel_err``), and times it in turns
+    with ``ms`` (``mma_ms``); it has the device time of one call on each
+    route and of the library's backward (``device_ms``, ``mma_device_ms``,
+    ``library_device_ms``: the kernels' durations over 20 calls under
+    torch.profiler, device_ms(), divided by 20), which the host's call rate
+    does not reach. ``tflops`` counts the 14*B*H*T^2*d operations the two
+    kernels run (S and dP in each). ``d`` is the head width."""
     c = heads * d
     gen = torch.Generator(device="cuda").manual_seed(7000 + t + b)
     qkv = torch.randn((b, t, 3 * c), device="cuda", generator=gen).to(dtype).requires_grad_(True)
@@ -1135,23 +1142,32 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
     row["bound_ms"], row["bound_by"] = bound(10 * b * heads * t * t * d,
                                              8 * b * t * c * torch.finfo(dtype).bits // 8, dtype)
     row["route"] = qk.backward_route(dtype, d)
-    if row["route"] == "mma":
-        row["ms"], row["fma_ms"] = time_in_turns(backward, lambda: backward("fma"))
-        row["device_ms"], row["fma_device_ms"], row["library_device_ms"] = (
+    ok = max_rel <= TOL[dtype] and bool(torch.isfinite(got).all())
+    if dtype == torch.bfloat16:
+        row["plan"] = list(qk.bwd_wgmma_plan(d))
+        mma = backward("mma")
+        row["mma_max_rel_err"] = max(rel_err(a.reshape(b, t, heads, d), r)[1]
+                                     for a, r in zip(mma.chunk(3, dim=-1), ref))
+        ok = ok and row["mma_max_rel_err"] <= TOL[dtype]
+        row["ms"], row["mma_ms"] = time_in_turns(backward, lambda: backward("mma"))
+        row["device_ms"], row["mma_device_ms"], row["library_device_ms"] = (
             device_ms(lambda fn=fn: [fn() for _ in range(20)])[0] / 20
-            for fn in (backward, lambda: backward("fma"), library))
+            for fn in (backward, lambda: backward("mma"), library))
+        row["device_tflops"] = 14 * b * heads * t * t * d / row["device_ms"] / 1e9
     else:
-        row["ms"] = row["fma_ms"] = time_ms(backward)
+        row["ms"] = time_ms(backward)
     row["tflops"] = 14 * b * heads * t * t * d / row["ms"] / 1e9
-    device = (f" device_ms={row['device_ms']:.4f} fma_device_ms={row['fma_device_ms']:.4f} "
-              f"library_device_ms={row['library_device_ms']:.4f}" if "device_ms" in row else "")
+    designs = (f" plan={row['plan']} mma_ms={row['mma_ms']:.4f} (max_rel "
+               f"{row['mma_max_rel_err']:.3e}) device_ms={row['device_ms']:.4f} "
+               f"({row['device_tflops']:.1f} TFLOP/s) mma_device_ms={row['mma_device_ms']:.4f} "
+               f"library_device_ms={row['library_device_ms']:.4f}" if "device_ms" in row else "")
     print(f"  attention_bwd {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {TOL[dtype]}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s; through autograd "
-          f"{row['autograd_ms']:.4f}) fma_ms={row['fma_ms']:.4f} "
-          f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){device} [{tag}]")
-    if not (max_rel <= TOL[dtype] and torch.isfinite(got).all()):
+          f"{row['autograd_ms']:.4f}) plain_ms={row['plain_ms']:.4f} "
+          f"library_ms={row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+          f"({row['bound_by']}){designs} [{tag}]")
+    if not ok:
         raise AssertionError(f"attention_bwd disagrees with its plain version: {row}")
     return row
 
@@ -1423,15 +1439,19 @@ def training_phases(tag: str, edm_line: dict) -> dict:
         "launches": run["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # times: the 22 attention sites of one bf16 backward at the training
-        # micro-batch (16), summed; each call is its two launches plus the
-        # row term delta. "route" names the language (CUDA); "routes" counts
-        # the training run's launches per design ("mma": the tensor cores),
-        # and fma_ms times the first design on the same inputs
+        # micro-batch (16), summed; each call is its two launches (on wgmma,
+        # delta computed in the first). "route" names the language (CUDA);
+        # "routes" counts the training run's launches per design ("wgmma":
+        # Hopper's warpgroup products), mma_ms times the mma.sync design on
+        # the same inputs in turns, and the device times come from
+        # torch.profiler
         "ms": per_backward("ms"), "plain_ms": per_backward("plain_ms"),
         "bound_ms": per_backward("bound_ms"),
         "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
-        "library_ms": per_backward("library_ms"), "fma_ms": per_backward("fma_ms"),
-        "routes": run["routes"],
+        "library_ms": per_backward("library_ms"), "mma_ms": per_backward("mma_ms"),
+        "device_ms": per_backward("device_ms"), "mma_device_ms": per_backward("mma_device_ms"),
+        "library_device_ms": per_backward("library_device_ms"),
+        "routes": run["routes"], "ptxas": BWD_PTXAS,
         "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
         "train_peak_gib": run["peak_gib"], "shapes": rows,
     }
@@ -1592,7 +1612,11 @@ def cifar_training_phase(tag: str) -> dict:
     micro = CIFAR_TRAIN_BATCH // TRAIN_ROUNDS
     main_rows = [check_attention_bwd(micro, t, heads, torch.bfloat16, tag, d=CIFAR_D)
                  for t, heads, _ in CIFAR_SITES]
-    rows = main_rows + [check_attention_bwd(micro, 256, 1, torch.float32, tag, d=CIFAR_D)]
+    # train_bench --arch cifar10 --batch 128's 16x16 sites, beside the micro-batch's
+    bench_row = check_attention_bwd(CIFAR_TRAIN_SHAPES[1][0], CIFAR_TRAIN_SHAPES[1][1], 1,
+                                    torch.bfloat16, tag, d=CIFAR_D)
+    rows = main_rows + [bench_row,
+                        check_attention_bwd(micro, 256, 1, torch.float32, tag, d=CIFAR_D)]
     fwd_rows = [check_attention(micro, t, heads, torch.bfloat16, tag, d=CIFAR_D)
                 for t, heads, _ in CIFAR_SITES]
     check_training_forward_backward(DDPMPP_TRAIN, VPPrecond, VPLoss())
@@ -1620,11 +1644,14 @@ def cifar_training_phase(tag: str) -> dict:
         # times: the 6 sites of one bf16 backward at the micro-batch (32), summed
         "ms": per_backward("ms"), "plain_ms": per_backward("plain_ms"),
         "bound_ms": per_backward("bound_ms"), "library_ms": per_backward("library_ms"),
-        # the first design (the fma route) on the same inputs, in turns
-        "fma_ms": per_backward("fma_ms"), "route": main_rows[0]["route"],
+        # the mma.sync wide form (PR 17) on the same inputs, in turns
+        "mma_ms": per_backward("mma_ms"), "route": main_rows[0]["route"],
         # device times (torch.profiler): the host's call rate left out
-        "device_ms": per_backward("device_ms"), "fma_device_ms": per_backward("fma_device_ms"),
+        "device_ms": per_backward("device_ms"), "mma_device_ms": per_backward("mma_device_ms"),
         "library_device_ms": per_backward("library_device_ms"),
+        # train_bench's [128, 256, 768]: one call's device ms on each design
+        "bench_shape": {k: bench_row[k] for k in ("shape", "device_ms", "mma_device_ms",
+                                                   "library_device_ms", "bound_ms")},
         "max_abs_err": max(r["max_abs_err"] for r in rows), "routes": run["routes"],
         "train_step_ms": run["step_ms"], "train_img_per_s": run["img_per_s"],
         "train_peak_gib": run["peak_gib"], "shapes": rows + fwd_rows,
@@ -3417,6 +3444,11 @@ def main() -> None:
             for d in (160, 256):
                 for entry, lines in ptxas_lines(built[name][1], f"Li{d}E").items():
                     print(f"ptxas, {name} D = {d}, {entry}: " + "; ".join(lines))
+    if "attention_bwd" in built:  # the wgmma route's kernels, by <D>
+        for entry, lines in ptxas_lines(built["attention_bwd"][1], "_wgmma_kernel").items():
+            kind, d = re.search(r"(dq|dkv)_wgmma_kernelILi(\d+)E", entry).groups()
+            BWD_PTXAS[f"{kind} d={d}"] = lines
+            print(f"ptxas, attention_bwd wgmma {kind} D = {d}: " + "; ".join(lines))
     geglu_ptxas = {}
     if "geglu_ff" in built:  # the wgmma route's kernels, by <consumers, B rows, launch>
         for entry, lines in ptxas_lines(built["geglu_ff"][1], "geglu_wgmma_kernel").items():

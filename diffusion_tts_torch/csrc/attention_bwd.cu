@@ -6,7 +6,8 @@
 // _attn_bwd_dkv_kernel), which both the qkv and the [B, T, H, D] custom VJPs
 // route to. Same function (attention.py::_attention_bwd_explicit): with
 // S = q.k^T * scale and P = softmax(S) in fp32,
-//   delta_i = sum_d g_i o_i            (fp32, computed by the caller)
+//   delta_i = sum_d g_i o_i            (fp32: the caller's on routes 0 and 1,
+//                                       the dQ kernel's on route 2)
 //   dV = P^T . g                       (P cast to the input dtype)
 //   dP = g . v^T
 //   dS = P * (dP - delta)              (fp32, then cast to the input dtype)
@@ -20,7 +21,8 @@
 // dP, so they run seven: 14*B*H*T^2*d. At the training path's [16, 1024,
 // 6 heads, 64] that is 9.02e10 operations against 101 MB in bf16, about 900
 // FLOP/byte, far above the H100's 295 FLOP/byte balance point; at T = 64 the
-// work is small enough that the launch and the caller's row term dominate.
+// work is small enough that the launch, a block's fixed cost and (on the fma
+// and mma routes) the caller's row term dominate.
 //
 // Two kernels, each owning its results. dQ sums over key tiles and dK/dV sum
 // over query tiles; one fused kernel would need fp32 atomics for one of them,
@@ -37,13 +39,18 @@
 //
 // Routes. The caller picks one (ops/kernels/qkv_attention.py::
 // backward_route) and this file obeys:
+//   * wgmma (route 2): bf16 at d = 64, 256, the ADM training path's and the
+//     DDPM++ training path's widths. Hopper's warpgroup products (wgmma)
+//     fed by TMA through mbarrier rings, and the row term delta computed in
+//     the dQ kernel; see "The wgmma route" below.
 //   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, every width
-//     up to 256 of the forward's mma route (the ADM training path's d = 64
-//     and the DDPM++ training path's d = 256 among them). The products run
-//     on the tensor cores (mma.sync m16n8k16, bf16 operands, fp32
-//     accumulators: exactly the arithmetic of the function above). Up to
-//     d = 80 four warps hold a block's results (the narrow form); at 160 and
-//     256 eight warps split the results' columns (the wide form).
+//     up to 256 of the forward's mma route; at 64 and 256 only when the
+//     caller forces it (route="mma"), which times this design beside
+//     wgmma. The products run on the tensor cores (mma.sync m16n8k16, bf16
+//     operands, fp32 accumulators: exactly the arithmetic of the function
+//     above). Up to d = 80 four warps hold a block's results (the narrow
+//     form); at 160 and 256 eight warps split the results' columns (the
+//     wide form).
 //   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
 //     8. The products run on the CUDA cores in fp32 FMA, so that fp32 holds
 //     1e-4 against an fp32 reference with TF32 off (a TF32 product would
@@ -99,16 +106,16 @@
 //       (c) wgmma (m64nNk16, a 64-row result in one warp group's
 //           registers), the only way to the full tensor-core rate: one warp
 //           group cannot hold dK and dV at d = 256 either (2 x 128 registers
-//           a thread), so two groups would exchange P^T and dS^T as here,
-//           and it adds shared-memory descriptors over swizzled tiles, which
-//           only the card's compiler and a chip run can check. Left to a
-//           later redesign: with the mma.sync, the ldmatrix or the streamed
-//           copies stripped out (tools/torch_attention_bwd_probe.py), this
-//           form loses only a small part of its time each (PERF.md §6).
-//           What is left is the latency of each warp's chain of loads and
-//           products, two warps to an SM quarter, and the per-launch cost
-//           of loading the resident pair; wgmma's asynchronous products and
-//           a producer warp's copies are what hide those.
+//           a thread), so two groups exchange P^T and dS^T as here. With the
+//           mma.sync, the ldmatrix or the streamed copies stripped out
+//           (tools/torch_attention_bwd_probe.py), this form loses only a
+//           small part of its time each (PERF.md §6): what is left is the
+//           latency of each warp's chain of loads and products, two warps to
+//           an SM quarter, and the per-launch cost of loading the resident
+//           pair, which wgmma's asynchronous products and a producer warp's
+//           TMA copies hide. That is the wgmma route (below), which serves
+//           d = 256 since it was built; this form stays for d = 160 and for
+//           route="mma".
 //   * The resident pair's A fragments are loaded per k16 step: held in
 //     registers they would take 2 x 64 at d = 256.
 //   * Shared memory, bf16 at a pitch of d + 8 (conflict-free ldmatrix; the
@@ -128,6 +135,71 @@
 //     d = 160 a quarter of the columns (40) is no multiple of the 16 that
 //     one ldmatrix.x4 covers, so d = 160 keeps 64-row blocks.
 //   * d is a multiple of 16 at both widths: no zero columns.
+//
+// The wgmma route (d = 64 and 256), on hopper.cuh's TMA, mbarrier and
+// wgmma helpers, the forward's wgmma route (csrc/qkv_attention.cu) its
+// pattern:
+//   * The same two kernels and ownership as above (no atomics, bit-identical
+//     runs). dq_wgmma_kernel: one warpgroup a block, 64 q rows;
+//     dkv_wgmma_kernel: one warpgroup and 64 keys a block at d = 64, two
+//     warpgroups sharing 64 keys at d = 256. One block a tile (not
+//     persistent).
+//   * Tensor maps (d, H, T, B) per operand, encoded on every call, with
+//     boxes of 64 columns by 64 tokens of one head in the 128-byte swizzle;
+//     tokens past T read as zero. The block loads its resident pair once and
+//     streams the other pair through an S-stage ring with full / empty
+//     mbarriers (S = 3 at d = 64, 2 at 256). It feeds the ring itself: warp 0
+//     issues the first S loads, and while tile j's first products run it
+//     loads tile j - 1 + S into the stage that every warp released at the
+//     end of tile j - 1 (in dkv the 32 lanes of warp 0 also stage
+//     the tile's 64 lse and delta values into shared memory and arrive on
+//     the stage's full barrier). A producer warp of its own (the forward's
+//     layout) cost a d = 64 block 32 threads and two thirds of the blocks an
+//     SM holds, and in the wide dK/dV kernel a producer warpgroup and
+//     setmaxnreg, under which ptxas kept the consumers at the launch's 168
+//     registers, spilled and serialized every wgmma (PERF.md §6, PR 23).
+//   * Products (m64nNk16, bf16 operands, fp32 accumulators), every one a
+//     form the forward issues: S = Q.K^T and dP = g.V^T (dq), S^T = K.Q^T
+//     and dP^T = V.g^T (dkv) with both operands in shared memory, K-major;
+//     dQ += dS.K, dV += P^T.g and dK += dS^T.Q with the left operand in
+//     registers (the accumulator layout is the A layout, as P is in the
+//     forward's P.V) and the right one read MN-major from the same tile.
+//     Inside a warpgroup nothing overlaps (products, wait, exponentials,
+//     products); the blocks that share an SM hide each other's
+//     exponentials. Two overlaps inside a warpgroup were tried (PERF.md §6,
+//     PR 23): S^T and dP^T as two commit groups, P^T's exponentials under
+//     dP^T, measured no faster; dq's dS.K product left in flight under the
+//     next tile's S and dP made ptxas serialize every wgmma of the kernel (a
+//     register fence on its accumulator sat inside the pipeline).
+//   * delta = rowsum(g o) (fp32) is computed by the dQ kernel before its
+//     loop, two threads a row, from g and o in global memory, and written
+//     to an fp32 [B, H, T] buffer that the dK/dV launch, next on the
+//     stream, reads: no PyTorch ops around the two launches.
+//   * What bounds it: operations at [16, 1024, 1152] (14 B H T^2 d = 9.02e10
+//     in the two kernels, 1536 q tiles); at T = 64 (one key tile) a block's
+//     fixed cost, launch, first TMA loads and epilogue, about 5 us in the
+//     forward (PERF.md §6, PR 22), and the bytes.
+//   * Budget at d = 64: dq holds S, dP and dQ (3 x 32 fp32 a thread) and dS
+//     in bf16 (16); dkv holds S^T, dP^T, dK, dV (4 x 32) and P^T, dS^T in
+//     bf16 (2 x 16). 128-thread blocks with 16 KB of resident tiles (Q and
+//     g, or K and V) and three 16 KB stages: three blocks to an SM (dkv's
+//     168 registers and dq's shared memory; ptxas's numbers in PERF.md §6;
+//     two stages in dq, four blocks to an SM, measured no faster).
+//   * Budget at d = 256: dQ's 64 x 256 fp32 is 128 registers a thread
+//     beside S and dP (2 x 32) and dS (16): one warpgroup of up to 255
+//     registers. dK and dV are 2 x 128 for one warpgroup, over the 255
+//     limit: two warpgroups split the result columns (128 each, 2 x 64
+//     registers). Each computes S^T and dP^T for 32 of the tile's 64 q rows
+//     (m64n32 products over all of d, 2 x 16 registers), rounds P^T and dS^T
+//     to bf16 and writes them into two 8 KB exchange tiles in the 128-byte
+//     swizzle; after a named barrier each reads the whole tiles as a
+//     shared-memory A operand against its 128 columns of g and Q (MN-major B
+//     at N = 128). Two barriers a tile: the exchange tiles free, then
+//     written. Shared memory: dq 64 KB resident + 2 x 64 KB ring (198 KB),
+//     dkv 64 KB resident + 128 KB ring + 16 KB of exchange (215 KB).
+//   * Every pointer and stride must be 16-byte aligned (TMA's rule); the
+//     wrapper refuses anything else before the launch, and a refused tensor
+//     map returns kEncodeFailed + its CUresult.
 //
 // The fma route (the first design):
 //   * 256 threads as 16 x 16 over 64 x 64 tiles: each thread owns 4 x 4 of
@@ -152,11 +224,13 @@
 // for the results: the qkv form reads q, k and v as the thirds of [B, T, 3C]
 // and writes dq | dk | dv straight into the thirds of one [B, T, 3C]
 // gradient, with no head-split copy and no concatenation.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -1107,26 +1181,614 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   }
 }
 
+// -------------------------------------------------------------- wgmma route
+
+// Hopper's asynchronous building blocks (mbarriers, TMA loads, warpgroup
+// matrix products, the tensor-map encoder) live in hopper.cuh.
+using dtts::EncodeTiled;
+using dtts::encode_tiled;
+using dtts::fence_regs;
+using dtts::kEncodeFailed;
+using dtts::mbar_arrive;
+using dtts::mbar_expect_tx;
+using dtts::mbar_init;
+using dtts::mbar_wait;
+using dtts::tma_load_4d;
+using dtts::wgmma_commit;
+using dtts::wgmma_desc;
+using dtts::wgmma_fence;
+using dtts::wgmma_rs;
+using dtts::wgmma_ss;
+using dtts::wgmma_wait;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keeps the compiler from hoisting one 64-bit descriptor per k16 step out of
+// a loop: each use starts from a copy it cannot see through.
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
+// Tile shapes of the wgmma route at head width D (64 or 256). Every tile is
+// 64 rows (q rows or keys) of D columns, carried as D / 64 TMA boxes of 64
+// columns: 128-byte rows in the 128-byte swizzle, boxes 8 KB apart.
+template <int D>
+struct WgBwd {
+  static_assert(D == 64 || D == 256, "the wgmma route takes d = 64 and 256");
+  static constexpr int kBoxes = D / 64;
+  static constexpr int kBoxBytes = 64 * 128;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // 8 KB at 64, 32 KB at 256
+  static constexpr int kSteps = D / 16;                  // k16 steps of S and dP over d
+  static constexpr int kStages = D == 64 ? 3 : 2;        // ring depth of the streamed pair
+  // dK/dV's columns split over two warpgroups, P^T and dS^T exchanged
+  static constexpr bool kWide = D > 64;
+  static constexpr int kXBytes = 64 * 128;  // one exchange tile: 64 x 64 bf16, swizzled
+  static constexpr int kDkvWarpgroups = kWide ? 2 : 1;
+  // dK/dV blocks an SM is to hold: three at d = 64, which keeps ptxas within
+  // 168 registers a thread (172 would leave room for two).
+  static constexpr int kDkvMinBlocks = kWide ? 1 : 3;
+  // dQ: the resident Q and g tiles, the K/V ring, delta of the block's 64
+  // rows, the barriers (qg_full, kv_full[S], kv_empty[S]); 1024 bytes of
+  // alignment.
+  static constexpr int kDqSmem =
+      1024 + 2 * kTileBytes + 2 * kStages * kTileBytes + 64 * 4 + 8 * (1 + 2 * kStages);
+  // dK/dV: the resident K and V tiles, the Q/g ring, the exchange tiles
+  // (wide form), each stage's lse and delta, the barriers (kv_full,
+  // qg_full[S], qg_empty[S]).
+  static constexpr int kDkvSmem = 1024 + 2 * kTileBytes + 2 * kStages * kTileBytes +
+                                  (kWide ? 2 * kXBytes : 0) + 2 * kStages * 64 * 4 +
+                                  8 * (1 + 2 * kStages);
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448, "tiles exceed a block's shared memory");
+};
+
+// Descriptor offset (16-byte units) of k16 step kk over a tile's columns:
+// box kk / 4, 32 bytes a step within the box's 128-byte rows.
+__device__ __forceinline__ uint32_t col_step(int kk) {
+  return static_cast<uint32_t>(((kk / 4) * 64 * 128 + (kk % 4) * 32) >> 4);
+}
+
+// dQ: one block per (64 q rows, head, batch), one warpgroup. It holds the
+// rows' Q and g tiles and streams the (K, V) tile pairs through an S-stage
+// ring that it feeds itself: thread 0 loads the first S pairs, and while a
+// tile's first products run it refills the stage that every warp released
+// at the end of the tile before (no producer warp: a block is 128 threads,
+// so that more blocks share an SM).
+// Each tile: S = Q.K^T and dP = g.V^T (wgmma, both operands from shared
+// memory, K-major), P = exp2(S scale log2e - lse) and dS = P (dP - delta) in
+// the accumulator registers, then dQ += dS.K with dS rounded to bf16 as the
+// register A operand and K read MN-major. delta = rowsum(g o) is computed
+// here first, from g and o in global memory, and written to `delta` for the
+// dK/dV launch that follows on the stream.
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+                const bf16* __restrict__ g, const bf16* __restrict__ o,
+                const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq,
+                int t, int64_t g_sb, int64_t g_st, int64_t g_sh, int64_t o_sb, int64_t o_st,
+                int64_t o_sh, int64_t out_sb, int64_t out_st, int64_t out_sh,
+                float scale_log2e, float scale) {
+  using C = WgBwd<D>;
+  constexpr int S = C::kStages, TB = C::kTileBytes;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  // Swizzled tiles need 1024-byte alignment.
+  const uint32_t base = (dtts::smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;           // the Q tile
+  const uint32_t g_s = q_s + TB;       // the g tile
+  const uint32_t k_s = g_s + TB;       // [S] K tiles
+  const uint32_t v_s = k_s + S * TB;   // [S] V tiles
+  const uint32_t dl_s = v_s + S * TB;  // [64] delta, fp32
+  const uint32_t bar = dl_s + 64 * 4;
+  const uint32_t qg_full = bar;
+  auto kv_full = [&](int s) { return bar + 8u * (1 + s); };
+  auto kv_empty = [&](int s) { return bar + 8u * (1 + S + s); };
+  auto smem_ptr = [&](uint32_t addr) { return wg_smem + (addr - dtts::smem_addr(wg_smem)); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int head = blockIdx.y, batch = blockIdx.z, row0 = blockIdx.x * 64;
+  const int ntiles = (t + 63) / 64;
+  // K/V tile pair j into stage j % S (thread 0)
+  auto load_kv = [&](int j) {
+    const int s = j % S;
+    mbar_expect_tx(kv_full(s), 2 * TB);
+    for (int bx = 0; bx < C::kBoxes; ++bx) {
+      tma_load_4d(k_s + s * TB + bx * C::kBoxBytes, &kmap, kv_full(s), 64 * bx, head, 64 * j,
+                  batch);
+      tma_load_4d(v_s + s * TB + bx * C::kBoxBytes, &vmap, kv_full(s), 64 * bx, head, 64 * j,
+                  batch);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(qg_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(kv_full(s), 1);
+      mbar_init(kv_empty(s), 4);  // lane 0 of every warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qg_full, 2 * TB);
+    for (int bx = 0; bx < C::kBoxes; ++bx) {
+      tma_load_4d(q_s + bx * C::kBoxBytes, &qmap, qg_full, 64 * bx, head, row0, batch);
+      tma_load_4d(g_s + bx * C::kBoxBytes, &gmap, qg_full, 64 * bx, head, row0, batch);
+    }
+    for (int j = 0; j < S && j < ntiles; ++j) load_kv(j);
+  }
+
+  const int64_t stat = ((int64_t)batch * gridDim.y + head) * t;
+  float* dl = reinterpret_cast<float*>(smem_ptr(dl_s));
+  {
+    // delta = rowsum(g o) in fp32, two threads a row, D / 2 columns each in
+    // a fixed order; rows past t get 0 and are never stored.
+    const int r = tid / 2, half = tid % 2, row = row0 + r;
+    float sum = 0.f;
+    if (row < t) {
+      const bf16* gp = g + batch * g_sb + row * g_st + head * g_sh + half * (D / 2);
+      const bf16* op = o + batch * o_sb + row * o_st + head * o_sh + half * (D / 2);
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(gp + i);
+        const uint4 b = *reinterpret_cast<const uint4*>(op + i);
+        const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(a2[e]), y = __bfloat1622float2(b2[e]);
+          sum = fmaf(x.x, y.x, sum);
+          sum = fmaf(x.y, y.y, sum);
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0) {
+      dl[r] = sum;
+      if (row < t) delta[stat + row] = sum;
+    }
+    __syncthreads();  // the block's delta
+  }
+  // lse and delta of this lane's rows gq and gq + 8 of the warp's 16
+  float rl[2], rd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int local = 16 * warp + gq + 8 * r;
+    rd[r] = dl[local];
+    rl[r] = row0 + local < t ? lse[stat + row0 + local] : 0.f;
+  }
+
+  const uint64_t q_desc = wgmma_desc(q_s, 16, 1024, 1);
+  const uint64_t g_desc = wgmma_desc(g_s, 16, 1024, 1);
+  const uint64_t k_desc = wgmma_desc(k_s, 16, 1024, 1);  // K as S's B: K-major
+  const uint64_t v_desc = wgmma_desc(v_s, 16, 1024, 1);
+  // K as dQ's B: MN-major, 64-column atoms (boxes) kBoxBytes apart, 8-key
+  // groups 1024 bytes apart
+  const uint64_t kt_desc = wgmma_desc(k_s, C::kBoxBytes, 1024, 1);
+
+  float acc[D / 2];  // dQ: 64 rows x D columns over the warpgroup
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[32], dp[32];  // S and dP: 64 rows x 64 keys
+  uint32_t ds[4][4];
+
+  mbar_wait(qg_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % S;
+    mbar_wait(kv_full(s), (j / S) & 1);
+    wgmma_fence();
+    {
+      const uint64_t da = opaque(q_desc), dg = opaque(g_desc);
+      const uint64_t dk = opaque(k_desc) + s * (TB >> 4), dv = opaque(v_desc) + s * (TB >> 4);
+#pragma unroll
+      for (int kk = 0; kk < C::kSteps; ++kk)
+        wgmma_ss<64>(sc, da + col_step(kk), dk + col_step(kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < C::kSteps; ++kk)
+        wgmma_ss<64>(dp, dg + col_step(kk), dv + col_step(kk), kk > 0);
+    }
+    wgmma_commit();
+    // While they run: every warp has released the previous tile's stage,
+    // which takes the pair S - 1 tiles on.
+    if (tid == 0 && j > 0 && j - 1 + S < ntiles) {
+      mbar_wait(kv_empty((j - 1) % S), ((j - 1) / S) & 1);
+      load_kv(j - 1 + S);
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    // Element i is row gq + 8 ((i >> 1) & 1) of the warp's 16, key
+    // 64 j + 8 (i / 4) + 2 tq + (i & 1); a key past t gets P = 0.
+    const bool ragged = (j + 1) * 64 > t;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(fmaf(sc[i], scale_log2e, -rl[r]));
+      if (ragged && 64 * j + 8 * (i / 4) + 2 * tq + (i & 1) >= t) p = 0.f;
+      sc[i] = p * (dp[i] - rd[r]);  // dS, fp32
+    }
+    // dS rounded to bf16 is the A operand as it stands: k16 step kk holds
+    // n8 blocks 2 kk and 2 kk + 1.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[kk][e] = dtts::pack_bf16x2(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    fence_regs(acc);
+    wgmma_fence();
+    {
+      const uint64_t db = opaque(kt_desc) + s * (TB >> 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, ds[kk], db + ((kk * 16 * 128) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(kv_empty(s));  // this warp is done with the stage
+  }
+
+  bf16* out = dq + batch * out_sb + head * out_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 16 * warp + gq + 8 * r;
+    if (row >= t) continue;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+      *reinterpret_cast<__nv_bfloat162*>(out + row * out_st + 8 * jn + 2 * tq) =
+          __floats2bfloat162_rn(acc[4 * jn + 2 * r] * scale, acc[4 * jn + 2 * r + 1] * scale);
+  }
+}
+
+// dK and dV: one block per (64 keys, head, batch), fed as dq_wgmma_kernel
+// is: warp 0 loads the (Q, g) tile pairs into an S-stage ring, the first S
+// at the start and each next one into the stage released the tile before,
+// and stages each tile's 64 lse and delta values beside them (a q row past t
+// gets lse = +inf, so its P and dS are 0). Each tile: S^T = K.Q^T and
+// dP^T = V.g^T (wgmma, both operands from shared memory, K-major), P^T and
+// dS^T in the accumulator registers, then dV += P^T.g and dK += dS^T.Q with
+// g and Q read MN-major.
+//   * d = 64 (the narrow form): one warpgroup holds dK and dV (2 x 32 fp32 a
+//     thread); P^T and dS^T, rounded to bf16, are the register A operands
+//     as they stand.
+//   * d = 256 (the wide form): one 64-key tile, two consumer warpgroups that
+//     split the result columns (128 each: 2 x 64 fp32 a thread; one
+//     warpgroup would need 2 x 128). Warpgroup w computes S^T and dP^T for
+//     q columns 32 w .. 32 w + 31 only (m64n32 products over all of d),
+//     rounds P^T and dS^T to bf16 and writes them into two exchange tiles in
+//     the 128-byte swizzle; after a named barrier each warpgroup reads the
+//     whole 64 x 64 tiles as the A operand from shared memory, against g's
+//     and Q's columns 128 w .. 128 w + 127 as an MN-major B at N = 128.
+template <int D>
+__global__ void __launch_bounds__(128 * WgBwd<D>::kDkvWarpgroups, WgBwd<D>::kDkvMinBlocks)
+dkv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int64_t out_sb,
+                 int64_t out_st, int64_t out_sh, float scale_log2e, float scale) {
+  using C = WgBwd<D>;
+  constexpr int S = C::kStages, TB = C::kTileBytes;
+  constexpr bool kWide = C::kWide;
+  constexpr int NC = C::kDkvWarpgroups;
+  constexpr int NQ = kWide ? 32 : 64;    // q columns of S^T a warpgroup computes
+  constexpr int DC = kWide ? D / 2 : D;  // result columns a warpgroup holds
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (dtts::smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t k_s = base;            // the K tile
+  const uint32_t v_s = k_s + TB;        // the V tile
+  const uint32_t q_s = v_s + TB;        // [S] Q tiles
+  const uint32_t g_s = q_s + S * TB;    // [S] g tiles
+  const uint32_t x_s = g_s + S * TB;    // wide form: P^T, then dS^T, kXBytes each
+  const uint32_t st_s = x_s + (kWide ? 2 * C::kXBytes : 0);  // [S][2][64]: lse, delta
+  const uint32_t bar = st_s + S * 2 * 64 * 4;
+  const uint32_t kv_full = bar;
+  auto qg_full = [&](int s) { return bar + 8u * (1 + s); };
+  auto qg_empty = [&](int s) { return bar + 8u * (1 + S + s); };
+  auto smem_ptr = [&](uint32_t addr) { return wg_smem + (addr - dtts::smem_addr(wg_smem)); };
+  float* stats = reinterpret_cast<float*>(smem_ptr(st_s));
+
+  const int w = threadIdx.x / 128;  // the warpgroup (two in the wide form)
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int head = blockIdx.y, batch = blockIdx.z, k0 = blockIdx.x * 64;
+  const int ntiles = (t + 63) / 64;
+  const int64_t stat = ((int64_t)batch * gridDim.y + head) * t;
+  // Q/g tile pair j into stage j % S, with its rows' lse and delta (the 32
+  // lanes of warp 0; each lane's arrival releases its stores, lane 0's also
+  // announces the tiles' bytes)
+  auto load_qg = [&](int j) {
+    const int s = j % S;
+    for (int r = lane; r < 64; r += 32) {
+      const int row = 64 * j + r;
+      stats[2 * s * 64 + r] = row < t ? lse[stat + row] : INFINITY;
+      stats[(2 * s + 1) * 64 + r] = row < t ? delta[stat + row] : 0.f;
+    }
+    if (lane == 0) {
+      mbar_expect_tx(qg_full(s), 2 * TB);
+      for (int bx = 0; bx < C::kBoxes; ++bx) {
+        tma_load_4d(q_s + s * TB + bx * C::kBoxBytes, &qmap, qg_full(s), 64 * bx, head, 64 * j,
+                    batch);
+        tma_load_4d(g_s + s * TB + bx * C::kBoxBytes, &gmap, qg_full(s), 64 * bx, head, 64 * j,
+                    batch);
+      }
+    } else {
+      mbar_arrive(qg_full(s));
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(qg_full(s), 32);       // every lane of warp 0
+      mbar_init(qg_empty(s), 4 * NC);  // lane 0 of every warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * TB);
+      for (int bx = 0; bx < C::kBoxes; ++bx) {
+        tma_load_4d(k_s + bx * C::kBoxBytes, &kmap, kv_full, 64 * bx, head, k0, batch);
+        tma_load_4d(v_s + bx * C::kBoxBytes, &vmap, kv_full, 64 * bx, head, k0, batch);
+      }
+    }
+    for (int j = 0; j < S && j < ntiles; ++j) load_qg(j);
+  }
+
+  const uint64_t k_desc = wgmma_desc(k_s, 16, 1024, 1);  // K and V: the A operands, K-major
+  const uint64_t v_desc = wgmma_desc(v_s, 16, 1024, 1);
+  // Q and g as S^T's and dP^T's B (K-major), from q row 32 w in the wide form
+  const uint32_t qoff = kWide ? 32 * w * 128 : 0;
+  const uint64_t q_desc = wgmma_desc(q_s + qoff, 16, 1024, 1);
+  const uint64_t g_desc = wgmma_desc(g_s + qoff, 16, 1024, 1);
+  // ... and as dK's and dV's B (MN-major), from column 128 w in the wide form
+  const uint32_t coff = kWide ? 2 * w * C::kBoxBytes : 0;
+  const uint64_t qt_desc = wgmma_desc(q_s + coff, C::kBoxBytes, 1024, 1);
+  const uint64_t gt_desc = wgmma_desc(g_s + coff, C::kBoxBytes, 1024, 1);
+
+  float dka[DC / 2], dva[DC / 2];
+#pragma unroll
+  for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
+  float st[NQ / 2], dpt[NQ / 2];  // S^T and dP^T: 64 keys x NQ q rows
+
+  mbar_wait(kv_full, 0);
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % S;
+    mbar_wait(qg_full(s), (j / S) & 1);
+    wgmma_fence();
+    {
+      const uint64_t da = opaque(k_desc), dvv = opaque(v_desc);
+      const uint64_t db = opaque(q_desc) + s * (TB >> 4), dg = opaque(g_desc) + s * (TB >> 4);
+#pragma unroll
+      for (int kk = 0; kk < C::kSteps; ++kk)
+        wgmma_ss<NQ>(st, da + col_step(kk), db + col_step(kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < C::kSteps; ++kk)
+        wgmma_ss<NQ>(dpt, dvv + col_step(kk), dg + col_step(kk), kk > 0);
+    }
+    wgmma_commit();
+    // While they run: every warp has released the previous tile's stage,
+    // which takes the pair S - 1 tiles on.
+    if (threadIdx.x < 32 && j > 0 && j - 1 + S < ntiles) {
+      mbar_wait(qg_empty((j - 1) % S), ((j - 1) / S) & 1);
+      load_qg(j - 1 + S);
+    }
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    // Element i is key gq + 8 ((i >> 1) & 1) of the warp's 16, q column
+    // (32 w in the wide form) + 8 (i / 4) + 2 tq + (i & 1) of the tile.
+    const float* ls = stats + 2 * s * 64;
+    const float* dls = ls + 64;
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) {
+      const int col = (kWide ? 32 * w : 0) + 8 * (i / 4) + 2 * tq + (i & 1);
+      const float p = ex2(fmaf(st[i], scale_log2e, -ls[col]));
+      st[i] = p;                         // P^T, fp32
+      dpt[i] = p * (dpt[i] - dls[col]);  // dS^T, fp32
+    }
+    if constexpr (!kWide) {
+      // P^T and dS^T rounded to bf16 are the A operands as they stand.
+      uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kk][e] = dtts::pack_bf16x2(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
+          sa[kk][e] = dtts::pack_bf16x2(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
+        }
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+      const uint64_t dg = opaque(gt_desc) + s * (TB >> 4), dq = opaque(qt_desc) + s * (TB >> 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<D>(dva, pa[kk], dg + ((kk * 16 * 128) >> 4));
+        wgmma_rs<D>(dka, sa[kk], dq + ((kk * 16 * 128) >> 4));
+      }
+    } else {
+      // Both warpgroups are done with the previous tile's exchange tiles.
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      unsigned char* xp = smem_ptr(x_s);
+      unsigned char* xd = xp + C::kXBytes;
+#pragma unroll
+      for (int i = 0; i < NQ / 2; i += 2) {
+        // key 16 warp + gq + 8 r, q columns 32 w + 8 jn + 2 tq and + 1:
+        // 16-byte chunk 4 w + jn of the 128-byte row, XORed with row % 8
+        const int jn = i / 4, r = (i >> 1) & 1, row = 16 * warp + gq + 8 * r;
+        const int off = row * 128 + (((4 * w + jn) ^ (row & 7)) << 4) + 4 * tq;
+        *reinterpret_cast<uint32_t*>(xp + off) = dtts::pack_bf16x2(st[i], st[i + 1]);
+        *reinterpret_cast<uint32_t*>(xd + off) = dtts::pack_bf16x2(dpt[i], dpt[i + 1]);
+      }
+      dtts::fence_proxy_async();  // the stores, before wgmma reads them
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");  // both halves are written
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+      const uint64_t xpd = opaque(wgmma_desc(x_s, 16, 1024, 1));
+      const uint64_t xdd = opaque(wgmma_desc(x_s + C::kXBytes, 16, 1024, 1));
+      const uint64_t dg = opaque(gt_desc) + s * (TB >> 4), dq = opaque(qt_desc) + s * (TB >> 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        dtts::wgmma_ss_bmn128(dva, xpd + 2 * kk, dg + ((kk * 16 * 128) >> 4), 1);
+        dtts::wgmma_ss_bmn128(dka, xdd + 2 * kk, dq + ((kk * 16 * 128) >> 4), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+    if (lane == 0) mbar_arrive(qg_empty(s));
+  }
+
+  const int64_t out_off = batch * out_sb + head * out_sh;
+  const int c0 = kWide ? DC * w : 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + 16 * warp + gq + 8 * r;
+    if (row >= t) continue;
+#pragma unroll
+    for (int jn = 0; jn < DC / 8; ++jn) {
+      const int64_t at = out_off + row * out_st + c0 + 8 * jn + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[4 * jn + 2 * r] * scale, dka[4 * jn + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[4 * jn + 2 * r], dva[4 * jn + 2 * r + 1]);
+    }
+  }
+}
+
+// The (d, H, T, B) map of a bf16 [B, T, H, d] tensor with (batch, token,
+// head) strides `s` in elements: boxes of 64 columns by 64 tokens of one
+// head in the 128-byte swizzle; tokens past t read as zero.
+int encode_rows(CUtensorMap* map, const void* ptr, int d, int b, int h, int t,
+                const int64_t* s) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)s[2] * 2, (cuuint64_t)s[1] * 2,
+                                 (cuuint64_t)s[0] * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)res;
+}
+
+struct BwdMaps {
+  CUtensorMap q, k, v, g;
+};
+
+template <int D>
+cudaError_t launch_dq_wgmma(const BwdMaps& m, const void* g, const void* o, const float* lse,
+                            float* delta, void* dq, int b, int h, int t, const int64_t* g_s,
+                            const int64_t* o_s, const int64_t* out_s, float scale_log2e,
+                            float scale, cudaStream_t stream) {
+  constexpr int smem = WgBwd<D>::kDqSmem;
+  cudaError_t err = cudaFuncSetAttribute(dq_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((t + 63) / 64, h, b);
+  dq_wgmma_kernel<D><<<grid, 128, smem, stream>>>(
+      m.q, m.k, m.v, m.g, static_cast<const bf16*>(g), static_cast<const bf16*>(o), lse, delta,
+      static_cast<bf16*>(dq), t, g_s[0], g_s[1], g_s[2], o_s[0], o_s[1], o_s[2], out_s[0],
+      out_s[1], out_s[2], scale_log2e, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const BwdMaps& m, const float* lse, const float* delta, void* dk,
+                             void* dv, int b, int h, int t, const int64_t* out_s,
+                             float scale_log2e, float scale, cudaStream_t stream) {
+  constexpr int smem = WgBwd<D>::kDkvSmem;
+  cudaError_t err = cudaFuncSetAttribute(dkv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((t + 63) / 64, h, b);
+  dkv_wgmma_kernel<D><<<grid, 128 * WgBwd<D>::kDkvWarpgroups, smem, stream>>>(
+      m.q, m.k, m.v, m.g, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), t,
+      out_s[0], out_s[1], out_s[2], scale_log2e, scale);
+  return cudaGetLastError();
+}
+
+// The wgmma route: the tensor maps, then dQ (which writes delta), then dK/dV
+// on the same stream. The plan is the caller's (ops/kernels/
+// qkv_attention.py::bwd_wgmma_plan): the warpgroups of a dQ and of a dK/dV
+// block, 1 and 1 at d = 64, 1 and 2 at d = 256; anything else is refused.
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* g, const void* o,
+                 const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int h,
+                 int t, const int64_t* in_s, const int64_t* g_s, const int64_t* o_s,
+                 const int64_t* out_s, float scale_log2e, float scale, int dq_nc, int dkv_nc,
+                 cudaStream_t stream) {
+  if (dq_nc != 1 || dkv_nc != WgBwd<D>::kDkvWarpgroups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // autograd runs the backward on a thread of its own, where no context may
+  // be current yet: the encoder (a driver call) needs the device's primary
+  // context current, which cudaSetDevice makes it.
+  int device = 0;
+  cudaError_t ctx = cudaGetDevice(&device);
+  if (ctx == cudaSuccess) ctx = cudaSetDevice(device);
+  if (ctx != cudaSuccess) return static_cast<int>(ctx);
+  BwdMaps m;
+  int err = encode_rows(&m.q, q, D, b, h, t, in_s);
+  if (err == 0) err = encode_rows(&m.k, k, D, b, h, t, in_s);
+  if (err == 0) err = encode_rows(&m.v, v, D, b, h, t, in_s);
+  if (err == 0) err = encode_rows(&m.g, g, D, b, h, t, g_s);
+  if (err != 0) return err;
+  cudaError_t e = launch_dq_wgmma<D>(m, g, o, lse, delta, dq, b, h, t, g_s, o_s, out_s,
+                                     scale_log2e, scale, stream);
+  if (e == cudaSuccess)
+    e = launch_dkv_wgmma<D>(m, lse, delta, dk, dv, b, h, t, out_s, scale_log2e, scale, stream);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: the head width, one of 4, 8, 16, 32,
-// 40, 64, 80, 160, 256. lse and delta are fp32 [B, H, T]: the forward kernel's row
-// log2-sum-exp2 and sum_d g*o. Strides are in elements for (batch, token,
-// head), the head width's stride being 1: one triple for q, k and v, one for
-// g, one for dq, dk and dv. route: 0 = fma (any dtype and width), 1 = mma
+// 40, 64, 80, 160, 256. lse and delta are fp32 [B, H, T]: the forward
+// kernel's row log2-sum-exp2, and sum_d g*o (the caller's on routes 0 and 1;
+// on route 2 the dQ launch computes it from g and o and writes it there).
+// Strides are in elements for (batch, token, head), the head width's stride
+// being 1: one triple for q, k and v, one for g, one for o (route 2 only),
+// one for dq, dk and dv. route: 0 = fma (any dtype and width), 1 = mma
 // (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, every pointer and stride
-// 16-byte aligned). Two launches (dQ, then dK/dV). Returns the first failing
-// launch's cudaError_t (0 on success); the caller raises on anything else.
+// 16-byte aligned), 2 = wgmma (bfloat16 at d = 64 and 256, aligned the same
+// way). dq_consumers, dkv_consumers: the wgmma route's plan (ops/kernels/
+// qkv_attention.py::bwd_wgmma_plan), 1 and 1 on the other routes. Two
+// launches (dQ, then dK/dV). Returns the first failing launch's cudaError_t
+// (0 on success), or kEncodeFailed + the CUresult of a refused tensor map;
+// the caller raises on anything else.
 extern "C" int dtts_attention_bwd(const void* q, const void* k, const void* v, const void* g,
-                                  const float* lse, const float* delta, void* dq, void* dk,
-                                  void* dv, int dtype, int d, int b, int h, int t,
+                                  const void* o, const float* lse, float* delta, void* dq,
+                                  void* dk, void* dv, int dtype, int d, int b, int h, int t,
                                   int64_t in_sb, int64_t in_st, int64_t in_sh, int64_t g_sb,
-                                  int64_t g_st, int64_t g_sh, int64_t out_sb, int64_t out_st,
-                                  int64_t out_sh, float scale_log2e, float scale, int route,
-                                  void* stream) {
+                                  int64_t g_st, int64_t g_sh, int64_t o_sb, int64_t o_st,
+                                  int64_t o_sh, int64_t out_sb, int64_t out_st, int64_t out_sh,
+                                  float scale_log2e, float scale, int route, int dq_consumers,
+                                  int dkv_consumers, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t in_s[3] = {in_sb, in_st, in_sh}, g_s[3] = {g_sb, g_st, g_sh},
-                out_s[3] = {out_sb, out_st, out_sh};
+                o_s[3] = {o_sb, o_st, o_sh}, out_s[3] = {out_sb, out_st, out_sh};
+  if (route == 2) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+#define DTTS_ATTN_BWD_WGMMA(D)                                                               \
+  case D:                                                                                    \
+    return launch_wgmma<D>(q, k, v, g, o, lse, delta, dq, dk, dv, b, h, t, in_s, g_s, o_s,   \
+                           out_s, scale_log2e, scale, dq_consumers, dkv_consumers, s);
+    switch (d) {
+      DTTS_ATTN_BWD_WGMMA(64)
+      DTTS_ATTN_BWD_WGMMA(256)
+    }
+#undef DTTS_ATTN_BWD_WGMMA
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dq_consumers != 1 || dkv_consumers != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (route == 1) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DTTS_ATTN_BWD_MMA(D)                                                                \

@@ -36,15 +36,19 @@ leave the card short of SMs; an unsplit launch takes ``wgmma_consumers``'
 one or two consumer warpgroups. Tests and probes may force a factor through
 ``split=`` of ``_qkv_forward`` / ``_bthd_forward``; the public wrappers
 take none. The backward
-kernels have two: ``backward_route(dtype, d)`` gives "mma" for bf16 at
-``BWD_MMA_HEAD_DIMS`` (the ADM training path's d = 64 and the DDPM++
-training path's d = 256 among them), "fma" otherwise. The tensor-core
-routes read rows in 16-byte pieces (TMA's rule too): the call raises,
-before any launch, on a pointer or a (batch, token, head) stride that is
-not a multiple of 16 bytes. ``ROUTE_LAUNCHES`` and ``BWD_ROUTE_LAUNCHES``
-count launches per route. A caller may ask for ``route="fma"`` at any shape
-and for ``route="mma"`` at any bf16 width of ``MMA_HEAD_DIMS``, which times
-the earlier designs; nothing falls back from one route to another.
+kernels have the same three: ``backward_route(dtype, d)`` gives "wgmma" for
+bf16 at ``BWD_WGMMA_HEAD_DIMS`` (the ADM training path's d = 64 and the
+DDPM++ training path's d = 256), "mma" for bf16 at the other widths of
+``BWD_MMA_HEAD_DIMS``, "fma" otherwise; a wgmma backward takes
+``bwd_wgmma_plan(d)``, the warpgroups of its dQ and its dK/dV blocks, and
+computes the row term delta in its dQ launch. The
+tensor-core routes read rows in 16-byte pieces (TMA's rule too): the call
+raises, before any launch, on a pointer or a (batch, token, head) stride
+that is not a multiple of 16 bytes. ``ROUTE_LAUNCHES`` and
+``BWD_ROUTE_LAUNCHES`` count launches per route. A caller may ask for
+``route="fma"`` at any shape and for ``route="mma"`` at any bf16 width of
+``MMA_HEAD_DIMS`` (the backward: of ``BWD_MMA_HEAD_DIMS``), which times the
+earlier designs; nothing falls back from one route to another.
 
 Both functions are differentiable (``torch.autograd.Function``). When a
 gradient is asked for, the forward kernel also writes each row's
@@ -68,24 +72,25 @@ MMA_HEAD_DIMS = HEAD_DIMS[2:]
 WGMMA_HEAD_DIMS = (40, 64, 80, 160, 256)
 # d = 256's key split on the wgmma route: CTAs a work tile (a cluster of them).
 WGMMA_SPLITS = (1, 2, 4)
-# The forward's routes, in the order of their codes in csrc/qkv_attention.cu;
-# the backward keeps _launch.ROUTES.
+# The routes of the forward and of the backward, in the order of their codes
+# in csrc/qkv_attention.cu and csrc/attention_bwd.cu.
 ROUTES = _launch.ROUTES + ("wgmma",)
 ROUTE_CODES = {route: code for code, route in enumerate(ROUTES)}
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
 BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80, 160, 256)
+BWD_WGMMA_HEAD_DIMS = (64, 256)
 BWD_LAUNCHES_PER_CALL = 2
 _ENCODE_FAILED = 1000  # csrc/qkv_attention.cu's kEncodeFailed: a tensor map was refused
 _ARGTYPES = ((_launch.PTR,) * 4 + (_launch.INT,) * 5 + (_launch.I64,) * 6
              + (_launch.F32, _launch.PTR) + (_launch.INT,) * 3 + (_launch.PTR,))
 _CLUSTERS_ARGTYPES = (_launch.INT, ctypes.POINTER(ctypes.c_int))
-_BWD_ARGTYPES = ((_launch.PTR,) * 9 + (_launch.INT,) * 5 + (_launch.I64,) * 9
-                 + (_launch.F32, _launch.F32, _launch.INT, _launch.PTR))
+_BWD_ARGTYPES = ((_launch.PTR,) * 10 + (_launch.INT,) * 5 + (_launch.I64,) * 12
+                 + (_launch.F32, _launch.F32) + (_launch.INT,) * 3 + (_launch.PTR,))
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
-BWD_ROUTE_LAUNCHES = {route: 0 for route in _launch.ROUTES}
+BWD_ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
 
 
 def forward_route(dtype: torch.dtype, d: int) -> str:
@@ -153,19 +158,36 @@ def card_limits(device: torch.device) -> tuple[int, dict[int, int]]:
 
 def backward_route(dtype: torch.dtype, d: int) -> str:
     """The backward kernels' route for inputs of ``dtype`` and head width
-    ``d``: "mma" for bf16 at a width of BWD_MMA_HEAD_DIMS, else "fma"."""
-    return "mma" if dtype == torch.bfloat16 and d in BWD_MMA_HEAD_DIMS else "fma"
+    ``d``: "wgmma" for bf16 at a width of BWD_WGMMA_HEAD_DIMS, "mma" for bf16
+    at the other widths of BWD_MMA_HEAD_DIMS, else "fma"."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return ("wgmma" if d in BWD_WGMMA_HEAD_DIMS else "mma" if d in BWD_MMA_HEAD_DIMS
+            else "fma")
 
 
-def _pick_route(want: str, route: str | None, dtype: torch.dtype, d: int, widths) -> str:
+def bwd_wgmma_plan(d: int) -> tuple[int, int]:
+    """(warpgroups of a dQ block, of a dK/dV block) of a wgmma backward at
+    head width ``d``, which the C entry checks: (1, 1) at d = 64, where
+    blocks of one warpgroup feeding their own rings share an SM three at a
+    time (two warpgroups sharing each streamed tile measured slower on an
+    H100, PERF.md §6, PR 23); (1, 2) at d = 256, one warpgroup holding dQ's
+    64 x 256 fp32 and two splitting dK's and dV's columns
+    (csrc/attention_bwd.cu's header)."""
+    return (1, 2) if d == 256 else (1, 1)
+
+
+def _pick_route(want: str, route: str | None, dtype: torch.dtype, d: int, widths,
+                wgmma_widths=WGMMA_HEAD_DIMS) -> str:
     """``route`` if given (None takes ``want``): "fma" at any shape, a
     tensor-core route only where the predicate gave it (or, for "mma", a
-    tensor-core route: ``widths`` are the widths it takes)."""
+    tensor-core route: ``widths`` are the widths it takes, ``wgmma_widths``
+    the wgmma route's)."""
     route = route or want
     allowed = (want, "fma", "mma") if want == "wgmma" else (want, "fma")
     if route not in allowed:
         raise ValueError(f"the {route} route takes bfloat16 at head widths "
-                         f"{WGMMA_HEAD_DIMS if route == 'wgmma' else widths}, got {dtype} at {d}")
+                         f"{wgmma_widths if route == 'wgmma' else widths}, got {dtype} at {d}")
     return route
 
 
@@ -278,32 +300,47 @@ def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int
 def _launch_bwd(q_ptr: int, k_ptr: int, v_ptr: int, o: torch.Tensor, g: torch.Tensor,
                 lse: torch.Tensor, dq_ptr: int, dk_ptr: int, dv_ptr: int, d: int, b: int,
                 h: int, t: int, in_strides: tuple[int, int, int],
-                out_strides: tuple[int, int, int], route: str | None = None) -> None:
+                out_strides: tuple[int, int, int], route: str | None = None) -> torch.Tensor:
     """The two backward launches. ``o`` and ``g`` are contiguous
     [B, T, H*D]-like; q/k/v and dq/dk/dv are addressed by pointer and
     (batch, token, head) strides. ``route``: None takes ``backward_route``'s;
-    "fma" may be asked for at any shape."""
+    "fma" may be asked for at any shape, "mma" at any bf16 width of
+    BWD_MMA_HEAD_DIMS. Returns the row term delta, fp32 [B, H, T], that the
+    launches read: the wgmma route's dQ launch writes it."""
     global BWD_LAUNCHES
     if d not in BWD_HEAD_DIMS:
         raise NotImplementedError(
             f"the backward kernels take head widths {BWD_HEAD_DIMS}, got {d}")
-    route = _pick_route(backward_route(g.dtype, d), route, g.dtype, d, BWD_MMA_HEAD_DIMS)
-    g_strides = (t * h * d, h * d, d)
-    if route == "mma":
-        _launch.check_aligned("attention_bwd", (q_ptr, k_ptr, v_ptr, g.data_ptr(), dq_ptr,
-                                                dk_ptr, dv_ptr),
-                              in_strides + g_strides + out_strides, g.element_size())
-    # The softmax VJP's row term: an elementwise product and a row sum, which
-    # the JAX package also computes outside its kernels. fp32 [B, H, T].
-    delta = (g.float() * o.float()).reshape(b, t, h, d).sum(dim=-1).permute(0, 2, 1).contiguous()
+    route = _pick_route(backward_route(g.dtype, d), route, g.dtype, d, BWD_MMA_HEAD_DIMS,
+                        BWD_WGMMA_HEAD_DIMS)
+    g_strides = o_strides = (t * h * d, h * d, d)
+    if route != "fma":
+        ptrs = (q_ptr, k_ptr, v_ptr, g.data_ptr(), dq_ptr, dk_ptr, dv_ptr)
+        strides = in_strides + g_strides + out_strides
+        if route == "wgmma":  # its dQ launch reads o for delta
+            ptrs, strides = ptrs + (o.data_ptr(),), strides + o_strides
+        _launch.check_aligned("attention_bwd", ptrs, strides, g.element_size())
+    plan = bwd_wgmma_plan(d) if route == "wgmma" else (1, 1)
+    if route == "wgmma":
+        delta = torch.empty((b, h, t), dtype=torch.float32, device=g.device)
+    else:
+        # The softmax VJP's row term: an elementwise product and a row sum,
+        # which the JAX package also computes outside its kernels. fp32
+        # [B, H, T].
+        delta = (g.float() * o.float()).reshape(b, t, h, d).sum(dim=-1).permute(0, 2, 1)
+        delta = delta.contiguous()
     fn = _launch.bind("attention_bwd", "dtts_attention_bwd", _BWD_ARGTYPES)
-    err = fn(q_ptr, k_ptr, v_ptr, g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_ptr,
-             dk_ptr, dv_ptr, _launch.DTYPE_CODES[g.dtype], d, b, h, t, *in_strides,
-             *g_strides, *out_strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
-             _launch.ROUTE_CODES[route], _launch.stream(g))
+    err = fn(q_ptr, k_ptr, v_ptr, g.data_ptr(), o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq_ptr, dk_ptr, dv_ptr, _launch.DTYPE_CODES[g.dtype], d, b, h, t, *in_strides,
+             *g_strides, *o_strides, *out_strides, _LOG2E / math.sqrt(d), 1.0 / math.sqrt(d),
+             ROUTE_CODES[route], *plan, _launch.stream(g))
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"attention_bwd: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{err - _ENCODE_FAILED} (or the driver has no entry point for it)")
     _launch.raise_on(err, "attention_bwd")
     BWD_LAUNCHES += BWD_LAUNCHES_PER_CALL
     BWD_ROUTE_LAUNCHES[route] += BWD_LAUNCHES_PER_CALL
+    return delta
 
 
 def _thirds(x: torch.Tensor, c: int) -> tuple[int, int, int]:
@@ -345,7 +382,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     and the output's gradient ``g``. On the card ``lse`` is the forward
     kernel's row statistic (fp32 [B, H, T], log2 domain); when None the
     forward kernel is run once more to get it. ``route``: None takes
-    ``backward_route``'s; "fma" forces the CUDA-core kernels."""
+    ``backward_route``'s; "fma" forces the CUDA-core kernels, "mma" the
+    mma.sync ones at a wgmma width."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, g)
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
@@ -392,8 +430,8 @@ def qkv_self_attention_bwd(qkv: torch.Tensor, out: torch.Tensor, g: torch.Tensor
 
 def _backward_route_of(route: str | None) -> str | None:
     """A forced "fma" forward takes the fma backward too; otherwise the
-    backward follows its own predicate ("mma" at every bf16 width up to
-    256)."""
+    backward follows its own predicate ("wgmma" at bf16 d = 64 and 256,
+    "mma" at the other bf16 widths up to 256)."""
     return "fma" if route == "fma" else None
 
 
@@ -488,8 +526,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention", "attention_plain",
            "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "forward_route",
-           "backward_route", "wgmma_plan", "wgmma_split", "wgmma_consumers",
+           "backward_route", "wgmma_plan", "wgmma_split", "wgmma_consumers", "bwd_wgmma_plan",
            "card_limits", "WGMMA_SPLITS", "LAUNCHES",
            "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTE_LAUNCHES", "BWD_LAUNCHES_PER_CALL",
            "HEAD_DIMS", "MMA_HEAD_DIMS", "WGMMA_HEAD_DIMS", "ROUTES", "BWD_HEAD_DIMS",
-           "BWD_MMA_HEAD_DIMS"]
+           "BWD_MMA_HEAD_DIMS", "BWD_WGMMA_HEAD_DIMS"]

@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import random
 import socket
 import subprocess
 import tempfile
@@ -103,22 +104,31 @@ def rank_device(device: torch.device | str = "cuda") -> torch.device:
     return dev
 
 
+# bind() to port 0 and every connect() take their ports from Linux's
+# ephemeral range (32768-60999 by default), so a port found free there can be
+# taken by another socket (a NCCL bootstrap, a store client) before rank 0's
+# store listens on it. Ports are drawn below that range instead.
+PORTS = range(20000, 32768)
+ATTEMPTS = 3
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    """A port of ``PORTS`` that no socket holds now, drawn at random."""
+    draw = random.SystemRandom()
+    for _ in range(64):
+        port = draw.randrange(PORTS.start, PORTS.stop)
+        with socket.socket() as s:
+            try:
+                s.bind(("", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {PORTS.start}-{PORTS.stop - 1} after 64 draws")
 
 
-def launch(argv: list[str], nprocs: int, *, timeout: float, env: dict | None = None,
-           cwd: str | None = None) -> list[str]:
-    """Run ``argv`` as ``nprocs`` local ranks with torchrun's environment
-    (``MASTER_ADDR=localhost``, a free port; one OpenMP thread a rank
-    unless ``OMP_NUM_THREADS`` is set, as torchrun does) and return each
-    rank's standard output. When a rank fails or ``timeout`` seconds pass,
-    every rank still running is killed and this raises with their errors."""
-    port = free_port()
-    env = dict(os.environ if env is None else env)
-    env.setdefault("OMP_NUM_THREADS", "1")
+def _run_ranks(argv: list[str], nprocs: int, port: int, timeout: float, env: dict,
+               cwd: str | None) -> list[tuple[int, str, str]]:
+    """One try of ``launch`` on ``port``: each rank's exit code, output and errors."""
     with tempfile.TemporaryDirectory() as tmp:
         procs, files = [], []
         for r in range(nprocs):
@@ -140,18 +150,40 @@ def launch(argv: list[str], nprocs: int, *, timeout: float, env: dict | None = N
                 if p.poll() is None:
                     p.kill()
                 p.wait()
-        texts = []
-        for out, err in files:
+        ranks = []
+        for p, (out, err) in zip(procs, files):
             out.seek(0), err.seek(0)
-            texts.append((out.read(), err.read()))
+            ranks.append((p.returncode, out.read(), err.read()))
             out.close(), err.close()
-    failed = [f"rank {r} exited {p.returncode}:\n{o}\n{e}"
-              for r, (p, (o, e)) in enumerate(zip(procs, texts)) if p.returncode]
-    if failed:
-        raise RuntimeError(f"{' '.join(argv[:3])} ... over {nprocs} ranks failed "
-                           f"(time limit {timeout} s):\n" + "\n".join(failed))
-    return [o for o, _ in texts]
+    return ranks
+
+
+def launch(argv: list[str], nprocs: int, *, timeout: float, env: dict | None = None,
+           cwd: str | None = None) -> list[str]:
+    """Run ``argv`` as ``nprocs`` local ranks with torchrun's environment
+    (``MASTER_ADDR=localhost``, a free port; one OpenMP thread a rank
+    unless ``OMP_NUM_THREADS`` is set, as torchrun does) and return each
+    rank's standard output. When a rank fails or ``timeout`` seconds pass,
+    every rank still running is killed and this raises with their errors.
+    A rank 0 whose store finds its port taken (EADDRINUSE) fails before any
+    rank has done work: the ranks are then started again on another port,
+    up to ``ATTEMPTS`` times in all."""
+    env = dict(os.environ if env is None else env)
+    env.setdefault("OMP_NUM_THREADS", "1")
+    for attempt in range(1, ATTEMPTS + 1):
+        port = free_port()
+        ranks = _run_ranks(argv, nprocs, port, timeout, env, cwd)
+        failed = [f"rank {r} exited {rc}:\n{o}\n{e}"
+                  for r, (rc, o, e) in enumerate(ranks) if rc]
+        if not failed:
+            return [o for _, o, _ in ranks]
+        if attempt == ATTEMPTS or "EADDRINUSE" not in ranks[0][2]:
+            raise RuntimeError(f"{' '.join(argv[:3])} ... over {nprocs} ranks failed "
+                               f"(time limit {timeout} s, port {port}, attempt {attempt}):\n"
+                               + "\n".join(failed))
+        print(f"launch: port {port} was taken (EADDRINUSE); starting the {nprocs} ranks "
+              f"again on another port", flush=True)
 
 
 __all__ = ["distributed_init", "process_group", "is_main_process", "rank", "world_size",
-           "rank_device", "launch", "free_port"]
+           "rank_device", "launch", "free_port", "PORTS"]

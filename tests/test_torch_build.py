@@ -54,12 +54,12 @@ def test_library_path_follows_the_source_and_its_headers(csrc, name):
 
 
 def test_the_tensor_core_kernels_include_the_shared_header():
-    """mma_bf16.cuh (the mma.sync helpers) in all four tensor-core sources;
-    hopper.cuh (mbarriers, TMA, wgmma, the tensor-map encoder) in the three
-    with a wgmma route."""
+    """mma_bf16.cuh (the mma.sync helpers) and hopper.cuh (mbarriers, TMA,
+    wgmma, the tensor-map encoder) in all four tensor-core sources: each has
+    a wgmma route."""
     for name in ("qkv_attention", "attention_bwd", "geglu_ff", "conv3x3"):
-        hopper = ["hopper.cuh"] if name in ("qkv_attention", "geglu_ff", "conv3x3") else []
-        assert [p.name for p in build.sources(name)] == [f"{name}.cu", *hopper, "mma_bf16.cuh"]
+        assert [p.name for p in build.sources(name)] == [f"{name}.cu", "hopper.cuh",
+                                                         "mma_bf16.cuh"]
 
 
 def test_library_path_follows_a_header_included_by_a_header(csrc):
@@ -109,12 +109,14 @@ def test_attention_route_is_the_one_the_source_states(dtype, d):
 
 
 def test_attention_route_codes_follow_the_source():
-    """The forward's and GEGLU's route codes are their C entries' (0 fma,
-    1 mma, 2 wgmma); the backward keeps the two shared ones."""
+    """The forward's, the backward's and GEGLU's route codes are their C
+    entries' (0 fma, 1 mma, 2 wgmma); _launch.ROUTES keeps the two shared
+    ones."""
     assert qk.ROUTE_CODES == gg.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
     assert set(qk.ROUTE_LAUNCHES) == set(gg.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
-    assert set(qk.BWD_ROUTE_LAUNCHES) == set(_launch.ROUTES) == {"fma", "mma"}
-    for name in ("qkv_attention", "geglu_ff"):
+    assert set(qk.BWD_ROUTE_LAUNCHES) == set(qk.ROUTES) == {"fma", "mma", "wgmma"}
+    assert set(_launch.ROUTES) == {"fma", "mma"}
+    for name in ("qkv_attention", "attention_bwd", "geglu_ff"):
         src = (build.CSRC / f"{name}.cu").read_text()
         assert "if (route == 2) {" in src and "if (route == 1) {" in src
 
@@ -122,13 +124,21 @@ def test_attention_route_codes_follow_the_source():
 @pytest.mark.parametrize("d", qk.BWD_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_route_is_the_one_the_source_states(dtype, d):
-    """csrc/attention_bwd.cu's mma widths, as stated and as dispatched: the
-    ADM training path's d = 64, the SD UNet's widest d = 160 and the DDPM++
-    training path's d = 256 among them."""
+    """csrc/attention_bwd.cu's mma and wgmma widths, as stated and as
+    dispatched: bf16 on "wgmma" at the ADM training path's d = 64 and the
+    DDPM++ training path's d = 256, on "mma" at the other mma widths (the SD
+    UNet's widest d = 160 among them; the mma kernels still take 64 and 256,
+    for ``route="mma"``), fp32 on "fma"."""
     stated, dispatched = _mma_widths_in_source("attention_bwd", "DTTS_ATTN_BWD_MMA")
     assert stated == dispatched == qk.BWD_MMA_HEAD_DIMS
     assert 64 in stated and 160 in stated and 256 in stated
-    want = "mma" if dtype == torch.bfloat16 and d in stated else "fma"
+    wg_stated, wg_dispatched = _mma_widths_in_source("attention_bwd", "DTTS_ATTN_BWD_WGMMA",
+                                                     route="wgmma", code=2)
+    assert wg_stated == wg_dispatched == qk.BWD_WGMMA_HEAD_DIMS == (64, 256)
+    assert set(wg_stated) <= set(stated)
+    want = "fma"
+    if dtype == torch.bfloat16:
+        want = "wgmma" if d in wg_stated else "mma" if d in stated else "fma"
     assert qk.backward_route(dtype, d) == want
 
 
@@ -453,6 +463,100 @@ def test_attention_bwd_refuses_what_the_mma_route_cannot_take(no_launch, case):
         qk._launch_bwd(*ptrs, o, g, lse, *ptrs, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
                        route="mma" if case == "fp32_forced" else None)
     assert (qk.BWD_LAUNCHES, qk.BWD_ROUTE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "g_pointer",
+                                  "o_pointer", "out_pointer", "fp32_forced", "wgmma_at_40",
+                                  "mma_at_8"])
+@pytest.mark.parametrize("d", qk.BWD_WGMMA_HEAD_DIMS)
+def test_attention_bwd_refuses_what_the_wgmma_route_cannot_take(no_launch, d, case):
+    """A wgmma width of the backward (64, 256) with a pointer (q/k/v, g, o,
+    the results) or a token or head stride that TMA cannot take is refused
+    before any kernel is bound; so is "wgmma" forced in fp32 or at a width
+    that is not its own, and "mma" forced where the predicate gives
+    neither tensor-core route. Nothing falls back to another route."""
+    b, t, h = 1, 4, 2
+    d = {"wgmma_at_40": 40, "mma_at_8": 8}.get(case, d)
+    dtype = torch.float32 if case == "fp32_forced" else torch.bfloat16
+    flat = torch.zeros(b * t * h * d + 8, dtype=dtype)
+    o, g = (flat[1 if case == f"{name}_pointer" else 0:][:b * t * h * d].view(b, t, h * d)
+            for name in ("o", "g"))  # 2 bytes off where the case says so
+    lse = torch.zeros((b, h, t))
+    ptrs = [flat.data_ptr()] * 3
+    if case == "pointer":
+        ptrs[2] += 2
+    out = list(ptrs)
+    if case == "out_pointer":
+        out[0] += 4
+    strides = [t * h * d, h * d, d]
+    if case == "token_stride":
+        strides[1] = h * d + 4
+    if case == "head_stride":
+        strides[2] = d + 4
+    route = {"fp32_forced": "wgmma", "wgmma_at_40": "wgmma", "mma_at_8": "mma"}.get(case)
+    match = f"{route} route takes bfloat16" if route else "16-byte"
+    before = (qk.BWD_LAUNCHES, dict(qk.BWD_ROUTE_LAUNCHES))
+    with pytest.raises(ValueError, match=match):
+        qk._launch_bwd(*ptrs, o, g, lse, *out, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
+                       route=route)
+    assert (qk.BWD_LAUNCHES, qk.BWD_ROUTE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("d,want", [(64, (1, 1)), (256, (1, 2))])
+def test_bwd_wgmma_plan_is_the_one_the_source_takes(d, want):
+    """The wgmma backward's (dQ, dK/dV) warpgroups a block: one and one at
+    d = 64 (blocks of one warpgroup feeding their own rings, three to an
+    SM), one and two at d = 256 (dQ's 64 x 256 fp32 in one warpgroup, dK's
+    and dV's columns split over two); the C entry refuses any other, as its
+    launcher states."""
+    assert qk.bwd_wgmma_plan(d) == want
+    src = (build.CSRC / "attention_bwd.cu").read_text()
+    assert "kDkvWarpgroups = kWide ? 2 : 1;" in src
+    assert "if (dq_nc != 1 || dkv_nc != WgBwd<D>::kDkvWarpgroups)" in src
+
+
+@pytest.fixture
+def recorded_bwd(monkeypatch):
+    """Bind a recorder in place of the backward's C entry (CPU tensors stand
+    in for the card's): each call's (route code, dQ warpgroups, dK/dV
+    warpgroups), and the counters restored afterwards."""
+    calls = []
+
+    def fn(*args):
+        calls.append(tuple(args[-4:-1]))
+        return 0
+
+    monkeypatch.setattr(_launch, "bind", lambda *args: fn)
+    monkeypatch.setattr(_launch, "stream", lambda t: 0)
+    monkeypatch.setattr(qk, "BWD_LAUNCHES", qk.BWD_LAUNCHES)
+    monkeypatch.setattr(qk, "BWD_ROUTE_LAUNCHES", dict.fromkeys(qk.ROUTES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("d,b,h,t", [(64, 16, 6, 1024), (64, 16, 12, 64), (64, 2, 3, 100),
+                                     (256, 32, 1, 256), (256, 128, 1, 256), (256, 32, 1, 64)])
+@pytest.mark.parametrize("route", [None, "mma", "fma"])
+def test_attention_bwd_route_and_plan_reach_the_launch(recorded_bwd, d, b, h, t, route):
+    """At the training widths the default backward reaches the C entry's
+    route 2 with bwd_wgmma_plan's warpgroups and returns the fp32
+    [B, H, T] buffer its dQ launch fills with delta; a forced "mma" reaches
+    the mma kernels (route 1, plan (1, 1)) and "fma" the first design (route
+    0), each with the wrapper's delta. Each call counts two launches on its
+    route."""
+    o = torch.zeros((b, t, h * d), dtype=torch.bfloat16)
+    g = torch.randn((b, t, h * d)).bfloat16()
+    lse = torch.zeros((b, h, t))
+    ptr, s = o.data_ptr(), (t * h * d, h * d, d)
+    delta = qk._launch_bwd(ptr, ptr, ptr, o, g, lse, ptr, ptr, ptr, d, b, h, t, s, s,
+                           route=route)
+    want = route or "wgmma"
+    plan = qk.bwd_wgmma_plan(d) if want == "wgmma" else (1, 1)
+    assert recorded_bwd == [(qk.ROUTE_CODES[want], *plan)]
+    assert qk.BWD_ROUTE_LAUNCHES == {**dict.fromkeys(qk.ROUTES, 0),
+                                     want: qk.BWD_LAUNCHES_PER_CALL}
+    assert delta.shape == (b, h, t) and delta.dtype == torch.float32
+    if want != "wgmma":  # the wrapper's row term, zero here (o is zero)
+        assert torch.equal(delta, torch.zeros((b, h, t)))
 
 
 def test_check_aligned():

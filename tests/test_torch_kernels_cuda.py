@@ -673,13 +673,14 @@ def _bwd_routes():
 @pytest.mark.parametrize("t", [3, 100, 200])
 @pytest.mark.parametrize("d", qk.BWD_MMA_HEAD_DIMS)
 def test_attention_bwd_mma_route_matches_plain(card, d, t):
-    """Every width of the backward's tensor-core route, with T below one
-    tile and ragged last tiles."""
+    """Every width of the backward's mma route, with T below one tile and
+    ragged last tiles; forced at the wgmma widths (64, 256), where the
+    predicate gives "wgmma"."""
     q, k, v, g = (_randn((2, t, 2, d), torch.bfloat16, card, 20 + s) for s in range(4))
     o = qk.attention(q, k, v)
-    assert qk.backward_route(q.dtype, d) == "mma"
+    assert qk.backward_route(q.dtype, d) == ("wgmma" if d in qk.BWD_WGMMA_HEAD_DIMS else "mma")
     before = _bwd_routes()
-    got = qk.attention_bwd(q, k, v, o, g)
+    got = qk.attention_bwd(q, k, v, o, g, route="mma")
     torch.cuda.synchronize()
     assert _bwd_routes() == {**before, "mma": before["mma"] + qk.BWD_LAUNCHES_PER_CALL}
     for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
@@ -696,7 +697,7 @@ def test_attention_bwd_wide_form_matches_plain(card, b, t, d):
     q, k, v, g = (_randn((b, t, 1, d), torch.bfloat16, card, 40 + s) for s in range(4))
     o = qk.attention(q, k, v)
     before = _bwd_routes()
-    got = qk.attention_bwd(q, k, v, o, g)
+    got = qk.attention_bwd(q, k, v, o, g, route="mma")  # d = 256's own route is wgmma
     torch.cuda.synchronize()
     assert _bwd_routes() == {**before, "mma": before["mma"] + qk.BWD_LAUNCHES_PER_CALL}
     for a, r in zip(got, qk.attention_bwd_plain(q, k, v, o, g)):
@@ -707,16 +708,17 @@ def test_attention_bwd_wide_form_matches_plain(card, b, t, d):
 @pytest.mark.cuda
 def test_attention_bwd_mma_route_at_the_training_shape(card):
     """The qkv form at the training path's heaviest site, [16, 1024, 1152]
-    with 6 heads of 64: the thirds of one [B, T, 3C] gradient against the
-    twin, and two runs bit-identical (no atomics on the mma route either)."""
+    with 6 heads of 64, on the mma route forced (the site's own is wgmma):
+    the thirds of one [B, T, 3C] gradient against the twin, and two runs
+    bit-identical (no atomics on the mma route either)."""
     b, t, heads, d = 16, 1024, 6, 64
     qkv = _qkv(b, t, heads, torch.bfloat16, card)
     g = _randn((b, t, heads * d), torch.bfloat16, card, 31)
     lse = torch.empty((b, heads, t), device=card)
     out = qk._qkv_forward(qkv, heads, lse)
     before = _bwd_routes()
-    got = qk.qkv_self_attention_bwd(qkv, out, g, heads, lse)
-    again = qk.qkv_self_attention_bwd(qkv, out, g, heads, lse)
+    got = qk.qkv_self_attention_bwd(qkv, out, g, heads, lse, route="mma")
+    again = qk.qkv_self_attention_bwd(qkv, out, g, heads, lse, route="mma")
     torch.cuda.synchronize()
     assert _bwd_routes() == {**before, "mma": before["mma"] + 2 * qk.BWD_LAUNCHES_PER_CALL}
     assert torch.equal(got, again)
@@ -779,7 +781,7 @@ def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
     (its 16x16 and 8x8 sites at the search's batch 8 and the training
     micro-batch 32): the forward and the qkv form's backward on their routes
     (bf16: "wgmma" forward, with the key split where wgmma_split picks one,
-    and "mma" backward, which reads the forward's statistic; fp32: "fma"),
+    and "wgmma" backward, which reads the forward's statistic; fp32: "fma"),
     the backward's thirds against the twin and two runs bit-identical."""
     heads, d = 1, 256
     g = torch.Generator(device=card).manual_seed(b + t)
@@ -793,7 +795,7 @@ def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
     assert _routes(qk) == {**before, route: before[route] + 1}
     torch.testing.assert_close(out.float(), qk.qkv_self_attention_plain(qkv, heads).float(),
                                atol=TOL[dtype], rtol=TOL[dtype])
-    assert qk.backward_route(dtype, d) == ("mma" if dtype == torch.bfloat16 else "fma")
+    assert qk.backward_route(dtype, d) == ("wgmma" if dtype == torch.bfloat16 else "fma")
     got = qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse)
     assert torch.equal(got, qk.qkv_self_attention_bwd(qkv, out, cot, heads, lse))
     split = lambda x: x.reshape(b, t, heads, d)
@@ -801,6 +803,100 @@ def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
                                  split(cot))
     for a, r in zip(got.chunk(3, dim=-1), ref):
         assert torch.isfinite(a).all() and _rel(split(a), r) <= TOL[dtype]
+
+
+def _wgmma_bwd_case(b, t, heads, d, form, device, seed):
+    """One backward call's inputs at [B, T, heads, d] in the qkv form ([B, T,
+    3C] thirds, the results written into the thirds of one gradient) or the
+    [B, T, H, D] form, with the forward kernel's row statistic; returns
+    (call(route), q, k, v, o, g) where call gives (dq, dk, dv) as
+    [B, T, H, D] and the delta buffer the launches read."""
+    c = heads * d
+    if form == "qkv":
+        qkv = _randn((b, t, 3 * c), torch.bfloat16, device, seed)
+        lse = torch.empty((b, heads, t), device=device)
+        out = qk._qkv_forward(qkv, heads, lse)
+        g = _randn((b, t, c), torch.bfloat16, device, seed + 1)
+
+        def call(route=None):
+            dqkv = torch.empty_like(qkv)
+            delta = qk._launch_bwd(*qk._thirds(qkv, c), out, g, lse, *qk._thirds(dqkv, c), d, b,
+                                   heads, t, (t * 3 * c, 3 * c, d), (t * 3 * c, 3 * c, d), route)
+            return tuple(x.reshape(b, t, heads, d) for x in dqkv.chunk(3, dim=-1)), delta
+
+        split = lambda x: x.reshape(b, t, heads, d)
+        return (call, *(split(x) for x in qkv.chunk(3, dim=-1)), split(out), split(g))
+    q, k, v = (_randn((b, t, heads, d), torch.bfloat16, device, seed + i) for i in range(3))
+    lse = torch.empty((b, heads, t), device=device)
+    o = qk._bthd_forward(q, k, v, lse)
+    g = _randn((b, t, heads, d), torch.bfloat16, device, seed + 3)
+    s = (t * c, c, d)
+
+    def call(route=None):
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        delta = qk._launch_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o, g, lse, dq.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(), d, b, heads, t, s, s, route)
+        return (dq, dk, dv), delta
+
+    return call, q, k, v, o, g
+
+
+WGMMA_BWD_SHAPES = ([(2, t, 3, 64) for t in (64, 256, 1024, 100, 200)]
+                    + [(b, t, 1, 256) for b in (2, 32) for t in (64, 256, 200)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["qkv", "bthd"])
+@pytest.mark.parametrize("b,t,heads,d", WGMMA_BWD_SHAPES)
+def test_attention_bwd_wgmma_matches_plain(card, b, t, heads, d, form):
+    """The wgmma backward (d = 64 and 256) against the plain twin within 2e-2
+    of each gradient's largest magnitude, in both forms, whole and ragged
+    tiles; two runs bit-identical; within the same tolerance of the mma
+    route forced on the same inputs; and the delta its dQ launch writes
+    equal to (g o).sum(-1) in fp32 (sums in another order: 1e-5 of the
+    largest)."""
+    call, q, k, v, o, g = _wgmma_bwd_case(b, t, heads, d, form, card, 100 + t + d)
+    assert qk.backward_route(torch.bfloat16, d) == "wgmma"
+    before = _bwd_routes()
+    got, delta = call()
+    again, _ = call()
+    mma, _ = call("mma")
+    torch.cuda.synchronize()
+    assert _bwd_routes() == {**before, "wgmma": before["wgmma"] + 2 * qk.BWD_LAUNCHES_PER_CALL,
+                             "mma": before["mma"] + qk.BWD_LAUNCHES_PER_CALL}
+    ref = qk.attention_bwd_plain(q, k, v, o, g)
+    for a, a2, m, r in zip(got, again, mma, ref):
+        assert a.shape == (b, t, heads, d) and torch.isfinite(a).all()
+        assert torch.equal(a, a2)
+        assert _rel(a, r) <= TOL[torch.bfloat16]
+        assert _rel(a, m) <= TOL[torch.bfloat16]
+    want = (g.float() * o.float()).sum(-1).permute(0, 2, 1)
+    assert delta.shape == (b, heads, t)
+    assert _rel(delta, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_attention_bwd_wgmma_through_autograd(card):
+    """backward() through both wrappers at the training widths takes the
+    wgmma route (two launches a call) and matches the twin's gradient."""
+    for d, heads, t in ((64, 3, 200), (256, 1, 256)):
+        x = _randn((2, t, 3 * heads * d), torch.bfloat16, card, d).requires_grad_(True)
+        cot = _randn((2, t, heads * d), torch.bfloat16, card, d + 1)
+        before = _bwd_routes()
+        (grad,) = torch.autograd.grad(qk.qkv_self_attention(x, heads), x, cot)
+        assert _bwd_routes() == {**before, "wgmma": before["wgmma"] + qk.BWD_LAUNCHES_PER_CALL}
+        split = lambda y: y.detach().reshape(2, t, heads, d)
+        out = qk.qkv_self_attention(x.detach(), heads)
+        ref = qk.attention_bwd_plain(*(split(y) for y in x.chunk(3, dim=-1)), split(out),
+                                     split(cot))
+        for a, r in zip(grad.chunk(3, dim=-1), ref):
+            assert _rel(split(a), r) <= TOL[torch.bfloat16]
+        leaves = [split(y).clone().requires_grad_(True) for y in x.chunk(3, dim=-1)]
+        before = _bwd_routes()
+        got = torch.autograd.grad(qk.attention(*leaves), leaves, split(cot))
+        assert _bwd_routes() == {**before, "wgmma": before["wgmma"] + qk.BWD_LAUNCHES_PER_CALL}
+        for a, r in zip(got, ref):
+            assert _rel(a, r) <= TOL[torch.bfloat16]
 
 
 @pytest.mark.cuda

@@ -14,6 +14,8 @@ mesh as tests/test_torch_training.py's test_three_train_steps_match_jax
 the k third of every qkv bias left out: its gradient is round-off that
 Adam normalizes); HSDP against DP within 2e-5, with the same exception.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -193,6 +195,53 @@ def test_a_lost_peer_fails_the_collective_and_the_launch(tmp_path):
     rank 0 (it does not wait out its timeout) and launch reports it."""
     with pytest.raises(RuntimeError, match="rank 0 exited 1"):
         rank_results("lost_peer", 2, tmp_path, start_ranks("lost_peer", 2, tmp_path, {}))
+
+
+def test_free_port_is_below_the_ephemeral_range_and_free():
+    """free_port draws outside the range bind(0) and connect() take ports
+    from, and what it gives can be listened on."""
+    import socket
+
+    from diffusion_tts_torch.parallel.distributed import PORTS, free_port
+
+    ports = {free_port() for _ in range(8)}
+    assert all(p in PORTS and p < 32768 for p in ports) and len(ports) > 1
+    with socket.socket() as s:
+        s.bind(("", ports.pop()))
+        s.listen()
+
+
+RANK_LINE = ("import torch.distributed as dist; "
+             "from diffusion_tts_torch.parallel.distributed import distributed_init; "
+             "distributed_init('gloo', 60, device='cpu'); "
+             "print('rank', dist.get_rank(), 'of', dist.get_world_size()); "
+             "dist.destroy_process_group()")
+
+
+def test_launch_starts_again_when_rank_0_finds_its_port_taken(monkeypatch):
+    """A port that another socket listens on makes rank 0's store fail with
+    EADDRINUSE: launch starts both ranks again on the next port it draws and
+    returns their outputs; with every port taken it raises after ATTEMPTS."""
+    import socket
+    import sys
+
+    from diffusion_tts_torch.parallel import distributed
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = [sys.executable, "-c", RANK_LINE]
+    with socket.socket() as held:
+        held.bind(("", distributed.free_port()))
+        held.listen()
+        taken = held.getsockname()[1]
+        draws = iter([taken, distributed.free_port()])
+        monkeypatch.setattr(distributed, "free_port", lambda: next(draws))
+        outs = distributed.launch(argv, 2, timeout=120, cwd=repo)
+        assert [o.split() for o in outs] == [["rank", "0", "of", "2"], ["rank", "1", "of", "2"]]
+        drawn = []
+        monkeypatch.setattr(distributed, "free_port", lambda: drawn.append(taken) or taken)
+        with pytest.raises(RuntimeError, match=f"port {taken}, attempt 3"):
+            distributed.launch(argv, 2, timeout=120, cwd=repo)
+        assert len(drawn) == distributed.ATTEMPTS == 3
 
 
 TORCHRUN_ENV = dict(RANK="1", WORLD_SIZE="2", MASTER_ADDR="localhost", MASTER_PORT="1")

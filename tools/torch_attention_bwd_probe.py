@@ -1,7 +1,9 @@
-"""What bounds the attention backward's wide mma form on the card (PyTorch port).
+"""What bounds the attention backward's wide mma form on the card, and the
+wgmma route beside it (PyTorch port).
 
     python3 tools/torch_attention_bwd_probe.py [--batch 32] [--tokens 64,128,256,512]
-        [--flavours kernel,no_copies,no_mma,no_ldmatrix] [--reps 50] [--json PATH]
+        [--flavours kernel,no_copies,no_mma,no_ldmatrix] [--reps 50]
+        [--adm 16:1024:6,16:256:9,16:64:12] [--json PATH]
 
 Builds ``diffusion_tts_torch/csrc/attention_bwd.cu`` with nvcc into
 ``build/probe/`` once per flavour, each with one more exported C function
@@ -19,13 +21,18 @@ bit for bit, against the wrapper's):
   no_ldmatrix  every ldmatrix fragment load replaced by register moves.
 Then, at each T, the device time (torch.profiler, the sum of the kernels'
 device times over 20 calls) of the wrapper's whole call
-(``qkv_self_attention_bwd``: the row term delta and the two launches) and of
-the library's backward (``torch.autograd.grad`` through
-``scaled_dot_product_attention`` on the same q, k, v and gradient), which
-leaves out the host time that the event timings of chip_smoke.py's rows
-read at these small shapes. Prints the card's name and power limit,
-ptxas's registers and spills of each wide kernel, one line per (flavour,
-rows, T) and per T, and one JSON object last. Needs an NVIDIA card; imports
+(``qkv_self_attention_bwd``) on its own route, wgmma (the two launches,
+delta computed in the first), and on the mma route forced (the row term
+delta in PyTorch and the two launches), and of the library's backward
+(``torch.autograd.grad`` through ``scaled_dot_product_attention`` on the
+same q, k, v and gradient), which leaves out the host time that the event
+timings of chip_smoke.py's rows read at these small shapes; the same lines
+at d = 64 for ``--adm``'s (batch, T, heads), the ADM training sites; the
+wgmma route's time is also split between its dQ and dK/dV kernels.
+Only the "kernel" flavour is checked, bit for bit, against the wrapper's
+forced mma route. Prints the card's name and power limit, ptxas's
+registers and spills of each wide kernel, one line per (flavour, rows, T)
+and per shape, and one JSON object last. Needs an NVIDIA card; imports
 nothing of JAX.
 """
 from __future__ import annotations
@@ -193,12 +200,65 @@ def device_ms(fn, reps: int = 20) -> float:
     return total / reps / 1e3
 
 
+def kernel_device_ms(fn, reps: int = 20) -> dict[str, float]:
+    """Device ms of one call of fn by kernel: the two wgmma launches' share
+    (dq_wgmma_kernel, dkv_wgmma_kernel) and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        name = next((k for k in ("dq_wgmma", "dkv_wgmma") if k in e.key), "other")
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
+
+
+def route_device_times(qkv, out, g, lse, heads: int, d: int) -> dict:
+    """Device ms of one backward call at [B, T, 3C] on the wgmma route (and
+    of its two kernels), on the mma route forced, and of the library's
+    backward on the same inputs."""
+    b, t, c3 = qkv.shape
+    c = c3 // 3
+
+    def wrapper(route=None):
+        dqkv = torch.empty_like(qkv)
+        qk._launch_bwd(*qk._thirds(qkv, c), out, g, lse, *qk._thirds(dqkv, c), d, b, heads, t,
+                       (t * c3, c3, d), (t * c3, c3, d), route)
+        return dqkv
+
+    if not torch.equal(wrapper(), qk.qkv_self_attention_bwd(qkv, out, g, heads, lse)):
+        raise AssertionError("the probe's wgmma call differs from the wrapper's")
+    q, k, v = (x.reshape(b, t, heads, d).transpose(1, 2).contiguous().requires_grad_(True)
+               for x in qkv.chunk(3, dim=-1))
+    lo = F.scaled_dot_product_attention(q, k, v)
+    lg = g.reshape(b, t, heads, d).transpose(1, 2).contiguous()
+    library = lambda: torch.autograd.grad(lo, (q, k, v), lg, retain_graph=True)
+    plan = qk.bwd_wgmma_plan(d)
+    dev = dict(shape=[b, t, c3], heads=heads, d=d, plan=list(plan),
+               wgmma_device_ms=device_ms(wrapper), mma_device_ms=device_ms(lambda: wrapper("mma")),
+               library_device_ms=device_ms(library))
+    dev["wgmma_kernels_ms"] = kernel_device_ms(wrapper)
+    print(f"device time {dev['shape']} d={d}: wgmma {dev['wgmma_device_ms'] * 1e3:.1f} us "
+          f"(plan {plan}), mma {dev['mma_device_ms'] * 1e3:.1f} us, the library's backward "
+          f"{dev['library_device_ms'] * 1e3:.1f} us; wgmma by kernel "
+          f"{({k: round(v * 1e3, 1) for k, v in dev['wgmma_kernels_ms'].items()})}", flush=True)
+    return dev
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--tokens", default="64,128,256,512")
     ap.add_argument("--flavours", default="kernel,no_copies,no_mma,no_ldmatrix")
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--adm", default="16:1024:6,16:256:9,16:64:12",
+                    help="batch:T:heads of the d = 64 device-time lines ('' for none)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -214,7 +274,7 @@ def main(argv=None) -> dict:
         g = torch.randn((b, t, D), device="cuda", generator=gen).bfloat16()
         lse = torch.empty((b, 1, t), device="cuda")
         out = qk._qkv_forward(qkv, 1, lse)
-        want = qk.qkv_self_attention_bwd(qkv, out, g, 1, lse)
+        want = qk.qkv_self_attention_bwd(qkv, out, g, 1, lse, route="mma")
         # the row term as the wrapper computes it (ops/kernels/qkv_attention.py::_launch_bwd)
         delta = (g.float() * out.float()).reshape(b, t, 1, D).sum(dim=-1)
         delta = delta.permute(0, 2, 1).contiguous()
@@ -245,18 +305,15 @@ def main(argv=None) -> dict:
                 print(f"{name:>11} {bm}-row blocks {row['shape']}: both "
                       f"{row['ms'] * 1e3:.1f} us ({row['tflops']:.1f} TFLOP/s), dq "
                       f"{row['dq_ms'] * 1e3:.1f} us, dkv {row['dkv_ms'] * 1e3:.1f} us", flush=True)
-        q, k, v = (x.reshape(b, t, 1, D).transpose(1, 2).contiguous().requires_grad_(True)
-                   for x in qkv.chunk(3, dim=-1))
-        lo = F.scaled_dot_product_attention(q, k, v)
-        lg = g.reshape(b, t, 1, D).transpose(1, 2).contiguous()
-        wrapper = lambda: qk.qkv_self_attention_bwd(qkv, out, g, 1, lse)
-        library = lambda: torch.autograd.grad(lo, (q, k, v), lg, retain_graph=True)
-        dev = dict(shape=[b, t, 3 * D], wrapper_device_ms=device_ms(wrapper),
-                   library_device_ms=device_ms(library))
-        devices.append(dev)
-        print(f"device time {dev['shape']}: the wrapper's call "
-              f"{dev['wrapper_device_ms'] * 1e3:.1f} us, the library's backward "
-              f"{dev['library_device_ms'] * 1e3:.1f} us", flush=True)
+        devices.append(route_device_times(qkv, out, g, lse, 1, D))
+    for shape in args.adm.split(",") if args.adm else ():
+        b64, t, heads = (int(x) for x in shape.split(":"))
+        gen = torch.Generator(device="cuda").manual_seed(t)
+        qkv = torch.randn((b64, t, 3 * heads * 64), device="cuda", generator=gen).bfloat16()
+        g = torch.randn((b64, t, heads * 64), device="cuda", generator=gen).bfloat16()
+        lse = torch.empty((b64, heads, t), device="cuda")
+        out = qk._qkv_forward(qkv, heads, lse)
+        devices.append(route_device_times(qkv, out, g, lse, heads, 64))
     result = {"gpu": tag, "rows": rows, "device": devices}
     if args.json:
         with open(args.json, "w") as f:
