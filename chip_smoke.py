@@ -115,8 +115,8 @@ Phases, each of which raises on failure (nothing is caught):
      the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
-     on "wgmma" but the VAE decoder's d = 512 head on "mma": 288 and 13 of
-     an eps-greedy search's 301; GEGLU, conv3x3_same and conv3x3_up2 all
+     all on "wgmma", the VAE decoder's d = 512 head among them: 288 and 13
+     of an eps-greedy search's 301; GEGLU, conv3x3_same and conv3x3_up2 all
      on "wgmma" (the up-conv's 39 an eps-greedy search, 6 / 24 / 21 in
      6b's rejection / beam / MCTS, 60 in 13b, 363 a scorer in 13c),
      GroupNorm(+SiLU) all on "slab", one launch a call), and every kernel
@@ -145,9 +145,10 @@ Phases, each of which raises on failure (nothing is caught):
      the output's largest magnitude (statistics: of the largest mean and of
      the largest rstd), with kernel, plain, library and bound times (5
      repetitions instead of 20 at the 512x512 shapes); attention and GEGLU
-     rows as in phase 3 (route: "wgmma" at d = 40, 80, 160, "mma" at the
-     VAE's 512, whose head is also summed on its own at decode batches 4
-     and 1: mma device time, SDPA device time, bound; GEGLU "wgmma" at
+     rows as in phase 3 (route: "wgmma" at d = 40, 80, 160 and the VAE's
+     512, whose head is also summed on its own at decode batches 4 and 1:
+     its plan, wgmma, mma (in turns) and SDPA device times, the bound,
+     ptxas's registers and spills, two calls bit-identical; GEGLU "wgmma" at
      every bf16 shape, "fma" in fp32;
      ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s; GEGLU's rows
      also name the wgmma plan and hold two calls bit-identical, the split
@@ -391,6 +392,8 @@ CIFAR_TRAIN_SHAPES = ((32, 256), (128, 256))
 # ptxas's register and spill lines of the d = 256 wgmma kernels, by
 # (consumer warpgroups, key split) (phase 2 fills it from the build's log).
 D256_PTXAS: dict[tuple[int, int], list[str]] = {}
+# ... and of the d = 512 (the SD VAE head's) wgmma kernel.
+D512_PTXAS: list[str] = []
 # ... and of the backward's wgmma kernels, by "dq|dkv d=D".
 BWD_PTXAS: dict[str, list[str]] = {}
 # NCSN++ (the training CLI's ncsnpp preset) at CIFAR-10's size and labels
@@ -416,9 +419,8 @@ ROUTE_COUNTERS = {"attention": qk.ROUTE_LAUNCHES, "attention_bwd": qk.BWD_ROUTE_
                   "conv3x3_up2": cv.UP2_ROUTE_LAUNCHES, "group_norm_silu": gn.ROUTE_LAUNCHES}
 # Each kernel's redesigned route, which every launch of a main path must take.
 # The attention forward's follows the head width (qk.forward_route at bf16):
-# "wgmma" at the ADM's 64, the SD UNet's 40, 80 and 160 and the DDPM++ net's
-# 256, the widths of FAST_ROUTE's entry; "mma" at the VAE's 512, so that an
-# SD search splits its launches between the two (sd_attention_routes).
+# "wgmma" at the ADM's 64, the SD UNet's 40, 80 and 160, the DDPM++ net's 256
+# and the SD VAE's 512, every width of the main paths.
 FAST_ROUTE = {"attention": "wgmma", "attention_bwd": "wgmma", "geglu_ff": "wgmma",
               "conv3x3_same": "wgmma", "conv3x3_up2": "wgmma", "group_norm_silu": "slab"}
 
@@ -437,23 +439,14 @@ def read_routes() -> dict:
 def check_routes(path: str, got: dict, want: dict, routes: dict | None = None) -> None:
     """Every launch of ``want``'s kernels on ``path`` took the kernel's
     redesigned route (FAST_ROUTE, or the route ``routes`` names for the
-    kernel on this path, or the {route: launches} split it gives): ``got``
-    from read_routes(), ``want`` {kernel name: launches}."""
+    kernel on this path): ``got`` from read_routes(), ``want`` {kernel
+    name: launches}."""
     for name, n in want.items():
         route = (routes or {}).get(name, FAST_ROUTE[name])
-        split = route if isinstance(route, dict) else {route: n}
-        expected = {**dict.fromkeys(got[name], 0), **split}
-        if got[name] != expected or sum(split.values()) != n:
+        if got[name] != {**dict.fromkeys(got[name], 0), route: n}:
             raise AssertionError(f"{name} on the {path} path: routes {got[name]}, "
-                                 f"expected its {n} launches as {split}")
+                                 f"expected its {n} launches on {route}")
     print(f"  routes on the {path} path: " + ", ".join(f"{k} {got[k]}" for k in want))
-
-
-def sd_attention_routes(unet_calls: int, decodes: int) -> dict:
-    """SD attention launches by route: the UNet's (d = 40, 80, 160) on
-    "wgmma", the VAE decoder mid-block's (d = 512) on "mma"."""
-    return {"wgmma": SD_PER_UNET["attention"] * unet_calls,
-            "mma": SD_PER_DECODE["attention"] * decodes}
 
 
 def launches_per_call() -> dict:
@@ -917,6 +910,13 @@ def check_sd_attention(key, dtype, tag, timed=True):
     if timed and dtype == torch.bfloat16:
         tensor_core_designs(row, 4 * b * h * t * t * d, lambda: qk.attention(q, k, v),
                             lambda: qk.attention(q, k, v, route="mma"), library)
+        if d == 512:  # the VAE head: its plan, its kernel's registers, two calls bit for bit
+            row["split"], row["consumers"] = qk.wgmma_plan(d, b, h, t, *qk.card_limits(q.device))
+            row["ptxas"] = D512_PTXAS
+            if not torch.equal(qk.attention(q, k, v), qk.attention(q, k, v)):
+                raise AssertionError(f"attention {list(key)}: two calls differ")
+            print(f"    d = 512: key split {row['split']}, {row['consumers']} consumer "
+                  f"warpgroups, two calls bit-identical, ptxas {row['ptxas']}")
     return row
 
 
@@ -1893,8 +1893,7 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
                                  f"expected {want}")
     check_routes("SD", routes, {name: launches[name] for name in
                                 ("attention", "geglu_ff", "conv3x3_same", "conv3x3_up2",
-                                 "group_norm_silu")},
-                 {"attention": sd_attention_routes(forwards, decodes)})
+                                 "group_norm_silu")})
     if not (torch.isfinite(scores).all() and torch.isfinite(images).all()
             and images.shape == (SD_PROMPTS, 512, 512, 3)
             and 0 <= images.min() <= images.max() <= 1):
@@ -1970,22 +1969,30 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
 
 def vae_head_rows(rows: list[dict], tag: str) -> list[dict]:
     """The VAE mid-block's d = 512 head on its own, at decode batches 4 (the
-    search's candidates) and 1 (its final decode) of 64x64 latents: the mma
-    route's device time, SDPA's and the bound, a call each (the search's
-    rows where it gave the shape, else a check of its own)."""
+    search's candidates) and 1 (its final decode) of 64x64 latents: its
+    route and plan, the route's device time (wgmma), the mma.sync design's
+    (timed in turns) and SDPA's, the bound and ptxas's lines of the kernel
+    it launched, a call each (the search's rows where it gave the shape,
+    else a check of its own)."""
     out = []
     for b in (4, 1):
         key = (b, SD15_UNET["sample_size"] ** 2, 1, 512)
         row = next((r for r in rows if tuple(r["shape"]) == key and r["dtype"] == "bfloat16"),
                    None) or check_sd_attention(key, torch.bfloat16, tag)
         out.append(dict(batch=b, calls_per_search=row.get("calls_per_search", 0),
-                        route=row["route"], device_ms=row["device_ms"],
+                        route=row["route"], split=row.get("split"),
+                        consumers=row.get("consumers"), device_ms=row["device_ms"],
+                        mma_device_ms=row["mma_device_ms"],
                         library_device_ms=row["library_device_ms"], bound_ms=row["bound_ms"],
-                        bound_by=row["bound_by"], ms=row["ms"], plain_ms=row["plain_ms"],
-                        library_ms=row["library_ms"]))
-        print(f"VAE head d = 512 at {list(key)}: {row['route']} device {row['device_ms']:.4f} "
-              f"ms, SDPA device {row['library_device_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-              f"ms ({row['bound_by']}), {out[-1]['calls_per_search']} calls a search [{tag}]")
+                        bound_by=row["bound_by"], ms=row["ms"], mma_ms=row["mma_ms"],
+                        plain_ms=row["plain_ms"], library_ms=row["library_ms"],
+                        device_tflops=4 * b * key[1] ** 2 * 512 / row["device_ms"] / 1e9,
+                        ptxas=row.get("ptxas")))
+        print(f"VAE head d = 512 at {list(key)}: {row['route']} (split {row.get('split')}) "
+              f"device {row['device_ms']:.4f} ms ({out[-1]['device_tflops']:.0f} TFLOP/s), "
+              f"mma device {row['mma_device_ms']:.4f} ms, SDPA device "
+              f"{row['library_device_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {out[-1]['calls_per_search']} calls a search [{tag}]")
     return out
 
 
@@ -2063,7 +2070,7 @@ def sd_encoder_phase(tag: str, checked: dict) -> dict:
             raise AssertionError(f"one 512x512 encode launched {launches}, the encoder's "
                                  f"architecture and the routing predicates give {want}")
         check_routes("SD encode", routes, {k: n for k, n in want.items()
-                                           if n and k in FAST_ROUTE}, {"attention": "mma"})
+                                           if n and k in FAST_ROUTE})
         if post.mean.shape != (1, 4, 64, 64):
             raise AssertionError(f"a 512x512 encode gave latents {tuple(post.mean.shape)}")
         for name, calls in shapes.counts.items():
@@ -2308,9 +2315,7 @@ def sd_methods_phase(pipe: StableDiffusionSearchPipeline, emb, eps_shapes: Kerne
                                          f"from the recorded calls), expected {want}")
             check_routes(f"SD {method}", routes, {name: launches[name] for name in
                                                   ("attention", "geglu_ff", "conv3x3_same",
-                                                   "conv3x3_up2", "group_norm_silu")},
-                         {"attention": sd_attention_routes(sum(unet.values()),
-                                                           sum(decodes.values()))})
+                                                   "conv3x3_up2", "group_norm_silu")})
             check_search_output(f"SD {method}", capture, images, scores,
                                 (SD_PROMPTS, 512, 512, 3))
             for name in fresh:
@@ -2421,8 +2426,7 @@ def check_compressibility(path: str, images: torch.Tensor, max_size: float, tag:
 
 
 def reward_search(path: str, name: str, run, scorer, capture: EntryCapture, want: dict,
-                  steps: int, p: SearchParams, samples: int, nfe: int, shape, tag: str,
-                  routes_of: dict | None = None):
+                  steps: int, p: SearchParams, samples: int, nfe: int, shape, tag: str):
     """One eps-greedy search with a reward: timed, its launches held against
     ``want`` ({kernel: launches}, every other kernel 0) on the fast routes,
     its output checked; then run again with the scorer timed for its share
@@ -2435,7 +2439,7 @@ def reward_search(path: str, name: str, run, scorer, capture: EntryCapture, want
             raise AssertionError(f"{kernel} launched {n} times by {path} eps_greedy with {name}, "
                                  f"expected {want.get(kernel, 0)}")
     check_routes(f"{path} eps_greedy/{name}", routes,
-                 {k: n for k, n in want.items() if k in FAST_ROUTE}, routes_of)
+                 {k: n for k, n in want.items() if k in FAST_ROUTE})
     check_search_output(f"{path} eps_greedy/{name}", capture, images, scores, shape)
     timed = TimedScorer(scorer)
     _, wall2 = timed_run(lambda: run(timed))
@@ -2549,8 +2553,7 @@ def sd_rewards_phase(pipe: StableDiffusionSearchPipeline, per_unet: dict, per_de
 
             line, images = reward_search(
                 "SD", name, run, scorer, capture, want, SD_STEPS, params, SD_PROMPTS, nfe,
-                (SD_PROMPTS, 512, 512, 3), tag,
-                {"attention": sd_attention_routes(sum(unet.values()), sum(decodes.values()))})
+                (SD_PROMPTS, 512, 512, 3), tag)
             lines.append(line)
             produced.append(images)
     finally:
@@ -2725,25 +2728,12 @@ def expected_launches(edm_runs=(), sd_runs=(), edm_forwards: int = 0) -> dict:
     return want
 
 
-def expected_attention_routes(edm_runs=(), sd_runs=(), edm_forwards: int = 0) -> dict:
-    """expected_launches's attention launches by route: the VAE decoder's on
-    "mma" (sd_attention_routes), the ADM's and the SD UNet's on "wgmma"."""
-    total = expected_launches(edm_runs, sd_runs, edm_forwards)["attention"]
-    decodes = sum(sum(method_calls(method, "sd", steps, p, samples)[1].values()) * runs
-                  for method, p, steps, samples, runs in sd_runs)
-    mma = sd_attention_routes(0, decodes)["mma"]
-    return {"wgmma": total - mma, "mma": mma}
-
-
-def check_launches(path: str, got: dict, routes: dict, want: dict,
-                   attention: dict | None = None) -> None:
-    """``got`` equals ``want``; every launch on its fast route, attention's
-    split by route as ``attention`` gives it where it is not all "wgmma"."""
+def check_launches(path: str, got: dict, routes: dict, want: dict) -> None:
+    """``got`` equals ``want``; every launch on its fast route."""
     for kernel, n in got.items():
         if n != want[kernel]:
             raise AssertionError(f"{kernel} launched {n} times by {path}, expected {want[kernel]}")
-    check_routes(path, routes, {k: n for k, n in want.items() if n and k in FAST_ROUTE},
-                 {"attention": attention} if attention else None)
+    check_routes(path, routes, {k: n for k, n in want.items() if n and k in FAST_ROUTE})
 
 
 def bench_phase(tag: str) -> list[dict]:
@@ -2763,8 +2753,7 @@ def bench_phase(tag: str) -> list[dict]:
     wall = time.perf_counter() - t0
     sd_default = SearchParams(N=4, K=20)
     bench_work = dict(edm_forwards=5 * 20 * 2, sd_runs=[("eps_greedy", sd_default, 18, 1, 2)])
-    check_launches("bench", read_launches(), read_routes(), expected_launches(**bench_work),
-                   expected_attention_routes(**bench_work))
+    check_launches("bench", read_launches(), read_routes(), expected_launches(**bench_work))
     print(f"bench: {out['value']:.2f} NFE/s, vs_baseline {out['vs_baseline']:.5f} of "
           f"{peak_flops('cuda') / 1e12:.0f} TFLOP/s on {out['flops_per_image']} canonical FLOP "
           f"per image; SD "
@@ -2782,8 +2771,7 @@ def bench_phase(tag: str) -> list[dict]:
     sd = bench.main(["--sd", "--steps", str(SD_STEPS), "--N", str(SD_N), "--K", str(SD_K),
                      "--repeat", "2"])
     sd_runs = [("eps_greedy", SearchParams(N=SD_N, K=SD_K), SD_STEPS, 1, 2)]
-    check_launches("bench --sd", read_launches(), read_routes(),
-                   expected_launches(sd_runs=sd_runs), expected_attention_routes(sd_runs=sd_runs))
+    check_launches("bench --sd", read_launches(), read_routes(), expected_launches(sd_runs=sd_runs))
     if not (sd["value"] > 0 and sd["sol"] > 0 and 0 < sd["decode_flop_share"] < 1):
         raise AssertionError(f"bench --sd: {sd}")
     lines.append(dict(path="bench --sd", **sd))
@@ -2826,7 +2814,7 @@ def bench_phase(tag: str) -> list[dict]:
                                 ",".join(sd_methods)])
     sd_runs = [(m, sd_reward_bench.METHOD_PARAMS[m], SD_STEPS, 1, 1) for m in sd_methods]
     check_launches("sd_reward_bench", read_launches(), read_routes(),
-                   expected_launches(sd_runs=sd_runs), expected_attention_routes(sd_runs=sd_runs))
+                   expected_launches(sd_runs=sd_runs))
     for row in sdr["rows"]:
         want = nfe_per_sample(row["method"], SD_STEPS, sd_reward_bench.METHOD_PARAMS[row["method"]],
                               backend="sd")
@@ -3304,7 +3292,7 @@ def sd_bench_run(tag: str, checked: dict) -> dict:
     per_call = launches_per_call()
     calls = 5 * 4  # compile_s's call and 4 timed, 4 iterations each
     want = {k: calls * (SD_PER_UNET[k] + SD_PER_DECODE[k]) * per_call[k] for k in per_call}
-    check_launches("sd_bench", launches, routes, want, sd_attention_routes(calls, calls))
+    check_launches("sd_bench", launches, routes, want)
     for name, shape_calls in capture.shapes.counts.items():
         if sum(shape_calls.values()) * per_call[name] != launches[name]:
             raise AssertionError(f"{name}: sd_bench's recorded calls {dict(shape_calls)} do "
@@ -3336,7 +3324,6 @@ def all_scorers_run(tag: str, pipe: StableDiffusionSearchPipeline, clip: CLIPSco
     master = SearchParams(**sd_all_scorers.MASTER)
     sd_runs = [("eps_greedy", master, ALL_SCORERS_STEPS, 1, 1)]
     want = expected_launches(sd_runs=sd_runs)
-    attention = expected_attention_routes(sd_runs=sd_runs)
     recorder = PipelineRecorder(pipe)
     with tempfile.TemporaryDirectory() as d:
         best = sd_all_scorers.run(recorder, clip, prompt="A beautiful landscape",
@@ -3349,7 +3336,7 @@ def all_scorers_run(tag: str, pipe: StableDiffusionSearchPipeline, clip: CLIPSco
     per_scorer = {}
     for name, call in zip(names, recorder.calls):
         path = f"sd_all_scorers/{name}"
-        check_launches(path, call["launches"], call["routes"], want, attention)
+        check_launches(path, call["launches"], call["routes"], want)
         images, scores = call["images"], call["scores"]
         again = call["scorer"](images, call["cond"])
         err = (again - scores).abs().max().item()
@@ -3439,9 +3426,9 @@ def main() -> None:
             print(f"ptxas, conv3x3_up2 wgmma kernel, {kind}: " + "; ".join(lines))
             if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines):
                 raise AssertionError(f"conv3x3_up2's wgmma kernel ({kind}) spills: {lines}")
-    for name in ("qkv_attention", "attention_bwd"):  # the kernels at d = 160 and 256
+    for name in ("qkv_attention", "attention_bwd"):  # the kernels at d = 160, 256 and 512
         if name in built:
-            for d in (160, 256):
+            for d in (160, 256, 512):
                 for entry, lines in ptxas_lines(built[name][1], f"Li{d}E").items():
                     print(f"ptxas, {name} D = {d}, {entry}: " + "; ".join(lines))
     if "attention_bwd" in built:  # the wgmma route's kernels, by <D>
@@ -3464,9 +3451,12 @@ def main() -> None:
                 r"attention_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", entry).groups()
             if d == str(CIFAR_D):
                 D256_PTXAS[(int(nc), int(split))] = lines
-                if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines):
-                    raise AssertionError(f"the d = 256 wgmma kernel ({nc} consumer warpgroup(s), "
-                                         f"key split {split}) spills: {lines}")
+            if d == "512":
+                D512_PTXAS[:] = lines
+            if d in (str(CIFAR_D), "512") and any(re.search(r"[1-9]\d* bytes spill", ln)
+                                                  for ln in lines):
+                raise AssertionError(f"the d = {d} wgmma kernel ({nc} consumer warpgroup(s), "
+                                     f"key split {split}) spills: {lines}")
             print(f"ptxas, qkv_attention wgmma D = {d}, {nc} consumer warpgroup(s), {bk}-key "
                   f"tiles, key split {split}: " + "; ".join(lines))
 

@@ -24,17 +24,15 @@
 //
 // Routes. The caller picks one (ops/kernels/qkv_attention.py::forward_route)
 // and this file obeys:
-//   * wgmma (route 2): bf16 at d = 40, 64, 80, 160, 256, the ADM's, the SD
-//     UNet's and the CIFAR-10 DDPM++ net's widths. Hopper's asynchronous
-//     warpgroup products (wgmma) fed by TMA, below.
+//   * wgmma (route 2): bf16 at d = 40, 64, 80, 160, 256, 512, the ADM's, the
+//     SD UNet's, the CIFAR-10 DDPM++ net's and the SD VAE's widths. Hopper's
+//     asynchronous warpgroup products (wgmma) fed by TMA, below.
 //   * mma (route 1): bf16 at d = 16, 32, 40, 64, 80, 160, 256, 512, the
 //     first tensor-core design: the products run through the warp-level mma.sync
 //     m16n8k16 (bf16 operands, fp32 accumulators: exactly the arithmetic of
-//     the function above). The route takes d = 16 and 32 (test nets) and 512
-//     (the SD VAE's one head); forced (route="mma") it also takes the wgmma
-//     widths, 256 among them, which times this design beside the new one.
-//     d = 512 stays here: a warpgroup's 64 x 512 fp32 O would be 256
-//     registers a thread, more than a thread may hold.
+//     the function above). The route takes d = 16 and 32 (test nets); forced
+//     (route="mma") it also takes the wgmma widths, 256 and 512 among them,
+//     which times this design beside the new one.
 //   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
 //     8. The products run on the CUDA cores in fp32 FMA, so that fp32 holds
 //     1e-4 against an fp32 reference with TF32 off (a TF32 product would
@@ -45,7 +43,8 @@
 //     64 rows each and one producer warp. NC = 2 (128-row tiles) unless
 //     T <= 64 or 128-row tiles would give the grid fewer tiles than the
 //     card has SMs (the SD UNet's [2, 256, 8, 160]: 32 tiles); then NC = 1,
-//     at d = 256 too, where a key split (below) takes NC = 1. The caller
+//     at d = 256 too, where a key split (below) takes NC = 1. At d = 512
+//     the two consumer warpgroups share 64-row tiles (below). The caller
 //     picks NC with the split (ops/kernels/qkv_attention.py::wgmma_plan)
 //     and the C entry takes both as they are.
 //   * Persistent: min(tiles, SMs) blocks, each walking the tiles blockIdx.x,
@@ -56,9 +55,10 @@
 //     at each tile's start and end.
 //   * The producer's one lane issues TMA loads: Q once a tile (freed when
 //     the tile's last S has read it), then K and V tiles of BK keys (128;
-//     64 at d = 160 and wherever T <= 64, where 128 keys would be half
-//     masked) into a ring of 2 (d = 40, 80) or 3 stages, each with full and
-//     empty mbarriers for K and for V (K is freed as soon as S has read it).
+//     64 at d = 160 and 256 and wherever T <= 64, where 128 keys would be
+//     half masked; 32 at d = 512) into a ring of 2 (d = 40, 80, 512) or 3
+//     stages, each with full and empty mbarriers for K and for V (K is
+//     freed as soon as S has read it).
 //   * Registers: at most 168 a thread, what three warps of an SM
 //     sub-partition may hold (153-166 used at NC = 2, no spills). A producer
 //     warpgroup with setmaxnreg did not get the consumers more from ptxas:
@@ -73,16 +73,18 @@
 //     zero-filled; scores of keys past T are masked to -inf.
 //   * Widths that do not tile a 128-byte swizzle atom: a box is 16, 32 or
 //     64 columns (32-, 64- or 128-byte rows, swizzled at that width: d = 40
-//     and 80 take 16, d = 160 32, d = 64 64). S = Q.K^T is wgmma
+//     and 80 take 16, d = 160 32, d = 64, 256 and 512 64). S = Q.K^T is wgmma
 //     m64nBKk16 with both operands read from shared memory through
 //     descriptors (K-major), its depth d rounded up to 16 (40 -> 48); P.V is
 //     m64nDPk16 with DP the columns the boxes cover (48, 64, 80, 160) and V
 //     the MN-major B operand.
 //   * The online softmax runs on S's fp32 accumulators in registers: ex2
 //     with 1/sqrt(d)*log2(e) folded in, row max and sum over the four lanes
-//     of a row. P is rounded to bf16 in registers and is the A operand of
-//     P.V as it stands (the accumulator layout is the A fragment layout):
-//     P never touches shared memory.
+//     of a row; O's rescale is skipped where no row of a warp took a new
+//     maximum (alpha is then 1 exactly: 7% of d = 512's time, no change at
+//     the other widths). P is rounded to bf16 in registers and is the A
+//     operand of P.V as it stands (the accumulator layout is the A fragment
+//     layout): P never touches shared memory.
 //   * Overlap: each warpgroup issues S_j, then P_{j-1}.V_{j-1}, and runs the
 //     softmax of S_j while P.V is in flight (wgmma.wait_group 1); O's
 //     rescale by the previous tile's factor runs while S_j does. The two
@@ -111,6 +113,30 @@
 //     on an H100 a second wave of clusters costs more than the split saves.
 //     The training batches (128 and 512 tiles) run unsplit on the
 //     persistent grid.
+//   * d = 512, the SD VAE mid-block's single head: a warpgroup's 64 x 512
+//     fp32 O would be 256 registers a thread, more than a thread may hold,
+//     and wgmma's N stops at 256. So two consumer warpgroups share each
+//     64-row q tile, warpgroup w holding O's columns [256 w, 256 w + 256)
+//     (128 registers a thread), with a producer warpgroup and setmaxnreg
+//     40 / 232 as at d = 256. For S each takes its half of the depth, S_w =
+//     Q[:, half w] . K[:, half w]^T (m64n32k16, both operands from shared
+//     memory), leaves it in fp32 in shared memory and, after a named
+//     barrier, adds the other's: both hold S_0 + S_1 bit for bit (fp32
+//     addition commutes) and run the same online softmax; each then issues
+//     P.V at m64n256k16 on its half of V. Every product runs once (the mma
+//     route's two warp groups compute S twice: 1.5x the products). A 64 KB
+//     Q tile, 32-key K/V tiles (32 KB each) through a 2-stage ring, and two
+//     slots of the S exchange a warpgroup (32 KB): 230,480 bytes of shared
+//     memory. Each 64-row tile streams its head's whole K and V from L2
+//     (8 MB at T = 4096). The consumer code is compiled once for each
+//     warpgroup, its index a constant, so that the descriptors are uniform
+//     values: with the index read at run time every thread redid each
+//     k-step's descriptor arithmetic ahead of its m64n32k16 product.
+//     No key split: the decode's batch 1 ([1, 4096, 1, 512], 64 tiles for
+//     132 SMs) runs unsplit, as fast a tile as batch 4 with every SM busy.
+//     A split kernel (d = 256's cluster merge, the partial over Q and the
+//     ring) spilled 256-416 bytes in its consumer loop and ran each key
+//     tile 2.2x slower.
 //   * Nothing gives way: a refused encode, launch (a cluster launch among
 //     them) or misaligned input is an error (the wrapper raises), never a
 //     fall back to the mma route.
@@ -133,15 +159,15 @@
 //   * Head widths round up to a multiple of 16 with zero columns (40 -> 48),
 //     written once; the copies never touch them. Row pitch = width + 8
 //     elements, which makes every ldmatrix conflict-free.
-//   * d = 512, the VAE's head: a 16 x 512 fp32 O accumulator is 256
-//     registers a thread. Design (a) of the two considered: 8 warps, O's
-//     columns split between two warp groups of 4 (256 columns, 128
-//     registers each); each group computes the 64 rows' S itself instead of
-//     receiving it through shared memory, 1.5x the operations and no
-//     exchange or extra barrier (design (b), O's columns split over the grid
-//     with S recomputed per 128-column block, costs 2.5x). Q stays in shared
-//     memory there and its fragments are loaded per step; K/V tiles are 32
-//     keys; 199,680 bytes of shared memory, one block per SM.
+//   * d = 512 (served when forced; its own route is wgmma): a 16 x 512 fp32
+//     O accumulator is 256 registers a thread. 8 warps, O's columns split
+//     between two warp groups of 4 (256 columns, 128 registers each); each
+//     group computes the 64 rows' S itself instead of receiving it through
+//     shared memory, 1.5x the operations and no exchange or extra barrier
+//     (O's columns split over the grid with S recomputed per 128-column
+//     block would cost 2.5x). Q stays in shared memory and its fragments
+//     are loaded per step; K/V tiles are 32 keys; 199,680 bytes of shared
+//     memory, one block per SM.
 //   * d = 256 (served when forced; its own route is wgmma): one warp's
 //     16 x 256 fp32 O accumulator would be 128 registers a thread before S
 //     (32), the row state and the addresses, close to the 255 a thread may
@@ -632,14 +658,20 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Tile shapes of the wgmma route for head width D and K/V tiles of BK keys
 // (128; 64 at d = 160 and 256, and at T <= 64, where a 128-key tile is half
-// masked).
-template <int D, int BK = (D > 128 ? 64 : 128)>
+// masked; 32 at d = 512, where a 64 KB Q tile and two stages of K and V fill
+// shared memory).
+template <int D, int BK = (D > 256 ? 32 : D > 128 ? 64 : 128)>
 struct WgTiles {
   static constexpr int kDS = (D + 15) / 16 * 16;  // S's depth: D padded to k16 (40 -> 48)
   // Columns a TMA box carries: 16, 32 or 64 bf16 (32-, 64- or 128-byte rows,
   // swizzled at that width).
-  static constexpr int kBW = D == 64 || D == 256 ? 64 : D == 160 ? 32 : 16;
-  static constexpr int kDP = (D + kBW - 1) / kBW * kBW;  // columns the boxes cover; P.V's N
+  static constexpr int kBW = D == 64 || D >= 256 ? 64 : D == 160 ? 32 : 16;
+  static constexpr int kDP = (D + kBW - 1) / kBW * kBW;  // columns the boxes cover
+  // d = 512: O's columns split between two consumer warpgroups that share
+  // the q rows (a warpgroup's 64 x 512 fp32 O would be 256 registers a
+  // thread).
+  static constexpr int kHalves = D > 256 ? 2 : 1;
+  static constexpr int kDW = kDP / kHalves;       // O columns a warpgroup holds; P.V's N
   static constexpr int kRowBytes = 2 * kBW;
   static constexpr int kBoxes = kDP / kBW;
   static constexpr uint32_t kMode = kBW == 64 ? 1 : kBW == 32 ? 2 : 3;  // descriptor swizzle
@@ -648,15 +680,22 @@ struct WgTiles {
   // 3 and 4 at each width (tools/torch_attention_fwd_probe.py); 3 at 256
   // (2 with two consumer warpgroups: stages()).
   static constexpr int kStages = D == 40 || D == 80 ? 2 : 3;
-  static constexpr int kQBytes = 64 * kDP * 2;    // one consumer warpgroup's 64 q rows
+  static constexpr int kQBytes = 64 * kDP * 2;    // 64 q rows
   static constexpr int kTileBytes = kBK * kDP * 2;  // one K or V tile
   // d = 256 with two consumer warpgroups: two 32 KB Q tiles leave room for
-  // 2 stages.
+  // 2 stages; d = 512: its 64 KB Q tile too.
   __host__ __device__ static constexpr int stages(int nc) {
-    return D == 256 && nc == 2 ? 2 : kStages;
+    return D == 512 || (D == 256 && nc == 2) ? 2 : kStages;
   }
+  // Q tiles of 64 rows a work tile: one a consumer warpgroup, or one that
+  // d = 512's two warpgroups share.
+  __host__ __device__ static constexpr int q_tiles(int nc) { return kHalves == 2 ? 1 : nc; }
+  // d = 512: each warpgroup's S over its half of the depth, exchanged in
+  // fp32: [2 slots][2 warpgroups][BK / 8 float4][128 threads].
+  static constexpr int kXchgBytes = kHalves == 2 ? 2 * 2 * 64 * kBK * 4 : 0;
   static constexpr int smem_bytes(int nc) {
-    return 1024 + nc * kQBytes + 2 * stages(nc) * kTileBytes + 8 * (2 + 4 * stages(nc));
+    return 1024 + q_tiles(nc) * kQBytes + 2 * stages(nc) * kTileBytes + kXchgBytes +
+           8 * (2 + 4 * stages(nc));
   }
   // A key split's partial (one consumer warpgroup), written over the ring
   // once its last tile is read: O unnormalized, 64 rows kXPitch floats apart
@@ -664,7 +703,8 @@ struct WgTiles {
   // each row's (m, l).
   static constexpr int kXPitch = kDP + 8;
   static constexpr int kXBytes = 64 * kXPitch * 4 + 64 * 8;
-  static_assert(kDP % 16 == 0 && kDP <= 256, "P.V runs at N = kDP");
+  static_assert(kDW % 16 == 0 && kDW <= 256, "P.V runs at N = kDW");
+  static_assert(smem_bytes(2) <= 232448, "tiles exceed a block's shared memory");
 };
 
 // One persistent block per SM: NC consumer warpgroups of 64 q rows each and
@@ -690,17 +730,35 @@ struct WgTiles {
 // memory until the others have read it.
 //
 // d = 256 with two consumer warpgroups (128-row tiles, where they fill the
-// card: the training batches): the producer is a whole warpgroup, so that
-// setmaxnreg can move registers to the consumers (kWgProducerRegs /
-// kWgConsumerRegs): ptxas gives the 384-thread block 168 a thread, and a
-// consumer needs about 210.
+// card: the training batches), and d = 512: the producer is a whole
+// warpgroup, so that setmaxnreg can move registers to the consumers
+// (kWgProducerRegs / kWgConsumerRegs): ptxas gives the 384-thread block 168
+// a thread, and a consumer needs about 210.
+//
+// d = 512 (kColumns): the two consumer warpgroups share a work tile's 64 q
+// rows; warpgroup w holds O's columns [256 w, 256 w + 256) and reads only
+// that half of every V tile. For S it takes the same half of the depth
+// (kDepthHalves): S_w = Q[:, half w] . K[:, half w]^T, m64n32k16 at depth 256,
+// left in fp32 in shared memory; after a named barrier each adds the other's
+// partial, so both hold S_0 + S_1 bit for bit (fp32 addition commutes) and
+// run the same online softmax, and each issues P.V at m64n256k16 on its
+// columns. The products are the attention's own, once each.
 template <int D, int NC>
-constexpr bool kProducerWarpgroup = D == 256 && NC == 2;
+constexpr bool kProducerWarpgroup = (D == 256 && NC == 2) || D == 512;
 template <int D, int NC>
 constexpr int wgmma_threads() { return 128 * NC + (kProducerWarpgroup<D, NC> ? 128 : 32); }
 constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;
 static_assert(2 * 128 * kWgConsumerRegs + 128 * kWgProducerRegs <= 384 * 168,
               "setmaxnreg shares out no more than the launch gave");
+// q rows of a work tile
+template <int D, int NC>
+__host__ __device__ constexpr int tile_rows() { return 64 * WgTiles<D>::q_tiles(NC); }
+
+// A compile-time int that converts to int in device code.
+template <int V>
+struct Constant {
+  __host__ __device__ constexpr operator int() const { return V; }
+};
 
 template <int D, int NC, int BKV, int SPLIT>
 __global__ void __launch_bounds__(wgmma_threads<D, NC>(), 1)
@@ -710,17 +768,22 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        int t, int work, int64_t out_sb, int64_t out_st, int64_t out_sh,
                        float scale_log2e, float* __restrict__ lse) {
   using C = WgTiles<D, BKV>;
-  constexpr int BK = C::kBK, S = C::stages(NC), RB = C::kRowBytes;
+  constexpr int BK = C::kBK, S = C::stages(NC), RB = C::kRowBytes, QT = C::q_tiles(NC);
+  constexpr bool kColumns = C::kHalves == 2;  // d = 512: O's columns split, the rows shared
+  constexpr bool kDepthHalves = kColumns;     // ... and S's depth, the halves exchanged
+  constexpr bool kPingPong = NC == 2 && !kColumns;
+  constexpr int kRows = tile_rows<D, NC>();
   static_assert(SPLIT == 1 || (NC == 1 && C::kXBytes <= 2 * S * C::kTileBytes),
                 "a key split takes one consumer warpgroup and a partial the ring can hold");
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   // Swizzled tiles need their swizzle's alignment; 1024 bytes serves all three.
   const uint32_t base = (dtts::smem_addr(wg_smem) + 1023u) & ~1023u;
-  const uint32_t q_s = base;                           // [NC][kBoxes][64][kBW]
-  const uint32_t k_s = q_s + NC * C::kQBytes;          // [S][kBoxes][BK][kBW]
+  const uint32_t q_s = base;                           // [QT][kBoxes][64][kBW]
+  const uint32_t k_s = q_s + QT * C::kQBytes;          // [S][kBoxes][BK][kBW]
   const uint32_t v_s = k_s + S * C::kTileBytes;        // [S][kBoxes][BK][kBW]
+  const uint32_t x_s = v_s + S * C::kTileBytes;        // d = 512: S's halves exchanged
   // mbarriers: q_full, q_empty, then k_full[S], v_full[S], k_empty[S], v_empty[S]
-  const uint32_t bar = v_s + S * C::kTileBytes;
+  const uint32_t bar = x_s + C::kXchgBytes;
   const uint32_t q_full = bar, q_empty = bar + 8u;
   auto k_full = [&](int s) { return bar + 8u * (2 + s); };
   auto v_full = [&](int s) { return bar + 8u * (2 + S + s); };
@@ -730,7 +793,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   auto smem_ptr = [&](uint32_t addr) { return wg_smem + (addr - dtts::smem_addr(wg_smem)); };
 
   const int w = threadIdx.x / 128;  // the consumer warpgroup; NC is the producer
-  const int qtiles = (t + 64 * NC - 1) / (64 * NC);
+  const int qtiles = (t + kRows - 1) / kRows;
   // The K/V tiles [j0, j0 + ntiles) of each work tile: all of them, or this
   // CTA's share of a key split (none where SPLIT exceeds the tiles).
   const int rank = SPLIT == 1 ? 0 : (int)dtts::cluster_ctarank();
@@ -758,11 +821,11 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     if (threadIdx.x == 128 * NC && ntiles > 0) {
       int it = 0;  // K/V tiles loaded so far, over all work tiles: the ring's position
       for (int tile = first, n = 0; tile < work; tile += stride, ++n) {
-        const int q0 = tile % qtiles * 64 * NC, head = tile / qtiles % h;
+        const int q0 = tile % qtiles * kRows, head = tile / qtiles % h;
         const int batch = tile / qtiles / h;
         if (n > 0) mbar_wait(q_empty, (n - 1) & 1);  // the previous tile's S is done
-        mbar_expect_tx(q_full, NC * C::kQBytes);
-        for (int c = 0; c < NC; ++c)
+        mbar_expect_tx(q_full, QT * C::kQBytes);
+        for (int c = 0; c < QT; ++c)
           for (int bx = 0; bx < C::kBoxes; ++bx)
             tma_load_4d(q_s + c * C::kQBytes + bx * 64 * RB, &qmap, q_full, bx * C::kBW, head,
                         q0 + 64 * c, batch);
@@ -784,226 +847,278 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   } else {
     if constexpr (kProducerWarpgroup<D, NC>)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
-    // Consumer warpgroup w: q rows q0 + 64 w ... q0 + 64 w + 63 of each work tile.
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int g = lane >> 2, tq = lane & 3;
-    const uint32_t qw = q_s + w * C::kQBytes;
+    // The consumer warpgroups' work, for warpgroup wc. At d = 512 it is
+    // compiled once for each warpgroup with wc a constant, so that the
+    // tiles' descriptors are values uniform over the warpgroup, which the
+    // compiler keeps and steps in uniform registers (at run time the
+    // warpgroup number would put each k-step's descriptor arithmetic on
+    // every thread, ahead of each m64n32k16 product).
+    auto consume = [&](auto wc) {
+      const int w = wc;
+      // Consumer warpgroup w: q rows q0 + 64 w ... q0 + 64 w + 63 of each work
+      // tile (at d = 512 both take rows q0 ... q0 + 63, warpgroup w O's columns
+      // [256 w, 256 w + 256)).
+      const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+      const int g = lane >> 2, tq = lane & 3;
+      const int row0 = kColumns ? 0 : 64 * w, col0 = kColumns ? w * C::kDW : 0;
+      // The halves of Q's and K's depth (d = 512: boxes 4 w ...) and of V's
+      // columns this warpgroup reads.
+      const uint32_t qw =
+          q_s + (kColumns ? (kDepthHalves ? w * C::kQBytes / 2 : 0) : w * C::kQBytes);
+      const uint32_t kw = k_s + (kDepthHalves ? w * C::kTileBytes / 2 : 0);
+      const uint32_t vw = v_s + (kColumns ? w * C::kTileBytes / 2 : 0);
+      constexpr int kSSteps = C::kDS / 16 / (kDepthHalves ? 2 : 1);  // k16 steps of S
 
-    // Descriptors of the tiles' starts; a k16 step adds its byte offset / 16
-    // to the address field. Each use starts from a copy the compiler cannot
-    // see through, so that it does not hoist one 64-bit descriptor per step
-    // out of the loop (at d = 160 that held 20 registers and spilled).
-    const uint64_t q_desc = wgmma_desc(qw, 16, 8 * RB, C::kMode);
-    const uint64_t k_desc = wgmma_desc(k_s, 16, 8 * RB, C::kMode);
-    const uint64_t v_desc = wgmma_desc(v_s, BK * RB, 8 * RB, C::kMode);
-    auto opaque = [](uint64_t x) {
-      asm volatile("" : "+l"(x));
-      return x;
-    };
-    // S = Q.K^T over the padded depth: k16 step kk reads box kk*16/kBW at
-    // byte offset (kk*16 % kBW)*2; K-major, 8-row groups kRowBytes*8 apart.
-    auto issue_s = [&](float (&sc)[BK / 2], int stage) {
-      const uint64_t da = opaque(q_desc);
-      const uint64_t db = opaque(k_desc) + stage * (C::kTileBytes >> 4);
+      // Descriptors of the tiles' starts; a k16 step adds its byte offset / 16
+      // to the address field. Each use starts from a copy the compiler cannot
+      // see through, so that it does not hoist one 64-bit descriptor per step
+      // out of the loop (at d = 160 that held 20 registers and spilled).
+      const uint64_t q_desc = wgmma_desc(qw, 16, 8 * RB, C::kMode);
+      const uint64_t k_desc = wgmma_desc(kw, 16, 8 * RB, C::kMode);
+      const uint64_t v_desc = wgmma_desc(vw, BK * RB, 8 * RB, C::kMode);
+      auto opaque = [](uint64_t x) {
+        asm volatile("" : "+l"(x));
+        return x;
+      };
+      // S = Q.K^T over the padded depth: k16 step kk reads box kk*16/kBW at
+      // byte offset (kk*16 % kBW)*2; K-major, 8-row groups kRowBytes*8 apart.
+      auto issue_s = [&](float (&sc)[BK / 2], int stage) {
+        const uint64_t da = opaque(q_desc);
+        const uint64_t db = opaque(k_desc) + stage * (C::kTileBytes >> 4);
 #pragma unroll
-      for (int kk = 0; kk < C::kDS / 16; ++kk) {
-        const int bx = kk * 16 / C::kBW, off = (kk * 16 % C::kBW) * 2;
-        wgmma_ss<BK>(sc, da + ((bx * 64 * RB + off) >> 4), db + ((bx * BK * RB + off) >> 4),
-                     kk > 0);
-      }
-    };
-    // O += P.V: k16 step kk takes keys 16 kk ...; V is MN-major: kBW columns
-    // per swizzle atom, atoms (boxes) BK*kRowBytes apart, 8-key groups
-    // 8*kRowBytes apart.
-    auto issue_pv = [&](float (&acc)[C::kDP / 2], const uint32_t (&p)[BK / 16][4], int stage) {
-      const uint64_t dv = opaque(v_desc) + stage * (C::kTileBytes >> 4);
+        for (int kk = 0; kk < kSSteps; ++kk) {
+          const int bx = kk * 16 / C::kBW, off = (kk * 16 % C::kBW) * 2;
+          wgmma_ss<BK>(sc, da + ((bx * 64 * RB + off) >> 4), db + ((bx * BK * RB + off) >> 4),
+                       kk > 0);
+        }
+      };
+      // O += P.V: k16 step kk takes keys 16 kk ...; V is MN-major: kBW columns
+      // per swizzle atom, atoms (boxes) BK*kRowBytes apart, 8-key groups
+      // 8*kRowBytes apart.
+      auto issue_pv = [&](float (&acc)[C::kDW / 2], const uint32_t (&p)[BK / 16][4], int stage) {
+        const uint64_t dv = opaque(v_desc) + stage * (C::kTileBytes >> 4);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<C::kDP>(acc, p[kk], dv + (kk * 16 * RB >> 4));
-    };
+        for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<C::kDW>(acc, p[kk], dv + (kk * 16 * RB >> 4));
+      };
 
-    float acc[C::kDP / 2];
-    float m[2], l[2];  // rows g and g + 8
-    float sc[BK / 2];
-    uint32_t p[BK / 16][4];
+      float acc[C::kDW / 2];
+      float m[2], l[2];  // rows g and g + 8
+      float sc[BK / 2];
+      uint32_t p[BK / 16][4];
 
-    // The online softmax of K/V tile j in the log2 domain, in place: sc
-    // becomes the unrounded weights, m and l move on, alpha rescales O.
-    auto softmax = [&](int j, float (&alpha)[2]) {
-      if ((j + 1) * BK > t) {  // the ragged last tile: keys past t score -inf
+      // d = 512: S_0 + S_1. Each warpgroup leaves its partial in its slot of
+      // the exchange (slots alternate by tile: the other may still be reading
+      // the previous one) and, after the named barrier, adds the other's.
+      auto add_halves = [&](int tile_no) {
+        if constexpr (kDepthHalves) {
+          constexpr int kV = BK / 8;  // float4s of a thread's S
+          float4* xs =
+              reinterpret_cast<float4*>(smem_ptr(x_s)) + (tile_no & 1) * 2 * kV * 128 + tid;
 #pragma unroll
-        for (int i = 0; i < BK / 2; ++i)
-          if (j * BK + 8 * (i / 4) + 2 * tq + (i & 1) >= t) sc[i] = -INFINITY;
-      }
-      // A row's max and sum run as four independent chains (element
-      // 4 q + 2 r + c of row r goes to chain 2 (q & 1) + c), so that the
-      // FMNMX and FADD latencies are not paid 32 times in a row.
-      float mx[2][4], ls[2][4];
+          for (int c = 0; c < kV; ++c)
+            xs[(w * kV + c) * 128] =
+                make_float4(sc[4 * c], sc[4 * c + 1], sc[4 * c + 2], sc[4 * c + 3]);
+          asm volatile("bar.sync 3, 256;\n" ::: "memory");
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) mx[r][k] = -INFINITY, ls[r][k] = 0.f;
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        float& x = mx[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
-        x = fmaxf(x, sc[i]);
-      }
-      float neg[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float row = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-        row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, 1));
-        row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, 2));
-        const float m_new = fmaxf(m[r], row * scale_log2e);
-        alpha[r] = ex2(m[r] - m_new);
-        m[r] = m_new;
-        neg[r] = -m_new;
-      }
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        sc[i] = ex2(fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]));
-        ls[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)] += sc[i];
-      }
-      // this lane's part of the fp32 row sum of the unrounded weights
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        l[r] = fmaf(l[r], alpha[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
-    };
-    // P rounded to bf16 is the A operand as it stands: k16 step kk holds
-    // n8 blocks 2 kk and 2 kk + 1 of S.
-    auto pack = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        p[kk][0] = dtts::pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
-        p[kk][1] = dtts::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
-        p[kk][2] = dtts::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
-        p[kk][3] = dtts::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
-    };
+          for (int c = 0; c < kV; ++c) {
+            const float4 x = xs[((1 - w) * kV + c) * 128];
+            sc[4 * c] += x.x, sc[4 * c + 1] += x.y, sc[4 * c + 2] += x.z, sc[4 * c + 3] += x.w;
+          }
+        }
+      };
 
-    // Ping-pong (two consumers): a warpgroup issues its products only in
-    // its turn (named barrier 1 + w) and then hands the turn over, so one
-    // warpgroup's exponentials run while the other's products do.
-    auto take_turn = [&]() {
-      if constexpr (NC == 2) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
-    };
-    auto pass_turn = [&]() {
-      if constexpr (NC == 2) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
-    };
-    auto rescale = [&](const float (&alpha)[2]) {
+      // The online softmax of K/V tile j in the log2 domain, in place: sc
+      // becomes the unrounded weights, m and l move on, alpha rescales O.
+      auto softmax = [&](int j, float (&alpha)[2]) {
+        if ((j + 1) * BK > t) {  // the ragged last tile: keys past t score -inf
 #pragma unroll
-      for (int i = 0; i < C::kDP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    };
-    auto release = [&](uint32_t bar) {
-      if (lane == 0) mbar_arrive(bar);
-    };
-
-    if (w == 1) pass_turn();  // warpgroup 0 goes first
-    int it = 0;  // K/V tiles consumed so far, over all work tiles
-    for (int tile = first, n = 0; tile < work; tile += stride, ++n, it += ntiles) {
-      const int q0 = tile % qtiles * 64 * NC, head = tile / qtiles % h;
-      const int batch = tile / qtiles / h;
+          for (int i = 0; i < BK / 2; ++i)
+            if (j * BK + 8 * (i / 4) + 2 * tq + (i & 1) >= t) sc[i] = -INFINITY;
+        }
+        // A row's max and sum run as four independent chains (element
+        // 4 q + 2 r + c of row r goes to chain 2 (q & 1) + c), so that the
+        // FMNMX and FADD latencies are not paid 32 times in a row.
+        float mx[2][4], ls[2][4];
 #pragma unroll
-      for (int i = 0; i < C::kDP / 2; ++i) acc[i] = 0.f;
-      m[0] = m[1] = -INFINITY;
-      l[0] = l[1] = 0.f;
-      float alpha[2];
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) mx[r][k] = -INFINITY, ls[r][k] = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          float& x = mx[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
+          x = fmaxf(x, sc[i]);
+        }
+        float neg[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float row = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+          row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, 1));
+          row = fmaxf(row, __shfl_xor_sync(0xffffffffu, row, 2));
+          const float m_new = fmaxf(m[r], row * scale_log2e);
+          alpha[r] = ex2(m[r] - m_new);
+          m[r] = m_new;
+          neg[r] = -m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          sc[i] = ex2(fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]));
+          ls[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)] += sc[i];
+        }
+        // this lane's part of the fp32 row sum of the unrounded weights
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          l[r] = fmaf(l[r], alpha[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
+      };
+      // P rounded to bf16 is the A operand as it stands: k16 step kk holds
+      // n8 blocks 2 kk and 2 kk + 1 of S.
+      auto pack = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          p[kk][0] = dtts::pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+          p[kk][1] = dtts::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+          p[kk][2] = dtts::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+          p[kk][3] = dtts::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+      };
 
-      if (ntiles > 0) {
-        mbar_wait(q_full, n & 1);
-        mbar_wait(k_full(it % S), (it / S) & 1);
-        take_turn();
-        wgmma_fence();
-        issue_s(sc, it % S);
-        wgmma_commit();
-        pass_turn();
-        wgmma_wait<0>();
-        fence_regs(sc);
-        release(k_empty(it % S));
-        if (ntiles == 1) release(q_empty);  // Q is read: the next tile's may come
-        softmax(j0, alpha);
-        pack();
+      // Ping-pong (two consumers on their own rows): a warpgroup issues its
+      // products only in its turn (named barrier 1 + w) and then hands the
+      // turn over, so one warpgroup's exponentials run while the other's
+      // products do.
+      auto take_turn = [&]() {
+        if constexpr (kPingPong) asm volatile("bar.sync %0, 256;\n" ::"r"(1 + w) : "memory");
+      };
+      auto pass_turn = [&]() {
+        if constexpr (kPingPong) asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - w) : "memory");
+      };
+      // O's rescale; alpha is 1 exactly where no row of the warp took a new
+      // maximum (most tiles past the first few), and then O stays as it is.
+      auto rescale = [&](const float (&alpha)[2]) {
+        if (__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) return;
+#pragma unroll
+        for (int i = 0; i < C::kDW / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      };
+      auto release = [&](uint32_t bar) {
+        if (lane == 0) mbar_arrive(bar);
+      };
 
-        for (int j = 1; j < ntiles; ++j) {
-          const int s = (it + j) % S, sp = (it + j - 1) % S;
-          // S_j on the tensor cores, then P_{j-1}.V_{j-1} behind it; the
-          // softmax of S_j runs while P.V is in flight. O's rescale by the
-          // previous tile's alpha runs while S_j does.
-          mbar_wait(k_full(s), ((it + j) / S) & 1);
+      if (w == 1) pass_turn();  // warpgroup 0 goes first
+      int it = 0;  // K/V tiles consumed so far, over all work tiles
+      for (int tile = first, n = 0; tile < work; tile += stride, ++n, it += ntiles) {
+        const int q0 = tile % qtiles * kRows, head = tile / qtiles % h;
+        const int batch = tile / qtiles / h;
+#pragma unroll
+        for (int i = 0; i < C::kDW / 2; ++i) acc[i] = 0.f;
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = 0.f;
+        float alpha[2];
+
+        if (ntiles > 0) {
+          mbar_wait(q_full, n & 1);
+          mbar_wait(k_full(it % S), (it / S) & 1);
           take_turn();
-          fence_regs(acc);
           wgmma_fence();
-          issue_s(sc, s);
-          wgmma_commit();
-          rescale(alpha);
-          mbar_wait(v_full(sp), ((it + j - 1) / S) & 1);
-          fence_regs(acc);
-          wgmma_fence();
-          issue_pv(acc, p, sp);
+          issue_s(sc, it % S);
           wgmma_commit();
           pass_turn();
-          wgmma_wait<1>();
+          wgmma_wait<0>();
           fence_regs(sc);
-          release(k_empty(s));
-          if (j == ntiles - 1) release(q_empty);
-          softmax(j0 + j, alpha);
+          release(k_empty(it % S));
+          if (ntiles == 1) release(q_empty);  // Q is read: the next tile's may come
+          add_halves(it);
+          softmax(j0, alpha);
+          pack();
+
+          for (int j = 1; j < ntiles; ++j) {
+            const int s = (it + j) % S, sp = (it + j - 1) % S;
+            // S_j on the tensor cores, then P_{j-1}.V_{j-1} behind it; the
+            // softmax of S_j runs while P.V is in flight. O's rescale by the
+            // previous tile's alpha runs while S_j does.
+            mbar_wait(k_full(s), ((it + j) / S) & 1);
+            take_turn();
+            fence_regs(acc);
+            wgmma_fence();
+            issue_s(sc, s);
+            wgmma_commit();
+            rescale(alpha);
+            mbar_wait(v_full(sp), ((it + j - 1) / S) & 1);
+            fence_regs(acc);
+            wgmma_fence();
+            issue_pv(acc, p, sp);
+            wgmma_commit();
+            pass_turn();
+            wgmma_wait<1>();
+            fence_regs(sc);
+            release(k_empty(s));
+            if (j == ntiles - 1) release(q_empty);
+            add_halves(it + j);
+            softmax(j0 + j, alpha);
+            wgmma_wait<0>();
+            fence_regs(acc);
+            release(v_empty(sp));
+            pack();
+          }
+          const int sl = (it + ntiles - 1) % S;
+          mbar_wait(v_full(sl), ((it + ntiles - 1) / S) & 1);
+          take_turn();
+          rescale(alpha);
+          fence_regs(acc);
+          wgmma_fence();
+          issue_pv(acc, p, sl);
+          wgmma_commit();
+          // Warpgroup 1 was handed one turn before the first: it hands back all
+          // but its last.
+          if (w == 0 || tile + stride < work) pass_turn();
           wgmma_wait<0>();
           fence_regs(acc);
-          release(v_empty(sp));
-          pack();
+          release(v_empty(sl));
         }
-        const int sl = (it + ntiles - 1) % S;
-        mbar_wait(v_full(sl), ((it + ntiles - 1) / S) & 1);
-        take_turn();
-        rescale(alpha);
-        fence_regs(acc);
-        wgmma_fence();
-        issue_pv(acc, p, sl);
-        wgmma_commit();
-        // Warpgroup 1 was handed one turn before the first: it hands back all
-        // but its last.
-        if (w == 0 || tile + stride < work) pass_turn();
-        wgmma_wait<0>();
-        fence_regs(acc);
-        release(v_empty(sl));
-      }
 
-      if constexpr (SPLIT > 1) {
-        // This CTA's partial, over the ring (its last tile is read and no
-        // load is in flight: a cluster takes one work tile).
-        float* xo = reinterpret_cast<float*>(smem_ptr(k_s));
-        float2* xml = reinterpret_cast<float2*>(xo + 64 * C::kXPitch);
+        if constexpr (SPLIT > 1) {
+          // This CTA's partial, over the ring (its last tile is read and no
+          // load is in flight: a cluster takes one work tile).
+          float* xo = reinterpret_cast<float*>(smem_ptr(k_s));
+          float2* xml = reinterpret_cast<float2*>(xo + 64 * C::kXPitch);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            const int row = 16 * warp + g + 8 * r;
+            if (tq == 0) xml[row] = make_float2(m[r], l[r]);
+#pragma unroll
+            for (int j = 0; j < C::kDW / 8; ++j)
+              *reinterpret_cast<float2*>(xo + row * C::kXPitch + 8 * j + 2 * tq) =
+                  make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+          }
+          continue;
+        }
+        bf16* ob = o + batch * out_sb + head * out_sh;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
           l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-          const int row = 16 * warp + g + 8 * r;
-          if (tq == 0) xml[row] = make_float2(m[r], l[r]);
+          const int row = q0 + row0 + 16 * warp + g + 8 * r;
+          if (row >= t) continue;
+          // Training: the row's log2-sum-exp2 of the scaled scores, [B, H, T].
+          if (lse != nullptr && tq == 0 && (!kColumns || w == 0))
+            lse[((int64_t)batch * h + head) * t + row] = m[r] + log2f(l[r]);
+          const float inv = 1.f / l[r];
 #pragma unroll
-          for (int j = 0; j < C::kDP / 8; ++j)
-            *reinterpret_cast<float2*>(xo + row * C::kXPitch + 8 * j + 2 * tq) =
-                make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-        }
-        continue;
-      }
-      bf16* ob = o + batch * out_sb + head * out_sh;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        const int row = q0 + 64 * w + 16 * warp + g + 8 * r;
-        if (row >= t) continue;
-        // Training: the row's log2-sum-exp2 of the scaled scores, [B, H, T].
-        if (lse != nullptr && tq == 0)
-          lse[((int64_t)batch * h + head) * t + row] = m[r] + log2f(l[r]);
-        const float inv = 1.f / l[r];
-#pragma unroll
-        for (int j = 0; j < C::kDP / 8; ++j) {
-          const int col = 8 * j + 2 * tq;
-          if (col < D)
-            *reinterpret_cast<__nv_bfloat162*>(ob + row * out_st + col) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+          for (int j = 0; j < C::kDW / 8; ++j) {
+            const int col = col0 + 8 * j + 2 * tq;
+            if (col < D)
+              *reinterpret_cast<__nv_bfloat162*>(ob + row * out_st + col) =
+                  __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+          }
         }
       }
+
+    };
+    if constexpr (kColumns) {
+      if (w == 0) consume(Constant<0>{});
+      else consume(Constant<1>{});
+    } else {
+      consume(w);
     }
   }
 
@@ -1101,7 +1216,8 @@ cudaError_t launch_wgmma_nc(const CUtensorMap& qm, const CUtensorMap& km, const 
   cudaError_t err = cudaFuncSetAttribute(attention_wgmma_kernel<D, NC, BK, 1>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int work = (t + 64 * NC - 1) / (64 * NC) * h * b;  // work tiles
+  constexpr int rows = tile_rows<D, NC>();
+  const int work = (t + rows - 1) / rows * h * b;  // work tiles
   const int blocks = work < sm_count() ? work : sm_count();
   constexpr int threads = wgmma_threads<D, NC>();
   attention_wgmma_kernel<D, NC, BK, 1><<<blocks, threads, smem, stream>>>(
@@ -1146,44 +1262,53 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b, in
                  int64_t in_sb, int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
                  int64_t out_sh, float scale_log2e, float* lse, int split, int nc,
                  cudaStream_t stream) {
-  constexpr int kBK = WgTiles<D>::kBK, kShortBK = 64;  // K/V tile keys; at t <= 64
-  const int bk = t <= 64 ? kShortBK : kBK;
+  // K/V tile keys; 64 at t <= 64 where the width's tiles are longer
+  constexpr int kBK = WgTiles<D>::kBK, kShortBK = 64;
+  const int bk = t <= 64 && kBK > kShortBK ? kShortBK : kBK;
   CUtensorMap qm, km, vm;
   int err = encode_map<D>(&qm, q, b, h, t, in_sb, in_st, in_sh, 64);
   if (err == 0) err = encode_map<D>(&km, k, b, h, t, in_sb, in_st, in_sh, bk);
   if (err == 0) err = encode_map<D>(&vm, v, b, h, t, in_sb, in_st, in_sh, bk);
   if (err != 0) return err;
-  // The caller's plan (ops/kernels/qkv_attention.py::wgmma_plan): a key
-  // split (d = 256) takes one consumer warpgroup; two take t > 64.
-  if ((nc != 1 && nc != 2) || (nc == 2 && (split != 1 || t <= 64)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (D == 256) {
-    // 64-key tiles; the key split the caller chose, else one or two
-    // consumer warpgroups as at the other widths.
-    static_assert(kBK == kShortBK, "d = 256 takes 64-key tiles at every T");
-    if (split == 1 && nc == 2)
-      return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
-                                        scale_log2e, lse, stream);
-    if (split == 1)
+  // The caller's plan (ops/kernels/qkv_attention.py::wgmma_plan).
+  if constexpr (D == 512) {
+    // One plan: two consumer warpgroups splitting O's columns, no key
+    // split, 32-key tiles at every T.
+    if (nc != 2 || split != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                      scale_log2e, lse, stream);
+  } else {
+    // A key split (d = 256) takes one consumer warpgroup; two take t > 64.
+    if ((nc != 1 && nc != 2) || (nc == 2 && (split != 1 || t <= 64)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if constexpr (D == 256) {
+      // 64-key tiles; the key split the caller chose, else one or two
+      // consumer warpgroups as at the other widths.
+      static_assert(kBK == kShortBK, "d = 256 takes 64-key tiles at every T");
+      if (split == 1 && nc == 2)
+        return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                          scale_log2e, lse, stream);
+      if (split == 1)
+        return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                          scale_log2e, lse, stream);
+      if (split == 2)
+        return launch_wgmma_split<D, kBK, 2>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                             scale_log2e, lse, stream);
+      if (split == 4)
+        return launch_wgmma_split<D, kBK, 4>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                             scale_log2e, lse, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (t <= 64)
+        return launch_wgmma_nc<D, 1, kShortBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                               scale_log2e, lse, stream);
+      if (nc == 2)
+        return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                          scale_log2e, lse, stream);
       return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
                                         scale_log2e, lse, stream);
-    if (split == 2)
-      return launch_wgmma_split<D, kBK, 2>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
-                                           scale_log2e, lse, stream);
-    if (split == 4)
-      return launch_wgmma_split<D, kBK, 4>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
-                                           scale_log2e, lse, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (split != 1) return static_cast<int>(cudaErrorInvalidValue);
-    if (t <= 64)
-      return launch_wgmma_nc<D, 1, kShortBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
-                                             scale_log2e, lse, stream);
-    if (nc == 2)
-      return launch_wgmma_nc<D, 2, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
-                                        scale_log2e, lse, stream);
-    return launch_wgmma_nc<D, 1, kBK>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
-                                      scale_log2e, lse, stream);
+    }
   }
 }
 
@@ -1230,13 +1355,15 @@ extern "C" int dtts_attention_split_clusters(int split, int* clusters) {
 // each row's log2-sum-exp2 of the scaled scores for the backward kernels
 // (csrc/attention_bwd.cu). route: 0 = fma (any dtype and width), 1 = mma
 // (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every pointer and stride
-// 16-byte aligned), 2 = wgmma (bfloat16 at d = 40, 64, 80, 160, 256, aligned
-// the same way). split: CTAs sharing each work tile's keys, 1, or 2 or 4 on
-// the wgmma route at d = 256 (a thread-block cluster a tile). consumers:
-// consumer warpgroups a block, 1, or 2 on the wgmma route without a split at
-// t > 64 (ops/kernels/qkv_attention.py::wgmma_plan picks both). Returns the
-// launch's cudaError_t (0 on success), or kEncodeFailed + the CUresult of a
-// refused tensor map; the caller raises on anything but 0.
+// 16-byte aligned), 2 = wgmma (bfloat16 at d = 40, 64, 80, 160, 256, 512,
+// aligned the same way). split: CTAs sharing each work tile's keys, 1, or 2
+// or 4 on the wgmma route at d = 256 (a thread-block cluster a tile).
+// consumers: consumer warpgroups a block, 1, or 2 on the wgmma route without
+// a split at t > 64; at d = 512 always 2, the two halves of O's columns
+// (ops/kernels/qkv_attention.py::wgmma_plan picks both). Any other plan is
+// refused. Returns the launch's cudaError_t (0 on success), or
+// kEncodeFailed + the CUresult of a refused tensor map; the caller raises on
+// anything but 0.
 extern "C" int dtts_attention(const void* q, const void* k, const void* v, void* o,
                               int dtype, int d, int b, int h, int t, int64_t in_sb,
                               int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
@@ -1255,6 +1382,7 @@ extern "C" int dtts_attention(const void* q, const void* k, const void* v, void*
       DTTS_ATTN_WGMMA(80)
       DTTS_ATTN_WGMMA(160)
       DTTS_ATTN_WGMMA(256)
+      DTTS_ATTN_WGMMA(512)
     }
 #undef DTTS_ATTN_WGMMA
     return static_cast<int>(cudaErrorInvalidValue);

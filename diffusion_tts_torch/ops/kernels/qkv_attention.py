@@ -26,16 +26,16 @@ The forward kernel has three routes, picked before the launch: "wgmma"
 warp-level mma.sync products of the first tensor-core design) and "fma"
 (fp32 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "wgmma" for
 bf16 at ``WGMMA_HEAD_DIMS`` (the ADM's 64, the SD UNet's 40, 80 and 160, the
-DDPM++ net's 256), "mma" for bf16 at the other widths of ``MMA_HEAD_DIMS``
-(16 and 32 of the test nets and the VAE's 512, which stays there: see
-``csrc/qkv_attention.cu``'s header) and "fma" otherwise. A wgmma launch
-takes ``wgmma_plan(d, b, h, t, *card_limits(device))``: (key split,
+DDPM++ net's 256, the SD VAE's 512), "mma" for bf16 at the other widths of
+``MMA_HEAD_DIMS`` (16 and 32 of the test nets) and "fma" otherwise. A wgmma
+launch takes ``wgmma_plan(d, b, h, t, *card_limits(device))``: (key split,
 consumer warpgroups). At d = 256 it splits each 64-row q tile's keys over a
 thread-block cluster of ``wgmma_split`` CTAs where the tiles alone would
 leave the card short of SMs; an unsplit launch takes ``wgmma_consumers``'
-one or two consumer warpgroups. Tests and probes may force a factor through
-``split=`` of ``_qkv_forward`` / ``_bthd_forward``; the public wrappers
-take none. The backward
+one or two consumer warpgroups (at d = 512 always two, each holding half of
+O's columns, and no key split: see ``csrc/qkv_attention.cu``'s header).
+Tests and probes may force a factor through ``split=`` of ``_qkv_forward`` /
+``_bthd_forward``; the public wrappers take none. The backward
 kernels have the same three: ``backward_route(dtype, d)`` gives "wgmma" for
 bf16 at ``BWD_WGMMA_HEAD_DIMS`` (the ADM training path's d = 64 and the
 DDPM++ training path's d = 256), "mma" for bf16 at the other widths of
@@ -69,7 +69,7 @@ from diffusion_tts_torch.ops.kernels import _launch
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 256, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
-WGMMA_HEAD_DIMS = (40, 64, 80, 160, 256)
+WGMMA_HEAD_DIMS = (40, 64, 80, 160, 256, 512)
 # d = 256's key split on the wgmma route: CTAs a work tile (a cluster of them).
 WGMMA_SPLITS = (1, 2, 4)
 # The routes of the forward and of the backward, in the order of their codes
@@ -102,11 +102,14 @@ def forward_route(dtype: torch.dtype, d: int) -> str:
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma" if d in MMA_HEAD_DIMS else "fma"
 
 
-def wgmma_consumers(b: int, h: int, t: int, sms: int) -> int:
-    """Consumer warpgroups of an unsplit wgmma launch: two (128-row q
+def wgmma_consumers(b: int, h: int, t: int, sms: int, d: int | None = None) -> int:
+    """Consumer warpgroups of an unsplit wgmma launch: at d = 512 two,
+    which share 64-row q tiles and split O's columns; else two (128-row q
     tiles) where t > 64 and 128-row tiles still give the card's ``sms`` at
-    least one tile each, else one (64-row tiles). At d = 256 two take the
-    producer-warpgroup layout (csrc/qkv_attention.cu's header)."""
+    least one tile each, else one (64-row tiles). At d = 256 and 512 two
+    take the producer-warpgroup layout (csrc/qkv_attention.cu's header)."""
+    if d == 512:
+        return 2
     return 2 if t > 64 and b * h * -(-t // 128) >= sms else 1
 
 
@@ -115,10 +118,11 @@ def wgmma_plan(d: int, b: int, h: int, t: int, sms: int, clusters: dict[int, int
     """(key split, consumer warpgroups) of a wgmma launch, which the C
     entry takes as it is: ``wgmma_split``'s factor at d = 256 (``split``
     forces one), 1 at the other widths; one consumer warpgroup where the
-    keys are split, else ``wgmma_consumers``'."""
+    keys are split, else ``wgmma_consumers``' (at d = 512 its two column
+    warpgroups)."""
     if split is None:
         split = wgmma_split(b, h, t, sms, clusters) if d == 256 else 1
-    return split, 1 if split > 1 else wgmma_consumers(b, h, t, sms)
+    return split, 1 if split > 1 else wgmma_consumers(b, h, t, sms, d)
 
 
 def wgmma_split(b: int, h: int, t: int, sms: int, clusters: dict[int, int]) -> int:

@@ -14,6 +14,7 @@ import torch
 from diffusion_tts_torch.ops import attention as t_attention
 from diffusion_tts_torch.ops.kernels import qkv_attention as t_kernel
 from diffusion_tts_tpu.ops import attention as j_attention
+from diffusion_tts_tpu.ops.pallas.attention import flash_attention as pallas_flash
 from diffusion_tts_tpu.ops.pallas.attention import qkv_self_attention as pallas_qkv
 
 torch.set_num_threads(1)  # one thread per xdist worker (tests/_torch_port.py)
@@ -56,6 +57,21 @@ def test_multihead_attention_matches_jax(dtype):
     q, k, v = (_both(_inputs((2, 64, 3, 64), seed=s), dtype) for s in range(3))
     out = t_attention.multihead_attention_fp32(q[0], k[0], v[0])
     _close(out, j_attention.multihead_attention_fp32(q[1], k[1], v[1], use_pallas=False), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [128, 200])
+def test_vae_head_width_matches_jax(t, dtype):
+    """The SD VAE mid-block's one head of width 512 (the wgmma route's
+    widest, two warpgroups splitting O's columns on the card), at T = 128
+    and a T that is no multiple of 64: the port's multihead_attention_fp32
+    against the JAX package's XLA path and its Pallas flash kernel in
+    interpret mode."""
+    q, k, v = (_both(_inputs((2, t, 1, 512), seed=512 + t + s), dtype) for s in range(3))
+    out = t_attention.multihead_attention_fp32(q[0], k[0], v[0])
+    assert out.shape == (2, t, 1, 512) and out.dtype == q[0].dtype
+    _close(out, j_attention.multihead_attention_fp32(q[1], k[1], v[1], use_pallas=False), dtype)
+    _close(out, pallas_flash(q[1], k[1], v[1], interpret=True), dtype)
 
 
 def test_wrapper_takes_plain_version_only_on_cpu():

@@ -93,15 +93,15 @@ def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA", route="mm
 def test_attention_route_is_the_one_the_source_states(dtype, d):
     """Three routes: bf16 on "wgmma" at the widths csrc/qkv_attention.cu
     states and dispatches for route 2 (the ADM's 64, the SD UNet's 40, 80,
-    160, the DDPM++ net's 256), on "mma" at the other mma widths (the VAE's
-    512; the mma kernel still takes every one of its widths, for
-    ``route="mma"``), fp32 on "fma"."""
+    160, the DDPM++ net's 256, the VAE's 512), on "mma" at the other mma
+    widths (the test nets' 16 and 32; the mma kernel still takes every one
+    of its widths, for ``route="mma"``), fp32 on "fma"."""
     stated, dispatched = _mma_widths_in_source()
     assert stated == dispatched == qk.MMA_HEAD_DIMS
     wg_stated, wg_dispatched = _mma_widths_in_source(macro="DTTS_ATTN_WGMMA", route="wgmma",
                                                      code=2)
     assert wg_stated == wg_dispatched == qk.WGMMA_HEAD_DIMS
-    assert set(wg_stated) <= set(stated) and 256 in wg_stated and 512 not in wg_stated
+    assert set(wg_stated) <= set(stated) and 256 in wg_stated and 512 in wg_stated
     want = "fma"
     if dtype == torch.bfloat16:
         want = "wgmma" if d in wg_stated else "mma" if d in stated else "fma"
@@ -272,15 +272,17 @@ def test_geglu_refuses_a_misaligned_operand_before_any_launch(no_launch, monkeyp
 def test_attention_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
     """A wgmma width (40) with a misaligned pointer or stride, on its own
     route or forced onto "mma", is refused before any launch (TMA and the
-    mma copies both read 16-byte pieces); so is "wgmma" asked for in fp32 or
-    at a width that is not its own. Nothing falls back to another route."""
+    mma copies both read 16-byte pieces), and so is the VAE head's width
+    (512, now a wgmma width) with a misaligned pointer on "wgmma"; so is
+    "wgmma" asked for in fp32 or at a width that is not its own. Nothing
+    falls back to another route."""
     d = {"wgmma_at_32": 32, "wgmma_at_512": 512}.get(case, 40)
     b, t, h = 1, 4, 2
     dtype = torch.float32 if case == "wgmma_fp32" else torch.bfloat16
     out = torch.empty((b, t, h, d), dtype=dtype)
     ptrs = [out.data_ptr()] * 3
     strides = [t * h * d, h * d, d]
-    if case in ("pointer", "mma_pointer"):
+    if case in ("pointer", "mma_pointer", "wgmma_at_512"):
         ptrs[2] += 2
     if case == "token_stride":
         strides[1] = h * d + 4
@@ -289,7 +291,8 @@ def test_attention_refuses_what_the_wgmma_route_cannot_take(no_launch, case):
     route = {"mma_pointer": "mma", "wgmma_fp32": "wgmma", "wgmma_at_32": "wgmma",
              "wgmma_at_512": "wgmma"}.get(case)
     before = (qk.LAUNCHES, dict(qk.ROUTE_LAUNCHES))
-    match = "wgmma route takes bfloat16" if route == "wgmma" else "16-byte"
+    match = ("wgmma route takes bfloat16" if case in ("wgmma_fp32", "wgmma_at_32")
+             else "16-byte")
     with pytest.raises(ValueError, match=match):
         qk._launch_kernel(*ptrs, out, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
                           route=route)
@@ -353,7 +356,7 @@ def test_attention_at_256_takes_wgmma_and_still_serves_mma(recorded_launch, b, t
     unsplit, one block layout."""
     d = 256
     assert qk.forward_route(torch.bfloat16, d) == "wgmma"
-    assert qk.forward_route(torch.bfloat16, 512) == "mma"
+    assert qk.forward_route(torch.bfloat16, 512) == "wgmma"
     assert qk.forward_route(torch.float32, d) == "fma"
     out = torch.empty((b, t, d), dtype=torch.bfloat16)
     ptr = out.data_ptr()
@@ -361,6 +364,53 @@ def test_attention_at_256_takes_wgmma_and_still_serves_mma(recorded_launch, b, t
                       route=route)
     assert recorded_launch == [(qk.ROUTE_CODES[want[0]], *want[1:])]
     assert qk.ROUTE_LAUNCHES[want[0]] == 1 and sum(qk.ROUTE_LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("b,t,route,want", [
+    (1, 4096, None, ("wgmma", 1, 2)),   # the VAE head's final decode: 64 q tiles
+    (4, 4096, None, ("wgmma", 1, 2)),   # its candidates' decodes: 256 q tiles
+    (2, 300, None, ("wgmma", 1, 2)), (1, 32, None, ("wgmma", 1, 2)),
+    (1, 4096, "mma", ("mma", 1, 1)), (4, 4096, "fma", ("fma", 1, 1))])
+def test_attention_at_512_takes_wgmma_with_its_plan(recorded_launch, b, t, route, want):
+    """bf16 at d = 512 (the SD VAE mid-block's head, [B, T, 1, 512])
+    launches the wgmma route (code 2) with its one plan at every batch:
+    two column warpgroups, no key split; route="mma" still launches the
+    mma.sync design there and "fma" the first one, unsplit, one block
+    layout."""
+    d = 512
+    assert qk.forward_route(torch.bfloat16, d) == "wgmma"
+    out = torch.empty((b, t, 1, d), dtype=torch.bfloat16)
+    ptr, strides = out.data_ptr(), (t * d, d, d)
+    qk._launch_kernel(ptr, ptr, ptr, out, d, b, 1, t, strides, strides, route=route)
+    assert recorded_launch == [(qk.ROUTE_CODES[want[0]], *want[1:])]
+    assert qk.ROUTE_LAUNCHES[want[0]] == 1 and sum(qk.ROUTE_LAUNCHES.values()) == 1
+
+
+def test_attention_at_512_fp32_takes_fma(recorded_launch):
+    """fp32 at d = 512 stays on the fp32 FMA kernel (TF32 would not hold
+    1e-4); the wgmma route takes bf16 only."""
+    b, t, d = 1, 300, 512
+    assert qk.forward_route(torch.float32, d) == "fma"
+    out = torch.empty((b, t, 1, d), dtype=torch.float32)
+    ptr, strides = out.data_ptr(), (t * d, d, d)
+    qk._launch_kernel(ptr, ptr, ptr, out, d, b, 1, t, strides, strides)
+    with pytest.raises(ValueError, match="wgmma route takes bfloat16"):
+        qk._launch_kernel(ptr, ptr, ptr, out, d, b, 1, t, strides, strides, route="wgmma")
+    assert recorded_launch == [(qk.ROUTE_CODES["fma"], 1, 1)]
+
+
+@pytest.mark.parametrize("b,h,t", [
+    (1, 1, 4096), (4, 1, 4096),   # the VAE head's decode batches 1 and 4
+    (2, 1, 4096), (1, 1, 1024),   # a 256x256 decode
+    (1, 1, 64), (1, 1, 32), (8, 1, 1024), (3, 1, 1000)])
+def test_wgmma_plan_at_512(b, h, t):
+    """d = 512's plan on a 132-SM card, whatever the clusters: two consumer
+    warpgroups (they share the q rows and split O's columns) and no key
+    split, which only d = 256 takes."""
+    for clusters in ({2: 66, 4: 33}, {2: 0, 4: 0}):
+        assert qk.wgmma_plan(512, b, h, t, 132, clusters) == (1, 2)
+    assert qk.wgmma_consumers(b, h, t, 132, 512) == 2
+    assert qk.wgmma_plan(512, b, h, t, 132, {2: 66, 4: 33}, split=1) == (1, 2)
 
 
 @pytest.mark.parametrize("d,route,split", [(256, None, 3), (256, None, 8), (256, "mma", 2),

@@ -993,7 +993,7 @@ def test_attention_mma_route_at_full_sd_shapes(card, shape):
 LSE_CASES = ([(route, t, d) for route in ("fma", "mma")
               for t, d in [(77, 40), (300, 64), (200, 512), (200, 256)]]
              + [("wgmma", t, d) for t, d in [(77, 40), (300, 64), (200, 80), (100, 160),
-                                             (200, 256), (64, 256)]])
+                                             (200, 256), (64, 256), (200, 512)]])
 
 
 @pytest.mark.cuda
@@ -1194,6 +1194,81 @@ def test_attention_wgmma_256_refuses_what_it_cannot_take(card, case):
             qk._qkv_forward(qkv, 1, None, split=3)
         with pytest.raises(ValueError, match="key split takes"):
             qk._qkv_forward(qkv, 1, None, route="mma", split=2)
+    assert _routes(qk) == before
+
+
+# ------------------------------------------- the wgmma route at d = 512
+
+# The SD VAE mid-block's head at decode batches 1 and 4, and a ragged T.
+D512_SHAPES = [(1, 4096, 1, 512), (4, 4096, 1, 512), (2, 300, 1, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", D512_SHAPES)
+def test_attention_wgmma_512_matches_plain(card, shape):
+    """d = 512 on its route, "wgmma" (two warpgroups splitting O's columns,
+    S's depth halves exchanged), at the plan wgmma_plan picks (no key
+    split): within 2e-2 of the largest output of attention_plain and of the
+    mma.sync design (forced); two calls bit for bit the same."""
+    b, t, h, d = shape
+    q, k, v = (_randn(shape, torch.bfloat16, card, s) for s in range(3))
+    before = _routes(qk)
+    out, again = qk.attention(q, k, v), qk.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _routes(qk) == {**before, "wgmma": before["wgmma"] + 2}
+    assert qk.wgmma_plan(d, b, h, t, *qk.card_limits(torch.device(card))) == (1, 2)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all() and torch.equal(out, again)
+    assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.bfloat16]
+    assert _rel_err(out, qk.attention(q, k, v, route="mma")) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 32, 77, 300, 1024])
+def test_attention_wgmma_512_lse_and_repeat(card, t):
+    """The row statistic at d = 512, written by warpgroup 0 of the two that
+    share the rows: the log2-sum-exp2 of the scaled fp32 scores (1e-4
+    absolute, as on every route); output and statistic bit for bit the same
+    on a second run, the output within 2e-2 of plain."""
+    b, h, d = 2, 1, 512
+    q, k, v = (_randn((b, t, h, d), torch.bfloat16, card, s) for s in range(3))
+    lse, lse2 = (torch.full((b, h, t), float("nan"), device=card) for _ in range(2))
+    out = qk._bthd_forward(q, k, v, lse)
+    again = qk._bthd_forward(q, k, v, lse2)
+    torch.cuda.synchronize()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(lse, lse2) and torch.equal(out, again)
+    assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "split"])
+def test_attention_wgmma_512_refuses_what_it_cannot_take(card, case):
+    """At d = 512: a q|k|v that starts 2 bytes off, a token stride of 516
+    elements (1032 bytes, no multiple of 16) or a key split (d = 256's
+    alone) is refused before any launch, on the route's own call and on a
+    forced mma call; nothing falls back to another route."""
+    b, t, h, d = 1, 256, 1, 512
+    before = _routes(qk)
+    if case == "pointer":
+        flat = torch.zeros(b * t * h * d + 1, dtype=torch.bfloat16, device=card)
+        q = flat[1:].view(b, t, h, d)
+        for route in (None, "mma"):
+            with pytest.raises(ValueError, match="16-byte"):
+                qk.attention(q, q, q, route=route)
+    elif case == "token_stride":
+        out = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=card)
+        ptr = out.data_ptr()
+        with pytest.raises(ValueError, match="16-byte"):
+            qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, (t * 516, 516, d),
+                              (t * h * d, h * d, d))
+    else:
+        q = _randn((b, t, h, d), torch.bfloat16, card, 0)
+        for route in (None, "mma"):
+            with pytest.raises(ValueError, match="key split takes"):
+                qk._bthd_forward(q, q, q, None, route=route, split=2)
     assert _routes(qk) == before
 
 

@@ -5,6 +5,8 @@
         [--json PATH]
     python3 tools/torch_attention_fwd_probe.py --shapes 8x256x1x256,8x64x1x256,128x256x1x256 \
         --flavours kernel,split1,split2,split4,products,no_exp
+    python3 tools/torch_attention_fwd_probe.py --shapes 4x4096x1x512,1x4096x1x512 \
+        --flavours kernel,products,no_exp,whole_s,no_xchg,no_loads,no_s,no_pv
 
 Builds ``diffusion_tts_torch/csrc/qkv_attention.cu`` with nvcc into
 ``build/probe_fwd/`` once per flavour, each a copy of the source with one
@@ -25,8 +27,13 @@ device time, without the host's launch rate). Flavours:
   no_pv        no P.V product (the softmax and its row sums stay);
   no_pingpong  the consumer warpgroups issue their products without taking
                turns;
+  whole_s      (d = 512) each of the two column warpgroups computes the whole
+               S over the full depth, 1.5x the products, instead of its half
+               of the depth and the exchange (the mma.sync design's choice);
+  no_xchg      (d = 512) the halves of S are not exchanged: each warpgroup's
+               softmax runs on its own half, no named barrier;
   nc1          the source as it is with one consumer warpgroup (64-row q
-               tiles) at every shape;
+               tiles) at every shape but d = 512 (two on every plan);
   onetile      one block per work tile instead of one persistent block per
                SM;
   bk64, bk192  K/V tiles of 64 or 192 keys instead of the route's (past
@@ -39,8 +46,8 @@ device time, without the host's launch rate). Flavours:
   bw32, bw64   TMA boxes 32 or 64 columns wide (64- or 128-byte rows) at
                every width, the columns past d zero-filled and multiplied
                in P.V.
-The stripped flavours (no_exp, no_pv, no_loads, no_s, products, no_dsmem) give wrong
-outputs by design; the
+The stripped flavours (no_exp, no_pv, no_loads, no_s, products, no_dsmem, no_xchg) give
+wrong outputs by design; the
 others are held against ``attention_plain`` within 2e-2 of the largest
 output. Each row also has the time of the mma route and of
 ``scaled_dot_product_attention`` on the same inputs, from the same run.
@@ -69,12 +76,14 @@ from diffusion_tts_torch.ops.kernels import qkv_attention as qk  # noqa: E402
 
 OUT_DIR = build.BUILD_DIR.parent / "probe_fwd"
 SOURCE = build.CSRC / "qkv_attention.cu"
-BK_LINE = "template <int D, int BK = (D > 128 ? 64 : 128)>"
+BK_LINE = "template <int D, int BK = (D > 256 ? 32 : D > 128 ? 64 : 128)>"
 STAGES_LINE = "static constexpr int kStages = D == 40 || D == 80 ? 2 : 3;"
 EXP_LINE = "sc[i] = ex2(fmaf(sc[i], scale_log2e, neg[(i >> 1) & 1]));"
-PV_LINE = "wgmma_rs<C::kDP>(acc, p[kk], dv + (kk * 16 * RB >> 4));"
-TURN = "if constexpr (NC == 2) asm volatile(\"bar."
-BW_LINE = "static constexpr int kBW = D == 64 || D == 256 ? 64 : D == 160 ? 32 : 16;"
+PV_LINE = "wgmma_rs<C::kDW>(acc, p[kk], dv + (kk * 16 * RB >> 4));"
+TURN = "if constexpr (kPingPong) asm volatile(\"bar."
+BW_LINE = "static constexpr int kBW = D == 64 || D >= 256 ? 64 : D == 160 ? 32 : 16;"
+HALVES_LINE = "constexpr bool kDepthHalves = kColumns;"
+XCHG_LINE = "        if constexpr (kDepthHalves) {\n          constexpr int kV = BK / 8;"
 SOFTMAX_LINE = "auto softmax = [&](int j, float (&alpha)[2]) {"
 SPLITS = {"split1": 1, "split2": 2, "split4": 4}
 DSMEM_LINE = ("x[k][i] = dtts::ld_dsmem_f32x4(dtts::dsmem_addr(xo + 4u * (row * C::kXPitch + col),"
@@ -83,11 +92,11 @@ K_LOAD = "for (int bx = 0; bx < C::kBoxes; ++bx)\n            tma_load_4d(k_s"
 V_LOAD = "for (int bx = 0; bx < C::kBoxes; ++bx)\n            tma_load_4d(v_s"
 GRID_LINE = "const int blocks = work < sm_count() ? work : sm_count();"
 S_LINE = ("wgmma_ss<BK>(sc, da + ((bx * 64 * RB + off) >> 4), db + ((bx * BK * RB + off) >> 4),\n"
-          "                     kk > 0);")
+          "                       kk > 0);")
 # wgmma_ss / wgmma_rs specializations the source does not instantiate go in
 # namespace dtts (csrc/hopper.cuh) right after the includes.
 RS_ANCHOR = '#include "mma_bf16.cuh"\n'
-STRIPPED = ("no_exp", "no_pv", "no_loads", "no_s", "products", "no_dsmem")
+STRIPPED = ("no_exp", "no_pv", "no_loads", "no_s", "products", "no_dsmem", "no_xchg")
 
 
 def wgmma_ss(n: int) -> str:
@@ -145,9 +154,13 @@ def edit(src: str, flavour: str) -> str:
         return sub(PV_LINE, "(void)dv;")
     if flavour == "no_pingpong":
         return sub(TURN, "if constexpr (false) asm volatile(\"bar.", count=2)
+    if flavour == "whole_s":
+        return sub(HALVES_LINE, "constexpr bool kDepthHalves = false;")
+    if flavour == "no_xchg":
+        return sub(XCHG_LINE, XCHG_LINE.replace("(kDepthHalves)", "(false)"))
     if flavour.startswith("bk"):
         n = int(flavour[2:])
-        src = sub(BK_LINE, f"template <int D, int BK = (D > 128 ? 64 : {n})>")
+        src = sub(BK_LINE, f"template <int D, int BK = (D > 256 ? 32 : D > 128 ? 64 : {n})>")
         if n not in (64, 128):
             src = sub(RS_ANCHOR, specializations(wgmma_ss(n)))
         return src
@@ -162,7 +175,7 @@ def edit(src: str, flavour: str) -> str:
         return sub(S_LINE, "if (kk == 0) {\n#pragma unroll\n for (int i = 0; i < BK / 2; ++i) "
                            "sc[i] = (float)(i & 7);\n}")
     if flavour in ("bw32", "bw64"):
-        src = sub(BW_LINE, "static constexpr int kBW = D == 64 || D == 256 ? 64 : "
+        src = sub(BW_LINE, "static constexpr int kBW = D == 64 || D >= 256 ? 64 : "
                            f"{flavour[2:]};")
         extra = {"bw32": (96,), "bw64": (128, 192)}[flavour]
         return sub(RS_ANCHOR, specializations("".join(wgmma_rs(n) for n in extra)))
@@ -285,6 +298,8 @@ def main(argv=None) -> None:
         limits = qk.card_limits(q.device)
         for fl in flavours:
             if fl in SPLITS and d != 256:
+                continue
+            if (fl in ("whole_s", "no_xchg") and d != 512) or (fl == "nc1" and d == 512):
                 continue
             fn, plan = built[fl][0], qk.wgmma_plan(d, b, h, t, *limits, split=SPLITS.get(fl))
             if fl == "nc1":
