@@ -12,20 +12,26 @@ Phases, each of which raises on failure (nothing is caught):
      one per tile height, must not spill), for the attention kernels at
      d = 160 and 256 (the backward's wide mma form among them), for the
      forward's wgmma kernels (each width, one and two consumer warpgroups,
-     d = 256 at each key split, which must not spill) and for GEGLU's (each
-     launch, tile rows and tile columns; the kernel line carries them as
-     ``ptxas``);
+     d = 256 at each key split, which must not spill), for its tf32x3
+     kernels (d = 64, d = 256 at each key split; none may spill) and for
+     GEGLU's (each launch, tile rows and tile columns; the kernel line
+     carries them as ``ptxas``);
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
      plain and library (scaled_dot_product_attention, timed only here)
      times beside the least time the card could take; each row names the
      route its predicate gave (bf16 at d = 64: "wgmma", the Hopper design;
-     fp32: "fma") and, at bf16, times the CUDA-core "fma" route too
-     (``fma_ms``: the first design, from the same run) and the mma.sync
-     design (``mma_ms``, in turns with wgmma), with the achieved TFLOP/s
-     and the device times of both designs and of SDPA by CUDA-graph replay
-     (``device_ms``, ``mma_device_ms``, ``library_device_ms``);
+     fp32: "tf32x3", three tf32 products on the tensor cores) and times the
+     CUDA-core "fma" route too (``fma_ms``: the first design, from the same
+     run; in turns with tf32x3 in fp32), at bf16 the mma.sync design
+     (``mma_ms``, in turns with wgmma), with the achieved TFLOP/s and the
+     device times by CUDA-graph replay of both designs and of SDPA
+     (``device_ms``, ``mma_device_ms`` or, in fp32, ``fma_device_ms``,
+     ``library_device_ms``); an fp32 row also names the backend that served
+     SDPA (``library_backend``, torch's own choice) and its kernels
+     (``library_kernel``, from torch.profiler) and SDPA's own error against
+     the plain version (``library_max_rel_err``);
   4. EDM main path: the full-width ImageNet-64 EDMPrecond/DhariwalUNet in
      bf16 with random weights from a numpy seed, one forward held against
      the same weights in fp32 on the CPU, then eps-greedy search (18 steps,
@@ -49,7 +55,8 @@ Phases, each of which raises on failure (nothing is caught):
      seed 0): the qkv attention kernel at d = 256 against its plain version
      at [8, 256, 768] and [8, 64, 768] (bf16 on "wgmma" at the plan
      ``wgmma_plan`` picks: key split, consumer warpgroups; fp32 with TF32
-     off on "fma"; kernel, plain, SDPA,
+     off on "tf32x3" at ``tf32x3_plan``'s key split, two calls
+     bit-identical, with the fp32 columns of phase 3; kernel, plain, SDPA,
      bound and ``fma_ms`` times) and in bf16 at the training shapes
      [32, 256, 768] and [128, 256, 768]; each bf16 row with the wgmma device
      time by CUDA-graph replay, the mma.sync design in turns (``mma_ms``) and
@@ -72,7 +79,7 @@ Phases, each of which raises on failure (nothing is caught):
      fp32 within 1e-4; one [2, 4096, 8, 40] call through ``attention``), with
      kernel, plain, library (autograd of scaled_dot_product_attention, timed
      only) and bound times, each row's route (bf16: "wgmma", with its plan;
-     fp32: "fma"), the "mma" route's time at bf16 in turns with it
+     fp32: "fma", fed by the tf32x3 forward's statistic), the "mma" route's time at bf16 in turns with it
      (``mma_ms``, the mma.sync design, also held against plain), the device
      times of both and of the library's backward by torch.profiler
      (``device_ms``, ``mma_device_ms``, ``library_device_ms``) and the
@@ -149,7 +156,8 @@ Phases, each of which raises on failure (nothing is caught):
      512, whose head is also summed on its own at decode batches 4 and 1:
      its plan, wgmma, mma (in turns) and SDPA device times, the bound,
      ptxas's registers and spills, two calls bit-identical; GEGLU "wgmma" at
-     every bf16 shape, "fma" in fp32;
+     every bf16 shape, "fma" in fp32; the fp32 attention row at d = 80
+     stays on "fma", with the device times of fma and SDPA;
      ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s; GEGLU's rows
      also name the wgmma plan and hold two calls bit-identical, the split
      depth of the C = 1280 call at M = 128 among them);
@@ -228,7 +236,7 @@ Phases, each of which raises on failure (nothing is caught):
      DDPM++ in fp32, the tool's only dtype, 8 seeds, 18 steps, the exact
      JPEG compressibility): each row's NFE is nfe_per_sample's, #1 launched
      6 sites x (72 + 36) forwards = 648 times at d = 256, all on the route
-     the predicate gives fp32 ("fma"), its calls by shape held against the
+     the predicate gives fp32 ("tf32x3"), its calls by shape held against the
      searches' batches (eps-greedy 32, rejection 16, at T = 256 and 64),
      #1 against its plain version at each of those shapes phase 4d did not
      check in fp32 (untimed), the rows and the wall time printed; 13b, ``tools.sd_bench`` at its defaults (SD-1.5 in bf16, batch 1, n 4,
@@ -245,8 +253,11 @@ Phases, each of which raises on failure (nothing is caught):
      {4: 120, 1: 1}), its best score finite and its scorer's score of the
      returned images again within 1e-4, its wall time printed;
 11. one JSON line of kernel numbers (each kernel's launches by method of
-     4b / 6b under "method_launches"; phase 12's numbers under "parallel",
-     phase 13's under "tools"), then the result line.
+     4b / 6b under "method_launches"; the fp32 forward's tf32x3 route as a
+     line of its own, "qkv_attention_tf32x3": 13a's launches, the d = 256
+     rows of 4d summed over a batch-8 forward, phase 3's d = 64 rows as
+     "d64"; phase 12's numbers under "parallel", phase 13's under
+     "tools"), then the result line.
 
 The rewards (4c after 4b, 6c after 6b, on the same net and pipeline):
  4c. the 64x64 noisy-ImageNet classifier (``EncoderUNetModel`` defaults,
@@ -363,7 +374,11 @@ from diffusion_tts_torch.training.loss import EDMLoss, VPLoss
 from diffusion_tts_torch.training.train_step import TrainConfig, TrainState, train_step
 from diffusion_tts_torch.utils.config import SearchParams
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM, dense
+# H100 SXM, dense. fp32: the tensor cores' TF32 rate over the three tf32
+# products that an fp32-accurate product takes (the attention forward's
+# tf32x3 route), not the CUDA cores' 67 TFLOP/s of fp32 FMA: the least time
+# the card could take for fp32 work held to 1e-4.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
 # The flagship's attention sites: (T, heads, sites per forward).
 SITES = ((1024, 6, 7), (256, 9, 7), (64, 12, 8))
@@ -396,6 +411,8 @@ D256_PTXAS: dict[tuple[int, int], list[str]] = {}
 D512_PTXAS: list[str] = []
 # ... and of the backward's wgmma kernels, by "dq|dkv d=D".
 BWD_PTXAS: dict[str, list[str]] = {}
+# ... and of the forward's tf32x3 kernels, by (d, key split).
+TF32_PTXAS: dict[tuple[int, int], list[str]] = {}
 # NCSN++ (the training CLI's ncsnpp preset) at CIFAR-10's size and labels
 NCSNPP_CIFAR = dict(edm_entry.CIFAR10_DDPMPP, model_kwargs=dict(
     train_cli.ARCH_PRESETS["ncsnpp"]["model_kwargs"], dropout=0.0))
@@ -549,7 +566,7 @@ def route_columns(row: dict, route: str, flops: float, first, kernel, reps: int 
     row["route"] = route
     if first_name == "ring_ms":
         row["ms"], row["ring_ms"] = time_in_turns(kernel, first, reps)
-    elif route in ("wgmma", "mma", "fma"):
+    elif route in ("wgmma", "mma", "tf32x3", "fma"):
         row["fma_ms"] = time_ms(first) if route != "fma" else row["ms"]
     elif route in ("ring", "slab"):
         row["ms"], row["v1_ms"] = time_in_turns(kernel, first, reps)
@@ -583,6 +600,64 @@ def tensor_core_designs(row: dict, flops: float, kernel, mma_call, library) -> N
           f"{row['mma_device_ms']:.4f}, library {row['library_device_ms']:.4f}")
 
 
+def sdpa_backend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backend scaled_dot_product_attention picks for these [B, H, T, D]
+    inputs (torch's own dispatch, torch._fused_sdp_choice)."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+
+
+def sdpa_kernels(library) -> list[str]:
+    """The card's kernels that one call of ``library`` ran (torch.profiler):
+    which of SDPA's backends served it (empty where the profiler saw no
+    kernel)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    library()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        library()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation})
+
+
+def fp32_attention_designs(row: dict, flops: float, kernel, fma_call, library, library_out,
+                           ref: torch.Tensor, sdpa_inputs: tuple) -> None:
+    """An fp32 attention row's designs side by side: on "tf32x3" the fma
+    design timed in turns with it (which sets ``ms`` anew: tf32x3, fma, fma,
+    tf32x3, the lesser of each pair) and the device times of the route, of
+    the fma design and of SDPA (``device_ms``, ``fma_device_ms``,
+    ``library_device_ms``: 20 calls under no_grad captured once in a CUDA
+    graph and timed by replay); on "fma" the route is the fma design. The
+    backend that served SDPA on ``sdpa_inputs`` (``library_backend``) and
+    its kernels (``library_kernel``), and SDPA's error against the plain
+    version ``ref`` (``library_max_rel_err``: ``library_out()`` in the row's
+    layout, TF32 off as for the kernel), so that the yardstick is held to
+    the same 1e-4."""
+    with torch.no_grad():
+        if row["route"] == "fma":
+            row["device_ms"], row["library_device_ms"] = graph_ms([kernel, library])
+            row["fma_device_ms"] = row["device_ms"]
+        else:
+            row["ms"], row["fma_ms"] = time_in_turns(kernel, fma_call)
+            row["device_ms"], row["fma_device_ms"], row["library_device_ms"] = graph_ms(
+                [kernel, fma_call, library])
+        row["library_max_rel_err"] = rel_err(library_out(), ref)[1]
+    row["library_backend"] = sdpa_backend(*sdpa_inputs)
+    row["library_kernel"] = sdpa_kernels(library)
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["device_tflops"] = flops / row["device_ms"] / 1e9
+    turns = (f"{row['route']} {row['ms']:.4f} ms, fma {row['fma_ms']:.4f} ms (in turns); "
+             if row["route"] != "fma" else "")
+    print(f"    designs: {turns}device ms by graph replay: {row['route']} "
+          f"{row['device_ms']:.4f} ({row['device_tflops']:.1f} TFLOP/s), fma "
+          f"{row['fma_device_ms']:.4f}, SDPA {row['library_device_ms']:.4f} "
+          f"({row['library_backend']}: {', '.join(row['library_kernel']) or 'no kernel seen'}; "
+          f"max_rel {row['library_max_rel_err']:.3e} against plain)")
+
+
 def bound(flops: float, moved_bytes: float, dtype: torch.dtype) -> tuple[float, str]:
     """The least time for the work in ms and what sets it: the operations at
     the dtype's peak or the bytes at the memory rate."""
@@ -613,11 +688,12 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
     max_rel = max_abs / ref.float().abs().max().item()  # relative to the largest output
     tol = TOL[dtype]
     ok = bool(torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol))
-    plan = None
-    if d == CIFAR_D and qk.forward_route(dtype, d) == "wgmma":
+    plan, route = None, qk.forward_route(dtype, d)
+    if d == CIFAR_D and route in ("wgmma", "tf32x3"):
         # the DDPM++ head's plan (key split, consumer warpgroups), as the
         # launch takes it: two calls bit for bit the same
-        plan = qk.wgmma_plan(d, b, heads, t, *qk.card_limits(qkv.device))
+        plan = (qk.wgmma_plan if route == "wgmma" else qk.tf32x3_plan)(
+            d, b, heads, t, *qk.card_limits(qkv.device))
         if not torch.equal(out, qk.qkv_self_attention(qkv, heads)):
             raise AssertionError(f"qkv_attention [{b}, {t}] at d = {d}: two calls differ")
     if not timed:
@@ -643,13 +719,23 @@ def check_attention(b: int, t: int, heads: int, dtype: torch.dtype, tag: str,
                             lambda: qk.qkv_self_attention(qkv, heads),
                             lambda: qk.qkv_self_attention(qkv, heads, route="mma"),
                             lambda: F.scaled_dot_product_attention(q, k, v))
-        if plan is not None:  # the key split and its kernel's registers
-            row["split"], row["consumers"] = plan
-            row["ptxas"] = D256_PTXAS.get((row["consumers"], row["split"]))
-            row["device_tflops"] = 4 * b * heads * t * t * d / row["device_ms"] / 1e9
-            print(f"    d = {d}: key split {row['split']}, {row['consumers']} consumer "
-                  f"warpgroup(s), device {row['device_tflops']:.1f} TFLOP/s, ptxas "
-                  f"{row['ptxas']}")
+    else:
+        fp32_attention_designs(row, 4 * b * heads * t * t * d,
+                               lambda: qk.qkv_self_attention(qkv, heads),
+                               lambda: qk.qkv_self_attention(qkv, heads, route="fma"),
+                               lambda: F.scaled_dot_product_attention(q, k, v),
+                               lambda: F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+                               .reshape(b, t, heads * d), ref, (q, k, v))
+    if plan is not None:  # the key split and its kernel's registers
+        row["split"], row["consumers"] = plan
+        row["ptxas"] = (D256_PTXAS.get((row["consumers"], row["split"])) if route == "wgmma"
+                        else TF32_PTXAS.get((d, row["split"])))
+        row["device_tflops"] = 4 * b * heads * t * t * d / row["device_ms"] / 1e9
+        print(f"    d = {d}: key split {row['split']}, {row['consumers']} consumer "
+              f"warpgroup(s), device {row['device_tflops']:.1f} TFLOP/s, ptxas "
+              f"{row['ptxas']}")
+    elif route == "tf32x3":
+        row["ptxas"] = TF32_PTXAS.get((d, 1))
     print(f"  qkv_attention {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {tol}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) fma_ms={row['fma_ms']:.4f} "
@@ -664,14 +750,14 @@ def edm_phases(tag: str) -> tuple[list[dict], dict]:
     """Phases 3, 4 and 4b: the EDM kernel checks, the EDM main path and the
     other searches. Returns (the searches' lines, the kernel line)."""
     print("EDM kernels vs plain:")
-    main_rows, rows = [], []
+    main_rows, fp32_rows, rows = [], [], []
     for dtype in (torch.bfloat16, torch.float32):
         for b in (N * SAMPLES, 16):
             for t, heads, _ in SITES:
                 row = check_attention(b, t, heads, dtype, tag)
                 rows.append(row)
-                if b == N * SAMPLES and dtype == torch.bfloat16:
-                    main_rows.append(row)
+                if b == N * SAMPLES:
+                    (main_rows if dtype == torch.bfloat16 else fp32_rows).append(row)
     q, k, v = (torch.randn((8, 1024, 6, 64), device="cuda").bfloat16() for _ in range(3))
     err = (qk.attention(q, k, v).float() - qk.attention_plain(q, k, v).float()).abs().max().item()
     print(f"  attention [8,1024,6,64] bfloat16 ([B,T,H,D] strides, route "
@@ -758,8 +844,23 @@ def edm_phases(tag: str) -> tuple[list[dict], dict]:
         "mma_device_ms": per_forward("mma_device_ms"),
         "library_device_ms": per_forward("library_device_ms"),
         "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
-        "shapes": rows,
+        "shapes": rows, "fp32": fp32_forward(fp32_rows, SITES),
     }
+
+
+def fp32_forward(rows: list[dict], sites) -> dict:
+    """The fp32 rows of one forward's attention sites (``sites``: (T,
+    heads, sites a forward), one row each, in order) summed: the tf32x3
+    route's columns, the fma design's and SDPA's."""
+    total = lambda key: sum(r[key] * n for r, (_, _, n) in zip(rows, sites))
+    keys = ("ms", "fma_ms", "plain_ms", "library_ms", "bound_ms", "device_ms", "fma_device_ms",
+            "library_device_ms")
+    return dict({key: total(key) for key in keys}, route=rows[0]["route"],
+                bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                library_max_rel_err=max(r["library_max_rel_err"] for r in rows),
+                library_backend=sorted({r["library_backend"] for r in rows}),
+                library_kernel=sorted({k for r in rows for k in r["library_kernel"]}))
 
 
 # ----------------------------------------------------------------------- SD
@@ -907,6 +1008,11 @@ def check_sd_attention(key, dtype, tag, timed=True):
                      lambda: qk.attention(q, k, v), lambda: qk.attention_plain(q, k, v), library,
                      (4 * b * h * t * t * d, 4 * b * t * h * d * item), tag, timed=timed,
                      route=(qk.forward_route(dtype, d), lambda: qk.attention(q, k, v, route="fma")))
+    if timed and dtype == torch.float32:
+        fp32_attention_designs(row, 4 * b * h * t * t * d, lambda: qk.attention(q, k, v),
+                               lambda: qk.attention(q, k, v, route="fma"), library,
+                               lambda: library().transpose(1, 2), qk.attention_plain(q, k, v),
+                               (qt, kt, vt))
     if timed and dtype == torch.bfloat16:
         tensor_core_designs(row, 4 * b * h * t * t * d, lambda: qk.attention(q, k, v),
                             lambda: qk.attention(q, k, v, route="mma"), library)
@@ -1496,15 +1602,17 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
     print("CIFAR-10 DDPM++: qkv attention at d = 256 vs plain:")
     rows = [check_attention(N * SAMPLES, t, heads, dtype, tag, d=CIFAR_D)
             for dtype in (torch.bfloat16, torch.float32) for t, heads, _ in CIFAR_SITES]
-    main_rows = rows[:len(CIFAR_SITES)]
+    main_rows, fp32_rows = rows[:len(CIFAR_SITES)], rows[len(CIFAR_SITES):]
     train_rows = [check_attention(b, t, 1, torch.bfloat16, tag, d=CIFAR_D)
                   for b, t in CIFAR_TRAIN_SHAPES]
     print("d = 256 forward by device time (CUDA-graph replay), ms a call:")
-    for r in main_rows + train_rows:
-        print(f"  {r['shape']}: {r['route']} {r['device_ms']:.4f} (split {r['split']}, "
-              f"{r['device_tflops']:.1f} TFLOP/s), mma {r['mma_device_ms']:.4f}, SDPA "
-              f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}); "
-              f"in turns: {r['route']} {r['ms']:.4f}, mma {r['mma_ms']:.4f} [{tag}]")
+    for r in main_rows + train_rows + fp32_rows:
+        first = "mma" if r["dtype"] == "bfloat16" else "fma"
+        print(f"  {r['shape']} {r['dtype']}: {r['route']} {r['device_ms']:.4f} (split "
+              f"{r['split']}, {r['device_tflops']:.1f} TFLOP/s), {first} "
+              f"{r[first + '_device_ms']:.4f}, SDPA {r['library_device_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}); in turns: {r['route']} {r['ms']:.4f}, "
+              f"{first} {r[first + '_ms']:.4f} [{tag}]")
 
     g = torch.Generator().manual_seed(6)
     sigma = torch.tensor([80.0, 0.5])
@@ -1574,6 +1682,7 @@ def cifar_phase(tag: str) -> tuple[list[dict], dict]:
         "library_device_ms": per_forward("library_device_ms"),
         "method_launches": {r["method"]: r["launches"]["qkv_attention"] for r in searches},
         "nfe_per_s": nfe / again_s, "shapes": rows + train_rows, "search_plans": plans,
+        "fp32": fp32_forward(fp32_rows, CIFAR_SITES),
     }
 
 
@@ -3221,8 +3330,9 @@ class PipelineRecorder:
 def reward_curve_run(tag: str) -> dict:
     """13a: ``reward_curve --quick`` at its defaults (the CIFAR-10 DDPM++,
     fp32, 8 seeds, 18 steps, the exact JPEG compressibility): its rows, #1's
-    launches and calls by shape, and #1 against its plain version at each
-    shape that phase 4d did not check in fp32."""
+    launches (all on the fp32 route, "tf32x3") and calls by shape, and #1
+    against its plain version at each shape that phase 4d did not check in
+    fp32 (with its key split, two calls bit for bit)."""
     shapes = AttentionShapes()
     try:
         with tempfile.TemporaryDirectory() as d:
@@ -3272,8 +3382,8 @@ def reward_curve_run(tag: str) -> dict:
     print(f"reward_curve --quick: {wall:.2f} s with the load, {want['attention']} #1 launches "
           f"at d = {CIFAR_D} on {route} (fp32, the tool's default) in {len(shapes.counts)} "
           f"shapes, {len(new)} not checked by phase 4d (held against plain above) [{tag}]")
-    return dict(rows=rows, wall_s=wall, launches=launches, shapes=len(shapes.counts),
-                new_shapes=len(new))
+    return dict(rows=rows, wall_s=wall, launches=launches, routes=routes,
+                shapes=len(shapes.counts), new_shapes=len(new))
 
 
 def sd_bench_run(tag: str, checked: dict) -> dict:
@@ -3352,6 +3462,22 @@ def all_scorers_run(tag: str, pipe: StableDiffusionSearchPipeline, clip: CLIPSco
     print(f"sd_all_scorers: eps_greedy {ALL_SCORERS_STEPS} steps (cut from 18) at MASTER_PARAMS "
           f"{sd_all_scorers.MASTER}, launches per scorer {want} [{tag}]")
     return dict(steps=ALL_SCORERS_STEPS, scorers=per_scorer, launches_per_scorer=want)
+
+
+def tf32x3_line(edm_line: dict, curve: dict) -> dict:
+    """The kernel line's entry of the fp32 forward's tf32x3 route
+    (csrc/qkv_attention.cu's attention_tf32_kernel): its launches in 13a's
+    run (the fp32 DDPM++ path, all on tf32x3, asserted there), the d = 256
+    rows of 4d summed over a batch-8 forward, phase 3's d = 64 rows over an
+    ADM forward as "d64", ptxas's lines of each kernel."""
+    d256, d64 = edm_line["d256"]["fp32"], edm_line["fp32"]
+    return dict(
+        {k: v for k, v in d256.items() if k != "route"}, name="qkv_attention_tf32x3",
+        route="cuda", source="diffusion_tts_torch/csrc/qkv_attention.cu",
+        replaces="diffusion_tts_tpu/ops/pallas/attention.py:713",
+        launches=curve["routes"]["attention"]["tf32x3"], d64=d64,
+        max_abs_err=max(d256["max_abs_err"], d64["max_abs_err"]),
+        ptxas={f"d={d} split={s}": lines for (d, s), lines in TF32_PTXAS.items()})
 
 
 def tools_phase(tag: str, kept: dict) -> dict:
@@ -3459,6 +3585,16 @@ def main() -> None:
                                      f"key split {split}) spills: {lines}")
             print(f"ptxas, qkv_attention wgmma D = {d}, {nc} consumer warpgroup(s), {bk}-key "
                   f"tiles, key split {split}: " + "; ".join(lines))
+        # the tf32x3 route's kernels, by <D, key split>
+        for entry, lines in ptxas_lines(built["qkv_attention"][1],
+                                        "attention_tf32_kernel").items():
+            d, split = (int(x) for x in re.search(r"attention_tf32_kernelILi(\d+)ELi(\d+)E",
+                                                  entry).groups())
+            TF32_PTXAS[(d, split)] = lines
+            print(f"ptxas, qkv_attention tf32x3 D = {d}, key split {split}: " + "; ".join(lines))
+            if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines):
+                raise AssertionError(f"the d = {d} tf32x3 kernel (key split {split}) spills: "
+                                     f"{lines}")
 
     phase_s = {"build": time.perf_counter() - t0}
 
@@ -3502,7 +3638,7 @@ def main() -> None:
     tools = timed("13 tools", tools_phase, tag, sd_kept)
     del sd_kept
     print(json.dumps({"phase_s": phase_s}))
-    kernels = [edm_line, training_line] + sd_lines
+    kernels = [edm_line, tf32x3_line(edm_line, tools["13a"]), training_line] + sd_lines
     edm_searches += cifar_searches
     for line in (edm_line, training_line):
         line["max_abs_err"] = max(line["max_abs_err"], line["d256"]["max_abs_err"])

@@ -1,5 +1,5 @@
 // Self-attention for Hopper (sm_90a), any supported head width, plain C
-// interface, three routes.
+// interface, four routes.
 //
 // Replaces two TPU kernels of diffusion_tts_tpu/ops/pallas/attention.py:
 //   * qkv_self_attention (_qkv_attn_kernel / _qkv_attn_pair_kernel), the
@@ -33,10 +33,18 @@
 //     the function above). The route takes d = 16 and 32 (test nets); forced
 //     (route="mma") it also takes the wgmma widths, 256 and 512 among them,
 //     which times this design beside the new one.
-//   * fma (route 0): fp32 at every width, and bf16 at the test widths 4 and
-//     8. The products run on the CUDA cores in fp32 FMA, so that fp32 holds
-//     1e-4 against an fp32 reference with TF32 off (a TF32 product would
-//     not). bf16 can be sent here too, which times the first design.
+//   * tf32x3 (route 3): fp32 at d = 64, 256, the ADM's and the DDPM++ net's
+//     widths at the CLIs' default dtype. The products run on the tensor
+//     cores as three tf32 wgmma products each (attention_tf32_kernel, below):
+//     x = hi + lo with hi = tf32(x) and lo = tf32(x - hi), a.b = lo_a.hi_b +
+//     hi_a.lo_b + hi_a.hi_b in fp32 accumulators, which holds 1e-4 against an
+//     fp32 reference with TF32 off, as one tf32 product (about 11 bits) would
+//     not. The TPU kernel's fp32 dots are the same three passes on its matrix
+//     unit.
+//   * fma (route 0): fp32 at the other widths, and bf16 at the test widths 4
+//     and 8. The products run on the CUDA cores in fp32 FMA. fp32 and bf16
+//     can be sent here at any width (route="fma"), which times the first
+//     design.
 //
 // The wgmma route (attention_wgmma_kernel):
 //   * Work tiles of (batch, head, 64 NC q rows): NC consumer warpgroups of
@@ -175,6 +183,8 @@
 //     columns (64 registers) each, 64-key K/V tiles, Q in shared memory;
 //     168,960 bytes of shared memory, one block per SM.
 //
+// The tf32x3 route: see attention_tf32_kernel's comment.
+//
 // The fma route:
 //   * One block is one (batch, head, BQ-row q tile) of 256 threads as
 //     16 x 16; each owns BQ/16 rows and BK/16 keys of S and BQ/16 rows and
@@ -190,11 +200,11 @@
 //     64 blocks of 32 rows instead of 32 of 64, for 132 SMs. K and P share
 //     one buffer where P fits into it; rows are padded by one float.
 //
-// Both routes:
+// Every route:
 //   * Explicit (batch, token, head) strides for q, k, v and o: the same
 //     code serves the [B, T, 3C] qkv layout and a [B, T, H, D] layout. The
-//     mma route needs every pointer and stride 16-byte aligned; the wrapper
-//     refuses anything else.
+//     tensor-core routes need every pointer and stride 16-byte aligned; the
+//     wrapper refuses anything else.
 //   * Training: the block holds each row's running maximum and sum, so on
 //     request it writes the row's log2-sum-exp2 (fp32 [B, H, T]) for the
 //     backward kernels (csrc/attention_bwd.cu), which then need no statistics
@@ -646,7 +656,9 @@ using dtts::wgmma_commit;
 using dtts::wgmma_desc;
 using dtts::wgmma_fence;
 using dtts::wgmma_rs;
+using dtts::wgmma_rs_tf32;
 using dtts::wgmma_ss;
+using dtts::wgmma_ss_tf32;
 using dtts::wgmma_wait;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -1339,6 +1351,475 @@ cudaError_t split_clusters(int* clusters) {
   return err;
 }
 
+// ------------------------------------------------------------- tf32x3 route
+
+// x rounded to tf32 (the nearest, ties away from zero: cvt.rna), as an fp32
+// whose low 13 mantissa bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// x = hi + lo to about 22 bits of x: hi = tf32(x), lo = tf32(x - hi).
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// Tile shapes of the tf32x3 route for head width D (64 or 256).
+template <int D>
+struct Tf32Tiles {
+  static constexpr int kBK = D > 128 ? 16 : 32;   // keys per K/V tile
+  static constexpr int kBoxes = D / 32;            // 32-float (128-byte) TMA boxes of a row
+  static constexpr int kQBytes = 64 * D * 4;       // 64 q rows
+  static constexpr int kTileBytes = kBK * D * 4;   // one K or V tile
+  static constexpr int kCtas = D > 128 ? 1 : 2;    // blocks an SM
+  static constexpr int kThreads = 160;             // a consumer warpgroup and a producer warp
+  // Q's hi and lo tiles (TMA writes Q where its hi goes); the K tile as TMA
+  // wrote it, its hi and lo; the V tile as TMA wrote it, V^T's hi and lo;
+  // five mbarriers.
+  static constexpr int kSmemBytes = 1024 + 2 * kQBytes + 6 * kTileBytes + 8 * 5;
+  // A key split's partial (O unnormalized, 64 rows kXPitch floats apart, then
+  // each row's (m, l)), written over Q's tiles once the last S has read them.
+  static constexpr int kXPitch = D + 8;
+  static_assert(D % 32 == 0, "rows are whole 128-byte boxes");
+  static_assert(kCtas * (kSmemBytes + 1024) <= 233472, "the blocks exceed an SM's shared memory");
+  static_assert(64 * kXPitch * 4 + 64 * 8 <= 2 * kQBytes, "a partial fits over Q's tiles");
+};
+
+// The fp32 forward on the tensor cores, one block per (batch, head, 64 q
+// rows) work tile, or SPLIT > 1 blocks (a cluster) sharing its keys as on the
+// wgmma route at d = 256. A producer warp's lane 0 issues the TMA loads: Q
+// once, then each K/V tile of BK keys as fp32 into a one-stage raw slot for
+// K and one for V, refilled as soon as the consumers have split the tile.
+// The consumer warpgroup splits every operand into tf32 hi and lo in shared
+// memory (Q's hi in place), so that each product is three tf32 wgmma
+// products, lo.hi + hi.lo + hi.hi, the small terms first, in fp32
+// accumulators:
+//   * Q, K (K-major as they lie: TMA's 128-byte swizzle, which hi and lo keep
+//     element for element, so the split is a linear pass of float4s);
+//     S = Q.K^T is m64nBKk8 with both operands read through descriptors. (Q's
+//     hi and lo as k8 A fragments in registers at d = 64, S from registers,
+//     ran 25% slower: PERF.md §6.)
+//   * V is MN-major in memory and tf32 wgmma takes K-major B only, so V's
+//     split writes V^T: plane kb (4 keys) of D rows of 16 bytes, K-major
+//     core matrices without a swizzle (LBO between planes, SBO 128 bytes).
+//   * P stays in registers: the accumulator gives a thread S's keys 2t and
+//     2t + 1 of each 8-key group, the k8 A fragment wants k = t and t + 4. So
+//     the V^T split permutes the keys of each group the same way (k = t holds
+//     key 2t, k = t + 4 key 2t + 1: even keys in plane 2s, odd in 2s + 1) and
+//     P.V, a sum over keys, is unchanged; no shuffle.
+//   * Overlap: the split of K_j runs while P_{j-1}.V_{j-1} does, the split of
+//     V_j while S_j does. d = 64 fits two blocks an SM, which measured the
+//     same as one: what the SM shares (shared memory's bandwidth: the splits
+//     and the products move about 160 KB a 32-key tile) holds it, not the
+//     softmax's latency (PERF.md §6).
+//   * d = 256: Q's hi and lo take 128 KB, so the K/V tiles are 16 keys
+//     (S at m64n16k8, P.V at m64n256k8): 230,464 bytes, one block an SM; O is
+//     128 registers a thread of the 255 a 160-thread block may hold. d = 64:
+//     32-key tiles, 82,984 bytes.
+template <int D, int SPLIT>
+__global__ void __launch_bounds__(Tf32Tiles<D>::kThreads, Tf32Tiles<D>::kCtas)
+attention_tf32_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int h,
+                      int t, int64_t out_sb, int64_t out_st, int64_t out_sh, float scale_log2e,
+                      float* __restrict__ lse) {
+  using C = Tf32Tiles<D>;
+  constexpr int BK = C::kBK, kRow = 128;  // bytes of a box's row
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  const uint32_t base = (dtts::smem_addr(tf_smem) + 1023u) & ~1023u;
+  const uint32_t q_hi = base, q_lo = q_hi + C::kQBytes;  // [kBoxes][64][32], swizzled
+  const uint32_t k_raw = q_lo + C::kQBytes;               // [kBoxes][BK][32], swizzled
+  const uint32_t k_hi = k_raw + C::kTileBytes, k_lo = k_hi + C::kTileBytes;
+  const uint32_t v_raw = k_lo + C::kTileBytes;            // [kBoxes][BK][32], swizzled
+  const uint32_t vt_hi = v_raw + C::kTileBytes;           // [BK / 4][D][4]
+  const uint32_t vt_lo = vt_hi + C::kTileBytes;
+  const uint32_t bar = vt_lo + C::kTileBytes;
+  const uint32_t q_full = bar, k_full = bar + 8u, k_empty = bar + 16u, v_full = bar + 24u,
+                 v_empty = bar + 32u;
+  auto smem_ptr = [&](uint32_t addr) { return tf_smem + (addr - dtts::smem_addr(tf_smem)); };
+
+  const int qtiles = (t + 63) / 64, tile = blockIdx.x / SPLIT;
+  const int q0 = tile % qtiles * 64, head = tile / qtiles % h, batch = tile / qtiles / h;
+  // This CTA's K/V tiles [j0, j0 + ntiles): all, or its share of a key split
+  // (none where SPLIT exceeds the tiles).
+  const int rank = SPLIT == 1 ? 0 : (int)dtts::cluster_ctarank();
+  const int kv_tiles = (t + BK - 1) / BK;
+  const int j0 = rank * kv_tiles / SPLIT;
+  const int ntiles = (rank + 1) * kv_tiles / SPLIT - j0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bar + 8u * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    if (lane == 0 && ntiles > 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int bx = 0; bx < C::kBoxes; ++bx)
+        tma_load_4d(q_hi + bx * 64 * kRow, &qmap, q_full, bx * 32, head, q0, batch);
+      for (int j = 0; j < ntiles; ++j) {
+        const int key0 = (j0 + j) * BK;
+        if (j > 0) mbar_wait(k_empty, (j - 1) & 1);  // the consumers have split K_{j-1}
+        mbar_expect_tx(k_full, C::kTileBytes);
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+          tma_load_4d(k_raw + bx * BK * kRow, &kmap, k_full, bx * 32, head, key0, batch);
+        if (j > 0) mbar_wait(v_empty, (j - 1) & 1);
+        mbar_expect_tx(v_full, C::kTileBytes);
+        for (int bx = 0; bx < C::kBoxes; ++bx)
+          tma_load_4d(v_raw + bx * BK * kRow, &vmap, v_full, bx * 32, head, key0, batch);
+      }
+    }
+  } else {
+    const int g = lane >> 2, tq = lane & 3;
+    float acc[D / 2];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    auto sync_consumers = []() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); };
+    // hi and lo of the `n` float4s at src, in the same layout (hi may be src).
+    auto split_tile = [&](uint32_t src, uint32_t hi, uint32_t lo, int n) {
+      const float4* s = reinterpret_cast<const float4*>(smem_ptr(src));
+      float4* dh = reinterpret_cast<float4*>(smem_ptr(hi));
+      float4* dl = reinterpret_cast<float4*>(smem_ptr(lo));
+#pragma unroll 2
+      for (int i = tid; i < n; i += 128) {
+        float4 a, b;
+        split_tf32(s[i], a, b);
+        dh[i] = a;
+        dl[i] = b;
+      }
+    };
+    // V^T's hi and lo from the raw V tile: item e is row n = e % D of plane
+    // kb = e / D, whose 4 floats are V[8 (kb / 2) + 2 c + (kb & 1)][n], c =
+    // 0 ... 3, read through TMA's swizzle (16-byte chunk ^ key % 8). A warp
+    // reads 32 columns of one key (one 128-byte row) and writes 512
+    // contiguous bytes.
+    auto split_v = [&]() {
+      const unsigned char* raw = smem_ptr(v_raw);
+      float4* dh = reinterpret_cast<float4*>(smem_ptr(vt_hi));
+      float4* dl = reinterpret_cast<float4*>(smem_ptr(vt_lo));
+#pragma unroll 2
+      for (int e = tid; e < BK / 4 * D; e += 128) {
+        const int n = e % D, kb = e / D;
+        const unsigned char* col = raw + (n / 32) * BK * kRow + (n % 4) * 4;
+        float x[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = 8 * (kb / 2) + 2 * c + (kb & 1);
+          x[c] = *reinterpret_cast<const float*>(col + key * kRow +
+                                                 ((((n % 32) >> 2) ^ (key & 7)) << 4));
+        }
+        float4 a, b;
+        split_tf32(make_float4(x[0], x[1], x[2], x[3]), a, b);
+        dh[e] = a;
+        dl[e] = b;
+      }
+    };
+
+    // Descriptors of the tiles' starts (Q and K swizzled at 128 bytes, 8-row
+    // groups 1024 bytes apart; V^T without a swizzle, its planes 16 D bytes
+    // apart, 8-row groups 128); a k8 step adds its byte offset / 16. Each use
+    // starts from a copy the compiler cannot see through (see the wgmma route).
+    const uint64_t qh_desc = wgmma_desc(q_hi, 16, 8 * kRow, 1);
+    const uint64_t ql_desc = wgmma_desc(q_lo, 16, 8 * kRow, 1);
+    const uint64_t kh_desc = wgmma_desc(k_hi, 16, 8 * kRow, 1);
+    const uint64_t kl_desc = wgmma_desc(k_lo, 16, 8 * kRow, 1);
+    const uint64_t vh_desc = wgmma_desc(vt_hi, 16 * D, 128, 0);
+    const uint64_t vl_desc = wgmma_desc(vt_lo, 16 * D, 128, 0);
+    auto opaque = [](uint64_t x) {
+      asm volatile("" : "+l"(x));
+      return x;
+    };
+    // S = Q.K^T: k8 step kk reads box kk / 4 at byte offset (kk % 4) * 32.
+    auto issue_s = [&](float (&sc)[BK / 2]) {
+      const uint64_t qh = opaque(qh_desc), ql = opaque(ql_desc);
+      const uint64_t kh = opaque(kh_desc), kl = opaque(kl_desc);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t qo = ((kk / 4) * 64 * kRow + (kk % 4) * 32) >> 4;
+        const uint32_t ko = ((kk / 4) * BK * kRow + (kk % 4) * 32) >> 4;
+        wgmma_ss_tf32<BK>(sc, ql + qo, kh + ko, kk > 0);
+        wgmma_ss_tf32<BK>(sc, qh + qo, kl + ko, 1);
+        wgmma_ss_tf32<BK>(sc, qh + qo, kh + ko, 1);
+      }
+    };
+    // O += P.V: k8 step s takes the tile's keys 8 s ... 8 s + 7, planes 2 s
+    // and 2 s + 1 of V^T.
+    auto issue_pv = [&](const uint32_t (&ph)[BK / 8][4], const uint32_t (&pl)[BK / 8][4]) {
+      const uint64_t vh = opaque(vh_desc), vl = opaque(vl_desc);
+#pragma unroll
+      for (int s = 0; s < BK / 8; ++s) {
+        const uint32_t off = (2 * s * 16 * D) >> 4;
+        wgmma_rs_tf32<D>(acc, pl[s], vh + off);
+        wgmma_rs_tf32<D>(acc, ph[s], vl + off);
+        wgmma_rs_tf32<D>(acc, ph[s], vh + off);
+      }
+    };
+    // The online softmax of K/V tile j in the log2 domain, in place: sc
+    // becomes the unrounded weights, m and l move on, alpha rescales O.
+    // Element i of sc is row g + 8 ((i >> 1) & 1), key j BK + 8 (i / 4) +
+    // 2 tq + (i & 1).
+    auto softmax = [&](float (&sc)[BK / 2], int j, float (&alpha)[2]) {
+      if ((j + 1) * BK > t) {  // the ragged last tile: keys past t score -inf
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          if (j * BK + 8 * (i / 4) + 2 * tq + (i & 1) >= t) sc[i] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2e);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        sc[i] = ex2(fmaf(sc[i], scale_log2e, -m[(i >> 1) & 1]));
+        ls[(i >> 1) & 1] += sc[i];  // the fp32 row sum of the unrounded weights
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], ls[r]);
+    };
+    auto rescale = [&](const float (&alpha)[2]) {
+      if (__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) return;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    };
+    // P's k8 A fragments, hi and lo: step s holds keys 2 tq (k = tq) and
+    // 2 tq + 1 (k = tq + 4) of the tile's group s, rows g and g + 8.
+    auto pack = [&](const float (&sc)[BK / 2], uint32_t (&ph)[BK / 8][4],
+                    uint32_t (&pl)[BK / 8][4]) {
+#pragma unroll
+      for (int s = 0; s < BK / 8; ++s) {
+        const float a[4] = {sc[4 * s], sc[4 * s + 2], sc[4 * s + 1], sc[4 * s + 3]};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float hi, lo;
+          split_tf32(a[r], hi, lo);
+          ph[s][r] = __float_as_uint(hi);
+          pl[s][r] = __float_as_uint(lo);
+        }
+      }
+    };
+
+    if (ntiles > 0) {
+      float sc[BK / 2];
+      uint32_t ph[BK / 8][4], pl[BK / 8][4];
+      mbar_wait(q_full, 0);
+      split_tile(q_hi, q_hi, q_lo, C::kQBytes / 16);
+      for (int j = 0; j < ntiles; ++j) {
+        // K_j's split (P_{j-1}.V_{j-1} still in flight), then S_j.
+        mbar_wait(k_full, j & 1);
+        split_tile(k_raw, k_hi, k_lo, C::kTileBytes / 16);
+        dtts::fence_proxy_async();  // the splits' stores, before the products read them
+        sync_consumers();
+        if (tid == 0) mbar_arrive(k_empty);
+        wgmma_fence();
+        issue_s(sc);
+        wgmma_commit();
+        if (j > 0) {
+          wgmma_wait<1>();  // P_{j-1}.V_{j-1} is done: V^T may be written anew
+          fence_regs(acc);
+        }
+        // V_j's split while S_j runs.
+        mbar_wait(v_full, j & 1);
+        split_v();
+        dtts::fence_proxy_async();
+        sync_consumers();
+        if (tid == 0) mbar_arrive(v_empty);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        float alpha[2];
+        softmax(sc, j0 + j, alpha);
+        rescale(alpha);
+        pack(sc, ph, pl);
+        wgmma_fence();
+        issue_pv(ph, pl);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+
+    if constexpr (SPLIT > 1) {
+      // This CTA's partial, over Q's tiles (the last S has read them).
+      float* xo = reinterpret_cast<float*>(smem_ptr(q_hi));
+      float2* xml = reinterpret_cast<float2*>(xo + 64 * C::kXPitch);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = 16 * warp + g + 8 * r;
+        if (tq == 0) xml[row] = make_float2(m[r], l[r]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(xo + row * C::kXPitch + 8 * j + 2 * tq) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    } else {
+      float* ob = o + batch * out_sb + head * out_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        const int row = q0 + 16 * warp + g + 8 * r;
+        if (row >= t) continue;
+        // Training: the row's log2-sum-exp2 of the scaled scores, [B, H, T].
+        if (lse != nullptr && tq == 0)
+          lse[((int64_t)batch * h + head) * t + row] = m[r] + log2f(l[r]);
+        const float inv = 1.f / l[r];
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(ob + row * out_st + 8 * j + 2 * tq) =
+              make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      }
+    }
+  }
+
+  if constexpr (SPLIT > 1) {
+    // The merge of the wgmma route's key split, in fp32: every CTA weighs
+    // the partials in rank order and writes its share of O's columns.
+    dtts::cluster_sync();  // every CTA's partial is written
+    const uint32_t xo = q_hi, xml = q_hi + 64 * C::kXPitch * 4;
+    float* coef = reinterpret_cast<float*>(smem_ptr(k_raw));  // [64][SPLIT]; no load is left
+    if (tid < 64) {
+      float mi[SPLIT], li[SPLIT], mx = -INFINITY, sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < SPLIT; ++i) {
+        const float2 v = dtts::ld_dsmem_f32x2(dtts::dsmem_addr(xml + 8 * tid, i));
+        mi[i] = v.x, li[i] = v.y;
+        mx = fmaxf(mx, v.x);
+      }
+#pragma unroll
+      for (int i = 0; i < SPLIT; ++i) {
+        mi[i] = exp2f(mi[i] - mx);  // 0 for a CTA without keys (m = -inf)
+        sum = fmaf(li[i], mi[i], sum);
+      }
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int i = 0; i < SPLIT; ++i) coef[tid * SPLIT + i] = mi[i] * inv;
+      if (lse != nullptr && rank == 0 && q0 + tid < t)
+        lse[((int64_t)batch * h + head) * t + q0 + tid] = mx + log2f(sum);
+    }
+    __syncthreads();
+    if (tid < 128) {
+      constexpr int kCols = D / SPLIT, kVecs = kCols / 4, kItems = 64 * kVecs / 128;
+      float4 x[kItems][SPLIT];
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int e = tid + 128 * k, row = e / kVecs, col = rank * kCols + 4 * (e % kVecs);
+        const uint32_t at = xo + 4u * (row * C::kXPitch + col);
+#pragma unroll
+        for (int i = 0; i < SPLIT; ++i) x[k][i] = dtts::ld_dsmem_f32x4(dtts::dsmem_addr(at, i));
+      }
+      float* ob = o + batch * out_sb + head * out_sh;
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int e = tid + 128 * k, row = e / kVecs, col = rank * kCols + 4 * (e % kVecs);
+        if (q0 + row >= t) continue;
+        float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < SPLIT; ++i) {
+          const float c = coef[row * SPLIT + i];
+          y.x = fmaf(c, x[k][i].x, y.x), y.y = fmaf(c, x[k][i].y, y.y);
+          y.z = fmaf(c, x[k][i].z, y.z), y.w = fmaf(c, x[k][i].w, y.w);
+        }
+        *reinterpret_cast<float4*>(ob + (int64_t)(q0 + row) * out_st + col) = y;
+      }
+    }
+    dtts::cluster_sync();  // the others have read this CTA's partial
+  }
+}
+
+// The (d, H, T, B) fp32 map of one of q, k, v: boxes of 32 columns (128
+// bytes, swizzled at 128) of `rows` tokens of one head; tokens past t read
+// as zero.
+int encode_map_f32(CUtensorMap* map, const void* ptr, int d, int b, int h, int t, int64_t sb,
+                   int64_t st, int64_t sh, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)t, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 4, (cuuint64_t)st * 4, (cuuint64_t)sb * 4};
+  const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)res;
+}
+
+// One launch of the tf32x3 kernel: work tiles x SPLIT blocks, in clusters of
+// SPLIT where SPLIT > 1; a refused launch returns its error.
+template <int D, int SPLIT>
+cudaError_t launch_tf32_split(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                              void* o, int b, int h, int t, int64_t out_sb, int64_t out_st,
+                              int64_t out_sh, float scale_log2e, float* lse,
+                              cudaStream_t stream) {
+  using C = Tf32Tiles<D>;
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32_kernel<D, SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int work = (t + 63) / 64 * h * b;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(work * SPLIT, 1, 1);
+  cfg.blockDim = dim3(C::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = SPLIT;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = SPLIT > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, attention_tf32_kernel<D, SPLIT>, qm, km, vm,
+                           static_cast<float*>(o), h, t, out_sb, out_st, out_sh, scale_log2e, lse);
+  const cudaError_t last = cudaGetLastError();
+  return err != cudaSuccess ? err : last;
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int b, int h, int t,
+                int64_t in_sb, int64_t in_st, int64_t in_sh, int64_t out_sb, int64_t out_st,
+                int64_t out_sh, float scale_log2e, float* lse, int split, int nc,
+                cudaStream_t stream) {
+  // One consumer warpgroup; a key split (2 or 4) at d = 256 only.
+  if (nc != 1 || (split != 1 && (D != 256 || (split != 2 && split != 4))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qm, km, vm;
+  constexpr int bk = Tf32Tiles<D>::kBK;
+  int err = encode_map_f32(&qm, q, D, b, h, t, in_sb, in_st, in_sh, 64);
+  if (err == 0) err = encode_map_f32(&km, k, D, b, h, t, in_sb, in_st, in_sh, bk);
+  if (err == 0) err = encode_map_f32(&vm, v, D, b, h, t, in_sb, in_st, in_sh, bk);
+  if (err != 0) return err;
+  if (split == 2)
+    return launch_tf32_split<D, D == 256 ? 2 : 1>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                                  scale_log2e, lse, stream);
+  if (split == 4)
+    return launch_tf32_split<D, D == 256 ? 4 : 1>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh,
+                                                  scale_log2e, lse, stream);
+  return launch_tf32_split<D, 1>(qm, km, vm, o, b, h, t, out_sb, out_st, out_sh, scale_log2e,
+                                 lse, stream);
+}
+
 }  // namespace
 
 // The number of clusters of `split` (2 or 4) CTAs of the d = 256 wgmma
@@ -1356,11 +1837,13 @@ extern "C" int dtts_attention_split_clusters(int split, int* clusters) {
 // (csrc/attention_bwd.cu). route: 0 = fma (any dtype and width), 1 = mma
 // (bfloat16 at d = 16, 32, 40, 64, 80, 160, 256, 512, every pointer and stride
 // 16-byte aligned), 2 = wgmma (bfloat16 at d = 40, 64, 80, 160, 256, 512,
-// aligned the same way). split: CTAs sharing each work tile's keys, 1, or 2
-// or 4 on the wgmma route at d = 256 (a thread-block cluster a tile).
+// aligned the same way), 3 = tf32x3 (float32 at d = 64, 256, aligned the same
+// way). split: CTAs sharing each work tile's keys, 1, or 2 or 4 on the wgmma
+// and tf32x3 routes at d = 256 (a thread-block cluster a tile).
 // consumers: consumer warpgroups a block, 1, or 2 on the wgmma route without
 // a split at t > 64; at d = 512 always 2, the two halves of O's columns
-// (ops/kernels/qkv_attention.py::wgmma_plan picks both). Any other plan is
+// (ops/kernels/qkv_attention.py::wgmma_plan picks both); 1 on tf32x3
+// (ops/kernels/qkv_attention.py::tf32x3_plan). Any other plan is
 // refused. Returns the launch's cudaError_t (0 on success), or
 // kEncodeFailed + the CUresult of a refused tensor map; the caller raises on
 // anything but 0.
@@ -1370,6 +1853,19 @@ extern "C" int dtts_attention(const void* q, const void* k, const void* v, void*
                               int64_t out_sh, float scale_log2e, float* lse, int route,
                               int split, int consumers, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 3) {
+    if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+#define DTTS_ATTN_TF32X3(D)                                                                 \
+  case D:                                                                                   \
+    return launch_tf32<D>(q, k, v, o, b, h, t, in_sb, in_st, in_sh, out_sb, out_st, out_sh, \
+                          scale_log2e, lse, split, consumers, s);
+    switch (d) {
+      DTTS_ATTN_TF32X3(64)
+      DTTS_ATTN_TF32X3(256)
+    }
+#undef DTTS_ATTN_TF32X3
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (route == 2) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
 #define DTTS_ATTN_WGMMA(D)                                                                  \

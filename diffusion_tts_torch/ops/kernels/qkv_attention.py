@@ -21,13 +21,18 @@ through the plain PyTorch versions; a CUDA tensor goes through the kernels
 or the call raises. ``LAUNCHES`` counts forward launches, ``BWD_LAUNCHES``
 backward launches (``BWD_LAUNCHES_PER_CALL`` = 2 per call: dQ, then dK/dV).
 
-The forward kernel has three routes, picked before the launch: "wgmma"
+The forward kernel has four routes, picked before the launch: "wgmma"
 (Hopper's asynchronous warpgroup products fed by TMA), "mma" (the
-warp-level mma.sync products of the first tensor-core design) and "fma"
-(fp32 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives "wgmma" for
-bf16 at ``WGMMA_HEAD_DIMS`` (the ADM's 64, the SD UNet's 40, 80 and 160, the
-DDPM++ net's 256, the SD VAE's 512), "mma" for bf16 at the other widths of
-``MMA_HEAD_DIMS`` (16 and 32 of the test nets) and "fma" otherwise. A wgmma
+warp-level mma.sync products of the first tensor-core design), "tf32x3"
+(fp32 on the tensor cores, each product three tf32 wgmma products) and
+"fma" (fp32 FMA on the CUDA cores). ``forward_route(dtype, d)`` gives
+"wgmma" for bf16 at ``WGMMA_HEAD_DIMS`` (the ADM's 64, the SD UNet's 40, 80
+and 160, the DDPM++ net's 256, the SD VAE's 512), "mma" for bf16 at the
+other widths of ``MMA_HEAD_DIMS`` (16 and 32 of the test nets), "tf32x3" for
+fp32 at ``TF32X3_HEAD_DIMS`` (the ADM's 64 and the DDPM++ net's 256, the
+CLIs' default dtype) and "fma" otherwise. A tf32x3 launch takes
+``tf32x3_plan``: d = 256's key split as on the wgmma route, one consumer
+warpgroup. A wgmma
 launch takes ``wgmma_plan(d, b, h, t, *card_limits(device))``: (key split,
 consumer warpgroups). At d = 256 it splits each 64-row q tile's keys over a
 thread-block cluster of ``wgmma_split`` CTAs where the tiles alone would
@@ -48,7 +53,9 @@ that is not a multiple of 16 bytes. ``ROUTE_LAUNCHES`` and
 ``BWD_ROUTE_LAUNCHES`` count launches per route. A caller may ask for
 ``route="fma"`` at any shape and for ``route="mma"`` at any bf16 width of
 ``MMA_HEAD_DIMS`` (the backward: of ``BWD_MMA_HEAD_DIMS``), which times the
-earlier designs; nothing falls back from one route to another.
+earlier designs; nothing falls back from one route to another. The backward
+has no tf32x3 route: fp32 training reads the tf32x3 forward's row statistic
+in the fma backward.
 
 Both functions are differentiable (``torch.autograd.Function``). When a
 gradient is asked for, the forward kernel also writes each row's
@@ -70,12 +77,18 @@ _LOG2E = 1.4426950408889634
 HEAD_DIMS = (4, 8, 16, 32, 40, 64, 80, 160, 256, 512)
 MMA_HEAD_DIMS = HEAD_DIMS[2:]
 WGMMA_HEAD_DIMS = (40, 64, 80, 160, 256, 512)
+# fp32 on the tensor cores (three tf32 products each), and the K/V tile's keys
+# at each width (csrc/qkv_attention.cu's Tf32Tiles).
+TF32X3_HEAD_DIMS = (64, 256)
+TF32X3_KEY_ROWS = {64: 32, 256: 16}
 # d = 256's key split on the wgmma route: CTAs a work tile (a cluster of them).
 WGMMA_SPLITS = (1, 2, 4)
 # The routes of the forward and of the backward, in the order of their codes
-# in csrc/qkv_attention.cu and csrc/attention_bwd.cu.
-ROUTES = _launch.ROUTES + ("wgmma",)
+# in csrc/qkv_attention.cu and csrc/attention_bwd.cu (the backward's are the
+# first three).
+ROUTES = _launch.ROUTES + ("wgmma", "tf32x3")
 ROUTE_CODES = {route: code for code, route in enumerate(ROUTES)}
+BWD_ROUTES = ROUTES[:3]
 BWD_HEAD_DIMS = HEAD_DIMS[:-1]
 BWD_MMA_HEAD_DIMS = (16, 32, 40, 64, 80, 160, 256)
 BWD_WGMMA_HEAD_DIMS = (64, 256)
@@ -90,13 +103,16 @@ _BWD_ARGTYPES = ((_launch.PTR,) * 10 + (_launch.INT,) * 5 + (_launch.I64,) * 12
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
-BWD_ROUTE_LAUNCHES = {route: 0 for route in ROUTES}
+BWD_ROUTE_LAUNCHES = {route: 0 for route in BWD_ROUTES}
 
 
 def forward_route(dtype: torch.dtype, d: int) -> str:
     """The forward kernel's route for inputs of ``dtype`` and head width
     ``d``: "wgmma" for bf16 at a width of WGMMA_HEAD_DIMS, "mma" for bf16 at
-    the other widths of MMA_HEAD_DIMS, else "fma"."""
+    the other widths of MMA_HEAD_DIMS, "tf32x3" for fp32 at a width of
+    TF32X3_HEAD_DIMS, else "fma"."""
+    if dtype == torch.float32:
+        return "tf32x3" if d in TF32X3_HEAD_DIMS else "fma"
     if dtype != torch.bfloat16:
         return "fma"
     return "wgmma" if d in WGMMA_HEAD_DIMS else "mma" if d in MMA_HEAD_DIMS else "fma"
@@ -125,20 +141,34 @@ def wgmma_plan(d: int, b: int, h: int, t: int, sms: int, clusters: dict[int, int
     return split, 1 if split > 1 else wgmma_consumers(b, h, t, sms, d)
 
 
-def wgmma_split(b: int, h: int, t: int, sms: int, clusters: dict[int, int]) -> int:
+def wgmma_split(b: int, h: int, t: int, sms: int, clusters: dict[int, int],
+                key_rows: int = 64) -> int:
     """CTAs sharing each 64-row q tile's keys on the wgmma route at d = 256:
     the larger of 4 and 2 that keeps the grid (b * h * ceil(t / 64) tiles
     times the factor) within the card's ``sms``, whose clusters of that
     many CTAs the card holds at once (``clusters[factor]``, from
     ``card_limits``: one CTA an SM, a cluster on one GPC) and that gives every
-    CTA at least one 64-key tile, else 1. The training batches
-    ([32, 256, 768]: 128 tiles) and the CIFAR-10 search's [8, 64, 768] (one
-    key tile) take 1."""
-    tiles, key_tiles = b * h * -(-t // 64), -(-t // 64)
+    CTA at least one K/V tile of ``key_rows`` keys (64 on the wgmma route,
+    TF32X3_KEY_ROWS on tf32x3), else 1. On the wgmma route the training
+    batches ([32, 256, 768]: 128 tiles) and the CIFAR-10 search's
+    [8, 64, 768] (one key tile) take 1."""
+    tiles, key_tiles = b * h * -(-t // 64), -(-t // key_rows)
     for split in (4, 2):
         if tiles * split <= sms and tiles <= clusters[split] and split <= key_tiles:
             return split
     return 1
+
+
+def tf32x3_plan(d: int, b: int, h: int, t: int, sms: int, clusters: dict[int, int],
+                split: int | None = None) -> tuple[int, int]:
+    """(key split, consumer warpgroups) of a tf32x3 launch, which the C
+    entry takes as it is: at d = 256 ``wgmma_split``'s factor over 16-key
+    tiles (``split`` forces one; the kernel, like the wgmma route's at
+    d = 256, holds one CTA an SM, so the card's clusters are the same), 1 at
+    d = 64; one consumer warpgroup a block."""
+    if split is None:
+        split = (wgmma_split(b, h, t, sms, clusters, TF32X3_KEY_ROWS[d]) if d == 256 else 1)
+    return split, 1
 
 
 _CARDS: dict[int, tuple[int, dict[int, int]]] = {}
@@ -185,11 +215,14 @@ def _pick_route(want: str, route: str | None, dtype: torch.dtype, d: int, widths
                 wgmma_widths=WGMMA_HEAD_DIMS) -> str:
     """``route`` if given (None takes ``want``): "fma" at any shape, a
     tensor-core route only where the predicate gave it (or, for "mma", a
-    tensor-core route: ``widths`` are the widths it takes, ``wgmma_widths``
-    the wgmma route's)."""
+    bf16 tensor-core route: ``widths`` are the widths it takes,
+    ``wgmma_widths`` the wgmma route's)."""
     route = route or want
     allowed = (want, "fma", "mma") if want == "wgmma" else (want, "fma")
     if route not in allowed:
+        if route == "tf32x3":
+            raise ValueError(f"the tf32x3 route takes float32 at head widths "
+                             f"{TF32X3_HEAD_DIMS}, got {dtype} at {d}")
         raise ValueError(f"the {route} route takes bfloat16 at head widths "
                          f"{wgmma_widths if route == 'wgmma' else widths}, got {dtype} at {d}")
     return route
@@ -259,13 +292,16 @@ def _check_width(d: int) -> None:
 def _pick_plan(split: int | None, route: str, d: int, b: int, h: int, t: int,
                device: torch.device) -> tuple[int, int]:
     """(key split, consumer warpgroups) of one launch: ``wgmma_plan``'s on
-    the wgmma route, with ``split`` forced at d = 256 (a factor of
-    WGMMA_SPLITS); (1, 1) on the other routes, where no other split is
-    taken."""
-    if split is not None and split not in (WGMMA_SPLITS if route == "wgmma" and d == 256
-                                           else (1,)):
-        raise ValueError(f"the key split takes {WGMMA_SPLITS} on the wgmma route at d = 256 "
-                         f"and 1 elsewhere, got {split} on the {route} route at {d}")
+    the wgmma route and ``tf32x3_plan``'s on tf32x3, with ``split`` forced
+    at d = 256 (a factor of WGMMA_SPLITS); (1, 1) on the other routes, where
+    no other split is taken."""
+    splits_route = route in ("wgmma", "tf32x3") and d == 256
+    if split is not None and split not in (WGMMA_SPLITS if splits_route else (1,)):
+        raise ValueError(f"the key split takes {WGMMA_SPLITS} on the wgmma and tf32x3 routes "
+                         f"at d = 256 and 1 elsewhere, got {split} on the {route} route at {d}")
+    if route == "tf32x3":  # only d = 256 splits, and asks the card for its limits
+        limits = card_limits(device) if d == 256 else (0, {})
+        return tf32x3_plan(d, b, h, t, *limits, split=split)
     if route != "wgmma":
         return 1, 1
     return wgmma_plan(d, b, h, t, *card_limits(device), split=split)
@@ -280,8 +316,9 @@ def _launch_kernel(q_ptr: int, k_ptr: int, v_ptr: int, out: torch.Tensor, d: int
     (batch, token, head), the head width's stride being 1. ``lse``, fp32
     [B, H, T], takes the row statistic the backward needs. ``route``: None
     takes ``forward_route``'s; "fma" may be asked for at any shape.
-    ``split``: None takes ``wgmma_plan``'s; a factor forces that key split
-    on the wgmma route at d = 256 (tests and probes)."""
+    ``split``: None takes ``wgmma_plan``'s (``tf32x3_plan``'s); a factor
+    forces that key split on the wgmma or tf32x3 route at d = 256 (tests and
+    probes)."""
     global LAUNCHES
     route = _pick_route(forward_route(out.dtype, d), route, out.dtype, d, MMA_HEAD_DIMS)
     if route != "fma":
@@ -495,8 +532,9 @@ def qkv_self_attention(qkv: torch.Tensor, heads: int, *, route: str | None = Non
                        ) -> torch.Tensor:
     """All-heads self-attention, [B, T, 3C] -> [B, T, C] in qkv.dtype.
     ``route``: None takes ``forward_route``'s (and ``backward_route``'s for
-    the gradient); "fma" forces the CUDA-core kernels, forward and backward;
-    "mma" forces the mma.sync forward at a "wgmma" width."""
+    the gradient); "fma" forces the CUDA-core kernels, forward and backward
+    (in fp32 the first design beside "tf32x3"); "mma" forces the mma.sync
+    forward at a "wgmma" width."""
     if qkv.device.type != "cpu":
         _launch.check(qkv, "qkv_self_attention")
         if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
@@ -531,7 +569,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 __all__ = ["qkv_self_attention", "qkv_self_attention_plain", "attention", "attention_plain",
            "attention_bwd", "attention_bwd_plain", "qkv_self_attention_bwd", "forward_route",
            "backward_route", "wgmma_plan", "wgmma_split", "wgmma_consumers", "bwd_wgmma_plan",
-           "card_limits", "WGMMA_SPLITS", "LAUNCHES",
+           "tf32x3_plan", "card_limits", "WGMMA_SPLITS", "LAUNCHES", "TF32X3_HEAD_DIMS",
+           "TF32X3_KEY_ROWS", "BWD_ROUTES",
            "ROUTE_LAUNCHES", "BWD_LAUNCHES", "BWD_ROUTE_LAUNCHES", "BWD_LAUNCHES_PER_CALL",
            "HEAD_DIMS", "MMA_HEAD_DIMS", "WGMMA_HEAD_DIMS", "ROUTES", "BWD_HEAD_DIMS",
            "BWD_MMA_HEAD_DIMS", "BWD_WGMMA_HEAD_DIMS"]

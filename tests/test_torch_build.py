@@ -4,9 +4,9 @@
 every ``csrc`` header the source includes, so an edited header is rebuilt and
 a stale library is never loaded. The wrappers of the attention (forward and
 backward) and GEGLU kernels pick a route in Python (``forward_route``,
-``backward_route``, ``route``; the forward's and GEGLU's three: "wgmma",
-"mma", "fma") and refuse, before any launch, what the tensor-core routes cannot
-take; so do the conv kernels (``same_route``: "wgmma", "ring" or "v1";
+``backward_route``, ``route``; the forward's four: "wgmma", "mma",
+"tf32x3" (fp32 on the tensor cores), "fma"; GEGLU's three) and refuse, before
+any launch, what the tensor-core routes cannot take; so do the conv kernels (``same_route``: "wgmma", "ring" or "v1";
 ``up2_route``, the up-conv's: "wgmma", "ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
 tests/test_torch_kernels_cuda.py.
@@ -78,12 +78,13 @@ def test_library_path_ignores_headers_not_included(csrc):
     assert build.library_path("groupnorm") == before
 
 
-def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA", route="mma", code=1):
+def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA", route="mma", code=1,
+                          dtype="bf16"):
     """A tensor-core route's widths as csrc/<name>.cu states them in its
-    header ("<route> (route <code>): bf16 at d = ...,") and as its C entry
+    header ("<route> (route <code>): <dtype> at d = ...,") and as its C entry
     dispatches them (the ``macro(d)`` cases)."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    stated = re.search(rf"\b{route} \(route {code}\): bf16 at d = ([\d, ]+),", src).group(1)
+    stated = re.search(rf"\b{route} \(route {code}\): {dtype} at d = ([\d, ]+),", src).group(1)
     cases = re.findall(rf"{macro}\((\d+)\)", src)
     return tuple(int(d) for d in stated.split(", ")), tuple(int(d) for d in cases)
 
@@ -91,34 +92,43 @@ def _mma_widths_in_source(name="qkv_attention", macro="DTTS_ATTN_MMA", route="mm
 @pytest.mark.parametrize("d", qk.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_route_is_the_one_the_source_states(dtype, d):
-    """Three routes: bf16 on "wgmma" at the widths csrc/qkv_attention.cu
+    """Four routes: bf16 on "wgmma" at the widths csrc/qkv_attention.cu
     states and dispatches for route 2 (the ADM's 64, the SD UNet's 40, 80,
     160, the DDPM++ net's 256, the VAE's 512), on "mma" at the other mma
     widths (the test nets' 16 and 32; the mma kernel still takes every one
-    of its widths, for ``route="mma"``), fp32 on "fma"."""
+    of its widths, for ``route="mma"``); fp32 on "tf32x3" at the widths it
+    states and dispatches for route 3 (the ADM's 64 and the DDPM++ net's
+    256), on "fma" at the others (the SD UNet's and the VAE's among them)."""
     stated, dispatched = _mma_widths_in_source()
     assert stated == dispatched == qk.MMA_HEAD_DIMS
     wg_stated, wg_dispatched = _mma_widths_in_source(macro="DTTS_ATTN_WGMMA", route="wgmma",
                                                      code=2)
     assert wg_stated == wg_dispatched == qk.WGMMA_HEAD_DIMS
     assert set(wg_stated) <= set(stated) and 256 in wg_stated and 512 in wg_stated
-    want = "fma"
+    tf_stated, tf_dispatched = _mma_widths_in_source(macro="DTTS_ATTN_TF32X3", route="tf32x3",
+                                                     code=3, dtype="fp32")
+    assert tf_stated == tf_dispatched == qk.TF32X3_HEAD_DIMS == (64, 256)
     if dtype == torch.bfloat16:
         want = "wgmma" if d in wg_stated else "mma" if d in stated else "fma"
+    else:
+        want = "tf32x3" if d in tf_stated else "fma"
     assert qk.forward_route(dtype, d) == want
 
 
 def test_attention_route_codes_follow_the_source():
     """The forward's, the backward's and GEGLU's route codes are their C
-    entries' (0 fma, 1 mma, 2 wgmma); _launch.ROUTES keeps the two shared
-    ones."""
-    assert qk.ROUTE_CODES == gg.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
-    assert set(qk.ROUTE_LAUNCHES) == set(gg.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
-    assert set(qk.BWD_ROUTE_LAUNCHES) == set(qk.ROUTES) == {"fma", "mma", "wgmma"}
+    entries' (0 fma, 1 mma, 2 wgmma; the forward's 3 tf32x3); _launch.ROUTES
+    keeps the two shared ones, the backward the first three."""
+    assert qk.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2, "tf32x3": 3}
+    assert gg.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
+    assert set(qk.ROUTE_LAUNCHES) == set(qk.ROUTES) == {"fma", "mma", "wgmma", "tf32x3"}
+    assert set(gg.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
+    assert set(qk.BWD_ROUTE_LAUNCHES) == set(qk.BWD_ROUTES) == {"fma", "mma", "wgmma"}
     assert set(_launch.ROUTES) == {"fma", "mma"}
     for name in ("qkv_attention", "attention_bwd", "geglu_ff"):
         src = (build.CSRC / f"{name}.cu").read_text()
         assert "if (route == 2) {" in src and "if (route == 1) {" in src
+    assert "if (route == 3) {" in (build.CSRC / "qkv_attention.cu").read_text()
 
 
 @pytest.mark.parametrize("d", qk.BWD_HEAD_DIMS)
@@ -357,7 +367,7 @@ def test_attention_at_256_takes_wgmma_and_still_serves_mma(recorded_launch, b, t
     d = 256
     assert qk.forward_route(torch.bfloat16, d) == "wgmma"
     assert qk.forward_route(torch.bfloat16, 512) == "wgmma"
-    assert qk.forward_route(torch.float32, d) == "fma"
+    assert qk.forward_route(torch.float32, d) == "tf32x3"
     out = torch.empty((b, t, d), dtype=torch.bfloat16)
     ptr = out.data_ptr()
     qk._launch_kernel(ptr, ptr, ptr, out, d, b, 1, t, (t * 3 * d, 3 * d, d), (t * d, d, d),
@@ -387,8 +397,8 @@ def test_attention_at_512_takes_wgmma_with_its_plan(recorded_launch, b, t, route
 
 
 def test_attention_at_512_fp32_takes_fma(recorded_launch):
-    """fp32 at d = 512 stays on the fp32 FMA kernel (TF32 would not hold
-    1e-4); the wgmma route takes bf16 only."""
+    """fp32 at d = 512 stays on the fp32 FMA kernel (the tf32x3 route takes
+    d = 64 and 256); the wgmma route takes bf16 only."""
     b, t, d = 1, 300, 512
     assert qk.forward_route(torch.float32, d) == "fma"
     out = torch.empty((b, t, 1, d), dtype=torch.float32)
@@ -397,6 +407,115 @@ def test_attention_at_512_fp32_takes_fma(recorded_launch):
     with pytest.raises(ValueError, match="wgmma route takes bfloat16"):
         qk._launch_kernel(ptr, ptr, ptr, out, d, b, 1, t, strides, strides, route="wgmma")
     assert recorded_launch == [(qk.ROUTE_CODES["fma"], 1, 1)]
+
+
+@pytest.mark.parametrize("d", [80, 160])
+def test_attention_sd_widths_in_fp32_take_fma(recorded_launch, d):
+    """The SD UNet's fp32 widths stay on the fp32 FMA kernel (the tf32x3
+    kernel reads whole 128-byte boxes of 32 floats: d = 64 and 256);
+    "tf32x3" forced there is refused before any launch."""
+    b, t, h = 2, 100, 2
+    assert qk.forward_route(torch.float32, d) == "fma"
+    out = torch.empty((b, t, h, d), dtype=torch.float32)
+    ptr, strides = out.data_ptr(), (t * h * d, h * d, d)
+    qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, strides, strides)
+    with pytest.raises(ValueError, match="tf32x3 route takes float32"):
+        qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, strides, strides, route="tf32x3")
+    assert recorded_launch == [(qk.ROUTE_CODES["fma"], 1, 1)]
+
+
+# (d, B, T, heads, route, (route, split, consumers)) of fp32 launches on a
+# 132-SM card: the ADM's sites at the search's batch 8 and the training
+# micro-batch 16, the DDPM++ net's at the search's batch 8 ([8, 256, 768]:
+# 32 q tiles, split 4; [8, 64, 768]: four 16-key tiles, split 4), a
+# rejection batch, the training micro-batch 32 and reward_curve's batch 32
+# and 16 at T = 64, a ragged T; forced "fma" takes the first design.
+TF32X3_LAUNCHES = [
+    (64, 8, 1024, 6, None, ("tf32x3", 1, 1)), (64, 8, 256, 9, None, ("tf32x3", 1, 1)),
+    (64, 8, 64, 12, None, ("tf32x3", 1, 1)), (64, 16, 1024, 6, None, ("tf32x3", 1, 1)),
+    (64, 2, 200, 3, None, ("tf32x3", 1, 1)), (64, 8, 1024, 6, "fma", ("fma", 1, 1)),
+    (256, 8, 256, 1, None, ("tf32x3", 4, 1)), (256, 8, 64, 1, None, ("tf32x3", 4, 1)),
+    (256, 16, 256, 1, None, ("tf32x3", 2, 1)), (256, 32, 256, 1, None, ("tf32x3", 1, 1)),
+    (256, 32, 64, 1, None, ("tf32x3", 4, 1)), (256, 16, 64, 1, None, ("tf32x3", 4, 1)),
+    (256, 2, 200, 1, None, ("tf32x3", 4, 1)), (256, 1, 1, 1, None, ("tf32x3", 1, 1)),
+    (256, 8, 256, 1, "fma", ("fma", 1, 1))]
+
+
+@pytest.mark.parametrize("d,b,t,h,route,want", TF32X3_LAUNCHES)
+def test_attention_fp32_takes_tf32x3_with_its_plan(recorded_launch, d, b, t, h, route, want):
+    """fp32 at the ADM's d = 64 and the DDPM++ net's d = 256 launches the
+    tf32x3 route (code 3) with tf32x3_plan's key split (d = 256 only, over
+    16-key tiles) and one consumer warpgroup; route="fma" still launches the
+    first design there. Each launch counts once on its route."""
+    assert qk.forward_route(torch.float32, d) == "tf32x3"
+    out = torch.empty((b, t, h * d), dtype=torch.float32)
+    ptr = out.data_ptr()
+    qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, (t * 3 * h * d, 3 * h * d, d),
+                      (t * h * d, h * d, d), route=route)
+    assert recorded_launch == [(qk.ROUTE_CODES[want[0]], *want[1:])]
+    assert qk.ROUTE_LAUNCHES == {**dict.fromkeys(qk.ROUTES, 0), want[0]: 1}
+    if route is None:
+        assert want[1:] == qk.tf32x3_plan(d, b, h, t, 132, {2: 66, 4: 33})
+
+
+@pytest.mark.parametrize("split", qk.WGMMA_SPLITS)
+def test_tf32x3_forced_split_reaches_the_launch(recorded_launch, split):
+    """split= forces d = 256's key split on the tf32x3 route as on wgmma
+    (tests and probes), with one consumer warpgroup."""
+    out = torch.empty((8, 256, 1, 256), dtype=torch.float32)
+    ptr, s = out.data_ptr(), (256 * 256, 256, 256)
+    qk._launch_kernel(ptr, ptr, ptr, out, 256, 8, 1, 256, s, s, split=split)
+    assert recorded_launch == [(3, split, 1)]
+
+
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "head_stride", "out_pointer",
+                                  "bf16_forced", "at_80", "mma_forced", "wgmma_forced",
+                                  "split", "split_of_8"])
+@pytest.mark.parametrize("d", qk.TF32X3_HEAD_DIMS)
+def test_attention_refuses_what_the_tf32x3_route_cannot_take(no_launch, d, case):
+    """fp32 at a tf32x3 width with a pointer (q|k|v or the output) or a
+    token or head stride that TMA cannot take (not a multiple of 16 bytes)
+    is refused before any kernel is bound; so is "tf32x3" forced in bf16 or
+    at a width that is not its own, "mma" or "wgmma" forced in fp32, and a
+    key split the route does not take (any at d = 64; 3 and 8 at 256).
+    Nothing falls back to another route."""
+    b, t, h = 1, 4, 2
+    d = 80 if case == "at_80" else d
+    dtype = torch.bfloat16 if case == "bf16_forced" else torch.float32
+    flat = torch.empty(b * t * h * d + 1, dtype=dtype)
+    out = (flat[1:] if case == "out_pointer" else flat[:-1]).view(b, t, h, d)
+    ptrs = [flat.data_ptr()] * 3
+    strides = [t * h * d, h * d, d]
+    if case == "pointer":
+        ptrs[1] += 4
+    if case == "token_stride":
+        strides[1] = h * d + 2
+    if case == "head_stride":
+        strides[2] = d + 1
+    route = {"bf16_forced": "tf32x3", "at_80": "tf32x3", "mma_forced": "mma",
+             "wgmma_forced": "wgmma"}.get(case)
+    split = {"split": 2 if d == 64 else 3, "split_of_8": 8}.get(case)
+    match = {"bf16_forced": "tf32x3 route takes float32", "at_80": "tf32x3 route takes float32",
+             "mma_forced": "mma route takes bfloat16", "wgmma_forced": "wgmma route takes bfloat16",
+             "split": "key split takes", "split_of_8": "key split takes"}.get(case, "16-byte")
+    before = (qk.LAUNCHES, dict(qk.ROUTE_LAUNCHES))
+    with pytest.raises(ValueError, match=match):
+        qk._launch_kernel(*ptrs, out, d, b, h, t, tuple(strides), (t * h * d, h * d, d),
+                          route=route, split=split)
+    assert (qk.LAUNCHES, qk.ROUTE_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("d,bk", list(qk.TF32X3_KEY_ROWS.items()))
+def test_tf32x3_key_rows_are_the_ones_the_source_takes(d, bk):
+    """The K/V tile's keys (TF32X3_KEY_ROWS, over which tf32x3_plan counts
+    a split's tiles) are the source's Tf32Tiles: 32 at d = 64, 16 at 256;
+    the split takes 1 where the 16-key tiles are fewer than the factor."""
+    src = (build.CSRC / "qkv_attention.cu").read_text()
+    assert "static constexpr int kBK = D > 128 ? 16 : 32;   // keys per K/V tile" in src
+    assert bk == (16 if d > 128 else 32)
+    assert qk.tf32x3_plan(256, 8, 1, 32, 132, {2: 66, 4: 33}) == (2, 1)  # two 16-key tiles
+    assert qk.tf32x3_plan(256, 8, 1, 16, 132, {2: 66, 4: 33}) == (1, 1)
+    assert qk.tf32x3_plan(64, 1, 1, 64, 132, {2: 66, 4: 33}) == (1, 1)
 
 
 @pytest.mark.parametrize("b,h,t", [
@@ -620,7 +739,7 @@ def test_the_wrappers_take_a_route_on_the_cpu_and_run_the_plain_version():
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((2, 16, 2, 40), generator=g).bfloat16() for _ in range(3))
     want = qk.attention_plain(q, k, v)
-    for route in (None, "fma", "mma", "wgmma"):
+    for route in (None, "fma", "mma", "wgmma", "tf32x3"):
         assert torch.equal(qk.attention(q, k, v, route=route), want)
     x, w0, b0 = torch.randn((8, 16), generator=g), torch.randn((64, 16), generator=g), \
         torch.randn(64, generator=g)

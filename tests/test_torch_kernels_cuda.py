@@ -781,14 +781,15 @@ def test_qkv_attention_at_the_ddpmpp_width(card, b, t, dtype):
     (its 16x16 and 8x8 sites at the search's batch 8 and the training
     micro-batch 32): the forward and the qkv form's backward on their routes
     (bf16: "wgmma" forward, with the key split where wgmma_split picks one,
-    and "wgmma" backward, which reads the forward's statistic; fp32: "fma"),
-    the backward's thirds against the twin and two runs bit-identical."""
+    and "wgmma" backward, which reads the forward's statistic; fp32: the
+    "tf32x3" forward, whose statistic the "fma" backward reads), the
+    backward's thirds against the twin and two runs bit-identical."""
     heads, d = 1, 256
     g = torch.Generator(device=card).manual_seed(b + t)
     qkv = torch.randn((b, t, 3 * d), generator=g, device=card).to(dtype)
     cot = _randn((b, t, d), dtype, card, 17)
     route = qk.forward_route(dtype, d)
-    assert route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    assert route == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
     before = _routes(qk)
     lse = torch.empty((b, heads, t), device=card)
     out = qk._qkv_forward(qkv, heads, lse)
@@ -1194,6 +1195,145 @@ def test_attention_wgmma_256_refuses_what_it_cannot_take(card, case):
             qk._qkv_forward(qkv, 1, None, split=3)
         with pytest.raises(ValueError, match="key split takes"):
             qk._qkv_forward(qkv, 1, None, route="mma", split=2)
+    assert _routes(qk) == before
+
+
+# ------------------------------------------- the tf32x3 route (fp32)
+
+# [B, T, heads, d] of the fp32 route: the ADM's sites at the search's batch
+# 8 and the training micro-batch 16, the DDPM++ net's [8, 256, 768],
+# [8, 64, 768] and [32, 256, 768], ragged T (200, 77), one token.
+TF32X3_SHAPES = [(8, 1024, 6, 64), (8, 256, 9, 64), (8, 64, 12, 64), (16, 1024, 6, 64),
+                 (2, 200, 3, 64), (1, 1, 1, 64), (8, 256, 1, 256), (8, 64, 1, 256),
+                 (32, 256, 1, 256), (2, 200, 1, 256), (4, 77, 1, 256), (1, 1, 1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "bthd"])
+@pytest.mark.parametrize("b,t,heads,d", TF32X3_SHAPES)
+def test_attention_tf32x3_matches_plain(card, b, t, heads, d, layout):
+    """fp32 at d = 64 and 256 on its route, "tf32x3" (three tf32 products
+    on the tensor cores), in both layouts through the public wrappers:
+    within 1e-4 of the largest output with TF32 off, one launch on the
+    route, and a second call bit for bit the same."""
+    before = _routes(qk)
+    if layout == "bthd":
+        q, k, v = (_randn((b, t, heads, d), torch.float32, card, s) for s in range(3))
+        run, want = (lambda: qk.attention(q, k, v)), qk.attention_plain(q, k, v)
+    else:
+        qkv = _randn((b, t, 3 * heads * d), torch.float32, card, 3)
+        run = lambda: qk.qkv_self_attention(qkv, heads)
+        want = qk.qkv_self_attention_plain(qkv, heads)
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    assert qk.forward_route(torch.float32, d) == "tf32x3"
+    assert _routes(qk) == {**before, "tf32x3": before["tf32x3"] + 2}
+    assert out.shape == want.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, want) <= TOL[torch.float32]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", qk.WGMMA_SPLITS)
+@pytest.mark.parametrize("b,t", [(8, 256), (8, 64), (4, 300), (2, 17)])
+def test_attention_tf32x3_256_every_split(card, b, t, split):
+    """d = 256's key split forced on the tf32x3 route (clusters of 2 and 4
+    merging fp32 partials; a factor above the 16-key tiles leaves CTAs
+    without keys): output within 1e-4, the statistic CTA 0 writes within
+    1e-4 of the fp32 log2-sum-exp2 of the scores, both bit for bit the same
+    on a second run."""
+    h, d = 1, 256
+    q, k, v = (_randn((b, t, h, d), torch.float32, card, s) for s in range(3))
+    lse, lse2 = (torch.full((b, h, t), float("nan"), device=card) for _ in range(2))
+    out = qk._bthd_forward(q, k, v, lse, split=split)
+    again = qk._bthd_forward(q, k, v, lse2, split=split)
+    torch.cuda.synchronize()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert torch.equal(lse, lse2) and torch.equal(out, again)
+    assert _rel_err(out, qk.attention_plain(q, k, v)) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d", [(77, 64), (300, 64), (1024, 64), (200, 256), (64, 256)])
+def test_attention_tf32x3_lse_is_the_log2_sum_exp2_of_the_scores(card, t, d):
+    """The row statistic the fma backward reads in fp32 training, from the
+    tf32x3 forward: log2 of the sum of exp of the scaled fp32 scores (1e-4
+    absolute, as on every route), and the fma forward's within 1e-4 of it."""
+    b, h = 2, 2
+    q, k, v = (_randn((b, t, h, d), torch.float32, card, s) for s in range(3))
+    lse, lse_fma = (torch.full((b, h, t), float("nan"), device=card) for _ in range(2))
+    qk._bthd_forward(q, k, v, lse)
+    qk._bthd_forward(q, k, v, lse_fma, route="fma")
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    want = torch.logsumexp(scores, dim=-1) * 1.4426950408889634
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-5)
+    assert (lse - lse_fma).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["qkv", "bthd"])
+@pytest.mark.parametrize("b,t,heads,d", [(2, 256, 9, 64), (2, 100, 3, 64), (8, 256, 1, 256),
+                                         (2, 200, 1, 256)])
+def test_attention_tf32x3_forward_fma_backward_through_autograd(card, b, t, heads, d, layout):
+    """fp32 training's attention: backward() through the wrappers runs the
+    tf32x3 forward (one launch, with the statistic) and the fma backward
+    (two launches), each gradient within 1e-4 of its largest magnitude of
+    autograd through the plain version."""
+    fwd, bwd = _routes(qk), _bwd_routes()
+    g = _randn((b, t, heads * d), torch.float32, card, 9)
+    if layout == "qkv":
+        qkv = _randn((b, t, 3 * heads * d), torch.float32, card, 3).requires_grad_(True)
+        (got,) = torch.autograd.grad(qk.qkv_self_attention(qkv, heads), qkv, g)
+        x = qkv.detach().clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(qk.qkv_self_attention_plain(x, heads), x, g)
+        pairs = [(got, want)]
+    else:
+        leaves = [_randn((b, t, heads, d), torch.float32, card, s).requires_grad_(True)
+                  for s in range(3)]
+        g = g.reshape(b, t, heads, d)
+        got = torch.autograd.grad(qk.attention(*leaves), leaves, g)
+        plain = [x.detach().clone().requires_grad_(True) for x in leaves]
+        want = torch.autograd.grad(qk.attention_plain(*plain), plain, g)
+        pairs = list(zip(got, want))
+    torch.cuda.synchronize()
+    assert _routes(qk) == {**fwd, "tf32x3": fwd["tf32x3"] + 1}
+    assert _bwd_routes() == {**bwd, "fma": bwd["fma"] + qk.BWD_LAUNCHES_PER_CALL}
+    for a, r in pairs:
+        assert torch.isfinite(a).all() and _rel(a, r) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pointer", "token_stride", "split", "mma", "bf16"])
+def test_attention_tf32x3_refuses_what_it_cannot_take(card, case):
+    """On the card as on the CPU: an fp32 q|k|v that starts 4 bytes off, a
+    token stride of 770 floats (3080 bytes), a key split at d = 64, "mma"
+    forced in fp32 or "tf32x3" forced in bf16 is refused before any launch;
+    nothing falls back to another route."""
+    b, t, h, d = 2, 64, 2, 64
+    before = _routes(qk)
+    if case == "pointer":
+        flat = torch.zeros(b * t * h * d + 1, device=card)
+        q = flat[1:].view(b, t, h, d)
+        with pytest.raises(ValueError, match="16-byte"):
+            qk.attention(q, q, q)
+    elif case == "token_stride":
+        out = torch.empty((b, t, h, d), device=card)
+        ptr = out.data_ptr()
+        with pytest.raises(ValueError, match="16-byte"):
+            qk._launch_kernel(ptr, ptr, ptr, out, d, b, h, t, (t * 770, 770, d),
+                              (t * h * d, h * d, d))
+    elif case == "split":
+        qkv = _randn((b, t, 3 * h * d), torch.float32, card, 3)
+        with pytest.raises(ValueError, match="key split takes"):
+            qk._qkv_forward(qkv, h, None, split=2)
+    else:
+        dtype = torch.float32 if case == "mma" else torch.bfloat16
+        q = _randn((b, t, h, d), dtype, card, 1)
+        with pytest.raises(ValueError, match=f"{'mma' if case == 'mma' else 'tf32x3'} route"):
+            qk.attention(q, q, q, route="mma" if case == "mma" else "tf32x3")
     assert _routes(qk) == before
 
 
