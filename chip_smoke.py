@@ -14,8 +14,9 @@ Phases, each of which raises on failure (nothing is caught):
      forward's wgmma kernels (each width, one and two consumer warpgroups,
      d = 256 at each key split, which must not spill), for its tf32x3
      kernels (d = 64, d = 256 at each key split; none may spill) and for
-     GEGLU's (each launch, tile rows and tile columns; the kernel line
-     carries them as ``ptxas``);
+     GEGLU's wgmma and tf32x3 kernels (each launch, tile rows and tile
+     columns; no tf32x3 kernel may spill; the kernel line carries them as
+     ``ptxas``);
   3. EDM kernels: the qkv attention kernel against its plain PyTorch
      version at the EDM path's shapes (and the flagship's [16, T, 3C]
      shapes), bf16 within 2e-2 and fp32 within 1e-4 with TF32 off; kernel,
@@ -118,7 +119,8 @@ Phases, each of which raises on failure (nothing is caught):
      convs from 128x128 up through the conv kernels, their GroupNorms folded
      into the conv prologue), one UNet forward (batch 2, 77-token context)
      and one VAE decode in fp32 and bf16 on the card held against fp32 on
-     the CPU (which runs the same route through the plain versions), then
+     the CPU (which runs the same route through the plain versions; the
+     fp32 UNet forward's 32 GEGLU launches counted, all on "tf32x3"), then
      the pipeline's bf16 eps-greedy search (6 steps, N=4, K=2, one prompt,
      brightness) twice, with every kernel's launches counted, held against
      the counts the architecture and the routing predicates give (attention
@@ -156,7 +158,14 @@ Phases, each of which raises on failure (nothing is caught):
      512, whose head is also summed on its own at decode batches 4 and 1:
      its plan, wgmma, mma (in turns) and SDPA device times, the bound,
      ptxas's registers and spills, two calls bit-identical; GEGLU "wgmma" at
-     every bf16 shape, "fma" in fp32; the fp32 attention row at d = 80
+     every bf16 shape, "tf32x3" in fp32 (three tf32 products on the tensor
+     cores: ``fma_ms`` in turns, the device times of tf32x3, fma and the
+     library call by CUDA-graph replay, its plan, and a product of raw
+     operands bit-equal to that of operands with their low 13 mantissa bits
+     cleared, which the route's hi relies on), and in fp32 at every shape
+     the search gave GEGLU, untimed, on "tf32x3" (the kernel line's
+     ``geglu_ff_tf32x3`` entry: phase 6's fp32 UNet launches, that row's
+     times and ptxas's lines); the fp32 attention row at d = 80
      stays on "fma", with the device times of fma and SDPA;
      ``fma_ms``, ``mma_ms``, the three device times, TFLOP/s; GEGLU's rows
      also name the wgmma plan and hold two calls bit-identical, the split
@@ -413,6 +422,8 @@ D512_PTXAS: list[str] = []
 BWD_PTXAS: dict[str, list[str]] = {}
 # ... and of the forward's tf32x3 kernels, by (d, key split).
 TF32_PTXAS: dict[tuple[int, int], list[str]] = {}
+# ... and of GEGLU's tf32x3 kernels, by launch, consumer warpgroups and B rows.
+GEGLU_TF32_PTXAS: dict[str, list[str]] = {}
 # NCSN++ (the training CLI's ncsnpp preset) at CIFAR-10's size and labels
 NCSNPP_CIFAR = dict(edm_entry.CIFAR10_DDPMPP, model_kwargs=dict(
     train_cli.ARCH_PRESETS["ncsnpp"]["model_kwargs"], dropout=0.0))
@@ -1095,7 +1106,76 @@ def check_geglu(key, dtype, tag, timed=True):
                             lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="mma"), library)
         print(f"    wgmma plan (rows1, rows2, bn2, split) {row['plan']}; two calls "
               f"bit-identical")
+    if timed and dtype == torch.float32:
+        fp32_geglu_designs(row, 6 * m * c * f, kernel,
+                           lambda: gg.geglu_ff(x, w0, b0, w2, b2, route="fma"), library)
     return row
+
+
+def fp32_geglu_designs(row: dict, flops: float, kernel, fma_call, library) -> None:
+    """The fp32 GEGLU row on "tf32x3": the fma design timed in turns with it
+    (which sets ``ms`` anew), the device times of tf32x3, fma and the library
+    call in fp32 with TF32 off (``device_ms``, ``fma_device_ms``,
+    ``library_device_ms``: 20 calls under no_grad in a CUDA graph, by
+    replay), the plan, and what the route's hi relies on: the tensor cores
+    read an fp32 operand with its low 13 mantissa bits dropped, so a product
+    of raw operands is bit-equal to one of masked operands
+    (``tf32_reads_truncated``)."""
+    if row["route"] != "tf32x3":
+        raise AssertionError(f"fp32 GEGLU {row['shape']} is on {row['route']}, not tf32x3")
+    row["plan"] = gg.tf32x3_plan(*row["shape"], torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    with torch.no_grad():
+        row["ms"], row["fma_ms"] = time_in_turns(kernel, fma_call)
+        row["device_ms"], row["fma_device_ms"], row["library_device_ms"] = graph_ms(
+            [kernel, fma_call, library])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a, b = (torch.randn(shape, device="cuda", generator=g) for shape in ((64, 32), (32, 32)))
+    mask = lambda t: (t.view(torch.int32) & -8192).view(torch.float32)
+    row["tf32_reads_truncated"] = torch.equal(gg.tf32_product(a, b),
+                                              gg.tf32_product(mask(a), mask(b)))
+    if not row["tf32_reads_truncated"]:
+        raise AssertionError("the tensor cores read more of an fp32 operand than its tf32 bits: "
+                             "the tf32x3 route's hi, the raw operand, must be rounded")
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["device_tflops"] = flops / row["device_ms"] / 1e9
+    print(f"    designs: tf32x3 {row['ms']:.4f} ms, fma {row['fma_ms']:.4f} ms (in turns); "
+          f"device ms by graph replay: tf32x3 {row['device_ms']:.4f} "
+          f"({row['device_tflops']:.1f} TFLOP/s), fma {row['fma_device_ms']:.4f}, library "
+          f"{row['library_device_ms']:.4f}; plan {row['plan']}; raw and masked tf32 products "
+          f"bit-equal")
+
+
+def geglu_fp32_shapes(counts: collections.Counter, tag: str) -> list[dict]:
+    """GEGLU in fp32 (TF32 off) against its plain version at every shape the
+    SD search gave it (the split-depth M = 128 call among them), untimed:
+    each on "tf32x3", two calls bit-identical."""
+    rows = []
+    for key in sorted(counts, key=str):
+        before = gg.ROUTE_LAUNCHES["tf32x3"]
+        rows.append(check_geglu(key, torch.float32, tag, timed=False))
+        if gg.ROUTE_LAUNCHES["tf32x3"] != before + 2 * gg.LAUNCHES_PER_CALL:
+            raise AssertionError(f"fp32 GEGLU {list(key)} did not run on tf32x3")
+        rows[-1].update(dtype="float32", route="tf32x3", plan=gg.tf32x3_plan(
+            *key, torch.cuda.get_device_properties(0).multi_processor_count))
+    return rows
+
+
+def geglu_tf32x3_line(geglu: dict) -> dict:
+    """The kernel line's entry of GEGLU's fp32 route (csrc/geglu_ff.cu's
+    geglu_tf32_kernel): its launches in phase 6's fp32 UNet forward (all on
+    tf32x3, asserted there), phase 7's timed fp32 row and the untimed fp32
+    rows at the search's shapes (``shapes``), ptxas's lines."""
+    row = next(r for r in geglu["shapes"] if r["dtype"] == "float32")
+    fwd = geglu["fp32_forward"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "fma_ms", "device_ms",
+            "fma_device_ms", "library_device_ms", "plan", "shape", "tflops", "device_tflops",
+            "tf32_reads_truncated")
+    return dict({k: row[k] for k in keys}, name="geglu_ff_tf32x3", route="cuda",
+                source=geglu["source"], replaces=geglu["replaces"], launches=fwd["launches"],
+                routes=fwd["routes"], unet_max_rel_err_vs_cpu=fwd["max_rel_err_vs_cpu"],
+                max_abs_err=max([row["max_abs_err"]] + [r["max_abs_err"] for r in fwd["shapes"]]),
+                shapes=fwd["shapes"], ptxas=GEGLU_TF32_PTXAS)
 
 
 def reps_for(shape) -> int:
@@ -1110,8 +1190,22 @@ def check_group_norm_stats(key, dtype, tag, timed=True):
     kernel = lambda: gn.group_norm_stats(x, groups=groups, eps=eps)
     plain = lambda: gn.group_norm_stats_plain(x, groups=groups, eps=eps)
     library = lambda: torch.var_mean(x.reshape(shape[0], groups, -1), dim=-1)
-    return kernel_row("group_norm_stats", shape, dtype, kernel(), plain(), kernel, plain, library,
-                      (0, x.numel() * x.element_size()), tag, reps=reps_for(shape), timed=timed)
+    row = kernel_row("group_norm_stats", shape, dtype, kernel(), plain(), kernel, plain, library,
+                     (0, x.numel() * x.element_size()), tag, reps=reps_for(shape), timed=timed)
+    if timed and dtype == torch.float32:
+        first_design_device_ms(row, kernel, library)
+    return row
+
+
+def first_design_device_ms(row: dict, kernel, library, calls: int = 20) -> None:
+    """An fp32 row whose kernel is still its first design: the device times
+    of the kernel and of the library call (``device_ms``,
+    ``library_device_ms``: ``calls`` calls under no_grad in a CUDA graph, by
+    replay, TF32 off)."""
+    with torch.no_grad():
+        row["device_ms"], row["library_device_ms"] = graph_ms([kernel, library], calls=calls)
+    print(f"    device ms by graph replay: kernel {row['device_ms']:.4f}, library "
+          f"{row['library_device_ms']:.4f}, bound {row['bound_ms']:.4f}")
 
 
 def check_conv_same(key, dtype, tag, timed=True):
@@ -1158,6 +1252,8 @@ def check_conv_same(key, dtype, tag, timed=True):
         print(f"    device ms by graph replay: wgmma {row['device_ms']:.4f}, ring "
               f"{row['ring_device_ms']:.4f}, library {row['library_device_ms']:.4f}, bound "
               f"{row['bound_ms']:.4f}; two calls bit-identical")
+    if timed and dtype == torch.float32:
+        first_design_device_ms(row, kernel, library, calls=10)
     return row
 
 
@@ -1194,6 +1290,8 @@ def check_conv_up2(key, dtype, tag, timed=True):
         print(f"    device ms by graph replay: wgmma {row['device_ms']:.4f}, ring "
               f"{row['ring_device_ms']:.4f}, library {row['library_device_ms']:.4f}, bound "
               f"{row['bound_ms']:.4f}; two calls bit-identical")
+    if timed and dtype == torch.float32:
+        first_design_device_ms(row, kernel, library, calls=10)
     return row
 
 
@@ -1260,13 +1358,19 @@ def check_attention_bwd(b: int, t: int, heads: int, dtype: torch.dtype, tag: str
             device_ms(lambda fn=fn: [fn() for _ in range(20)])[0] / 20
             for fn in (backward, lambda: backward("mma"), library))
         row["device_tflops"] = 14 * b * heads * t * t * d / row["device_ms"] / 1e9
-    else:
+    else:  # fp32: the fma route, still its first design; device times as at bf16
         row["ms"] = time_ms(backward)
+        row["device_ms"], row["library_device_ms"] = (
+            device_ms(lambda fn=fn: [fn() for _ in range(20)])[0] / 20
+            for fn in (backward, library))
+        row["device_tflops"] = 14 * b * heads * t * t * d / row["device_ms"] / 1e9
     row["tflops"] = 14 * b * heads * t * t * d / row["ms"] / 1e9
     designs = (f" plan={row['plan']} mma_ms={row['mma_ms']:.4f} (max_rel "
                f"{row['mma_max_rel_err']:.3e}) device_ms={row['device_ms']:.4f} "
                f"({row['device_tflops']:.1f} TFLOP/s) mma_device_ms={row['mma_device_ms']:.4f} "
-               f"library_device_ms={row['library_device_ms']:.4f}" if "device_ms" in row else "")
+               f"library_device_ms={row['library_device_ms']:.4f}" if "mma_ms" in row else
+               f" device_ms={row['device_ms']:.4f} ({row['device_tflops']:.1f} TFLOP/s) "
+               f"library_device_ms={row['library_device_ms']:.4f}")
     print(f"  attention_bwd {row['shape']} {row['dtype']:>8} heads={heads:2d}: "
           f"max_abs={max_abs:.3e} max_rel={max_rel:.3e} (tol {TOL[dtype]}) route={row['route']} "
           f"kernel_ms={row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s; through autograd "
@@ -1907,26 +2011,42 @@ def decode_routing(vae: sd_vae.AutoencoderKL, hw: int) -> dict:
     return dict(n)
 
 
-def sd_forward_checks(ref, pipe32, pipe16) -> None:
+def sd_forward_checks(ref, pipe32, pipe16) -> dict:
     """One UNet forward (CFG-shaped batch 2, 77-token context) and one VAE
     decode (batch 1) on the card in fp32 and bf16 against fp32 on the CPU,
-    which runs the same route through the plain versions."""
+    which runs the same route through the plain versions. Returns the fp32
+    UNet forward's GEGLU launches, counted from 0 around it, all of which
+    must be on "tf32x3"."""
     g = torch.Generator().manual_seed(7)
     x = torch.randn((2, 4, 64, 64), generator=g)
     t = torch.tensor([981, 501])
     ctx = torch.randn((2, CLIP_TOKENS, 768), generator=g)
     z = torch.randn((1, 4, 64, 64), generator=g) / ref.vae.scaling_factor
+    fp32_unet = {}
     with torch.no_grad():
         want = {"unet": ref.unet(x, t, ctx), "decode": ref.vae.decode(z)}
         for name, pipe, limit in (("fp32", pipe32, 1e-3), ("bf16", pipe16, 5e-2)):
-            got = {"unet": pipe.unet(x.cuda(), t.cuda(), ctx.cuda()).cpu(),
-                   "decode": pipe.vae.decode(z.cuda()).cpu()}
+            reset_launches()
+            unet = pipe.unet(x.cuda(), t.cuda(), ctx.cuda()).cpu()
+            if name == "fp32":
+                fp32_unet = {"launches": read_launches()["geglu_ff"],
+                             "routes": read_routes()["geglu_ff"]}
+                n = SD_PER_UNET["geglu_ff"] * gg.LAUNCHES_PER_CALL
+                check_routes("SD fp32 UNet forward", {"geglu_ff": fp32_unet["routes"]},
+                             {"geglu_ff": n}, {"geglu_ff": "tf32x3"})
+                if fp32_unet["launches"] != n:
+                    raise AssertionError(f"the fp32 UNet forward launched GEGLU "
+                                         f"{fp32_unet['launches']} times, expected {n}")
+            got = {"unet": unet, "decode": pipe.vae.decode(z.cuda()).cpu()}
             for part in ("unet", "decode"):
                 err = rel_err(got[part], want[part])[1]
                 print(f"SD {part} {list(got[part].shape)} {name} card vs fp32 CPU "
                       f"(max abs err / max abs): {err:.3e} (limit {limit})")
                 if not (err <= limit and torch.isfinite(got[part]).all()):
                     raise AssertionError(f"SD {part} in {name} disagrees with the CPU: {err}")
+                if name == "fp32" and part == "unet":
+                    fp32_unet["max_rel_err_vs_cpu"] = err
+    return fp32_unet
 
 
 
@@ -1948,7 +2068,7 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
     pipe16 = sd_pipeline_like(ref, torch.bfloat16)
     load_s = time.perf_counter() - t0
     pipe32 = sd_pipeline_like(ref, torch.float32)
-    sd_forward_checks(ref, pipe32, pipe16)
+    fp32_unet = sd_forward_checks(ref, pipe32, pipe16)
     del ref, pipe32
     torch.cuda.empty_cache()
 
@@ -2065,6 +2185,9 @@ def sd_phases(tag: str) -> tuple[list[dict], list[dict], dict, dict]:
         lines[-1]["method_launches"] = {r["method"]: r["launches"][name] for r in searches}
         if name == "attention":
             lines[-1]["d512"] = vae_head_rows(rows, tag)
+        if name == "geglu_ff":  # the fp32 route at every shape of the search, and phase 6's count
+            lines[-1]["fp32_forward"] = dict(fp32_unet, shapes=geglu_fp32_shapes(
+                shapes.counts[name], tag))
     gn_line = next(line for line in lines if line["name"] == "group_norm_silu")
     gn_shapes = {tuple(r["shape"]) for r in gn_line["shapes"] if r["dtype"] == "bfloat16"}
     if not {(4, 128, 512, 512), (8, 960, 64, 64)} <= gn_shapes:
@@ -3570,6 +3693,15 @@ def main() -> None:
             kind = f"launch {1 if gate == '1' else 2}, {nc} consumer warpgroup(s), {bn} B rows"
             geglu_ptxas[kind] = lines
             print(f"ptxas, geglu_ff wgmma {kind}: " + "; ".join(lines))
+        # the tf32x3 route's kernels (fp32), by the same
+        for entry, lines in ptxas_lines(built["geglu_ff"][1], "geglu_tf32_kernel").items():
+            nc, bn, gate = re.search(r"geglu_tf32_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                                     entry).groups()
+            kind = f"launch {1 if gate == '1' else 2}, {nc} consumer warpgroup(s), {bn} B rows"
+            GEGLU_TF32_PTXAS[kind] = lines
+            print(f"ptxas, geglu_ff tf32x3 {kind}: " + "; ".join(lines))
+            if any(re.search(r"[1-9]\d* bytes spill", ln) for ln in lines):
+                raise AssertionError(f"GEGLU's tf32x3 kernel ({kind}) spills: {lines}")
     if "qkv_attention" in built:  # the wgmma route's kernels, by <D, consumers, K/V tile, split>
         for entry, lines in ptxas_lines(built["qkv_attention"][1],
                                         "attention_wgmma_kernel").items():
@@ -3638,7 +3770,9 @@ def main() -> None:
     tools = timed("13 tools", tools_phase, tag, sd_kept)
     del sd_kept
     print(json.dumps({"phase_s": phase_s}))
-    kernels = [edm_line, tf32x3_line(edm_line, tools["13a"]), training_line] + sd_lines
+    geglu = next(line for line in sd_lines if line["name"] == "geglu_ff")
+    kernels = [edm_line, tf32x3_line(edm_line, tools["13a"]), training_line] + sd_lines + [
+        geglu_tf32x3_line(geglu)]
     edm_searches += cifar_searches
     for line in (edm_line, training_line):
         line["max_abs_err"] = max(line["max_abs_err"], line["d256"]["max_abs_err"])

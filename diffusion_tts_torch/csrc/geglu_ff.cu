@@ -1,4 +1,4 @@
-// GEGLU feed-forward for Hopper (sm_90a), plain C interface, three routes.
+// GEGLU feed-forward for Hopper (sm_90a), plain C interface, four routes.
 //
 // Replaces the TPU kernels _geglu_kernel / _geglu_stream_kernel behind
 // diffusion_tts_tpu/ops/pallas/geglu_ff.py::geglu_ff. Same function, with
@@ -14,7 +14,10 @@
 // What bounds it on this card: operations. At the SD shapes the FF does
 // 6 * M * C * F FLOPs on (M * C + 3 * C * F + M * C) elements, hundreds of
 // FLOPs per byte, far above the H100's 295 FLOP/byte bf16 balance point
-// (but at M = 128, the 8x8 latent's rows, the weights' bytes).
+// (but at M = 128, the 8x8 latent's rows, the weights' bytes). In fp32 the
+// least time is the tensor cores' TF32 rate over the three tf32 products an
+// fp32-accurate product takes (164.9 TFLOP/s); the CUDA cores' fp32 FMA
+// peaks at 67.
 //
 // Two launches on every route. Launch 1 is a tiled GEMM whose blocks
 // compute matching column tiles of h and of gate from one shared x tile, so
@@ -27,6 +30,11 @@
 //
 // Routes. The caller picks one (ops/kernels/geglu_ff.py::route) and this file
 // obeys:
+//   * tf32x3 (route 3): fp32, C and F multiples of 32 (every SD-1.5 width;
+//     a TMA box row is 32 floats), every operand 16-byte aligned; the wgmma
+//     route's structure with each product three tf32 wgmma products of the
+//     fp32 operands split into hi and lo (geglu_tf32_kernel, below), so that
+//     fp32 holds 1e-4 against an fp32 reference with TF32 off.
 //   * wgmma (route 2): bf16, C and F multiples of 64 (every SD-1.5 width),
 //     every operand 16-byte aligned; Hopper's asynchronous warpgroup
 //     products fed by TMA, below.
@@ -35,9 +43,9 @@
 //     operands, fp32 accumulators: exactly the arithmetic above). It serves
 //     the test widths; forced (route="mma") at a wgmma width it times the
 //     first tensor-core design beside the new one.
-//   * fma (route 0): fp32 (and bf16 when asked, which times the first
-//     design); the products run on the CUDA cores in fp32 FMA, so that fp32
-//     holds 1e-4 against an fp32 reference with TF32 off.
+//   * fma (route 0): fp32 at the widths tf32x3 does not take (the test
+//     nets' C = 40), and either dtype when asked, which times the first
+//     design; the products run on the CUDA cores in fp32 FMA.
 //
 // The wgmma route (geglu_wgmma_kernel, one template for both launches):
 //   * Every operand is K-major (x [M, C], w0 [2F, C], g [M, F], w2 [C, F]),
@@ -97,6 +105,32 @@
 //     masked at the store.
 //   * The epilogue stays in fp32 as the function says: bias, round to bf16,
 //     erff gelu, round; bf16 pairs stored as 4-byte words.
+//
+// The tf32x3 route (geglu_tf32_kernel; tiles, units and plan as on wgmma):
+//   * Numerics: x = hi + lo with hi the fp32 value as it lies, which the
+//     tensor cores read with its low 13 mantissa bits dropped, and lo = those
+//     bits (tf32_tail, exact), read as tf32 in turn: about 21 bits of x. A
+//     product is lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, the small terms first, in
+//     fp32 accumulators; one tf32 product alone (about 11 bits) misses 1e-4.
+//     The tensor cores' fp32 accumulation drops low bits of its addends, so
+//     each 128-deep group of products is summed there and the groups are
+//     added on the CUDA cores (kTfPromote).
+//     The epilogue is the fp32 one of the other routes (bias, erff gelu).
+//   * Stages of K = 32 (one 128-byte row of fp32), boxes of 32 floats with
+//     the 128-byte swizzle: a k8 step is the 32-byte step of a bf16 k16, so
+//     the descriptors are the wgmma route's. All four operands are K-major as
+//     they lie, which tf32 wgmma (K-major only) needs.
+//   * The split is the consumers' work, not a warpgroup of its own (#6's
+//     wgmma route found such a transform warpgroup could not keep up): they
+//     write stage it's lo planes (only lo: hi is the raw tile) while the
+//     tensor pipe runs stage it - 1's products, into one of two lo buffers.
+//   * What bounds it: shared memory's bandwidth. A 128 x 128 x 32 stage with
+//     two consumer warpgroups moves about 240 KB through shared memory (TMA
+//     32 KB, the split 64 KB, the twelve products' operands 144 KB), about
+//     1,900 clocks at 128 B a clock against 1,540 of products.
+//   * One block an SM (4 raw stages and the two lo buffers, 148-222 KB), one
+//     or two consumer warpgroups and a producer warpgroup (setmaxnreg gives
+//     two consumers 208 registers: a group's accumulator and the total).
 //
 // The fma route: 256 threads as 16 x 16, each owning a 4 x 4 register tile
 // (rows ty + 16 i, columns tx + 16 j) of each product over 64 x 64 block
@@ -696,20 +730,23 @@ geglu_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// The 2-D map of a K-major bf16 matrix [rows, inner] read in boxes of 64
-// columns (128 bytes, swizzled at 128 bytes) by box_rows rows; rows past
-// `rows` read as zero.
-int encode_kmajor(CUtensorMap* map, const void* ptr, int inner, int rows, int box_rows) {
+// The 2-D map of a K-major bf16 (or, with fp32, float32) matrix [rows, inner]
+// read in boxes of 128-byte rows (64 bf16 or 32 fp32 columns, swizzled at 128
+// bytes) by box_rows rows; rows past `rows` read as zero.
+int encode_kmajor(CUtensorMap* map, const void* ptr, int inner, int rows, int box_rows,
+                  bool fp32 = false) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return kEncodeFailed;
+  const int item = fp32 ? 4 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kWgDepth, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * item};
+  const cuuint32_t box[2] = {(cuuint32_t)(kWgRowBytes / item), (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      encode(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)res;
 }
 
@@ -774,15 +811,422 @@ int launch_wgmma(const void* x, const void* w0, const void* b0, const void* w2, 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// ------------------------------------------------------------- tf32x3 route
+
+using dtts::fence_proxy_async;
+using dtts::tf32_tail;
+using dtts::wgmma_ss_tf32;
+
+constexpr int kTfDepth = 32;  // K per stage: one 128-byte swizzled row of fp32
+// Stages a group of products accumulates in the tensor cores before the
+// group's sum is added to the CUDA cores' fp32 total: the tensor cores'
+// fp32 accumulation drops low bits of each addend, an error that grows with
+// the chain (5.5e-5 of the largest output at F = 5120 in one chain, 5.1e-6
+// promoted: PERF.md §6); 4 stages (K = 128) keep it at the size of a
+// 128-deep product.
+constexpr int kTfPromote = 4;
+
+// Shapes of one GEMM of the tf32x3 route: NC (1 or 2) consumer warpgroups of
+// 64 rows, BN B rows a tile (launch 1: 64 h and the same 64 gate rows of w0;
+// launch 2: BN output columns), a ring of S raw stages as TMA writes them and
+// two lo buffers of the same layout (the splits of stages it and it + 1). The
+// producer is a whole warpgroup, so that at NC = 2 setmaxnreg can move its
+// registers to the consumers: each holds its group's accumulator and the
+// unit's total, 160 registers at BN = 160, more than the 168 that 9-12 warps
+// get at launch leave room for (three warps on an SM sub-partition).
+template <int NC, int BN>
+struct TfGemm {
+  static_assert(NC == 1 || NC == 2, "one or two consumer warpgroups");
+  static constexpr int kBM = 64 * NC;
+  static constexpr int kABytes = kBM * kWgRowBytes;
+  static constexpr int kStageBytes = (kBM + BN) * kWgRowBytes;  // a multiple of 1024
+  static constexpr int kThreads = 128 * NC + 128;
+  // Registers a thread after setmaxnreg at NC = 2: the launch gives 168 to
+  // each of the 384 threads (65,536 / 384, rounded down to 8), shared out
+  // again; at NC = 1 the launch's 255 serve as they are. (A producer of 40
+  // spilled what it holds across setmaxnreg at BN = 128.)
+  static constexpr int kProducerRegs = 88, kConsumerRegs = 208;
+  static_assert(NC == 1 || 2 * 128 * kConsumerRegs + 128 * kProducerRegs <= kThreads * 168,
+                "setmaxnreg shares out no more than the launch gave");
+  // as many raw stages as fit beside the two lo buffers, at most 4
+  static constexpr int kFit = (232448 - 1024 - 256 - 2 * kStageBytes) / kStageBytes;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr int kSmemBytes = 1024 + (kStages + 2) * kStageBytes + 16 * kStages;
+  static_assert(kStages >= 3, "three raw stages at least");
+};
+
+// One GEMM of the tf32x3 route, persistent, as geglu_wgmma_kernel is (the
+// same units, TMA ring, launch 1's paired B boxes and its gelu gate,
+// launch 2's fixed-order split of the depth), in fp32: A and B fp32 K-major,
+// read through 2-D tensor maps in 32-float boxes with the 128-byte swizzle.
+// Each product is three tf32 products, lo_a.hi_b + hi_a.lo_b + hi_a.hi_b,
+// the small terms first, in the tensor cores' fp32 accumulators, whose sum
+// over each group of kTfPromote stages is added to an fp32 total on the CUDA
+// cores (the group's wait comes after the next stage's split, so the split
+// still overlaps the products). At stage it the consumers
+// first write the lo planes of the stage's A and B tiles (all NC warpgroups
+// share the work: a linear float4 pass, since lo keeps TMA's swizzled layout
+// element for element) into lo buffer it % 2, while the tensor pipe still
+// runs stage it - 1's products, then start stage it's twelve m64nBNk8
+// products from shared memory. Two consumer barriers a stage: after the
+// split (every lo written) and after the wait for stage it - 1's products
+// (so that stage it + 1's split may overwrite that lo buffer).
+template <int NC, int BN, bool GATE>
+__global__ void __launch_bounds__(TfGemm<NC, BN>::kThreads, 1)
+geglu_tf32_kernel(const __grid_constant__ CUtensorMap amap,
+                  const __grid_constant__ CUtensorMap bmap, const float* __restrict__ bias,
+                  float* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                  int n_counters, int m, int n, int depth, int split, int m_fast) {
+  using C = TfGemm<NC, BN>;
+  constexpr int S = C::kStages;
+  constexpr int NT = GATE ? BN / 2 : BN;  // output columns of a tile
+  extern __shared__ __align__(1024) unsigned char tf_smem[];
+  __shared__ int tile_done;
+  const uint32_t base = (dtts::smem_addr(tf_smem) + 1023u) & ~1023u;
+  const uint32_t lo_base = base + S * C::kStageBytes;  // lo buffers 0 and 1
+  const uint32_t bar = lo_base + 2 * C::kStageBytes;   // full[S], then empty[S]
+  auto full = [&](int s) { return bar + 8u * s; };
+  auto empty = [&](int s) { return bar + 8u * (S + s); };
+  auto smem_ptr = [&](uint32_t addr) { return tf_smem + (addr - dtts::smem_addr(tf_smem)); };
+
+  if (GATE) {
+    for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_counters;
+         i += gridDim.x * blockDim.x)
+      counters[i] = 0;
+  }
+  const int mt = (m + C::kBM - 1) / C::kBM, nt = (n + NT - 1) / NT;
+  const int units = mt * nt * split;
+  const int nk = depth / kTfDepth;
+  // unit u: tile u / split and its depth share u % split
+  auto decode = [&](int u, int& m0, int& n0, int& k0, int& k1, int& tile) {
+    tile = u / split;
+    const int s = u % split;
+    const int mi = m_fast ? tile % mt : tile / nt, ni = m_fast ? tile / mt : tile % nt;
+    m0 = mi * C::kBM;
+    n0 = ni * NT;
+    k0 = s * nk / split;
+    k1 = (s + 1) * nk / split;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NC);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int w = threadIdx.x / 128;  // consumer warpgroup; NC is the producer warpgroup
+  if (w == NC) {
+    if constexpr (NC == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    if (threadIdx.x == 128 * NC) {
+      int it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        int m0, n0, k0, k1, tile;
+        decode(u, m0, n0, k0, k1, tile);
+        for (int kk = k0; kk < k1; ++kk, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(empty(s), ((it / S) - 1) & 1);
+          mbar_expect_tx(full(s), C::kStageBytes);
+          const uint32_t a_s = base + s * C::kStageBytes, b_s = a_s + C::kABytes;
+          tma_load_2d(a_s, &amap, full(s), kk * kTfDepth, m0);
+          tma_load_2d(b_s, &bmap, full(s), kk * kTfDepth, n0);
+          if (GATE) tma_load_2d(b_s + NT * kWgRowBytes, &bmap, full(s), kk * kTfDepth, n + n0);
+        }
+      }
+    }
+    return;
+  }
+  if constexpr (NC == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  // K-major, 128-byte swizzle: 8-row groups 1024 bytes apart; a k8 step
+  // moves the start 32 bytes along the swizzled row. lo has raw's layout.
+  const uint64_t a_desc = wgmma_desc(base + w * 64 * kWgRowBytes, 16, 8 * kWgRowBytes, 1);
+  const uint64_t b_desc = wgmma_desc(base + C::kABytes, 16, 8 * kWgRowBytes, 1);
+  const uint64_t al_desc = wgmma_desc(lo_base + w * 64 * kWgRowBytes, 16, 8 * kWgRowBytes, 1);
+  const uint64_t bl_desc = wgmma_desc(lo_base + C::kABytes, 16, 8 * kWgRowBytes, 1);
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(empty(s));
+  };
+  auto sync_consumers = [&]() { asm volatile("bar.sync 1, %0;\n" ::"n"(128 * NC) : "memory"); };
+  // The lo plane of raw stage s into lo buffer lb. hi is the raw tile: the
+  // tensor cores read an fp32 operand with its low 13 mantissa bits dropped
+  // (tests/test_torch_kernels_cuda.py holds a product of raw operands
+  // bit-equal to the same product of masked ones), so only lo, those bits,
+  // is written (hi = tf32(x) rounded and written too, the attention
+  // forward's split, ran about 30% slower: PERF.md §6).
+  auto split_stage = [&](int s, int lb) {
+    const float4* raw = reinterpret_cast<const float4*>(smem_ptr(base + s * C::kStageBytes));
+    float4* lo = reinterpret_cast<float4*>(smem_ptr(lo_base + lb * C::kStageBytes));
+#pragma unroll 3
+    for (int i = threadIdx.x; i < C::kStageBytes / 16; i += 128 * NC) {
+      const float4 x = raw[i];
+      lo[i] = make_float4(tf32_tail(x.x), tf32_tail(x.y), tf32_tail(x.z), tf32_tail(x.w));
+    }
+  };
+
+  float acc[BN / 2];   // the CUDA cores' fp32 sum of the unit's promoted groups
+  float part[BN / 2];  // the tensor cores' accumulator of the current group
+  int it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int m0, n0, k0, k1, tile;
+    decode(u, m0, n0, k0, k1, tile);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kk = k0; kk < k1; ++kk, ++it) {
+      const int s = it % S, lb = it & 1;
+      const bool fresh = (kk - k0) % kTfPromote == 0;  // a group's first stage
+      mbar_wait(full(s), (it / S) & 1);
+      split_stage(s, lb);
+      fence_proxy_async();  // the split's stores, before the products read them
+      sync_consumers();
+      if (fresh && kk > k0) {  // the last group's products are done: add them up
+        wgmma_wait<0>();
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+        release((it - 1) % S);
+      }
+      const uint64_t step = (uint64_t)(s * C::kStageBytes) >> 4;
+      const uint64_t lstep = (uint64_t)(lb * C::kStageBytes) >> 4;
+      fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int k8 = 0; k8 < kTfDepth / 8; ++k8) {
+        const uint64_t o = (uint64_t)(k8 * 32) >> 4;
+        wgmma_ss_tf32<BN>(part, al_desc + lstep + o, b_desc + step + o, !fresh || k8 > 0);
+        wgmma_ss_tf32<BN>(part, a_desc + step + o, bl_desc + lstep + o, 1);
+        wgmma_ss_tf32<BN>(part, a_desc + step + o, b_desc + step + o, 1);
+      }
+      wgmma_commit();
+      if (!fresh) {  // the previous stage's products are done: free its raw slot
+        wgmma_wait<1>();
+        fence_regs(part);
+        release((it - 1) % S);
+      }
+      sync_consumers();  // ... in every warpgroup: its lo buffer may be written again
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    release((it - 1) % S);
+
+    // acc[4 j + 2 r + c]: row 16 warp + g + 8 r of the warpgroup's 64,
+    // column 8 j + 2 tq + c of the tile's B rows.
+    const int row0 = m0 + 64 * w + 16 * warp + g;
+    if (GATE) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= m) continue;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * tq;
+          if (col >= n) continue;  // F % 32 == 0: col + 1 < F as well
+          const float2 bh = *reinterpret_cast<const float2*>(bias + col);
+          const float2 bg = *reinterpret_cast<const float2*>(bias + n + col);
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float h = acc[4 * j + 2 * r + e] + (e ? bh.y : bh.x);
+            const float gate = acc[4 * (j + NT / 8) + 2 * r + e] + (e ? bg.y : bg.x);
+            v[e] = h * (0.5f * gate * (1.f + erff(0.70710678118654752f * gate)));
+          }
+          *reinterpret_cast<float2*>(out + (int64_t)row * n + col) = make_float2(v[0], v[1]);
+        }
+      }
+      continue;
+    }
+    if (split == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row >= m) continue;
+#pragma unroll
+        for (int j = 0; j < NT / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * tq;
+          if (col >= n) continue;
+          const float2 b = *reinterpret_cast<const float2*>(bias + col);
+          *reinterpret_cast<float2*>(out + (int64_t)row * n + col) =
+              make_float2(acc[4 * j + 2 * r] + b.x, acc[4 * j + 2 * r + 1] + b.y);
+        }
+      }
+      continue;
+    }
+    // Split depth: this unit's partial, then the tile's last arrival sums
+    // every share in the order 0, 1, ... (as on the wgmma route).
+    const int share = u % split;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tq;
+        if (col >= n) continue;
+        *reinterpret_cast<float2*>(ws + ((int64_t)share * m + row) * n + col) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+    __threadfence();  // the partial is visible device-wide before the count
+    sync_consumers();
+    if (threadIdx.x == 0) tile_done = atomicAdd(counters + tile, 1) == split - 1;
+    sync_consumers();
+    const bool sum_here = *static_cast<volatile int*>(&tile_done);
+    sync_consumers();  // every consumer has read the flag before the next unit sets it
+    if (!sum_here) continue;
+    __threadfence();
+    constexpr int kBatch = BN == 160 ? 5 : 8;
+    static_assert(NT / 8 % kBatch == 0, "whole batches");
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int q = 0; q < split; ++q) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        const float* src = ws + ((int64_t)q * m + row) * n + n0 + 2 * tq;
+#pragma unroll
+        for (int b = 0; b < NT / 8 / kBatch; ++b) {
+          float2 v[kBatch];
+#pragma unroll
+          for (int jj = 0; jj < kBatch; ++jj) {
+            const int c8 = 8 * (b * kBatch + jj);
+            v[jj] = row < m && n0 + c8 < n ? __ldcg(reinterpret_cast<const float2*>(src + c8))
+                                           : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+          for (int jj = 0; jj < kBatch; ++jj) {
+            acc[4 * (b * kBatch + jj) + 2 * r] += v[jj].x;
+            acc[4 * (b * kBatch + jj) + 2 * r + 1] += v[jj].y;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * tq;
+        if (col >= n) continue;
+        const float2 b = *reinterpret_cast<const float2*>(bias + col);
+        *reinterpret_cast<float2*>(out + (int64_t)row * n + col) =
+            make_float2(acc[4 * j + 2 * r] + b.x, acc[4 * j + 2 * r + 1] + b.y);
+      }
+    }
+  }
+}
+
+template <int NC, int BN, bool GATE>
+cudaError_t launch_tf32_gemm(const CUtensorMap& am, const CUtensorMap& bm, const void* bias,
+                             void* out, float* ws, int* counters, int n_counters, int m, int n,
+                             int depth, int split, cudaStream_t stream) {
+  using C = TfGemm<NC, BN>;
+  cudaError_t err = cudaFuncSetAttribute(geglu_tf32_kernel<NC, BN, GATE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         C::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  constexpr int nt_cols = GATE ? BN / 2 : BN;
+  const int64_t units = (int64_t)((m + C::kBM - 1) / C::kBM) * ((n + nt_cols - 1) / nt_cols) *
+                        split;
+  const int blocks = units < sm_count() ? (int)units : sm_count();
+  // The A operand is the smaller: it is read again from L2, B streams once.
+  const int m_fast = (int64_t)m < (GATE ? 2 * (int64_t)n : (int64_t)n);
+  geglu_tf32_kernel<NC, BN, GATE><<<blocks, C::kThreads, C::kSmemBytes, stream>>>(
+      am, bm, static_cast<const float*>(bias), static_cast<float*>(out), ws, counters,
+      n_counters, m, n, depth, split, m_fast);
+  return cudaGetLastError();
+}
+
+// The tf32x3 route's two launches, with a plan of the wgmma route's form
+// (rows1: 64 or 128; rows2: 64 or 128; bn2: 128 or 160; split: launch 2's
+// depth shares, ws and counters as there; ops/kernels/geglu_ff.py::tf32x3_plan).
+int launch_tf32x3(const void* x, const void* w0, const void* b0, const void* w2, const void* b2,
+                  void* g, void* out, float* ws, int* counters, int m, int c, int f, int rows1,
+                  int rows2, int bn2, int split, cudaStream_t stream) {
+  constexpr int kGateRows = 128;  // launch 1's B rows: 64 h and the same 64 gate columns
+  CUtensorMap xm, w0m, gm, w2m;
+  int err = encode_kmajor(&xm, x, c, m, rows1, true);
+  if (err == 0) err = encode_kmajor(&w0m, w0, c, 2 * f, kGateRows / 2, true);
+  if (err == 0) err = encode_kmajor(&gm, g, f, m, rows2, true);
+  if (err == 0) err = encode_kmajor(&w2m, w2, f, c, bn2, true);
+  if (err != 0) return err;
+  const int tiles2 = split > 1 ? (m + rows2 - 1) / rows2 * ((c + bn2 - 1) / bn2) : 0;
+  cudaError_t e;
+  if (rows1 == 128)
+    e = launch_tf32_gemm<2, kGateRows, true>(xm, w0m, b0, g, nullptr, counters, tiles2, m, f, c,
+                                             1, stream);
+  else
+    e = launch_tf32_gemm<1, kGateRows, true>(xm, w0m, b0, g, nullptr, counters, tiles2, m, f, c,
+                                             1, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+#define DTTS_GEGLU_TF32_OUT(NC, BN)                                                            \
+  if (rows2 == 64 * NC && bn2 == BN)                                                           \
+    return static_cast<int>(launch_tf32_gemm<NC, BN, false>(gm, w2m, b2, out, ws, counters, 0, \
+                                                            m, c, f, split, stream));
+  DTTS_GEGLU_TF32_OUT(2, 128)
+  DTTS_GEGLU_TF32_OUT(2, 160)
+  DTTS_GEGLU_TF32_OUT(1, 128)
+  DTTS_GEGLU_TF32_OUT(1, 160)
+#undef DTTS_GEGLU_TF32_OUT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// d [64, 32] = a [64, 32] . b [32, 32]^T, fp32 row-major, by four m64n32k8
+// tf32 products whose operands lie in shared memory as the tf32x3 route's
+// do (K-major, 128-byte swizzle) and as the caller gave them: it shows what
+// the tensor cores read of an fp32 value (see split_stage).
+__global__ void __launch_bounds__(128) tf32_reads_kernel(const float* __restrict__ a,
+                                                         const float* __restrict__ b,
+                                                         float* __restrict__ d) {
+  __shared__ __align__(1024) float tiles[96 * 32];  // a's 64 rows, then b's 32
+  const int tid = threadIdx.x;
+  for (int e = tid; e < 96 * 32; e += 128) {
+    const int r = e / 32, k = e % 32;
+    const float v = r < 64 ? a[r * 32 + k] : b[(r - 64) * 32 + k];
+    tiles[r * 32 + (((k >> 2) ^ (r & 7)) << 2) + (k & 3)] = v;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  const uint32_t base = dtts::smem_addr(tiles);
+  const uint64_t a_desc = wgmma_desc(base, 16, 8 * kWgRowBytes, 1);
+  const uint64_t b_desc = wgmma_desc(base + 64 * kWgRowBytes, 16, 8 * kWgRowBytes, 1);
+  float acc[16] = {};
+  wgmma_fence();
+#pragma unroll
+  for (int k8 = 0; k8 < 4; ++k8)
+    wgmma_ss_tf32<32>(acc, a_desc + 2 * k8, b_desc + 2 * k8, k8 > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int warp = tid / 32, g = (tid % 32) >> 2, tq = tid & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        d[(16 * warp + g + 8 * r) * 32 + 8 * j + 2 * tq + c] = acc[4 * j + 2 * r + c];
+}
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, for every tensor. x [M, C], w0 [2F, C],
 // b0 [2F], w2 [C, F], b2 [C], g (scratch) [M, F], out [M, C], all
 // contiguous. route: 0 = fma (either dtype), 1 = mma (bfloat16, C and F
 // multiples of 8, every pointer 16-byte aligned), 2 = wgmma (bfloat16, C and
-// F multiples of 64, every pointer 16-byte aligned). The wgmma route's plan
-// (rows1: 64, 128 or 192; rows2: 64 or 128; bn2: 128 or 160; split;
-// ops/kernels/geglu_ff.py::wgmma_plan) and its
+// F multiples of 64, every pointer 16-byte aligned), 3 = tf32x3 (float32, C
+// and F multiples of 32, every pointer 16-byte aligned). The wgmma and
+// tf32x3 routes' plan (rows1: 64, 128 or, on wgmma, 192; rows2: 64 or 128;
+// bn2: 128 or 160; split; ops/kernels/geglu_ff.py::wgmma_plan, tf32x3_plan)
+// and their
 // split-depth scratch (ws: fp32 [split, M, C], counters: int32, one per
 // launch-2 tile; null when split is 1); the other routes ignore them. Two
 // launches. Returns the first failing launch's cudaError_t (0 on success),
@@ -793,6 +1237,15 @@ extern "C" int dtts_geglu_ff(const void* x, const void* w0, const void* b0, cons
                              int f, int route, void* ws, void* counters, int rows1, int rows2,
                              int bn2, int split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 3) {
+    const bool rows_ok = (rows1 == 64 || rows1 == 128) && (rows2 == 64 || rows2 == 128);
+    if (dtype != 0 || c % 32 || f % 32 || !rows_ok || (bn2 != 128 && bn2 != 160) ||
+        split < 1 || split > 4 || split > f / 32 ||
+        (split > 1 && (ws == nullptr || counters == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_tf32x3(x, w0, b0, w2, b2, g, out, static_cast<float*>(ws),
+                         static_cast<int*>(counters), m, c, f, rows1, rows2, bn2, split, s);
+  }
   if (route == 2) {
     const bool rows_ok = (rows1 == 64 || rows1 == 128 || rows1 == 192) &&
                          (rows2 == 64 || rows2 == 128);
@@ -810,4 +1263,13 @@ extern "C" int dtts_geglu_ff(const void* x, const void* w0, const void* b0, cons
   if (dtype == 0) return launch<float>(x, w0, b0, w2, b2, g, out, m, c, f, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w0, b0, w2, b2, g, out, m, c, f, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor cores' reading of fp32 operands (tf32_reads_kernel): d [64, 32]
+// = a [64, 32] . b [32, 32]^T, fp32, contiguous, 16-byte aligned. Returns
+// the launch's cudaError_t.
+extern "C" int dtts_geglu_tf32_reads(const void* a, const void* b, void* d, void* stream) {
+  tf32_reads_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(d));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -651,6 +651,7 @@ using dtts::mbar_expect_tx;
 using dtts::mbar_init;
 using dtts::mbar_wait;
 using dtts::sm_count;
+using dtts::split_tf32;
 using dtts::tma_load_4d;
 using dtts::wgmma_commit;
 using dtts::wgmma_desc;
@@ -1352,27 +1353,6 @@ cudaError_t split_clusters(int* clusters) {
 }
 
 // ------------------------------------------------------------- tf32x3 route
-
-// x rounded to tf32 (the nearest, ties away from zero: cvt.rna), as an fp32
-// whose low 13 mantissa bits are zero.
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
-  return __uint_as_float(y);
-}
-
-// x = hi + lo to about 22 bits of x: hi = tf32(x), lo = tf32(x - hi).
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - hi);
-}
-
-__device__ __forceinline__ void split_tf32(const float4& x, float4& hi, float4& lo) {
-  split_tf32(x.x, hi.x, lo.x);
-  split_tf32(x.y, hi.y, lo.y);
-  split_tf32(x.z, hi.z, lo.z);
-  split_tf32(x.w, hi.w, lo.w);
-}
 
 // Tile shapes of the tf32x3 route for head width D (64 or 256).
 template <int D>

@@ -13,23 +13,25 @@ version; a CUDA tensor goes through the kernel or the call raises.
 kernels are forward-only, as the Pallas ones are; the gradient is autograd's
 through the plain twin (``_launch.with_twin_backward``).
 
-Three routes, picked by ``route(dtype, c, f)`` before the launch:
+Four routes, picked by ``route(dtype, c, f)`` before the launch:
 ``"wgmma"`` (Hopper's warpgroup products fed by TMA) for bf16 with C and F
 multiples of 64, which covers every SD-1.5 width; ``"mma"`` (the first
 tensor-core design, mma.sync) for the other bf16 widths, multiples of 8 (the
-test nets); ``"fma"`` (fp32 FMA on the CUDA cores) for fp32. The
-tensor-core routes read rows in 16-byte pieces: bf16 with C or F not a
-multiple of 8, or an operand not 16-byte aligned, raises before any launch.
-``ROUTE_LAUNCHES`` counts launches per route. A caller may ask for
-``route="fma"`` at any shape and for ``route="mma"`` at any bf16 width the
-mma route takes, which times the earlier designs; ``route="wgmma"`` where
-the predicate does not give it raises. Nothing falls back from one route to
-another.
+test nets); ``"tf32x3"`` (the wgmma route's structure in fp32, each product
+three tf32 products on the tensor cores) for fp32 with C and F multiples of
+32, every SD-1.5 width again; ``"fma"`` (fp32 FMA on the CUDA cores) for the
+other fp32 widths (the test nets' C = 40). The tensor-core routes read rows
+in 16-byte pieces: bf16 with C or F not a multiple of 8, or an operand not
+16-byte aligned, raises before any launch. ``ROUTE_LAUNCHES`` counts
+launches per route. A caller may ask for ``route="fma"`` at any shape and
+for ``route="mma"`` at any bf16 width the mma route takes, which times the
+earlier designs; ``route="wgmma"`` or ``"tf32x3"`` where the predicate does
+not give it raises. Nothing falls back from one route to another.
 
-The wgmma route's tiling is ``wgmma_plan(m, c, f, sms)``: tile rows of each
-launch, launch 2's tile columns and its split of the depth F where the
-tiles would not fill the card's SMs (the split's fp32 partials live in a
-scratch tensor the wrapper allocates).
+The wgmma route's tiling is ``wgmma_plan(m, c, f, sms)``, the tf32x3
+route's ``tf32x3_plan``: tile rows of each launch, launch 2's tile columns
+and its split of the depth F where the tiles would not fill the card's SMs
+(the split's fp32 partials live in a scratch tensor the wrapper allocates).
 """
 from __future__ import annotations
 
@@ -42,10 +44,12 @@ from diffusion_tts_torch.ops.kernels import _launch
 
 LAUNCHES_PER_CALL = 2
 # The routes, in the order of their codes in csrc/geglu_ff.cu.
-ROUTES = _launch.ROUTES + ("wgmma",)
+ROUTES = _launch.ROUTES + ("wgmma", "tf32x3")
 ROUTE_CODES = {r: code for code, r in enumerate(ROUTES)}
-WGMMA_MULTIPLE = 64  # C and F of the wgmma route: its TMA boxes are 64 columns
-_DEPTH_STEP = 64     # the wgmma route's K per stage and launch 1's tile columns
+WGMMA_MULTIPLE = 64   # C and F of the wgmma route: its TMA boxes are 64 columns
+TF32X3_MULTIPLE = 32  # C and F of the tf32x3 route: its TMA boxes are 32 floats
+_DEPTH_STEP = 64      # the wgmma route's K per stage and launch 1's tile columns
+_TF32_DEPTH = 32      # the tf32x3 route's K per stage
 _ARGTYPES = ((_launch.PTR,) * 7 + (_launch.INT,) * 5 + (_launch.PTR,) * 2
              + (_launch.INT,) * 4 + (_launch.PTR,))
 
@@ -55,11 +59,13 @@ ROUTE_LAUNCHES = {r: 0 for r in ROUTES}
 
 def route(dtype: torch.dtype, c: int, f: int) -> str:
     """The kernels' route for ``dtype`` and widths C, F: "wgmma" for bf16
-    with C and F multiples of 64, "mma" for the other bf16 widths, "fma" for
-    fp32. Raises for bf16 with C or F not a multiple of 8, which no
-    tensor-core route can take."""
+    with C and F multiples of 64, "mma" for the other bf16 widths, "tf32x3"
+    for fp32 with C and F multiples of 32, "fma" for the other fp32 widths.
+    Raises for bf16 with C or F not a multiple of 8, which no tensor-core
+    route can take."""
     if dtype != torch.bfloat16:
-        return "fma"
+        tf32 = c % TF32X3_MULTIPLE == 0 and f % TF32X3_MULTIPLE == 0
+        return "tf32x3" if dtype == torch.float32 and tf32 else "fma"
     if c % 8 or f % 8:
         raise ValueError(f"geglu_ff: the mma route takes C and F multiples of 8, got C={c}, "
                          f"F={f}")
@@ -98,6 +104,31 @@ def wgmma_plan(m: int, c: int, f: int, sms: int) -> tuple[int, int, int, int]:
     return rows1, rows2, bn2, split
 
 
+def tf32x3_plan(m: int, c: int, f: int, sms: int) -> tuple[int, int, int, int]:
+    """(rows1, rows2, bn2, split) of the tf32x3 route, one block an SM (its
+    raw stages and two lo buffers take 148-222 KB). rows1: launch 1's tile
+    rows, 64 or 128 (one or two consumer warpgroups: a third would not hold
+    the accumulator and the total in its registers), whichever gives the
+    busiest SM the fewest rows of x and w0 to load and split (a tile loads
+    and splits its rows of x and 128 rows of w0 a depth step). rows2 and
+    bn2: launch 2's tile, as ``wgmma_plan`` picks it with one block slot an
+    SM. split: launch 2's shares of the depth F, 1 to 4 with at least 8
+    depth steps of 32 a share, whichever gives the busiest SM the least
+    depth to run (its units times a share's depth), ties to fewer shares: of
+    the SD calls the C = 1280 ones at M = 128 (4 shares: 20 tiles) and 512
+    (3: 80 tiles). The card's times chose these rules
+    (tools/torch_geglu_probe.py --dtype fp32 --sweep)."""
+    steps = f // 64  # launch 1's column tiles (64 wide)
+    rows1 = min((64, 128), key=lambda r: (_cdiv(_cdiv(m, r) * steps, sms) * (r + 128), r))
+    tiles = lambda rows, bn: _cdiv(m, rows) * _cdiv(c, bn)
+    rows2, bn2 = min(((r, b) for r in (128, 64) for b in (128, 160)),
+                     key=lambda rb: (_cdiv(tiles(*rb), sms) * rb[0] * rb[1], -rb[0], rb[1]))
+    n = tiles(rows2, bn2)
+    split = min(range(1, max(1, min(4, f // _TF32_DEPTH // 8)) + 1),
+                key=lambda s: (_cdiv(n * s, sms) / s, s))
+    return rows1, rows2, bn2, split
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -131,7 +162,8 @@ def geglu_ff(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tens
 
 def _pick_route(forced: str | None, dtype: torch.dtype, c: int, f: int) -> str:
     """``forced`` if given (None takes ``route``'s): "fma" at any shape,
-    "mma" at any bf16 width it takes, "wgmma" only where ``route`` gives it."""
+    "mma" at any bf16 width it takes, "wgmma" and "tf32x3" only where
+    ``route`` gives them."""
     if forced == "fma":
         return "fma"
     want = route(dtype, c, f)
@@ -142,6 +174,9 @@ def _pick_route(forced: str | None, dtype: torch.dtype, c: int, f: int) -> str:
     if forced == "wgmma":
         raise ValueError(f"geglu_ff: the wgmma route takes bfloat16 with C and F multiples of "
                          f"{WGMMA_MULTIPLE}, got {dtype} at C={c}, F={f}")
+    if forced == "tf32x3":
+        raise ValueError(f"geglu_ff: the tf32x3 route takes float32 with C and F multiples of "
+                         f"{TF32X3_MULTIPLE}, got {dtype} at C={c}, F={f}")
     raise ValueError(f"geglu_ff: route must be one of {ROUTES}, got {forced!r}")
 
 
@@ -161,13 +196,14 @@ def _geglu_ff_kernel(x, w0, b0, w2, b2, forced: str | None = None):
     m = x2.shape[0]
     g = torch.empty((m, f), dtype=x.dtype, device=x.device)
     out = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    if chosen in ("mma", "wgmma"):
-        biases = (b0.data_ptr(), b2.data_ptr()) if chosen == "wgmma" else ()
+    if chosen != "fma":
+        biases = (b0.data_ptr(), b2.data_ptr()) if chosen != "mma" else ()
         _launch.check_aligned("geglu_ff", (x2.data_ptr(), w0.data_ptr(), w2.data_ptr(),
                                            g.data_ptr(), out.data_ptr(), *biases))
     plan, ws, counters = (0, 0, 0, 1), None, None
-    if chosen == "wgmma":
-        plan = wgmma_plan(m, c, f, _sm_count(x.device.index))
+    if chosen in ("wgmma", "tf32x3"):
+        plan = (wgmma_plan if chosen == "wgmma" else tf32x3_plan)(m, c, f,
+                                                                   _sm_count(x.device.index))
         rows2, bn2, split = plan[1:]
         if split > 1:
             ws = torch.empty((split, m, c), dtype=torch.float32, device=x.device)
@@ -184,5 +220,25 @@ def _geglu_ff_kernel(x, w0, b0, w2, b2, forced: str | None = None):
     return out.reshape(x.shape)
 
 
-__all__ = ["geglu_ff", "geglu_ff_plain", "route", "wgmma_plan", "LAUNCHES", "LAUNCHES_PER_CALL",
-           "ROUTES", "ROUTE_CODES", "ROUTE_LAUNCHES", "WGMMA_MULTIPLE"]
+def tf32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [64, 32] . b [32, 32]^T (fp32 CUDA tensors) by four tf32 wgmma
+    products whose operands lie in shared memory as the tf32x3 route's do,
+    as given: what the tensor cores read of an fp32 value (the route takes
+    each operand as it lies for its hi, csrc/geglu_ff.cu's split_stage).
+    Not a launch of the route: ``LAUNCHES`` does not count it."""
+    for name, t, shape in (("a", a, (64, 32)), ("b", b, (32, 32))):
+        _launch.check(t, name)
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {list(shape)} in float32, got {list(t.shape)} "
+                             f"in {t.dtype}")
+    d = torch.empty((64, 32), dtype=torch.float32, device=a.device)
+    _launch.check_aligned("tf32_product", (a.data_ptr(), b.data_ptr(), d.data_ptr()))
+    fn = _launch.bind("geglu_ff", "dtts_geglu_tf32_reads", (_launch.PTR,) * 4)
+    _launch.raise_on(fn(a.data_ptr(), b.data_ptr(), d.data_ptr(), _launch.stream(a)),
+                     "tf32_product")
+    return d
+
+
+__all__ = ["geglu_ff", "geglu_ff_plain", "route", "wgmma_plan", "tf32x3_plan", "tf32_product",
+           "LAUNCHES", "LAUNCHES_PER_CALL", "ROUTES", "ROUTE_CODES", "ROUTE_LAUNCHES",
+           "WGMMA_MULTIPLE", "TF32X3_MULTIPLE"]

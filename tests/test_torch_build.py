@@ -5,7 +5,7 @@ every ``csrc`` header the source includes, so an edited header is rebuilt and
 a stale library is never loaded. The wrappers of the attention (forward and
 backward) and GEGLU kernels pick a route in Python (``forward_route``,
 ``backward_route``, ``route``; the forward's four: "wgmma", "mma",
-"tf32x3" (fp32 on the tensor cores), "fma"; GEGLU's three) and refuse, before
+"tf32x3" (fp32 on the tensor cores), "fma"; GEGLU's four, the same) and refuse, before
 any launch, what the tensor-core routes cannot take; so do the conv kernels (``same_route``: "wgmma", "ring" or "v1";
 ``up2_route``, the up-conv's: "wgmma", "ring" or "v1"). The kernels themselves
 are held against their plain versions on the card by
@@ -117,18 +117,18 @@ def test_attention_route_is_the_one_the_source_states(dtype, d):
 
 def test_attention_route_codes_follow_the_source():
     """The forward's, the backward's and GEGLU's route codes are their C
-    entries' (0 fma, 1 mma, 2 wgmma; the forward's 3 tf32x3); _launch.ROUTES
-    keeps the two shared ones, the backward the first three."""
-    assert qk.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2, "tf32x3": 3}
-    assert gg.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2}
+    entries' (0 fma, 1 mma, 2 wgmma; the forward's and GEGLU's 3 tf32x3);
+    _launch.ROUTES keeps the two shared ones, the backward the first three."""
+    assert qk.ROUTE_CODES == gg.ROUTE_CODES == {"fma": 0, "mma": 1, "wgmma": 2, "tf32x3": 3}
     assert set(qk.ROUTE_LAUNCHES) == set(qk.ROUTES) == {"fma", "mma", "wgmma", "tf32x3"}
-    assert set(gg.ROUTE_LAUNCHES) == {"fma", "mma", "wgmma"}
+    assert set(gg.ROUTE_LAUNCHES) == set(gg.ROUTES) == {"fma", "mma", "wgmma", "tf32x3"}
     assert set(qk.BWD_ROUTE_LAUNCHES) == set(qk.BWD_ROUTES) == {"fma", "mma", "wgmma"}
     assert set(_launch.ROUTES) == {"fma", "mma"}
     for name in ("qkv_attention", "attention_bwd", "geglu_ff"):
         src = (build.CSRC / f"{name}.cu").read_text()
         assert "if (route == 2) {" in src and "if (route == 1) {" in src
-    assert "if (route == 3) {" in (build.CSRC / "qkv_attention.cu").read_text()
+    for name in ("qkv_attention", "geglu_ff"):
+        assert "if (route == 3) {" in (build.CSRC / f"{name}.cu").read_text()
 
 
 @pytest.mark.parametrize("d", qk.BWD_HEAD_DIMS)
@@ -157,14 +157,18 @@ def test_backward_route_is_the_one_the_source_states(dtype, d):
 def test_geglu_route_at_the_sd_and_test_widths(dtype, c):
     """The SD-1.5 UNet's (C, 4C) and the test nets' widths: bf16 on "wgmma"
     where C and F are multiples of 64 (every SD width), on "mma" at the
-    other multiples of 8, fp32 on the CUDA cores (csrc/geglu_ff.cu's
-    header)."""
-    want = "fma"
+    other multiples of 8; fp32 on the tensor cores, "tf32x3", where C and F
+    are multiples of 32 (every SD width again), on the CUDA cores, "fma", at
+    the test nets' C = 40 (csrc/geglu_ff.cu's header)."""
     if dtype == torch.bfloat16:
         want = "wgmma" if c % 64 == 0 else "mma"
+    else:
+        want = "tf32x3" if c % 32 == 0 else "fma"
     assert gg.route(dtype, c, 4 * c) == want
-    if dtype == torch.bfloat16 and c in SD_FF_WIDTHS:
-        assert want == "wgmma"
+    if c in SD_FF_WIDTHS:
+        assert want == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
+    if c == 40:
+        assert want == ("mma" if dtype == torch.bfloat16 else "fma")
 
 
 def test_geglu_wgmma_widths_are_the_ones_the_source_states():
@@ -175,6 +179,22 @@ def test_geglu_wgmma_widths_are_the_ones_the_source_states():
     assert int(stated) == gg.WGMMA_MULTIPLE == 64
     assert f"c % {stated} || f % {stated}" in src
     assert re.search(r"kWgDepth = (\d+);", src).group(1) == stated
+
+
+def test_geglu_tf32x3_widths_are_the_ones_the_source_states():
+    """csrc/geglu_ff.cu states the tf32x3 route's widths (a TMA box row is 32
+    floats) and checks them in its C entry for route 3; the wrapper's
+    predicate agrees, and the route's K per stage is a box row."""
+    src = (build.CSRC / "geglu_ff.cu").read_text()
+    stated = re.search(r"tf32x3 \(route 3\): fp32, C and F multiples of (\d+)", src).group(1)
+    assert int(stated) == gg.TF32X3_MULTIPLE == 32
+    entry = src[src.index("if (route == 3) {"):src.index("if (route == 2) {")]
+    assert f"c % {stated} || f % {stated}" in entry and "dtype != 0" in entry
+    assert re.search(r"kTfDepth = (\d+);", src).group(1) == stated
+    for c, f in ((32, 96), (96, 384), (320, 1280)):
+        assert gg.route(torch.float32, c, f) == "tf32x3"
+    for c, f in ((40, 160), (320, 1284), (48, 192)):
+        assert gg.route(torch.float32, c, f) == "fma"
 
 
 # (M, C, F) of the SD-1.5 UNet's GEGLU calls of one SD search, and the
@@ -215,6 +235,100 @@ def test_geglu_wgmma_plan(m, c, f):
     assert (split > 1) == (8 * tiles <= slots and f // 64 >= 8)
     if (m, c, f) in SD_FF_PLANS:
         assert plan == SD_FF_PLANS[m, c, f]
+
+
+# The tf32x3 plan (rows1, rows2, bn2, split) of each SD call on a 132-SM card
+SD_FF_TF32_PLANS = {(32768, 320, 1280): (128, 128, 160, 1), (8192, 320, 1280): (128, 128, 160, 1),
+                    (8192, 640, 2560): (128, 128, 160, 1), (2048, 640, 2560): (128, 64, 160, 1),
+                    (2048, 1280, 5120): (128, 128, 160, 1), (512, 1280, 5120): (128, 64, 128, 3),
+                    (128, 1280, 5120): (128, 64, 128, 4)}
+
+
+@pytest.mark.parametrize("m,c,f", list(SD_FF_TF32_PLANS) + [(1, 320, 1280), (100, 640, 2560),
+                                                            (300, 1280, 5120), (64, 32, 96)])
+def test_geglu_tf32x3_plan(m, c, f):
+    """The tf32x3 route's plan on a 132-SM card (one block an SM): launch
+    1's tile rows (64 or 128) with the fewest rows loaded and split on the
+    busiest SM; launch 2's tile with the least work on the busiest SM;
+    launch 2's depth in at most 4 shares of at least 8 depth steps of 32,
+    the fewest that give the busiest SM the least depth to run. Of the SD
+    calls only the C = 1280 ones at M = 128 and 512 split."""
+    sms = 132
+    plan = gg.tf32x3_plan(m, c, f, sms)
+    rows1, rows2, bn2, split = plan
+    load = lambda rows: -(-(-(-m // rows) * (f // 64)) // sms) * (rows + 128)
+    assert rows1 in (64, 128) and load(rows1) == min(load(r) for r in (64, 128))
+    work = lambda rows, bn: -(-(-(-m // rows) * -(-c // bn)) // sms) * rows * bn
+    assert rows2 in (64, 128) and bn2 in (128, 160)
+    assert work(rows2, bn2) == min(work(r, b) for r in (64, 128) for b in (128, 160))
+    tiles = -(-m // rows2) * -(-c // bn2)
+    shares = [s for s in range(1, 5) if s == 1 or f // 32 // s >= 8]
+    depth = lambda s: -(-tiles * s // sms) / s  # the busiest SM's units x a share's depth
+    assert split in shares and depth(split) == min(depth(s) for s in shares)
+    assert all(depth(s) > depth(split) for s in shares if s < split)
+    if (m, c, f) in SD_FF_TF32_PLANS:
+        assert plan == SD_FF_TF32_PLANS[m, c, f]
+
+
+@pytest.fixture
+def recorded_geglu(monkeypatch):
+    """Bind a recorder in place of GEGLU's C entry (CPU tensors stand in for
+    the card's, a 132-SM card): each launch's route code, plan and whether it
+    was given the split's scratch."""
+    calls = []
+
+    def fn(*args):
+        calls.append((args[11], tuple(args[14:18]), args[12] is not None))
+        return 0
+
+    monkeypatch.setattr(_launch, "bind", lambda *args: fn)
+    monkeypatch.setattr(_launch, "check", lambda x, name: None)
+    monkeypatch.setattr(_launch, "stream", lambda t: 0)
+    monkeypatch.setattr(gg, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(gg, "LAUNCHES", gg.LAUNCHES)
+    monkeypatch.setattr(gg, "ROUTE_LAUNCHES", dict.fromkeys(gg.ROUTES, 0))
+    return calls
+
+
+@pytest.mark.parametrize("m,c,route,want", [
+    (128, 1280, None, ("tf32x3", (128, 64, 128, 4))),
+    (2048, 640, None, ("tf32x3", (128, 64, 160, 1))),
+    (300, 320, None, ("tf32x3", gg.tf32x3_plan(300, 320, 1280, 132))),
+    (128, 1280, "fma", ("fma", (0, 0, 0, 1))), (4, 40, None, ("fma", (0, 0, 0, 1)))])
+def test_geglu_fp32_launch_takes_route_3_with_its_plan(recorded_geglu, m, c, route, want):
+    """fp32 at the SD widths reaches the C entry as route 3 with
+    tf32x3_plan's plan (and the split's scratch where it splits); route="fma"
+    and the test nets' C = 40 reach it as route 0, with no plan."""
+    f = 4 * c
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32)
+    out = gg._geglu_ff_kernel(zeros(m, c), zeros(2 * f, c), zeros(2 * f), zeros(c, f), zeros(c),
+                              forced=route)
+    assert out.shape == (m, c)
+    assert recorded_geglu == [(gg.ROUTE_CODES[want[0]], want[1], want[1][3] > 1)]
+    assert gg.ROUTE_LAUNCHES == {**dict.fromkeys(gg.ROUTES, 0), want[0]: gg.LAUNCHES_PER_CALL}
+
+
+@pytest.mark.parametrize("case", ["x", "w0", "b0", "b2", "bf16", "width"])
+def test_geglu_refuses_what_the_tf32x3_route_cannot_take(no_launch, monkeypatch, case):
+    """fp32 at an SD width with an operand or bias not 16-byte aligned (TMA
+    reads 16-byte pieces) is refused before any launch, and so is "tf32x3"
+    asked for in bf16 or at the test nets' C = 40. Nothing falls back to
+    "fma"."""
+    monkeypatch.setattr(_launch, "check", lambda x, name: None)  # CPU tensors stand in
+    c = 40 if case == "width" else 320
+    f = 4 * c
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    off = lambda shape, bad: (torch.zeros(torch.Size(shape).numel() + 1, dtype=dtype)[1:]
+                              if bad else torch.zeros(torch.Size(shape).numel(), dtype=dtype)
+                              ).view(shape)
+    args = [off(shape, case == name) for name, shape in
+            (("x", (4, c)), ("w0", (2 * f, c)), ("b0", (2 * f,)), ("w2", (c, f)), ("b2", (c,)))]
+    forced = "tf32x3" if case in ("bf16", "width") else None
+    match = "16-byte" if forced is None else "tf32x3 route takes float32"
+    before = (gg.LAUNCHES, dict(gg.ROUTE_LAUNCHES))
+    with pytest.raises(ValueError, match=match):
+        gg._geglu_ff_kernel(*args, forced=forced)
+    assert (gg.LAUNCHES, gg.ROUTE_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("case", ["width", "fp32", "pointer", "bias", "unknown"])

@@ -1507,3 +1507,122 @@ def test_mma_routes_refuse_misaligned_inputs(card):
                     torch.zeros((36, 64), dtype=bf, device=card),
                     torch.zeros(36, dtype=bf, device=card))
     assert (qk.LAUNCHES, gg.LAUNCHES) == before
+
+
+# ------------------------------------- GEGLU's tf32x3 route (fp32)
+
+
+@pytest.mark.cuda
+def test_tensor_cores_read_the_top_19_bits_of_an_fp32_operand(card):
+    """The tf32x3 route takes each fp32 operand as it lies for its hi: the
+    tensor cores must read it as tf32 with its low 13 mantissa bits dropped.
+    A product of raw operands is bit-equal to the same product of the
+    operands with those bits cleared, and that is the product of the
+    cleared operands (fp32 accumulation)."""
+    a, b = _randn((64, 32), torch.float32, card, 1), _randn((32, 32), torch.float32, card, 2)
+    mask = lambda t: (t.view(torch.int32) & -8192).view(torch.float32)
+    raw, masked = gg.tf32_product(a, b), gg.tf32_product(mask(a), mask(b))
+    torch.cuda.synchronize()
+    assert torch.equal(raw, masked)
+    want = mask(a).double() @ mask(b).double().T
+    assert ((masked.double() - want).abs().max() / want.abs().max()).item() <= 1e-6
+    assert not torch.equal(a, mask(a))  # the inputs do have low bits to drop
+
+
+SD_FF_SHAPES = [(128, 1280, 5120), (512, 1280, 5120), (2048, 1280, 5120), (2048, 640, 2560)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 100, 128, 300, 512, 2048])
+@pytest.mark.parametrize("c", [320, 640, 1280])
+def test_geglu_tf32x3_route_matches_plain(card, c, m):
+    """fp32 at the SD-1.5 widths (F = 4C) on their route, "tf32x3": 64- and
+    128-row tiles, ragged M, launch 2's 160-wide tiles and its
+    split depth (C = 1280 at M = 128); within 1e-4 of the largest output with
+    TF32 off, and two calls give the same bits."""
+    ff = _ff(m, c, 4 * c, card, torch.float32)
+    before = _routes(gg)
+    out, again = gg.geglu_ff(*ff), gg.geglu_ff(*ff)
+    torch.cuda.synchronize()
+    assert gg.route(torch.float32, c, 4 * c) == "tf32x3"
+    assert _routes(gg) == {**before, "tf32x3": before["tf32x3"] + 2 * gg.LAUNCHES_PER_CALL}
+    assert out.shape == (m, c) and out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert _rel_err(out, gg.geglu_ff_plain(*ff)) <= TOL[torch.float32]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,f", [(100, 32, 128), (64, 96, 384), (300, 64, 96), (7, 320, 1280)])
+def test_geglu_tf32x3_at_multiples_of_32(card, m, c, f):
+    """Widths that are multiples of 32 but not of 64 (launch 1's last
+    64-column tile half past F) and F not 4C: the route masks what lies past
+    the output."""
+    ff = _ff(m, c, f, card, torch.float32)
+    assert gg.route(torch.float32, c, f) == "tf32x3"
+    out = gg.geglu_ff(*ff)
+    assert _rel_err(out, gg.geglu_ff_plain(*ff)) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_geglu_tf32x3_split_depth_is_bit_identical(card):
+    """Launch 2's split depth (C = 1280 at M = 128) sums its partials in a
+    fixed order: ten calls give one result."""
+    m, c, f = 128, 1280, 5120
+    assert gg.tf32x3_plan(m, c, f, torch.cuda.get_device_properties(0).multi_processor_count)[3] > 1
+    ff = _ff(m, c, f, card, torch.float32)
+    outs = [gg.geglu_ff(*ff) for _ in range(10)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,f", SD_FF_SHAPES)
+def test_geglu_tf32x3_every_plan(card, m, c, f, monkeypatch):
+    """Every launch-1 tile (64 or 128 rows) and launch-2 tile (64 or 128
+    rows by 128 or 160 columns), each with one and with two depth shares,
+    against the plain version at the SD shapes."""
+    ff = _ff(m, c, f, card, torch.float32)
+    want = gg.geglu_ff_plain(*ff)
+    for rows1 in (64, 128):
+        for rows2, bn2 in ((64, 128), (64, 160), (128, 128), (128, 160)):
+            for split in (1, 2):
+                plan = (rows1, rows2, bn2, split)
+                monkeypatch.setattr(gg, "tf32x3_plan", lambda *args: plan)
+                err = _rel_err(gg.geglu_ff(*ff), want)
+                assert err <= TOL[torch.float32], plan
+
+
+@pytest.mark.cuda
+def test_geglu_tf32x3_takes_the_twins_gradient(card):
+    """backward() through the route reaches x and every weight and bias and
+    equals the plain twin's gradient."""
+    m, c, f = 100, 320, 1280
+    ff = _ff(m, c, f, card, torch.float32)
+    before = _routes(gg)
+    _grads_match(gg.geglu_ff, gg.geglu_ff_plain, ff, torch.float32)
+    assert _routes(gg)["tf32x3"] > before["tf32x3"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pointer", "bias", "bf16", "width", "plan"])
+def test_geglu_tf32x3_refuses_what_it_cannot_take(card, case, monkeypatch):
+    """An fp32 operand or bias not 16-byte aligned, "tf32x3" asked for in
+    bf16 or at C = 40, or a plan the C entry does not take: refused before
+    any launch, or by the C entry with nothing launched. Nothing falls back
+    to "fma"."""
+    c = 40 if case == "width" else 64
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    x, w0, b0, w2, b2 = _ff(4, c, 4 * c, card, dtype)
+    if case == "pointer":
+        x = torch.zeros(4 * c + 1, dtype=dtype, device=card)[1:].view(4, c)
+    if case == "bias":
+        b0 = torch.zeros(8 * c + 1, dtype=dtype, device=card)[1:]
+    if case == "plan":  # 192-row tiles: the wgmma route's, not this route's
+        monkeypatch.setattr(gg, "tf32x3_plan", lambda *args: (192, 64, 128, 1))
+    before = (gg.LAUNCHES, _routes(gg))
+    forced = "tf32x3" if case in ("bf16", "width") else None
+    kind = RuntimeError if case == "plan" else ValueError
+    match = {"pointer": "16-byte", "bias": "16-byte", "plan": "launch failed"}.get(
+        case, "tf32x3 route takes float32")
+    with pytest.raises(kind, match=match):
+        gg.geglu_ff(x, w0, b0, w2, b2, route=forced)
+    assert (gg.LAUNCHES, _routes(gg)) == before

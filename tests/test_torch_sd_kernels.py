@@ -110,3 +110,56 @@ def test_geglu_twin_matches_pallas(form, dtype, monkeypatch):
     got = t_geglu.geglu_ff(*port)
     assert got.dtype == port[0].dtype and got.shape == (m, c)
     assert _rel_err(got, want) <= (1e-4 if dtype == "float32" else TOL[dtype])
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an fp32 value as tf32: its low 13
+    mantissa bits dropped."""
+    return (t.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32x3_matmul(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """a [M, K] . b [N, K]^T as csrc/geglu_ff.cu's tf32x3 route computes it:
+    hi is the operand as it lies (read truncated), lo its tail (read
+    truncated in turn); in each k8 step of each 32-deep stage lo_a.hi_b,
+    hi_a.lo_b, then hi_a.hi_b are added to an fp32 accumulator. One pass:
+    hi_a.hi_b alone, a single tf32 product."""
+    hi_a, hi_b = _tf32(a), _tf32(b)
+    lo_a, lo_b = _tf32(a - hi_a), _tf32(b - hi_b)
+    acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 32):
+        for k8 in range(k0, k0 + 32, 8):
+            s = slice(k8, k8 + 8)
+            if passes == 3:
+                acc = acc + lo_a[:, s] @ hi_b[:, s].T
+                acc = acc + hi_a[:, s] @ lo_b[:, s].T
+            acc = acc + hi_a[:, s] @ hi_b[:, s].T
+    return acc
+
+
+def _tf32x3_geglu(x, w0, b0, w2, b2, passes: int = 3) -> torch.Tensor:
+    """The tf32x3 route's arithmetic: both products as _tf32x3_matmul, the
+    fp32 epilogue (bias, exact-erf gelu) of geglu_ff_plain."""
+    f = w2.shape[1]
+    q = _tf32x3_matmul(x, w0, passes) + b0
+    g = q[:, :f] * torch.nn.functional.gelu(q[:, f:])
+    return _tf32x3_matmul(g, w2, passes) + b2
+
+
+@pytest.mark.parametrize("m,c,f", [(64, 320, 1280), (64, 1280, 5120)])
+def test_geglu_tf32x3_arithmetic_holds_fp32_tolerance(m, c, f):
+    """The arithmetic of the fp32 route on the tensor cores, emulated on the
+    CPU at the SD-1.5 widths C = 320 and 1280: within 1e-4 of the largest
+    output of a float64 GEGLU, and within the fp32 tolerance of the JAX
+    package's _geglu_reference on the same numpy inputs; one tf32 product
+    a product (hi.hi alone) misses 1e-4."""
+    port, jax_args = _geglu_inputs(m, c, f, "float32", seed=20)
+    got = _tf32x3_geglu(*port)
+    x, w0, b0, w2, b2 = (t.double() for t in port)
+    q = x @ w0.T + b0
+    exact = (q[:, :f] * torch.nn.functional.gelu(q[:, f:])) @ w2.T + b2
+    err = ((got.double() - exact).abs().max() / exact.abs().max()).item()
+    assert err <= 1e-4
+    assert _rel_err(got, pallas_geglu._geglu_reference(*jax_args)) <= 1e-4
+    one = _tf32x3_geglu(*port, passes=1)
+    assert ((one.double() - exact).abs().max() / exact.abs().max()).item() > 1e-4
